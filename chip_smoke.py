@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; no phase swallows an exception):
 
 1. Device: require a CUDA card; print `nvidia-smi`'s name and power limit.
-2. Build: compile the four kernels from emqx_tpu_torch/ops/csrc with nvcc
+2. Build: compile every kernel from emqx_tpu_torch/ops/csrc with nvcc
    for sm_90a (one nvcc per source, in parallel) and print the seconds.
 3. Slice set-up: a Router(max_levels=16) on the card holding 1,048,576
    routes `t{i%997}/r{i%13}/d{i}/+/m/#` (BASELINE.json config 2), 4,800
@@ -36,8 +36,38 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 6. Dense-only mode: a second Router(use_hash_index=False) over the same
    routes; warm-up; counters set to 0; 8 batches served and checked as
    in phase 5; counters read: K2 and K3 must have run, K1 and K4 not.
-7. Summary: one `{"kernels": [...]}` JSON line (launches from phase 5),
-   then, as the last line, `{"ok": true, "device": {...}}`.
+7. The broker publish path: a Broker(max_levels=16) on the card, its
+   router given the same 1,048,576 routes through Router.add_routes;
+   100,000 sessions on `pfan/+/x` at QoS i%3, half also on `pfan/#` at
+   QoS 2 (a ~150k gathered fan, ~100k after dedup), 16 groups of 2,048
+   sessions on `mfan/{g}/+`, 8 shared members on `$share/g1/pfan/+/x`,
+   and no_local / retain-as-published subscriptions (262,144 client
+   rows). K5 (at the 150k-fan and a 2k-fan plan), K6/K7 (one churn's
+   delta sync) and K12 (the probe's scalar and 1 MB buffer) against
+   their plain versions, exactly; the 150k-fan plan by host walk and by
+   device resolve. Then the DispatchEngine (queue_depth 1024, pipeline
+   depth 2, the default match cache, fanout min_fan 1024,
+   transfer_chunk_kb 0 so warm-up probes the link through K12) with the
+   counters set to 0 just before its warm-up: 32 windows of 1,024 QoS-0
+   publishes (64-byte payloads; 4 on `pfan/{k}/x`, 20 on `mfan/{g}/{v}`,
+   the rest phase 5's mix) through submit_many, two windows at a time.
+   After each pair lands: every plan a device resolve installed equals
+   Broker._build_fanout_plan over the same filters, every publish's
+   delivery count equals the host oracle's, and every (client, topic)
+   the plans name was delivered exactly once, and nothing else. Between
+   pairs: 8 late joiners on `pfan/#`, 4 leavers from `pfan/+/x`, 16
+   re-subscribes at another QoS in one mfan group, one session closed
+   and re-opened, and after every second pair phase 5's delete and
+   re-add of 1,000 routes (the pairs between keep the match cache warm,
+   so they launch overlapped resolves). K5, K6, K7 and K12 must each
+   have launched and a plan must have been resolved on the card and
+   one overlapped. Printed: publishes/s and deliveries/s over the
+   traffic wall, fanout_resolve_seconds p50/p99, the resolves by
+   source, the host walk against K5 for one 150k-fan plan, launches.
+8. Summary: one line per kernel (times, bound, launches, equal), the
+   run's seconds, one `{"kernels": [...]}` JSON line (launches of K1-K4
+   from phase 5, of the dense-only K2 from phase 6, of K5-K7 and K12
+   from phase 7), then, as the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -50,6 +80,7 @@ import subprocess
 import sys
 import time
 
+DEVICE = "cuda"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 
@@ -63,6 +94,17 @@ N_DENSE_BATCHES = 8
 CHURN = 1000
 SWAP = 256
 REPEATS = 20
+# phase 7: the broker publish path
+N_PFAN = 100_000
+N_MFAN_GROUPS = 16
+MFAN_GROUP = 2048
+N_SHARED = 8
+N_WINDOWS = 32
+WINDOW = 1024
+N_PFAN_PUBS = 4
+N_MFAN_PUBS = 20
+# the set-up churn's index, outside the pairs' 0..N_WINDOWS/2
+SETUP_CHURN = -2
 
 
 def log(*a) -> None:
@@ -185,10 +227,10 @@ def publish_batch(rng, skel, exact):
     return out
 
 
-def build_router(rng, device, use_hash_index=True):
-    from emqx_tpu_torch.models.router import Router
-
-    router = Router(max_levels=16, device=device, use_hash_index=use_hash_index)
+def add_route_set(router, rng):
+    """The slice's route set, through the cluster-route storm path
+    (Router.add_routes). Returns (skeleton filters, exact topics, host
+    seconds)."""
     t0 = time.perf_counter()
     step = 1 << 16
     for lo in range(0, N_ROUTES, step):
@@ -201,7 +243,14 @@ def build_router(rng, device, use_hash_index=True):
     router.add_routes([("$SYS/brokers/+/stats", "sys"), ("$SYS/#", "sys")])
     exact = [f"e/{k}/v" for k in range(N_EXACT)]
     router.add_routes([(t, f"x{k % 3}") for k, t in enumerate(exact)])
-    host_s = time.perf_counter() - t0
+    return skel, exact, time.perf_counter() - t0
+
+
+def build_router(rng, device, use_hash_index=True):
+    from emqx_tpu_torch.models.router import Router
+
+    router = Router(max_levels=16, device=device, use_hash_index=use_hash_index)
+    skel, exact, host_s = add_route_set(router, rng)
     return router, skel, exact, host_s
 
 
@@ -418,6 +467,13 @@ def device_busy_share(router, skel, exact, rng, n_batches: int = 8):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _rate, _esc, served, busy, _moved = serve(router, skel, exact, rng, n_batches)
         torch.cuda.synchronize()
+    return device_seconds(prof), busy, served
+
+
+def device_seconds(prof) -> float:
+    """The union of a profile's device activity intervals, in seconds."""
+    import torch
+
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -426,7 +482,513 @@ def device_busy_share(router, skel, exact, rng, n_batches: int = 8):
         if b > end:
             dev_us += b - max(a, end)
             end = b
-    return dev_us * 1e-6, busy, served
+    return dev_us * 1e-6
+
+
+# --- the broker publish path (phase 7) ------------------------------------------
+
+
+class Deliveries:
+    """Every session's QoS-0 sink writes (client, topic) here; the
+    counter is read and cleared once per window pair."""
+
+    def __init__(self) -> None:
+        from collections import Counter
+
+        self.seen = Counter()
+
+    def sink_for(self, cid):
+        seen = self.seen
+
+        def sink(pkts):
+            for p in pkts:
+                seen[(cid, p.topic)] += 1
+
+        return sink
+
+
+def build_broker(rng, device, deliveries):
+    """Phase 7 set-up: a Broker on the card whose router holds the
+    slice's 1,048,576 routes (storm path), N_PFAN sessions on
+    `pfan/+/x` (half also on `pfan/#` at QoS 2: the aggre/1 dedup
+    shape), N_MFAN_GROUPS groups of MFAN_GROUP sessions on
+    `mfan/{g}/+`, N_SHARED shared members on `$share/g1/pfan/+/x`, and
+    a few no_local / retain-as-published subscriptions."""
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.pubsub import Broker
+
+    broker = Broker(max_levels=16, device=device)
+    skel, exact, routes_s = add_route_set(broker.router, rng)
+    t0 = time.perf_counter()
+    opts = [SubOpts(qos=q) for q in range(3)]
+
+    def session(cid):
+        s, _ = broker.open_session(cid, True)
+        s.outgoing_sink = deliveries.sink_for(cid)
+        return s
+
+    for i in range(N_PFAN):
+        s = session(f"pf{i}")
+        broker.subscribe(s, "pfan/+/x", opts[i % 3])
+        if i % 2 == 0:
+            broker.subscribe(s, "pfan/#", opts[2])
+    for g in range(N_MFAN_GROUPS):
+        for j in range(MFAN_GROUP):
+            broker.subscribe(session(f"mf{g}_{j}"), f"mfan/{g}/+", opts[j % 3])
+    for j in range(N_SHARED):
+        broker.subscribe(session(f"sh{j}"), "$share/g1/pfan/+/x", opts[j % 3])
+    for j in range(8):
+        broker.subscribe(session(f"nl{j}"), "pfan/+/x",
+                         SubOpts(qos=j % 3, no_local=True))
+        broker.subscribe(session(f"rap{j}"), "mfan/0/+",
+                         SubOpts(qos=1, retain_as_published=True))
+    return broker, skel, exact, routes_s, time.perf_counter() - t0
+
+
+def broker_window(rng, skel, exact, w):
+    """One window of WINDOW QoS-0 publishes with 64-byte payloads:
+    N_PFAN_PUBS on `pfan/{k}/x`, N_MFAN_PUBS on `mfan/{g}/{v}` (each
+    topic once per window pair, the same topics every pair), the rest
+    the slice's publish mix."""
+    from emqx_tpu_torch.broker.message import Message
+
+    half = w % 2
+    topics = [f"pfan/{half * N_PFAN_PUBS + j}/x" for j in range(N_PFAN_PUBS)]
+    topics += [f"mfan/{j % N_MFAN_GROUPS}/v{half * N_MFAN_PUBS + j}"
+               for j in range(N_MFAN_PUBS)]
+    topics += publish_batch(rng, skel, exact)[: WINDOW - len(topics)]
+    order = rng.permutation(len(topics)).tolist()
+    return [Message(topic=topics[i], payload=bytes(64), from_client="pub")
+            for i in order]
+
+
+def broker_churn(broker, skel, rng, k, deliveries):
+    """Between window pairs: late joiners on `pfan/#`, leavers from
+    `pfan/+/x`, re-subscribes at another QoS in one mfan group, one
+    session closed and re-opened — and, after every second pair, the
+    slice's delete and re-add of CHURN routes (that bumps the route
+    generation and so empties the match cache; the pairs between keep
+    it warm, so their cached topics launch overlapped resolves)."""
+    from emqx_tpu_torch.broker.packet import SubOpts
+
+    for j in range(8):
+        cid = f"late{k}_{j}"
+        s, _ = broker.open_session(cid, True)
+        s.outgoing_sink = deliveries.sink_for(cid)
+        broker.subscribe(s, "pfan/#", SubOpts(qos=j % 3))
+    for i in rng.choice(N_PFAN, 4, replace=False).tolist():
+        s = broker.sessions[f"pf{i}"]
+        if "pfan/+/x" in s.subscriptions:
+            broker.unsubscribe(s, "pfan/+/x")
+    g = k % N_MFAN_GROUPS
+    for j in rng.choice(MFAN_GROUP, 16, replace=False).tolist():
+        s = broker.sessions[f"mf{g}_{j}"]
+        q = (s.subscriptions[f"mfan/{g}/+"].qos + 1) % 3
+        broker.subscribe(s, f"mfan/{g}/+", SubOpts(qos=q))
+    cid = f"pf{int(rng.integers(0, N_PFAN))}"
+    subs = dict(broker.sessions[cid].subscriptions)
+    broker.close_session(broker.sessions[cid])
+    s, _ = broker.open_session(cid, True)
+    s.outgoing_sink = deliveries.sink_for(cid)
+    for flt, o in subs.items():
+        broker.subscribe(s, flt, o)
+    if k % 2 == 1:
+        for i in rng.integers(0, N_ROUTES, CHURN).tolist():
+            f, d = f"t{i % 997}/r{i % 13}/d{i}/+/m/#", f"n{i % 7}"
+            broker.router.delete_route(f, d)
+            broker.router.add_route(f, d)
+
+
+def oracle_of(broker, topic, cache):
+    """(key, plan, shared legs) of the host path for one topic: the
+    host trie's match and Broker._build_fanout_plan, cached per
+    matched filter set."""
+    pairs = broker.router.match_pairs(topic)
+    key = tuple(f for f, _ in pairs)
+    got = cache.get(key)
+    if got is None:
+        # one elected member per shared group leg (the members are live)
+        groups = sum(
+            1 for _f, dests in pairs for d in dests
+            if isinstance(d, tuple) and d and d[0] == "$group"
+        )
+        got = cache[key] = (broker._build_fanout_plan(pairs), groups)
+    return key, got
+
+
+def check_pair(broker, served, installed, deliveries, pair):
+    """After a window pair lands: every device-installed plan equals the
+    host oracle over the same filters; every publish's delivery count
+    equals the oracle's; every (client, topic) the plans name was
+    delivered exactly once, and nothing else was. Returns deliveries."""
+    cache = {}
+    fd = broker.router.filter_dests
+    for key, plan in installed:
+        want = broker._build_fanout_plan([(f, fd(f)) for f in key])
+        if plan != want:
+            raise AssertionError(
+                f"pair {pair}: device plan for {key} differs from the host "
+                f"oracle ({len(plan[0])}+{len(plan[1])} vs "
+                f"{len(want[0])}+{len(want[1])} entries)")
+    per_topic = {}
+    total = 0
+    for topic, n, dkey in served:
+        if isinstance(n, BaseException):
+            raise AssertionError(f"pair {pair}: publish on {topic} failed: {n!r}")
+        key, (plan, groups) = oracle_of(broker, topic, cache)
+        if set(dkey) != set(key):
+            raise AssertionError(f"pair {pair}: {topic} matched {dkey}, host {key}")
+        want = len(plan[0]) + len(plan[1]) + groups
+        if n != want:
+            raise AssertionError(
+                f"pair {pair}: {topic} delivered {n}, host oracle {want}")
+        total += n
+        per_topic[topic] = per_topic.get(topic, 0) + n
+    seen = deliveries.seen
+    got_topic = {}
+    for (_c, t), v in seen.items():
+        if v != 1:
+            raise AssertionError(f"pair {pair}: ({_c}, {t}) delivered {v} times")
+        got_topic[t] = got_topic.get(t, 0) + 1
+    for t, n in per_topic.items():
+        if got_topic.get(t, 0) != n:
+            raise AssertionError(
+                f"pair {pair}: {t}: sinks saw {got_topic.get(t, 0)}, "
+                f"counted {n}")
+        if t.startswith(("pfan/", "mfan/")):
+            _key, (plan, _g) = oracle_of(broker, t, cache)
+            for c, _s, _o in plan[0]:
+                if (c, t) not in seen:
+                    raise AssertionError(f"pair {pair}: {c} missed {t}")
+    extra = set(got_topic) - set(per_topic)
+    if extra:
+        raise AssertionError(f"pair {pair}: deliveries on unpublished {sorted(extra)[:3]}")
+    seen.clear()
+    return total
+
+
+def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
+    """Phase 7's traffic: windows of WINDOW publishes through the
+    DispatchEngine, two at a time (the pipeline's depth), each pair
+    checked against the host oracle once it has landed, then churn.
+    Returns the run's record."""
+    import asyncio
+
+    router = broker.router
+    served = []
+    installed = []
+    keys = {}
+    # host seconds per stage of the traffic, by wrapping the methods the
+    # engine reaches (instance attributes shadow the class's; the
+    # deferred fanout shards are scheduled through the wrapped walks)
+    stages = ("pre_publish", "match_begin", "match_finish", "plan", "walk")
+    acc = dict.fromkeys(stages, 0.0)
+    wrapped = []
+
+    def wrap(obj, name, stage):
+        orig = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                acc[stage] += time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+        wrapped.append((obj, name))
+
+    wrap(broker, "_pre_publish", "pre_publish")
+    wrap(router, "match_filters_begin", "match_begin")
+    wrap(router, "match_filters_finish", "match_finish")
+    wrap(broker, "_resolve_plan", "plan")
+    wrap(broker, "_deliver_plan_window", "walk")
+    wrap(broker, "_deliver_plan", "walk")
+    orig_window = broker.dispatch_window
+    orig_begin = router.resolve_fanout_begin
+    orig_finish = router.resolve_fanout_finish
+
+    def dispatch_window(lives, filter_lists, capture_errors=False):
+        results, meta = orig_window(lives, filter_lists, capture_errors)
+        for live, n, m in zip(lives, results, meta):
+            if live is not None:
+                served.append((live.topic, n, m[0]))
+        return results, meta
+
+    def resolve_begin(filters, min_fan=0):
+        h = orig_begin(filters, min_fan)
+        if h is not None:
+            keys[id(h)] = tuple(filters)
+        return h
+
+    def resolve_finish(h):
+        plan = orig_finish(h)
+        installed.append((keys.pop(id(h)), plan))
+        return plan
+
+    broker.dispatch_window = dispatch_window
+    router.resolve_fanout_begin = resolve_begin
+    router.resolve_fanout_finish = resolve_finish
+    wrapped += [(broker, "dispatch_window"), (router, "resolve_fanout_begin"),
+                (router, "resolve_fanout_finish")]
+    rec = {"publishes": 0, "deliveries": 0, "traffic_s": 0.0, "check_s": 0.0,
+           "churn_s": 0.0, "stages": dict.fromkeys(stages, 0.0)}
+
+    async def pair(k):
+        """Two windows submitted together, landed, checked; returns the
+        traffic wall, its stage seconds, the publishes and the
+        deliveries."""
+        eng = broker.engine
+        windows = [broker_window(rng, skel, exact, 2 * k + h) for h in (0, 1)]
+        a0 = dict(acc)
+        t0 = time.perf_counter()
+        futs = [eng.submit_many(w) for w in windows]
+        sums = await asyncio.gather(*futs)
+        await eng.drain()
+        for _ in range(4):  # deferred fanout shards run on the loop
+            await asyncio.sleep(0)
+        t1 = time.perf_counter()
+        spent = {st: acc[st] - a0[st] for st in stages}
+        n = check_pair(broker, served, installed, deliveries, k)
+        if n != sum(sums):
+            raise AssertionError(f"pair {k}: futures summed {sum(sums)}, publishes {n}")
+        n_pubs = len(served)
+        served.clear()
+        installed.clear()
+        rec["check_s"] += time.perf_counter() - t1
+        return t1 - t0, spent, n_pubs, n
+
+    async def run():
+        from torch.profiler import ProfilerActivity, profile
+
+        n_pairs = n_windows // 2
+        for k in range(n_pairs):
+            wall, spent, n_pubs, n = await pair(k)
+            rec["traffic_s"] += wall
+            for st, v in spent.items():
+                rec["stages"][st] += v
+            rec["publishes"] += n_pubs
+            rec["deliveries"] += n
+            t0 = time.perf_counter()
+            broker_churn(broker, skel, rng, k, deliveries)
+            rec["churn_s"] += time.perf_counter() - t0
+        # one more pair, not counted above, under torch.profiler: the
+        # device's busy share of a pair's traffic wall
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall, spent, _n_pubs, n = await pair(n_pairs)
+        rec["profiled"] = (device_seconds(prof), wall, spent["walk"], n)
+        await broker.engine.stop()
+
+    try:
+        asyncio.run(run())
+    finally:
+        for obj, name in wrapped:
+            if name in vars(obj):
+                delattr(obj, name)
+    return rec
+
+
+def check_broker_kernels(broker, skel, rng, deliveries):
+    """K5 at the pfan (150k gathered) and an mfan plan's shapes, K6/K7
+    on one churn's delta sync, K12 on the probe's scalar and 1 MB
+    buffer: each against its plain version on the same CUDA inputs.
+    Also the host walk's and the device resolve's time for the pfan
+    plan. Returns (records, host-vs-device line)."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.device import to_device
+    from emqx_tpu_torch.ops import fanout as F
+    from emqx_tpu_torch.ops import transfer as T
+    from emqx_tpu_torch.ops.table import next_pow2, pad_pow2_batches
+
+    router = broker.router
+    store = router.dest_store
+    fan_dev = router.device_table.fanout
+    dev = router.device
+    recs = {}
+
+    def rows_of(topic):
+        pairs = router.match_pairs(topic)
+        key = tuple(f for f, _ in pairs)
+        rows = [router._fanout_row(f) for f in key]
+        router._fanout_flush(rows)
+        return pairs, key, rows
+
+    shapes = []
+    err = 0
+    for topic in ("mfan/3/v0", "pfan/0/x"):
+        pairs, key, rows = rows_of(topic)
+        fan_dev.sync()
+        fan = store.fan_of(rows)
+        max_fan = F.fan_bucket(max(fan, 64))
+        rows_arr = np.full(next_pow2(max(len(rows), 4)), -1, np.int32)
+        rows_arr[: len(rows)] = rows
+        trows = to_device(rows_arr, dev)
+        nc = store.client_pow2()
+        state = fan_dev.tensors()
+        got = F.resolve_fanout(*state, trows, n_clients=nc, max_fan=max_fan)
+        want = F.resolve_fanout_ref(*state, trows, nc, max_fan)
+        err = max(err, max_abs_err(got, want))
+        out = got[0].cpu().numpy()
+        if store.build_plan(out[out >= 0]) != broker._build_fanout_plan(pairs):
+            raise AssertionError(f"K5 plan for {key} differs from the host oracle")
+        shapes.append(f"{topic}: M={len(rows_arr)} fan={fan} max_fan={max_fan} "
+                      f"n_clients={nc} E={int(state[2].shape[0])} "
+                      f"winners={int(got[1])}")
+    total = int(got[2])
+    recs["resolve_fanout"] = dict(
+        ms=median_ms(lambda: F.resolve_fanout(*state, trows, n_clients=nc, max_fan=max_fan)),
+        plain_ms=median_ms(lambda: F.resolve_fanout_ref(*state, trows, nc, max_fan)),
+        bytes=len(rows_arr) * 12 + total * 8 + max_fan * 4 + 8,
+        ops=total * (4 * max(1, len(rows_arr).bit_length()) + 16),
+        err=err, shape="; ".join(shapes),
+    )
+    # the pfan plan three ways: the host walk, the device resolve end to
+    # end (begin + finish, plan materialized), the kernel alone
+    host_ms, dev_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        broker._build_fanout_plan(pairs)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        router.resolve_fanout_finish(router.resolve_fanout_begin(key))
+        dev_ms.append(1e3 * (time.perf_counter() - t0))
+    versus = (f"plan at fan {fan} ({len(broker._build_fanout_plan(pairs)[0])} "
+              f"winners): host walk {statistics.median(host_ms):.3f} ms, device "
+              f"resolve begin+finish {statistics.median(dev_ms):.3f} ms, K5 "
+              f"kernel {recs['resolve_fanout']['ms']:.6f} ms")
+
+    # K6/K7: one churn's delta, on copies of the mirror. Its index is
+    # one no pair uses (its own late joiners and mfan group) and even
+    # (no route churn: a re-added storm route may grow the edge pool)
+    broker_churn(broker, skel, rng, SETUP_CHURN, deliveries)
+    if store.grew:
+        raise AssertionError("the churn grew the edge pool: no delta sync to check")
+    for name, fn, cols, n_dirty in (
+        ("scatter_segs", F.scatter_segs, (store.seg_off, store.seg_len), store.dirty_rows),
+        ("scatter_edges", F.scatter_edges, (store.edge_client, store.edge_opts), store.dirty_edges),
+    ):
+        idx = pad_pow2_batches(np.unique(np.asarray(n_dirty, np.int32)), F.SYNC_BATCH)
+        vals = [to_device(idx, dev)] + [to_device(c[idx], dev) for c in cols]
+        base = fan_dev.tensors()[:2] if name == "scatter_segs" else fan_dev.tensors()[2:]
+        a = [x.clone() for x in base]
+        b = [x.clone() for x in base]
+        fn(*a, *vals)
+        F.scatter_cols_ref(*b, *vals)
+        e = max(max_abs_err(a, b), max_abs_err(a, [to_device(c, dev) for c in cols]))
+        n = int(idx.size)
+        recs[name] = dict(
+            ms=median_ms(lambda: fn(*a, *vals)),
+            plain_ms=median_ms(lambda: F.scatter_cols_ref(*b, *vals)),
+            bytes=n * 12 + 2 * len(set(n_dirty)) * 4, ops=0, err=e,
+            shape=f"dirty={len(set(n_dirty))} padded={idx.shape} "
+                  f"table={int(base[0].shape[0])}",
+        )
+
+    # K12: the probe's float32 scalar and its 1 MB int32 fetch buffer
+    x = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    buf = torch.arange(1 << 18, dtype=torch.int32, device=dev)
+    e = max(max_abs_err([T.add_one(x)], [T.add_one_ref(x)]),
+            max_abs_err([T.add_one(buf)], [T.add_one_ref(buf)]))
+    scalar_ms = median_ms(lambda: T.add_one(x))
+    recs["probe_add_one"] = dict(
+        ms=median_ms(lambda: T.add_one(buf)),
+        plain_ms=median_ms(lambda: T.add_one_ref(buf)),
+        library_ms=median_ms(lambda: torch.add(buf, 1)),
+        bytes=2 * buf.nbytes, ops=buf.numel(), err=e,
+        shape=f"int32 [{buf.numel()}] (the fetch leg); float32 scalar "
+              f"{scalar_ms:.6f} ms",
+    )
+    torch.cuda.synchronize()
+    for r in recs.values():
+        r["bound_ms"] = 1e3 * max(r["bytes"] / H100_BYTES_PER_S, r["ops"] / H100_OPS_PER_S)
+        r["bound_by"] = ("bytes" if r["bytes"] / H100_BYTES_PER_S
+                         >= r["ops"] / H100_OPS_PER_S else "operations")
+    return recs, versus
+
+
+def broker_phase(rng, card):
+    """Phase 7. Returns (kernel records, launches in the phase)."""
+    import torch
+
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
+    from emqx_tpu_torch.ops import _build
+
+    deliveries = Deliveries()
+    broker, skel, exact, routes_s, subs_s = build_broker(rng, DEVICE, deliveries)
+    router = broker.router
+    store = router.dest_store
+    log(f"broker: routes={router.stats()} sessions={len(broker.sessions)} "
+        f"subscriptions={len(broker.suboptions)} clients={len(store.client_row)} "
+        f"n_clients={store.client_pow2()} edges={store.stats()} "
+        f"host_routes_s={routes_s:.3f} host_subscribe_s={subs_s:.3f} [{card}]")
+    if store.client_pow2() != max(1024, 1 << (len(store.client_row) - 1).bit_length()):
+        raise AssertionError(f"client registry at {store.client_pow2()} for "
+                             f"{len(store.client_row)} clients")
+    recs, versus = check_broker_kernels(broker, skel, rng, deliveries)
+    # the engine's warm-up and the traffic: counters from zero just
+    # before them, a fresh collector for this run's histograms
+    router.telemetry = router.device_table.telemetry = KernelTelemetry()
+    router.device_table.fanout.telemetry = router.telemetry
+    eng = broker.enable_dispatch_engine(queue_depth=WINDOW, pipeline_depth=2,
+                                        transfer_chunk_kb=0)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    info = eng.warmup()
+    warm_s = time.perf_counter() - t0
+    warm = {name: k.launches for name, k in _build.KERNELS.items()}
+    rec = serve_broker(broker, skel, exact, rng, deliveries)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    tel = router.telemetry
+    c = tel.counters
+    h = tel.family_hist.get("fanout_resolve_seconds")
+    log(f"broker warm-up: {info} in {warm_s:.3f} s, launches={warm} [{card}]")
+    log(f"broker: {rec['publishes']} publishes in {N_WINDOWS} windows of {WINDOW}, "
+        f"{rec['deliveries']} deliveries in {rec['traffic_s']:.3f} s of traffic "
+        f"wall: {rec['publishes'] / rec['traffic_s']:.1f} publishes/s, "
+        f"{rec['deliveries'] / rec['traffic_s']:.1f} deliveries/s "
+        f"(checks {rec['check_s']:.3f} s and churn {rec['churn_s']:.3f} s "
+        f"outside) [{card}]")
+    log(f"broker resolves: device plans {c.get('fanout_device_plans_total', 0)}, "
+        f"overlapped at begin {c.get('fanout_resolves_overlapped_total', 0)}, "
+        f"synchronous in dispatch {c.get('fanout_resolves_dispatch_total', 0)}, "
+        f"host (small fan) {c.get('fanout_small_fan_total', 0)}, host (host-resident "
+        f"filter) {c.get('fanout_host_fallback_total', 0)}; fanout_resolve_seconds "
+        f"n={h.total if h else 0} p50={1e3 * h.percentile(50) if h else 0:.4f} ms "
+        f"p99={1e3 * h.percentile(99) if h else 0:.4f} ms; plan hits "
+        f"{c.get('fanout_plan_hits', 0)} misses {c.get('fanout_plan_misses', 0)} "
+        f"stale {c.get('fanout_plan_stale', 0)} evictions "
+        f"{c.get('fanout_plan_evictions_total', 0)}; ring occupancy "
+        f"{eng.ring_status()['occupancy_ratio']} [{card}]")
+    log(f"broker {versus} [{card}]")
+    legs = {leg: {"n": hh.total, "sum_s": round(hh.sum, 6),
+                  "p50_ms": round(hh.percentile(50) * 1e3, 4),
+                  "p99_ms": round(hh.percentile(99) * 1e3, 4)}
+            for leg, hh in sorted(list(tel.hist.items()) + list(tel.family_hist.items()))}
+    log(f"broker legs (host clock, telemetry histograms): {json.dumps(legs)}")
+    dev_s, p_wall, p_walk, p_n = rec["profiled"]
+    st = rec["stages"]
+    rest = rec["traffic_s"] - sum(st.values())
+    log(f"broker time: traffic {rec['traffic_s']:.3f} s = delivery walk (inline "
+        f"and deferred shards) {st['walk']:.3f} s + plan resolves in dispatch "
+        f"{st['plan']:.3f} s + match begin {st['match_begin']:.3f} s + match "
+        f"finish {st['match_finish']:.3f} s + publish hooks {st['pre_publish']:.3f} "
+        f"s + the rest (window grouping, engine, shared election, event loop) "
+        f"{rest:.3f} s; profiled pair: device busy {dev_s:.6f} s of "
+        f"{p_wall:.3f} s traffic wall (share {dev_s / p_wall:.5f}), delivery "
+        f"walk {p_walk:.3f} s, {p_n} deliveries [{card}]")
+    log(f"broker launches (warm-up included): {launches} [{card}]")
+    if c.get("fanout_device_plans_total", 0) <= 0:
+        raise AssertionError("no plan was resolved on the card")
+    missing = [n for n in ("resolve_fanout", "scatter_segs", "scatter_edges",
+                           "probe_add_one") if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"broker phase never launched {missing}")
+    if not c.get("fanout_resolves_overlapped_total", 0):
+        raise AssertionError("no overlapped resolve ran")
+    return recs, launches
 
 
 def main(argv=None) -> int:
@@ -437,12 +999,13 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    t_run = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from emqx_tpu_torch.ops import _build
-    from emqx_tpu_torch.models import router as _router  # noqa: F401  registers K3/K4
+    from emqx_tpu_torch.broker import pubsub as _pubsub  # noqa: F401  registers every kernel
 
     card = card_line()
     log(card)
@@ -457,7 +1020,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
 
     # phase 3: slice set-up
-    router, skel, exact, host_s = build_router(rng, "cuda")
+    router, skel, exact, host_s = build_router(rng, DEVICE)
     log(f"routes: {router.stats()} residual_rows={len(router.index.residual_rows)} "
         f"classes={router.index.active_hi()} host_build_s={host_s:.3f} [{card}]")
     if not router.index.residual_rows:
@@ -484,7 +1047,8 @@ def main(argv=None) -> int:
                   "p99_ms": round(h.percentile(99) * 1e3, 4)}
             for leg, h in sorted(router.telemetry.hist.items())}
     log(f"slice legs (host clock, telemetry histograms): {json.dumps(legs)}")
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = [n for n in ("match_ids_hash", "match_ids", "scatter_rows",
+                           "scatter_slots") if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if not moved:
@@ -498,7 +1062,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense, skel, exact, dense_host_s = build_router(
-        np.random.default_rng(args.seed), "cuda", use_hash_index=False)
+        np.random.default_rng(args.seed), DEVICE, use_hash_index=False)
     dense.warmup_shapes(max_batch=BATCH)
     _build.reset_launches()
     d_rate, d_esc, d_served, _busy, d_moved = serve(
@@ -515,34 +1079,52 @@ def main(argv=None) -> int:
         raise AssertionError(f"dense-only mode launched the hash leg: {d_launches}")
     del dense
     gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 7: the broker publish path
+    b_recs, b_launches = broker_phase(np.random.default_rng(args.seed + 1), card)
+    recs.update(b_recs)
 
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"])
+    for name in b_recs:
+        path_launches[name] = b_launches[name]
     for name, r in recs.items():
         log(f"kernel {name}: ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} equal=True [{r['shape']}] [{card}]")
 
-    # phase 7: summary
+    # phase 8: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
         "match_ids": ("emqx_tpu_torch/ops/csrc/dense_match.cu",
-                      "emqx_tpu/ops/match.py:158"),
+                      "emqx_tpu/ops/match.py:159"),
+        "match_ids_dense_only": ("emqx_tpu_torch/ops/csrc/dense_match.cu",
+                                 "emqx_tpu/ops/match.py:159"),
         "scatter_rows": ("emqx_tpu_torch/ops/csrc/scatter.cu",
                          "emqx_tpu/models/router.py:67"),
         "scatter_slots": ("emqx_tpu_torch/ops/csrc/scatter.cu",
                           "emqx_tpu/models/router.py:100"),
+        "resolve_fanout": ("emqx_tpu_torch/ops/csrc/fanout.cu",
+                           "emqx_tpu/ops/fanout.py:137"),
+        "scatter_segs": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                         "emqx_tpu/ops/fanout.py:95"),
+        "scatter_edges": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                          "emqx_tpu/ops/fanout.py:118"),
+        "probe_add_one": ("emqx_tpu_torch/ops/csrc/probe.cu",
+                          "emqx_tpu/ops/transfer.py:150"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = recs[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "verified": True,
+            "library_ms": r.get("library_ms"), "verified": True,
         })
+    log(f"run: {time.perf_counter() - t_run:.3f} s [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

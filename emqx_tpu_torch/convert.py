@@ -7,6 +7,9 @@ snapshot (`FilterTable.snapshot()`), the packed class meta
 (`ClassIndex.packed_meta()`), the cuckoo slots (`ClassIndex.slots`) and
 the residual-row mask — and returns the tensors the port's kernels
 read, so both implementations can compute on identical state.
+`fanout_state_from_numpy` does the same for the CSR destination table
+(`DestStore.seg_off/seg_len/edge_client/edge_opts`) that the fanout
+kernels read.
 """
 
 from __future__ import annotations
@@ -45,3 +48,23 @@ def device_state_from_numpy(
         SlotArrays(*(put(a) for a in slots)),
         put(np.asarray(residual_mask, bool)),
     )
+
+
+class FanoutState(NamedTuple):
+    seg_off: torch.Tensor  # int32 [C]
+    seg_len: torch.Tensor  # int32 [C]
+    edge_client: torch.Tensor  # int32 [E]
+    edge_opts: torch.Tensor  # int32 [E]
+
+
+def fanout_state_from_numpy(
+    seg_off, seg_len, edge_client, edge_opts, device: DeviceLike = None
+) -> FanoutState:
+    """A DestStore's host CSR arrays -> int32 device tensors (copies),
+    the inputs of resolve_fanout / scatter_segs / scatter_edges."""
+    dev = resolve(device)
+
+    def put(a):
+        return to_device(np.asarray(a, np.int32), dev)
+
+    return FanoutState(put(seg_off), put(seg_len), put(edge_client), put(edge_opts))

@@ -16,9 +16,12 @@ emqx_router_syncer.erl:57 ?MAX_BATCH_SIZE 1000): dirty rows drain in
 fixed-size [n_batches, K] scatter batches through kernels K3/K4, which
 update the device tensors in place; only capacity growth re-uploads.
 
-Routes are answered from the host destination dicts; the device
-fanout resolve, the mesh, quarantine, chaos seams and the native churn
-core of the reference are not part of this port yet.
+Destinations live twice: in the host dest dicts (the oracle and the
+single-publish path) and in a CSR destination store fed by the same
+route transitions (ops/fanout.py DestStore), mirrored on the card so a
+matched filter set resolves to its deduped delivery plan through kernel
+K5 (`resolve_fanout_begin/finish`). The mesh, quarantine, chaos seams
+and the native churn core of the reference are not part of this port.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..obs.kernel_telemetry import (
 )
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
 from ..obs.profiler import STAGE_MARK
+from ..ops import fanout as fanout_ops
 from ..ops import hash_index as hash_ops
 from ..ops import match as match_ops
 from ..ops import topic as topic_mod
@@ -194,6 +198,20 @@ class DeviceTable:
         self._dev_meta: Optional[ClassMeta] = None
         self._dev_slots: Optional[SlotArrays] = None
         self._dev_residual: Optional[torch.Tensor] = None
+        self.fanout: Optional[fanout_ops.FanoutDeviceState] = None
+        # transfer chunk cap (ops/transfer.chunk_hits): bounds the
+        # compacted-pair result buffers to what the link streams in
+        # one RTT; None = unbounded (the exact-size escalation retry
+        # keeps correctness either way)
+        self.transfer_chunk_hits: Optional[int] = None
+
+    def attach_fanout(self, store: fanout_ops.DestStore) -> None:
+        """Mirror a CSR destination store on this device — the
+        resolve-side counterpart of the filter mirror, same sync
+        discipline (ops/fanout.FanoutDeviceState)."""
+        self.fanout = fanout_ops.FanoutDeviceState(
+            store, device=self.device, telemetry=self.telemetry
+        )
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.device)
@@ -309,6 +327,13 @@ class DeviceTable:
     # batch N+1's encode+launch; the finish half pays only the residual
     # wait. Handles carry the ticket as their LAST element.
 
+    def _cap_hits(self, mh: int) -> int:
+        cap = self.transfer_chunk_hits
+        if cap is not None and mh > cap >= 1024:
+            # floor-pow2 of the chunk budget: shapes stay log-bounded
+            mh = 1 << (cap.bit_length() - 1)
+        return mh
+
     def _topics(self, enc: match_ops.EncodedTopics) -> match_ops.EncodedTopics:
         return match_ops.EncodedTopics(*(self._put(a) for a in enc))
 
@@ -318,7 +343,7 @@ class DeviceTable:
         match_hash_finish (ticket last)."""
         meta, slots = self.hash_state()
         b = int(enc.ids.shape[0])
-        mh = max(1024, next_pow2(2 * b))
+        mh = self._cap_hits(max(1024, next_pow2(2 * b)))
         shape = (b, int(meta.plen.shape[0]), int(slots.fp.shape[0]))
         self.telemetry.record_shape("match_ids_hash", shape + (mh,))
         denc = self._topics(enc)
@@ -358,9 +383,9 @@ class DeviceTable:
         filters = self.residual_filters() if residual else self.filters()
         b = int(enc.ids.shape[0])
         if residual:
-            mh = max(1024, next_pow2(2 * b))
+            mh = self._cap_hits(max(1024, next_pow2(2 * b)))
         else:
-            mh = max(4096, next_pow2(4 * b))
+            mh = self._cap_hits(max(4096, next_pow2(4 * b)))
         shape = (b, int(filters.words.shape[0]))
         self.telemetry.record_shape("match_ids", shape + (mh,))
         denc = self._topics(enc)
@@ -474,6 +499,22 @@ class Router:
             self.table, device=device, index=self.index,
             telemetry=self.telemetry,
         )
+        # CSR destination store — the resolve half of the publish path
+        # (ops/fanout.py): one segment of (client, packed subopts)
+        # edges per table-resident filter row, fed by the same route
+        # transitions that maintain the dest dicts so segment order ==
+        # dict insertion order (the oracle's iteration order). Filters
+        # without a row (deep-trie / too-deep exacts) stay host-only and
+        # resolve_fanout_begin refuses them.
+        self.dest_store = fanout_ops.DestStore(
+            row_capacity=self.table.capacity
+        )
+        self.device_table.attach_fanout(self.dest_store)
+        # live-suboption seam for lazy segment rebuilds: the Broker
+        # installs `(flt, dest) -> (SubOpts, session) | None`; None
+        # (standalone routers) stores every client edge as SKIP, which
+        # matches the oracle (no suboption -> not in the plan)
+        self.fanout_opts_lookup = None
         # open-breaker mode: every batched match answers from host
         # truth (degraded capacity, identical answers)
         self.device_suspended = False
@@ -522,6 +563,129 @@ class Router:
             tel.count("device_resumes_total")
             tel.set_gauge("device_suspended", 0)
 
+    # --- CSR dest-store feed (the device ?SUBSCRIBER mirror) ------------
+
+    def _fanout_row(self, flt: str) -> Optional[int]:
+        row = self._filter_row.get(flt)
+        if row is None:
+            row = self._exact_row.get(flt)
+        return row
+
+    def _fanout_added(self, flt: str, dest: Dest) -> None:
+        """First-appear route transition -> CSR edge append, in dest
+        dict order. Tuple dests (shared groups, cluster composites) are
+        stored client-less with the shared bit; str dests start SKIP
+        until the broker's fanout_note_opts upgrade arrives."""
+        row = self._fanout_row(flt)
+        if row is None:
+            return  # deep/host-resident filter: resolve falls back
+        ds = self.dest_store
+        ds.ensure_rows(self.table.capacity)
+        if isinstance(dest, str):
+            ds.add(row, dest, fanout_ops.SKIP_BIT, flt)
+        else:
+            ds.add(row, dest, fanout_ops.SHARED_BIT, flt)
+
+    def _fanout_add_batch(self, pairs_iter) -> None:
+        """Storm-path feed: first-appear pairs only MARK their rows
+        pending; _fanout_flush rebuilds a pending row from its dest
+        dict the first time a resolve needs it."""
+        fr = self._filter_row
+        xr = self._exact_row
+        pending_add = self.dest_store.pending_rows.add
+        for flt, _dest in pairs_iter:
+            row = fr.get(flt)
+            if row is None:
+                row = xr.get(flt)
+                if row is None:
+                    continue  # deep/host-resident: host walk covers
+            pending_add(row)
+
+    def _fanout_flush(self, rows) -> None:
+        """Rebuild any pending segments among `rows` from their dest
+        dicts (dict order == oracle order) through the broker's live
+        suboption seam — the lazy half of the storm feed."""
+        ds = self.dest_store
+        pending = ds.pending_rows
+        if not pending:
+            return
+        lookup = self.fanout_opts_lookup
+        rf = self._row_filter
+        for row in rows:
+            if row in pending:
+                flt = rf[row]
+                ds.set_row(row, flt, self.filter_dests(flt), lookup)
+                pending.discard(row)
+
+    def _fanout_removed(self, flt: str, dest: Dest) -> None:
+        row = self._fanout_row(flt)
+        if row is not None:
+            self.dest_store.remove(row, dest)
+
+    def fanout_note_opts(self, flt: str, client: str, opts, session) -> None:
+        """Complete a subscribe on the CSR store: stamp the edge with
+        its live suboption word/object and track the session object for
+        the vectorized plan build. No-op for host-resident filters and
+        for routes the broker never subscribed (node dests)."""
+        row = self._fanout_row(flt)
+        if row is not None:
+            self.dest_store.set_opts(row, client, opts, session)
+
+    # --- device-resolved fanout (the aggre/1 kernel, K5) ----------------
+
+    def resolve_fanout_begin(self, filters: Sequence[str], min_fan: int = 0):
+        """Launch the dedup/max-QoS plan kernel for one matched filter
+        set (in pairs order), or None when the set resolves host-side:
+        a host-resident filter in the set, a fan below `min_fan` (the
+        host walk is cheaper), an empty fan, or a fan beyond the
+        kernel's packing cap. Each refusal is an answer, not a fault,
+        and is counted."""
+        if not filters:
+            return None
+        tel = self.telemetry
+        rows = []
+        for f in filters:
+            row = self._fanout_row(f)
+            if row is None:
+                if tel.enabled:
+                    tel.count("fanout_host_fallback_total")
+                return None
+            rows.append(row)
+        # rebuild pending storm rows BEFORE the sync inside resolve_begin
+        self._fanout_flush(rows)
+        fan = self.dest_store.fan_of(rows)
+        if fan < max(min_fan, 1):
+            if tel.enabled:
+                tel.count("fanout_small_fan_total")
+            return None
+        if fan > fanout_ops.MAX_FAN:
+            if tel.enabled:
+                tel.count("fanout_over_cap_total")
+            return None
+        return self.device_table.fanout.resolve_begin(rows, fan)
+
+    def resolve_fanout_finish(self, handle):
+        """Finish a begun resolve: fetch the winner edges, record the
+        dedup ratio, and materialize the oracle-ordered (mem, other)
+        plan — identical to Broker._build_fanout_plan over the same
+        host state."""
+        win, fan = self.device_table.fanout.resolve_finish(handle)
+        tel = self.telemetry
+        if tel.enabled:
+            tel.count("fanout_device_plans_total")
+            tel.set_gauge(
+                "fanout_dedup_ratio", round(fan / max(1, len(win)), 6)
+            )
+        return self.dest_store.build_plan(win)
+
+    def set_transfer_chunk(self, chunk_kb: float) -> None:
+        """Bound per-dispatch compacted-result buffers to a transfer
+        chunk (KB) sized to the link (ops/transfer.chunk_hits); 0
+        lifts the bound."""
+        self.device_table.transfer_chunk_hits = transfer_ops.chunk_hits(
+            chunk_kb
+        )
+
     # --- write path (emqx_router:do_add_route / do_delete_route) -------
 
     def _ensure_row_filter(self) -> None:
@@ -535,6 +699,7 @@ class Router:
         if not topic_mod.is_wildcard(flt):
             fresh_topic = flt not in self._exact
             dests = self._exact.setdefault(flt, {})
+            fresh = dest not in dests
             dests[dest] = dests.get(dest, 0) + 1
             if fresh_topic:
                 # exact topics ride the SAME device hash table as
@@ -551,6 +716,8 @@ class Router:
                     self._row_filter[row] = flt
                     if self.index is not None:
                         self.index.add_row(row, self.table)
+            if fresh:
+                self._fanout_added(flt, dest)
             return
         dests = self._wild.get(flt)
         if dests is None and flt in self._deep:
@@ -571,7 +738,10 @@ class Router:
                 self._trie_pending_r.append(row)
                 if self.index is not None:
                     self.index.add_row(row, self.table)
+        fresh = dest not in dests
         dests[dest] = dests.get(dest, 0) + 1
+        if fresh:
+            self._fanout_added(flt, dest)
 
     def add_routes(self, pairs: Sequence[Tuple[str, Dest]]) -> None:
         """Batched add_route — the router-syncer write path. Dest/dict
@@ -633,7 +803,9 @@ class Router:
                     idx_flts.append(flt)
         if idx_rows and self.index is not None:
             self.index.add_rows(idx_rows, self.table, idx_flts)
-        # dest bookkeeping per pair (duplicates in the batch included)
+        # dest bookkeeping per pair (duplicates in the batch included);
+        # first-appear pairs mark their dest-store rows pending
+        fresh_pairs: List[Tuple[str, Dest]] = []
         for (flt, dest), wild in zip(pairs, wildness):
             if not wild:
                 dests = exact_t[flt]
@@ -641,7 +813,14 @@ class Router:
                 dests = wild_t.get(flt)
                 if dests is None:
                     dests = deep_t[flt]
-            dests[dest] = dests.get(dest, 0) + 1
+            v = dests.get(dest)
+            if v is None:
+                dests[dest] = 1
+                fresh_pairs.append((flt, dest))
+            else:
+                dests[dest] = v + 1
+        if fresh_pairs:
+            self._fanout_add_batch(fresh_pairs)
 
     def delete_routes(self, pairs: Sequence[Tuple[str, Dest]]) -> None:
         """Batched delete_route (the syncer's delete leg)."""
@@ -656,10 +835,12 @@ class Router:
             dests[dest] -= 1
             if dests[dest] == 0:
                 del dests[dest]
+                self._fanout_removed(flt, dest)
                 if not dests:
                     del self._exact[flt]
                     row = self._exact_row.pop(flt, None)
                     if row is not None:
+                        self.dest_store.free_row(row)
                         self._row_filter[row] = None
                         if self.index is not None:
                             self.index.remove_row(row)
@@ -679,6 +860,7 @@ class Router:
         if dests[dest]:
             return
         del dests[dest]
+        self._fanout_removed(flt, dest)
         if not dests:
             if deep:
                 del self._deep[flt]
@@ -687,6 +869,7 @@ class Router:
             else:
                 del self._wild[flt]
                 row = self._filter_row.pop(flt)
+                self.dest_store.free_row(row)
                 self._row_filter[row] = None
                 self._host_trie().remove(topic_mod.words(flt), row)
                 if self.index is not None:
@@ -769,6 +952,12 @@ class Router:
             return self._exact.get(flt, {})
         d = self._wild.get(flt)
         return d if d is not None else self._deep.get(flt, {})
+
+    def match_pairs(self, topic: str) -> List[Tuple[str, Dict[Dest, int]]]:
+        """(filter, dests) pairs for one topic — the broker's
+        single-publish path dispatches on the filter for the direct
+        suboption lookup instead of re-matching."""
+        return [(f, self.filter_dests(f)) for f in self.match_filters(topic)]
 
     def match_routes(self, topic: str) -> Set[Dest]:
         """Single-topic host path: exact hash + trie walk."""

@@ -266,6 +266,9 @@ class NullKernelTelemetry:
     def set_gauge(self, name, value) -> None:
         pass
 
+    def add_gauge(self, name, delta) -> None:
+        pass
+
     def record_shape(self, kernel, key) -> bool:
         return False
 

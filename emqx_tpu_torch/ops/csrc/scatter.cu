@@ -1,12 +1,15 @@
-// K3/K4: in-place delta scatters that keep the device tables in step
-// with route churn.
+// K3/K4/K6/K7: in-place delta scatters that keep the device tables in
+// step with route and subscription churn.
 //
 // Replace emqx_tpu/models/router.py `_scatter_rows` (K3: the five
 // filter-table columns at [nb, K] padded row ids) and `_scatter_slots`
-// (K4: cuckoo fp/bucket at slot ids, probe words at slot // 4). The JAX
-// programs donate their buffers and scan over the nb batches; here the
-// device tensors are updated in place by one launch over all nb*K
-// entries.
+// (K4: cuckoo fp/bucket at slot ids, probe words at slot // 4), and
+// emqx_tpu/ops/fanout.py `_scatter_segs` (K6: seg_off/seg_len at row
+// ids) and `_scatter_edges` (K7: edge_client/edge_opts at edge ids).
+// K6 and K7 are one two-column kernel, `emqx_scatter_cols`, bound twice
+// so their launches count apart. The JAX programs donate their buffers
+// and scan over the nb batches; here the device tensors are updated in
+// place by one launch over all nb*K entries.
 //
 // Write order: the host drains dirty ids with np.unique, so real ids are
 // distinct; the only repeats are the padding, which repeats the last id
@@ -16,7 +19,8 @@
 // writer lands last is correct. Ids outside the table are dropped, as
 // JAX drops out-of-range scatter updates.
 //
-// What bounds it on the H100: a sync of ~2,000 dirty rows moves ~150 KB,
+// What bounds it on the H100: a sync of ~2,000 dirty rows moves ~150 KB
+// (a K6/K7 sync of a few thousand ids ~50 KB),
 // far below a microsecond of HBM time, so the launch itself dominates;
 // one thread per written word keeps the stores coalesced on the source
 // side.
@@ -65,6 +69,18 @@ __global__ void scatter_slots_k(uint32_t* __restrict__ fp, int* __restrict__ buc
   probe[s / 4] = pw[e];
 }
 
+__global__ void scatter_cols_k(int* __restrict__ a, int* __restrict__ b, int n_dst,
+                               const int* __restrict__ idx,
+                               const int* __restrict__ va,
+                               const int* __restrict__ vb, long long n) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int i = idx[e];
+  if (i < 0 || i >= n_dst) return;
+  a[i] = va[e];
+  b[i] = vb[e];
+}
+
 }  // namespace
 
 // n = nb * K entries. Returns cudaGetLastError().
@@ -92,6 +108,17 @@ extern "C" int emqx_scatter_slots(uint32_t* fp, int* bucket, uint32_t* probe,
     const int blocks = static_cast<int>((n + 255) / 256);
     scatter_slots_k<<<blocks, 256, 0, stream>>>(fp, bucket, probe, n_slots, idx,
                                                 f, b, pw, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a[idx[e]] = va[e], b[idx[e]] = vb[e] for the n = nb * K entries.
+extern "C" int emqx_scatter_cols(int* a, int* b, int n_dst, const int* idx,
+                                 const int* va, const int* vb, long long n,
+                                 cudaStream_t stream) {
+  if (n > 0) {
+    const int blocks = static_cast<int>((n + 255) / 256);
+    scatter_cols_k<<<blocks, 256, 0, stream>>>(a, b, n_dst, idx, va, vb, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,8 @@ of the parts of emqx_tpu/ops/topic.py that the match path needs).
 Behavioral parity with the reference broker's topic module
 (apps/emqx/src/emqx_topic.erl): words/join parsing, wildcard detection,
 the single-pair matcher `match` (emqx_topic.erl:80-116) that every
-index implementation is tested against, and `$share/Group/Topic`
-parsing.
+index implementation is tested against, topic name/filter validation
+for the broker's subscribe path, and `$share/Group/Topic` parsing.
 
 Semantics (MQTT 3.1.1 / 5.0):
   * Topics split on '/'; empty levels are legal distinct words
@@ -23,6 +23,8 @@ from __future__ import annotations
 from typing import Iterable, Optional, Tuple
 
 Words = Tuple[str, ...]
+
+MAX_TOPIC_LEN = 65535  # wire-format limit (2-byte length prefix)
 
 
 def words(topic: str) -> Words:
@@ -44,6 +46,38 @@ def is_wildcard(topic_or_words) -> bool:
         ws = topic_or_words.split("/")
         return "+" in ws or "#" in ws
     return any(w in ("+", "#") for w in topic_or_words)
+
+
+def validate_name(topic: str) -> None:
+    """Validate a topic NAME (publish target): no wildcards allowed."""
+    _validate_common(topic)
+    if is_wildcard(topic):
+        raise ValueError(f"wildcard not allowed in topic name: {topic!r}")
+
+
+def validate_filter(topic: str) -> None:
+    """Validate a topic FILTER (subscription). '$share/...' filters are
+    validated through share parsing (emqx_topic.erl validate_share)."""
+    _validate_common(topic)
+    if topic.startswith(SHARE_PREFIX + "/"):
+        _, topic = parse_share(topic)
+    ws = words(topic)
+    for i, w in enumerate(ws):
+        if w == "#":
+            if i != len(ws) - 1:
+                raise ValueError(f"'#' must be the last level: {topic!r}")
+        elif "#" in w or "+" in w:
+            if w not in ("+", "#"):
+                raise ValueError(f"wildcard must occupy entire level: {topic!r}")
+
+
+def _validate_common(topic: str) -> None:
+    if topic == "":
+        raise ValueError("empty topic")
+    if len(topic.encode("utf-8")) > MAX_TOPIC_LEN:
+        raise ValueError("topic too long")
+    if "\x00" in topic:
+        raise ValueError("NUL byte in topic")
 
 
 def match(name, flt) -> bool:

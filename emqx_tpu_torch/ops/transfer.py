@@ -10,12 +10,17 @@ emqx_tpu/ops/transfer.py `FetchTicket`/`start_fetch`/`chunk_hits`).
     and then pays only the *residual* transfer time. CPU tensors pass
     straight through.
 
+  * `probe_link` — measures the link right now: the RTT floor as the
+    median of add-one round trips on a float32 scalar, the fetch rate
+    as a 1 MB int32 buffer pushed through the same add-one kernel (K12,
+    csrc/probe.cu) and copied to the host.
+
   * `auto_chunk_kb` / `chunk_hits` — turn a link's bandwidth-delay
     product into a cap on the compacted-pair result buffers, so one
     fetch is never sized past what the link streams in one RTT;
-    oversize results escalate through the exact-size retry. Nothing
-    in the port sets such a cap yet: the link probe that measures the
-    RTT and bandwidth is not ported.
+    oversize results escalate through the exact-size retry. The
+    dispatch engine's warm-up probes the link and sets the cap
+    (Router.set_transfer_chunk).
 
 Telemetry (through the router's collector): `transfer_seconds`
 (family: residual wait paid at finish), `transfer_bytes` (counter),
@@ -24,12 +29,16 @@ Telemetry (through the router's collector): `transfer_seconds`
 
 from __future__ import annotations
 
+import ctypes
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
+from ._build import P, CudaKernel
 
 # chunk clamp (KB): the auto-sizer never goes below one sync batch of
 # compacted pairs nor above what a single ring slot should pin in
@@ -118,6 +127,64 @@ def start_fetch(tensors: Sequence[torch.Tensor], telemetry=None) -> FetchTicket:
     launched kernel's result tensors and hand back the ticket the
     finish half waits on."""
     return FetchTicket(tensors, telemetry)
+
+
+# --- K12: the probe's add-one dispatch --------------------------------------
+
+
+def add_one_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12."""
+    return x + 1
+
+
+_ADD_ONE = CudaKernel(
+    "probe_add_one", "probe.cu", "emqx_add_one",
+    [P, P, ctypes.c_longlong, ctypes.c_int, P],
+)
+
+
+def add_one(x: torch.Tensor) -> torch.Tensor:
+    """x + 1 for a float32 or int32 tensor (replaces the jitted `triv`
+    of the reference's probe_link). CUDA tensors launch kernel K12; CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return add_one_ref(x)
+    if x.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"add_one takes float32 or int32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("add_one input is not contiguous")
+    y = torch.empty_like(x)
+    _ADD_ONE(
+        x.data_ptr(), y.data_ptr(), x.numel(),
+        1 if x.dtype == torch.float32 else 0,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    return y
+
+
+def probe_link(device: DeviceLike = None, probes: int = 3) -> Tuple[float, float]:
+    """(rtt_floor_s, fetch_bytes_per_s), measured right now: the RTT
+    floor is the median of `probes` add-one round trips on a float32
+    scalar (host value in, host value out); the rate is a 1 MB int32
+    buffer pushed through the same kernel and fetched to the host. Both
+    drift over a run — callers sample at attach time for sizing, never
+    for scoring. `device` None means the CUDA card."""
+    dev = resolve(device)
+    # the build and the first launch stay outside the probe
+    float(add_one(torch.tensor(0.0, dtype=torch.float32, device=dev)))
+    rtts = []
+    for i in range(max(1, probes)):
+        t0 = time.perf_counter()
+        float(add_one(torch.tensor(i + 0.5, dtype=torch.float32, device=dev)))
+        rtts.append(time.perf_counter() - t0)
+    rtt = float(np.median(rtts))
+    buf = torch.zeros(1 << 18, dtype=torch.int32, device=dev)  # 1MB
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    add_one(buf).cpu().numpy()
+    dt = max(time.perf_counter() - t0, 1e-9)
+    return rtt, float(buf.nbytes) / dt
 
 
 def auto_chunk_kb(rtt_s: float, bytes_per_s: float) -> int:

@@ -378,8 +378,11 @@ def _c_params(source, symbol):
 def test_kernel_argtypes_match_the_c_entry_points():
     from emqx_tpu_torch.ops import _build
 
+    import emqx_tpu_torch.broker.pubsub  # noqa: F401  (every kernel module)
+
     assert sorted(_build.KERNELS) == [
-        "match_ids", "match_ids_hash", "scatter_rows", "scatter_slots"]
+        "match_ids", "match_ids_hash", "probe_add_one", "resolve_fanout",
+        "scatter_edges", "scatter_rows", "scatter_segs", "scatter_slots"]
     for k in _build.KERNELS.values():
         assert list(k.argtypes) == _c_params(k.source, k.symbol), k.name
 
@@ -397,6 +400,10 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "emqx_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(REPO)) for p in files}
+    for mod in ("ops/fanout.py", "broker/pubsub.py", "broker/dispatch_engine.py",
+                "broker/session.py", "models/retainer.py"):
+        assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
         for p in files
