@@ -64,10 +64,37 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    one overlapped. Printed: publishes/s and deliveries/s over the
    traffic wall, fanout_resolve_seconds p50/p99, the resolves by
    source, the host walk against K5 for one 150k-fan plan, launches.
-8. Summary: one line per kernel (times, bound, launches, equal), the
-   run's seconds, one `{"kernels": [...]}` JSON line (launches of K1-K4
+8. Retained reads and the MQTT server: a Broker on the card whose
+   Retainer stores 1,000,000 names `dev/{g}/{k}/state` (g < 10,000,
+   k < 100, 64-byte payloads, stored QoS i%3; bench.py:1438) and 1,024
+   `$SYS/{g}/x/state`, with the device index attached. (a) Waves of 512
+   and 4,096 filters (70% `dev/{g}/+/state`, 10% `dev/{g}/#`, 10%
+   `dev/{g}/{k}/+`, 8% `+/{g}/+/state`, 1% `dev/+/{k}/state`, 1% a
+   literal no name uses), one untimed and 4 timed per size, and one
+   5,000-filter wave, through RetainedIndex.read_begin/finish: every
+   answer equals the host trie walk, and the timed waves' messages from
+   Retainer.retained_read_begin/finish are the stored messages of the
+   host walk's names; device, host-walk and end-to-end filters/s. (b) K8 against its plain version over the live table at
+   B=4096 and B=8, exactly. (c) The port's Server on 127.0.0.1: 256 TCP
+   clients (half MQTT 5, half 3.1.1), each one 8-filter SUBSCRIBE (QoS
+   1 grants on the one-name and exact filters, which the clients
+   PUBACK), 128 single-filter SUBSCRIBEs (the B=1 read), 64 re-
+   subscribes with retain_handling 1 and 64 with 2; two rounds, with a
+   publisher client's 256 new retained names, 256 deletes and 256
+   replaces between them. Every SUBACK grants each QoS, the retained
+   PUBLISHes after it equal the host walk's multiset, nothing else
+   arrives, no drop counter moves, K8 launched, and device reads are at
+   least 99% of the wildcard reads. Printed: subscribes/s, retained
+   messages/s, SUBACK latency p50/p99, device reads against host
+   fallbacks, the churn's seconds, K8's launches. (d) `python -m
+   emqx_tpu_torch.broker.server` started as a user starts it (on the
+   card by default) serves a retained read to a raw-socket client, and
+   is stopped. Printed last: the phase's seconds, by stage.
+9. Summary: one line per kernel (times, bound, launches, equal), the
+   run's seconds and each phase's, one `{"kernels": [...]}` JSON line (launches of K1-K4
    from phase 5, of the dense-only K2 from phase 6, of K5-K7 and K12
-   from phase 7), then, as the last line, `{"ok": true, "device": {...}}`.
+   from phase 7, of K8 from phase 8's server rounds), then, as the last
+   line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -105,6 +132,24 @@ N_PFAN_PUBS = 4
 N_MFAN_PUBS = 20
 # the set-up churn's index, outside the pairs' 0..N_WINDOWS/2
 SETUP_CHURN = -2
+# phase 8: retained reads and the server (bench.py:1438 bench_retained's
+# 1M names `dev/{g}/{k}/state`)
+N_RET_GROUPS = 10_000
+N_RET_PER_GROUP = 100
+N_RET_SYS = 1024
+RET_WAVES = (512, 4096)
+# 4 timed waves per size and 256 clients keep the phase near two
+# minutes of the run (8 and 512 took 181.6 s on an H100 80GB HBM3, 700 W)
+N_TIMED_WAVES = 4
+SPLIT_WAVE = 5000
+N_CLIENTS = 256
+N_SINGLE = 128
+N_RH = 64
+N_RET_CHURN = 256
+SUB_FILTERS = 8
+# filter classes (see ret_filter) and their shares: a wave's, a client's
+WAVE_MIX = (("A", 70), ("B", 10), ("C", 10), ("D", 8), ("E", 1), ("F", 1))
+CLIENT_MIX = (("A", 30), ("B", 15), ("C", 15), ("D", 15), ("F", 10), ("X", 15))
 
 
 def log(*a) -> None:
@@ -991,6 +1036,575 @@ def broker_phase(rng, card):
     return recs, launches
 
 
+# --- retained reads and the server (phase 8) ---------------------------------------
+
+
+def ret_filter(cls: str, rng) -> str:
+    """One filter of a phase-8 class over the `dev/{g}/{k}/state` store."""
+    g = int(rng.integers(0, N_RET_GROUPS))
+    k = int(rng.integers(0, N_RET_PER_GROUP))
+    return {
+        "A": f"dev/{g}/+/state",  # 100 names: the reference bench's filter
+        "B": f"dev/{g}/#",  # 100 names
+        "C": f"dev/{g}/{k}/+",  # 1 name: one bucket per name
+        "D": f"+/{g}/+/state",  # 100 names; the $SYS names excluded
+        "E": f"dev/+/{k}/state",  # 10,000 names
+        "F": f"dev/{g}/+/nope",  # a literal no name uses: empty, no launch
+        "X": f"dev/{g}/{k}/state",  # exact: a dict hit
+    }[cls]
+
+
+def draw_classes(mix, n, rng):
+    import numpy as np
+
+    names = [c for c, _ in mix]
+    w = np.array([p for _, p in mix], float)
+    return [names[i] for i in rng.choice(len(names), size=n, p=w / w.sum())]
+
+
+def ret_oracle(ret, flt, granted):
+    """The host walk's answer as a multiset of (topic, payload, QoS)."""
+    from collections import Counter
+
+    from emqx_tpu_torch.ops import topic as topic_mod
+
+    names = ret._match_names(topic_mod.words(flt)) if topic_mod.is_wildcard(flt) else [flt]
+    out = Counter()
+    for n in names:
+        m = ret._store.get(n)
+        if m is not None:
+            out[(n, bytes(m.payload), min(m.qos, granted))] += 1
+    return out
+
+
+def build_retained(device):
+    """Phase 8 set-up: a Broker on the card whose Retainer stores
+    N_RET_GROUPS * N_RET_PER_GROUP names `dev/{g}/{k}/state` (64-byte
+    payloads, stored QoS i%3) and N_RET_SYS `$SYS/{g}/x/state`, then
+    attaches the device index. Returns (broker, store seconds, attach
+    seconds)."""
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.pubsub import Broker
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
+
+    broker = Broker(max_levels=16, device=device)
+    ret = broker.retainer
+    n = N_RET_GROUPS * N_RET_PER_GROUP
+    ret.max_retained = n + N_RET_SYS + N_RET_CHURN
+    t0 = time.perf_counter()
+    for i in range(n):
+        ret.retain(Message(topic=f"dev/{i % N_RET_GROUPS}/{i // N_RET_GROUPS}/state",
+                           payload=b"%064d" % i, qos=i % 3, retain=True))
+    for g in range(N_RET_SYS):
+        ret.retain(Message(topic=f"$SYS/{g}/x/state", payload=b"%064d" % g, retain=True))
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ret.enable_device(telemetry=KernelTelemetry())
+    return broker, store_s, time.perf_counter() - t0
+
+
+def retained_waves(ret, rng):
+    """Phase 8 (a): filter waves through RetainedIndex.read_begin/finish,
+    every answer against the host trie walk, and the timed waves also
+    through Retainer.retained_read_begin/finish, whose messages must be
+    the stored ones of the host walk's names. Returns (per wave size:
+    device, host-walk and end-to-end filters/s; the first wave's
+    seconds, which build the classes)."""
+    from emqx_tpu_torch.ops import topic as topic_mod
+
+    idx = ret._index
+
+    def wave(n):
+        return [ret_filter(c, rng) for c in draw_classes(WAVE_MIX, n, rng)]
+
+    def check(filters, got, host=None):
+        for i, (f, names) in enumerate(zip(filters, got)):
+            want = host[i] if host is not None else ret._match_names(topic_mod.words(f))
+            if names is not None and sorted(names) != sorted(want):
+                raise AssertionError(f"retained read of {f}: {len(names)} names, "
+                                     f"the host walk {len(want)}")
+
+    def check_messages(filters, got, host):
+        for f, msgs, names in zip(filters, got, host):
+            if (sorted(m.topic for m in msgs) != sorted(names)
+                    or any(ret._store[m.topic] is not m for m in msgs)):
+                raise AssertionError(f"retained_read_finish of {f}: {len(msgs)} "
+                                     f"messages, the host walk {len(names)} names")
+
+    first = wave(RET_WAVES[0])
+    t0 = time.perf_counter()
+    got = idx.read_finish(idx.read_begin(first))
+    first_s = time.perf_counter() - t0
+    check(first, got)
+    rates = {}
+    for size in RET_WAVES:
+        filters = wave(size)
+        check(filters, idx.read_finish(idx.read_begin(filters)))
+        dev_t, host_t, e2e_t = [], [], []
+        for _ in range(N_TIMED_WAVES):
+            filters = wave(size)
+            t0 = time.perf_counter()
+            got = idx.read_finish(idx.read_begin(filters))
+            dev_t.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            host = [ret._match_names(topic_mod.words(f)) for f in filters]
+            host_t.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            msgs = ret.retained_read_finish(ret.retained_read_begin(filters))
+            e2e_t.append(time.perf_counter() - t0)
+            check(filters, got, host)
+            check_messages(filters, msgs, host)
+        rates[size] = tuple(size / statistics.median(t) for t in (dev_t, host_t, e2e_t))
+    filters = wave(SPLIT_WAVE)
+    check(filters, idx.read_finish(idx.read_begin(filters)))
+    return rates, first_s
+
+
+def lane_matches(idx, keys):
+    """Per query, the lanes whose probe byte matches (K8's nbm), from
+    the host table: the fingerprints K8 reads are min(nbm, 2) a lane."""
+    import numpy as np
+
+    s = idx._slots
+    mask = np.uint32(s.probe.shape[0] - 1)
+    h1 = np.array([q[0] for q in keys], np.uint32)
+    fp = np.array([q[1] for q in keys], np.uint32)
+    with np.errstate(over="ignore"):
+        b1 = h1 & mask
+        b2 = b1 ^ (((fp | np.uint32(1)) * np.uint32(0x9E3779B9)) & mask)
+    p8 = np.maximum(fp >> np.uint32(24), np.uint32(1))
+    nbm = np.zeros(len(keys), np.int64)
+    for w in (s.probe[b1], s.probe[b2]):
+        for lane in range(4):
+            nbm += ((w >> np.uint32(8 * lane)) & np.uint32(0xFF)) == p8
+    return nbm
+
+
+def check_retained_kernel(ret, rng):
+    """Phase 8 (b): K8 against its plain version on the card over the
+    live table, at B=4096 (a wave's top rung) and B=8 (a SUBSCRIBE
+    packet's rung), hits, misses and a padding lane. Returns the
+    record."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import retained as RI
+
+    idx = ret._index
+    tabs = idx._device_tables()
+    out = {}
+    for b in (RI.MAX_BATCH, RI.BATCH_LADDER[0]):
+        # the wave mix's probe keys, every eighth one a random (h1, fp)
+        # (a miss), and the last lane padding
+        keys = []
+        while len(keys) < b - 1:
+            if len(keys) % 8 == 7:
+                keys.append(tuple(int(x) for x in rng.integers(0, 1 << 32, 2)))
+                continue
+            q = idx._query(ret_filter(draw_classes(WAVE_MIX[:5], 1, rng)[0], rng))
+            if not isinstance(q, str):
+                keys.append(q)
+        staged = idx._stage(keys)
+        got = RI.probe_retained(*tabs, *staged)
+        err = max_abs_err(got, RI.probe_retained_ref(*tabs, *staged))
+        hits = int((got[0] >= 0).sum())
+        nbm = lane_matches(idx, keys)
+        # queries in (9 B), two probe words per valid lane, the
+        # fingerprints the lane screen passes (at most two), a bucket id
+        # per hit, outputs (5 B)
+        nbytes = (b * 9 + len(keys) * 8 + int(np.minimum(nbm, 2).sum()) * 4
+                  + hits * 4 + b * 5)
+        out[b] = dict(
+            ms=median_ms(lambda: RI.probe_retained(*tabs, *staged)),
+            plain_ms=median_ms(lambda: RI.probe_retained_ref(*tabs, *staged)),
+            bytes=nbytes, ops=b * 40, err=err, library_ms=None,
+            shape=f"B={b} buckets={int(tabs[0].shape[0])} hits={hits} "
+                  f"amb={int(got[1].sum())} lanes_screened={int(nbm.sum())}",
+        )
+    torch.cuda.synchronize()
+    for r in out.values():
+        r["bound_ms"] = 1e3 * max(r["bytes"] / H100_BYTES_PER_S, r["ops"] / H100_OPS_PER_S)
+        r["bound_by"] = ("bytes" if r["bytes"] / H100_BYTES_PER_S
+                         >= r["ops"] / H100_OPS_PER_S else "operations")
+    small = out[RI.BATCH_LADDER[0]]
+    rec = out[RI.MAX_BATCH]
+    rec["shape"] += (f"; at B=8: ms={small['ms']:.6f} plain_ms={small['plain_ms']:.6f} "
+                     f"bound_ms={small['bound_ms']:.9f} [{small['shape']}]")
+    return rec
+
+
+class MqttClient:
+    """One raw-socket MQTT client over the port's frame codec. A reader
+    task parses what arrives, PUBACKs every QoS 1 PUBLISH at once, and
+    queues the packets."""
+
+    def __init__(self, cid, ver, stats):
+        self.cid = cid
+        self.ver = ver
+        self.stats = stats
+        self.subs = {}  # filter -> granted QoS
+        self.pending = []  # SUBSCRIBEs not yet checked
+
+    async def connect(self, addr):
+        import asyncio
+
+        from emqx_tpu_torch.broker import frame
+        from emqx_tpu_torch.broker import packet as P
+
+        self.P = P
+        self.frame = frame
+        self.reader, self.writer = await asyncio.open_connection(*addr)
+        self.parser = frame.Parser(proto_ver=self.ver)
+        self.queue = asyncio.Queue()
+        self.task = asyncio.get_running_loop().create_task(self._read())
+        self.send(P.Connect(proto_ver=self.ver, client_id=self.cid, keepalive=0))
+        ack = await self.next()
+        if not isinstance(ack, P.Connack) or ack.code != 0:
+            raise AssertionError(f"{self.cid}: {ack}")
+
+    async def _read(self):
+        P = self.P
+        try:
+            while True:
+                data = await self.reader.read(1 << 16)
+                if not data:
+                    return
+                for p in self.parser.feed(data):
+                    if isinstance(p, P.Publish) and p.qos == 1:
+                        self.send(P.Puback(P.Type.PUBACK, p.packet_id))
+                    self.queue.put_nowait(p)
+        finally:
+            self.queue.put_nowait(None)  # wakes `next`, which reports why
+
+    def send(self, pkt):
+        self.writer.write(self.frame.serialize(pkt, self.ver))
+
+    async def next(self):
+        import asyncio
+
+        p = await asyncio.wait_for(self.queue.get(), 120)
+        if p is None:
+            await asyncio.wait({self.task}, timeout=5)
+            t = self.task
+            if t.done() and not t.cancelled() and t.exception() is not None:
+                raise t.exception()
+            raise AssertionError(f"{self.cid}: the server closed the connection")
+        return p
+
+    async def subscribe(self, pid, filters):
+        """One SUBSCRIBE of [(filter, QoS, retain_handling)] followed by a
+        PINGREQ; keeps everything that arrives before the PINGRESP for
+        `check`."""
+        P = self.P
+        due = [rh == 0 or (rh == 1 and f not in self.subs) for f, _q, rh in filters]
+        self.subs.update((f, q) for f, q, _ in filters)
+        t0 = time.perf_counter()
+        self.send(P.Subscribe(pid, [(f, P.SubOpts(qos=q, retain_handling=rh))
+                                    for f, q, rh in filters]))
+        self.send(P.Pingreq())
+        ack = await self.next()
+        self.stats["suback_s"].append(time.perf_counter() - t0)
+        got = []
+        while True:
+            p = await self.next()
+            if isinstance(p, P.Pingresp):
+                break
+            got.append(p)
+        self.pending.append((filters, due, ack, got))
+        self.stats["subscribes"] += 1
+        self.stats["retained"] += len(got)
+
+    def check(self, ret):
+        """Each SUBACK grants each QoS, and the retained PUBLISHes after
+        it are the host walk's multiset, retain flag set: nothing for
+        retain_handling 2 or for 1 on an existing subscription."""
+        from collections import Counter
+
+        P = self.P
+        for filters, due, ack, got in self.pending:
+            if not isinstance(ack, P.Suback) or list(ack.codes) != [q for _, q, _ in filters]:
+                raise AssertionError(f"{self.cid}: {ack} for {filters}")
+            want = Counter()
+            for (f, q, _rh), d in zip(filters, due):
+                if d:
+                    want.update(ret_oracle(ret, f, q))
+            seen = Counter()
+            for p in got:
+                if not isinstance(p, P.Publish) or not p.retain:
+                    raise AssertionError(f"{self.cid}: {p} after the SUBACK")
+                seen[(p.topic, bytes(p.payload), p.qos)] += 1
+            if seen != want:
+                raise AssertionError(
+                    f"{self.cid}: retained PUBLISHes for {filters} differ from the "
+                    f"host walk ({sum(seen.values())} vs {sum(want.values())})")
+        self.pending.clear()
+
+    async def barrier(self):
+        """PINGREQ, then everything that arrives before the PINGRESP."""
+        P = self.P
+        self.send(P.Pingreq())
+        extra = []
+        while True:
+            p = await self.next()
+            if isinstance(p, P.Pingresp):
+                return extra
+            extra.append(p)
+
+    async def close(self):
+        self.writer.close()
+        self.task.cancel()
+
+
+def client_filters(rng, n):
+    """n distinct filters of CLIENT_MIX with their grants: QoS 1 for C
+    and X, QoS 0 for the rest; retain_handling 0."""
+    out = {}
+    while len(out) < n:
+        cls = draw_classes(CLIENT_MIX, 1, rng)[0]
+        out.setdefault(ret_filter(cls, rng), 1 if cls in ("C", "X") else 0)
+    return [(f, q, 0) for f, q in out.items()]
+
+
+def churn_publishes(ret, rng):
+    """Between the rounds: N_RET_CHURN new retained names, as many
+    deletes (empty payload) and as many replaces, QoS 0 and 1."""
+    from emqx_tpu_torch.broker import packet as P
+
+    pubs = []
+    names = set()
+    while len(names) < 2 * N_RET_CHURN:
+        names.add(f"dev/{int(rng.integers(0, N_RET_GROUPS))}/"
+                  f"{int(rng.integers(0, N_RET_PER_GROUP))}/state")
+    names = sorted(names)
+    rng.shuffle(names)
+    for j in range(N_RET_CHURN):
+        g = int(rng.integers(0, N_RET_GROUPS))
+        pubs.append((f"dev/{g}/{N_RET_PER_GROUP + j}/state", b"n%063d" % j))
+        pubs.append((names[j], b""))
+        pubs.append((names[N_RET_CHURN + j], b"r%063d" % j))
+    return [P.Publish(topic=t, payload=pl, qos=k % 2, retain=True,
+                      packet_id=k + 1 if k % 2 else None)
+            for k, (t, pl) in enumerate(pubs)]
+
+
+def server_phase(broker, rng, card):
+    """Phase 8 (c): the port's Server over the card broker; N_CLIENTS TCP
+    clients (half MQTT 5, half 3.1.1) in two rounds of SUBSCRIBEs, with
+    retained churn from a publisher client between them. Returns the
+    record and K8's launches in the phase."""
+    import asyncio
+    import resource
+
+    from emqx_tpu_torch.broker.server import Server
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
+    from emqx_tpu_torch.ops import _build
+
+    ret = broker.retainer
+    idx = ret._index
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    need = 2 * N_CLIENTS + 256
+    if soft < need and (hard == resource.RLIM_INFINITY or hard >= need):
+        resource.setrlimit(resource.RLIMIT_NOFILE, (need, hard))
+    elif soft < need:
+        raise AssertionError(f"open-file limit {soft}/{hard} is below {need}")
+    stats = dict(subscribes=0, retained=0, suback_s=[])
+    rec = {}
+
+    async def run():
+        srv = Server(broker, host="127.0.0.1", port=0)
+        await srv.start()
+        clients = [MqttClient(f"rc{i}", 5 if i % 2 else 4, stats) for i in range(N_CLIENTS)]
+        pub = MqttClient("publisher", 4, stats)
+        try:
+            for base in range(0, N_CLIENTS, 64):
+                await asyncio.gather(*(c.connect(srv.listen_addr)
+                                       for c in clients[base:base + 64]))
+            await pub.connect(srv.listen_addr)
+            drops = {k: v for k, v in broker.metrics.all().items() if k.startswith("delivery.dropped")}
+            # counters from zero after the connects, just before the traffic
+            _build.reset_launches()
+            idx.tel = KernelTelemetry()
+            walls = []
+            for r in range(2):
+                t0 = time.perf_counter()
+                await asyncio.gather(*(c.subscribe(10 * r + 1, client_filters(rng, SUB_FILTERS))
+                                       for c in clients))
+                # single-filter SUBSCRIBEs: the B=1 read of Broker._read_retained
+                await asyncio.gather(*(
+                    c.subscribe(10 * r + 2, [(ret_filter(cls, rng), 0, 0)])
+                    for c, cls in zip(clients[:N_SINGLE],
+                                      draw_classes(WAVE_MIX[:4], N_SINGLE, rng))))
+                # retain_handling 1 on an existing subscription, 2 on a new one
+                rh1 = clients[N_SINGLE:N_SINGLE + N_RH]
+                rh2 = clients[N_SINGLE + N_RH:N_SINGLE + 2 * N_RH]
+                await asyncio.gather(
+                    *(c.subscribe(10 * r + 3, [next(iter(c.subs.items())) + (1,)])
+                      for c in rh1),
+                    *(c.subscribe(10 * r + 4, [(ret_filter("A", rng), 0, 2)])
+                      for c in rh2))
+                walls.append(time.perf_counter() - t0)
+                for c in clients:
+                    c.check(ret)
+                if r == 0:
+                    t0 = time.perf_counter()
+                    churn = churn_publishes(ret, rng)
+                    for p in churn:
+                        pub.send(p)
+                    acks = await pub.barrier()
+                    rec["churn_s"] = time.perf_counter() - t0
+                    if len(acks) != sum(p.qos for p in churn):
+                        raise AssertionError(f"publisher got {len(acks)} PUBACKs")
+                    live = await asyncio.gather(*(c.barrier() for c in clients))
+                    rec["live"] = sum(map(len, live))
+                    rec["churn"] = len(churn)
+            rec["walls"] = walls
+            after = {k: v for k, v in broker.metrics.all().items() if k.startswith("delivery.dropped")}
+            if after != drops or any(s.dropped for s in broker.sessions.values()):
+                raise AssertionError(f"drops moved: {drops} -> {after}")
+        finally:
+            for c in clients + [pub]:
+                if hasattr(c, "writer"):
+                    await c.close()
+            await srv.stop()
+
+    asyncio.run(run())
+    rec.update(stats)
+    rec["launches"] = _build.KERNELS["retained_probe"].launches
+    c = idx.tel.counters
+    rec["device_reads"] = c.get("retained_device_reads_total", 0)
+    rec["host_reads"] = c.get("retained_host_fallback_total", 0)
+    rec["builds"] = c.get("retained_index_builds_total", 0)
+    return rec
+
+
+def cli_server_check():
+    """Phase 8 (d): `python -m emqx_tpu_torch.broker.server` as a user
+    starts it (the card by default, the retained leg on) serves a
+    retained read to a raw-socket client. Returns the seconds from the
+    start to the first answered SUBSCRIBE."""
+    import os
+    import socket
+    import subprocess
+
+    from emqx_tpu_torch.broker import frame
+    from emqx_tpu_torch.broker import packet as P
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "emqx_tpu_torch.broker.server", "--host", "127.0.0.1",
+         "--port", str(port)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+    )
+    try:
+        while True:
+            try:
+                sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the server exited: {proc.stderr.read().decode()}")
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("the server never listened")
+                time.sleep(0.2)
+        with sock:
+            parser = frame.Parser(proto_ver=5)
+            got = []
+
+            def recv(n):
+                while len(got) < n:
+                    data = sock.recv(1 << 16)
+                    if not data:
+                        raise AssertionError("the server closed the connection")
+                    got.extend(parser.feed(data))
+                out = got[:n]
+                del got[:n]
+                return out
+
+            def send(pkt):
+                sock.sendall(frame.serialize(pkt, 5))
+
+            send(P.Connect(proto_ver=5, client_id="cli", keepalive=0))
+            recv(1)
+            names = [f"cli/{i}/state" for i in range(8)]
+            for i, t in enumerate(names):
+                send(P.Publish(topic=t, payload=b"%d" % i, retain=True))
+            send(P.Subscribe(1, [("cli/+/state", P.SubOpts(qos=0)),
+                                 ("cli/#", P.SubOpts(qos=0))]))
+            ack, *pubs = recv(1 + 2 * len(names))
+            if not isinstance(ack, P.Suback) or sorted(p.topic for p in pubs) != sorted(names * 2):
+                raise AssertionError(f"the CLI server answered {ack} and {len(pubs)} PUBLISHes")
+        return time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+
+
+def retained_phase(rng, card):
+    """Phase 8. Returns (K8's record, K8's launches in the server run)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    stages = {}
+    broker, store_s, attach_s = build_retained(DEVICE)
+    stages["set-up"] = time.perf_counter() - t_phase
+    ret = broker.retainer
+    idx = ret._index
+    log(f"retained: {len(ret)} names stored in {store_s:.3f} s, device index "
+        f"attached in {attach_s:.3f} s [{card}]")
+    t0 = time.perf_counter()
+    rates, first_s = retained_waves(ret, rng)
+    stages["waves"] = time.perf_counter() - t0
+    c = idx.tel.counters
+    dev_reads = c.get("retained_device_reads_total", 0)
+    host_reads = c.get("retained_host_fallback_total", 0)
+    log(f"retained waves: first wave (class builds, mirror upload, ladder) "
+        f"{first_s:.3f} s; classes={len(idx._cls_plen)} buckets={idx._n_buckets} "
+        f"bucket_ids={len(idx._key_bid)}; device reads {dev_reads}, host "
+        f"fallbacks {host_reads} [{card}]")
+    if dev_reads < 0.99 * (dev_reads + host_reads):
+        raise AssertionError(f"device reads {dev_reads} of {dev_reads + host_reads}")
+    for size, (dev, host, e2e) in rates.items():
+        log(f"retained wave of {size}: device {dev:.1f} filters/s vs host walk "
+            f"{host:.1f} filters/s ({dev / host:.2f}x); retained_read_begin/finish "
+            f"{e2e:.1f} filters/s [{card}]")
+    t0 = time.perf_counter()
+    rec = check_retained_kernel(ret, rng)
+    stages["kernel"] = time.perf_counter() - t0
+    log(f"kernel retained_probe: ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
+        f"bound_ms={rec['bound_ms']:.6f} [{rec['shape']}] [{card}]")
+    t0 = time.perf_counter()
+    s = server_phase(broker, rng, card)
+    torch.cuda.synchronize()
+    stages["server"] = time.perf_counter() - t0
+    wall = sum(s["walls"])
+    lat = sorted(s["suback_s"])
+    reads = s["device_reads"] + s["host_reads"]
+    log(f"server: {N_CLIENTS} clients, {s['subscribes']} SUBSCRIBEs and "
+        f"{s['retained']} retained PUBLISHes in {wall:.3f} s of rounds: "
+        f"{s['subscribes'] / wall:.1f} subscribes/s, {s['retained'] / wall:.1f} "
+        f"retained messages/s; SUBACK latency p50 "
+        f"{1e3 * lat[len(lat) // 2]:.3f} ms p99 {1e3 * lat[int(len(lat) * 0.99)]:.3f} ms; "
+        f"device reads {s['device_reads']}, host fallbacks {s['host_reads']}, "
+        f"index builds {s['builds']}; churn of {s['churn']} retained publishes "
+        f"served in {s['churn_s']:.3f} s ({s['live']} live deliveries); "
+        f"K8 launches {s['launches']} [{card}]")
+    if s["launches"] <= 0:
+        raise AssertionError("the server phase never launched K8")
+    if s["device_reads"] < 0.99 * reads:
+        raise AssertionError(f"device reads {s['device_reads']} of {reads} wildcard reads")
+    t0 = time.perf_counter()
+    log(f"cli: python -m emqx_tpu_torch.broker.server served a retained read "
+        f"{cli_server_check():.3f} s after its start [{card}]")
+    stages["cli"] = time.perf_counter() - t0
+    log(f"phase 8: {time.perf_counter() - t_phase:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + f") [{card}]")
+    return rec, s["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1000,6 +1614,14 @@ def main(argv=None) -> int:
     import torch
 
     t_run = time.perf_counter()
+    phase_s = {}
+    t_lap = [t_run]
+
+    def lap(phase):
+        now = time.perf_counter()
+        phase_s[phase] = round(now - t_lap[0], 3)
+        t_lap[0] = now
+
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1012,12 +1634,14 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    lap(1)
     # phase 2: build
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.3f} s")
 
     rng = np.random.default_rng(args.seed)
+    lap(2)
 
     # phase 3: slice set-up
     router, skel, exact, host_s = build_router(rng, DEVICE)
@@ -1026,8 +1650,10 @@ def main(argv=None) -> int:
     if not router.index.residual_rows:
         raise AssertionError("the residual leg has no rows")
 
+    lap(3)
     # phase 4: kernel vs plain
     recs = check_kernels(router, skel, publish_batch(rng, skel, exact), rng)
+    lap(4)
 
     # phase 5: the slice end to end; counters from zero just before it
     t0 = time.perf_counter()
@@ -1057,6 +1683,7 @@ def main(argv=None) -> int:
     log(f"profile: {n} topics, device busy {dev_s:.6f} s of {wall_s:.6f} s "
         f"begin+finish wall, busy share {dev_s / wall_s:.4f} [{card}]")
 
+    lap(5)
     # phase 6: dense-only mode over the same routes
     del router
     gc.collect()
@@ -1081,11 +1708,21 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap(6)
     # phase 7: the broker publish path
     b_recs, b_launches = broker_phase(np.random.default_rng(args.seed + 1), card)
     recs.update(b_recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap(7)
 
-    path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"])
+    # phase 8: retained reads and the server
+    recs["retained_probe"], k8_launches = retained_phase(
+        np.random.default_rng(args.seed + 2), card)
+    lap(8)
+
+    path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
+                         retained_probe=k8_launches)
     for name in b_recs:
         path_launches[name] = b_launches[name]
     for name, r in recs.items():
@@ -1093,7 +1730,7 @@ def main(argv=None) -> int:
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} equal=True [{r['shape']}] [{card}]")
 
-    # phase 8: summary
+    # phase 9: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -1113,6 +1750,8 @@ def main(argv=None) -> int:
                           "emqx_tpu/ops/fanout.py:118"),
         "probe_add_one": ("emqx_tpu_torch/ops/csrc/probe.cu",
                           "emqx_tpu/ops/transfer.py:150"),
+        "retained_probe": ("emqx_tpu_torch/ops/csrc/retained_probe.cu",
+                           "emqx_tpu/ops/retained.py:81"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1124,7 +1763,7 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "verified": True,
         })
-    log(f"run: {time.perf_counter() - t_run:.3f} s [{card}]")
+    log(f"run: {time.perf_counter() - t_run:.3f} s; seconds by phase {phase_s} [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

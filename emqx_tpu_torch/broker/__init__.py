@@ -1,3 +1,3 @@
-"""The broker's publish path for the port: sessions, pubsub dispatch
-and the pipelined dispatch engine (counterpart of emqx_tpu/broker/,
-without the server, channel and transport layers)."""
+"""The port's broker (counterpart of emqx_tpu/broker/): sessions,
+pubsub dispatch, the pipelined dispatch engine, the MQTT channel and
+the asyncio TCP server (no WebSocket, QUIC or gateway listeners)."""

@@ -74,12 +74,12 @@ class Broker:
         hooks: Optional[Hooks] = None,
         device: DeviceLike = None,
     ):
-        """`device` goes to the Router: None means the CUDA card
-        (raising when none is present); "cpu" runs every kernel's plain
-        version on the host."""
+        """`device` goes to the Router and the Retainer: None means the
+        CUDA card (raising when none is present); "cpu" runs every
+        kernel's plain version on the host."""
         self.router = Router(max_levels=max_levels, device=device)
         self.shared = SharedSubs(strategy=shared_strategy)
-        self.retainer = Retainer()
+        self.retainer = Retainer(device=self.router.device)
         self.hooks = hooks or Hooks()
         self.metrics = Metrics()
         self.stats = Stats()
@@ -114,6 +114,8 @@ class Broker:
         # pipelined micro-batching dispatcher; attach with
         # enable_dispatch_engine() (broker/dispatch_engine.py)
         self.engine = None
+        # live listeners (broker/server.py Server.start/stop)
+        self.servers: list = []
 
     def enable_dispatch_engine(self, **kw):
         """Attach a DispatchEngine (pipelined async publish path):
@@ -247,12 +249,16 @@ class Broker:
         return self._read_retained(real, retained_reader)
 
     def _read_retained(self, real: str, reader=None) -> List[Message]:
-        """Retained lookup for one just-registered filter: the caller's
-        batched reader when one is open, else the host trie (the device
-        read leg comes with the retained-read slice)."""
+        """Retained lookup for one just-registered filter: the
+        channel's batched reader when a SUBSCRIBE-packet window is
+        open, else the device halves at B=1, else the host trie."""
         if reader is not None:
             return reader(real)
-        return self.retainer.read(real)
+        retainer = self.retainer
+        if retainer.device_enabled:
+            begun = retainer.retained_read_begin([real])
+            return retainer.retained_read_finish(begun)[0]
+        return retainer.read(real)
 
     def unsubscribe(self, session: Session, flt: str) -> bool:
         if flt.startswith(EXCLUSIVE_PREFIX):

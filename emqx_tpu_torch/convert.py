@@ -9,7 +9,8 @@ the residual-row mask — and returns the tensors the port's kernels
 read, so both implementations can compute on identical state.
 `fanout_state_from_numpy` does the same for the CSR destination table
 (`DestStore.seg_off/seg_len/edge_client/edge_opts`) that the fanout
-kernels read.
+kernels read, and `retained_state_from_numpy` for a retained index's
+cuckoo table (`RetainedIndex._slots`) that K8 reads.
 """
 
 from __future__ import annotations
@@ -68,3 +69,21 @@ def fanout_state_from_numpy(
         return to_device(np.asarray(a, np.int32), dev)
 
     return FanoutState(put(seg_off), put(seg_len), put(edge_client), put(edge_opts))
+
+
+class RetainedState(NamedTuple):
+    probe: torch.Tensor  # uint32 [n_buckets]
+    fp: torch.Tensor  # uint32 [n_buckets*4]
+    bucket: torch.Tensor  # int32 [n_buckets*4]
+
+
+def retained_state_from_numpy(probe, fp, bucket, device: DeviceLike = None) -> RetainedState:
+    """A RetainedIndex's host SlotArrays (the JAX package's or the
+    port's) -> the (probe, fp, bucket) device tensors, in the argument
+    order of `ops.retained.probe_retained`. Copies."""
+    dev = resolve(device)
+    return RetainedState(
+        to_device(np.asarray(probe, np.uint32), dev),
+        to_device(np.asarray(fp, np.uint32), dev),
+        to_device(np.asarray(bucket, np.int32), dev),
+    )

@@ -30,18 +30,17 @@
 // the write pass recomputes the flags, ranks each flagged pair inside
 // its block with warp ballots, and runs phase 2 for pairs ranked below
 // max_hits. Blocks whose offset is already past max_hits exit at once.
+#include "cuckoo.cuh"
 #include "scan.cuh"
 
 namespace {
 
 constexpr int HT = 256;  // pairs per block
 constexpr int WARPS = HT / 32;
-constexpr int BUCKET_W = 4;
 
 constexpr uint32_t H1_SEED = 0x811C9DC5u, H1_CLS = 0x9E3779B1u, H1_MUL = 16777619u;
 constexpr uint32_t FP_SEED = 0x2545F491u, FP_CLS = 0x85EBCA6Bu;
 constexpr uint32_t FP_XOR = 0xC2B2AE35u, FP_MUL = 0x27D4EB2Fu;
-constexpr uint32_t ALT_MUL = 0x9E3779B9u;
 
 struct HashArgs {
   const int* plen;            // [C]
@@ -97,7 +96,7 @@ __device__ __forceinline__ Probe probe_pair(const HashArgs& a, int b, int c) {
   const uint32_t mask = static_cast<uint32_t>(a.S - 1);
   r.fp = fp;
   r.b1 = h1 & mask;
-  r.b2 = r.b1 ^ (((fp | 1u) * ALT_MUL) & mask);
+  r.b2 = alt_bucket(r.b1, fp, mask);
   const uint32_t p8 = max(fp >> 24, 1u);
   const uint32_t rep = p8 * 0x01010101u;
   r.w1 = a.probe[r.b1];
@@ -137,23 +136,10 @@ __global__ void __launch_bounds__(HT) hash_pass(HashArgs a) {
 
   // phase 2: exact lane-byte compare over the 2*BUCKET_W lanes; verify
   // the full fingerprint of the first two byte-matching lanes
-  const uint32_t p8 = max(pr.fp >> 24, 1u);
-  int nbm = 0, l1 = 0, l2 = 0;
-  for (int l = 0; l < 2 * BUCKET_W; ++l) {
-    const uint32_t w = l < BUCKET_W ? pr.w1 : pr.w2;
-    if (((w >> (8 * (l & 3))) & 0xFFu) == p8) {
-      if (nbm == 0) l1 = l;
-      else if (nbm == 1) l2 = l;
-      ++nbm;
-    }
-  }
-  const int s1 = static_cast<int>((l1 < BUCKET_W ? pr.b1 : pr.b2) * BUCKET_W + (l1 & 3));
-  const int s2 = static_cast<int>((l2 < BUCKET_W ? pr.b1 : pr.b2) * BUCKET_W + (l2 & 3));
-  const bool ok1 = nbm >= 1 && a.slot_fp[s1] == pr.fp;
-  const bool ok2 = nbm >= 2 && a.slot_fp[s2] == pr.fp;
+  const LaneVerdict v = verify_lanes(pr.fp, pr.b1, pr.b2, pr.w1, pr.w2, a.slot_fp);
   int ti = -1, bi = -1;
-  if (ok1 || ok2) {
-    const int g = a.slot_bucket[ok1 ? s1 : s2];
+  if (v.ok) {
+    const int g = a.slot_bucket[v.slot];
     if (g >= 0) {
       ti = b;
       bi = g;
@@ -161,7 +147,7 @@ __global__ void __launch_bounds__(HT) hash_pass(HashArgs a) {
   }
   a.out_ti[dst] = ti;
   a.out_bi[dst] = bi;
-  if ((ok1 && ok2) || nbm > 2) atomicAdd(a.out_amb, 1);
+  if (v.amb) atomicAdd(a.out_amb, 1);
 }
 
 }  // namespace

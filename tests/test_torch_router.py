@@ -1,12 +1,15 @@
 """The port's Router and DeviceTable (emqx_tpu_torch.models.router) held
 against emqx_tpu's on the same seeded routes, churn and topics; the
 delta scatters K3/K4 (plain versions) against `_scatter_rows` /
-`_scatter_slots`; device selection; and the port's import hygiene.
+`_scatter_slots`; device selection; and the port's gates: import
+hygiene, byte-compilation, the kernels' C ABI and the fetch discipline.
 """
 
 import ast
 import pathlib
+import py_compile
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -382,7 +385,8 @@ def test_kernel_argtypes_match_the_c_entry_points():
 
     assert sorted(_build.KERNELS) == [
         "match_ids", "match_ids_hash", "probe_add_one", "resolve_fanout",
-        "scatter_edges", "scatter_rows", "scatter_segs", "scatter_slots"]
+        "retained_probe", "scatter_edges", "scatter_rows", "scatter_segs",
+        "scatter_slots"]
     for k in _build.KERNELS.values():
         assert list(k.argtypes) == _c_params(k.source, k.symbol), k.name
 
@@ -402,7 +406,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 10
     names = {str(p.relative_to(REPO)) for p in files}
     for mod in ("ops/fanout.py", "broker/pubsub.py", "broker/dispatch_engine.py",
-                "broker/session.py", "models/retainer.py"):
+                "broker/session.py", "models/retainer.py", "ops/retained.py",
+                "broker/channel.py", "broker/server.py"):
         assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
@@ -411,3 +416,97 @@ def test_port_imports_neither_jax_nor_reference():
         if m.split(".")[0] in ("jax", "jaxlib", "emqx_tpu")
     ]
     assert not bad, bad
+
+
+def test_every_port_module_byte_compiles(tmp_path):
+    files = sorted((REPO / "emqx_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for i, p in enumerate(files):
+        py_compile.compile(str(p), cfile=str(tmp_path / f"{i}.pyc"), doraise=True)
+
+
+# --- the fetch discipline (tests/test_static_gate.py legs 7 and 7b) -----------------
+# The reference's allowlist of the functions that may force a device->host
+# transfer, applied to the port's modules of the same names. Besides the
+# reference's fetch kinds, the torch ones: .cpu(), .item(), .numpy() and
+# .synchronize(). (.tolist() is not one: the host bookkeeping calls it on
+# numpy arrays throughout.)
+
+_TORCH_FETCHES = ("cpu", "item", "numpy", "synchronize")
+
+
+def _fetch_gate():
+    from test_static_gate import (
+        _BEGIN_RE,
+        FETCH_SITE_ALLOWLIST,
+        _contains_shape_attr,
+        _fetch_kind,
+    )
+
+    return FETCH_SITE_ALLOWLIST, _BEGIN_RE, _contains_shape_attr, _fetch_kind
+
+
+def test_no_blocking_host_fetch_outside_finish_sites():
+    allowlist, begin_re, shape_attr, fetch_kind = _fetch_gate()
+    port = REPO / "emqx_tpu_torch"
+    # the mesh modules (parallel/) are not ported yet
+    present = {rel: a for rel, a in allowlist.items() if (port / rel).exists()}
+    assert "ops/retained.py" in present and "ops/fanout.py" in present
+    offenders = []
+    for rel, allowed in present.items():
+        stack = []
+
+        def visit(node):
+            is_fn = isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))
+            if is_fn:
+                stack.append(node.name)
+            if isinstance(node, ast.Call):
+                fn = stack[-1] if stack else "<module>"
+                f = node.func
+                kind = fetch_kind(node)
+                if kind is None and isinstance(f, ast.Attribute) and f.attr in _TORCH_FETCHES:
+                    kind = f".{f.attr}()"
+                if kind and fn not in allowed:
+                    offenders.append(f"{rel}:{node.lineno} {kind} in {fn}()")
+                if (
+                    any(begin_re.search(x) for x in stack)
+                    and isinstance(f, ast.Name)
+                    and f.id in ("int", "float")
+                    and node.args
+                    and not shape_attr(node.args[0])
+                ):
+                    offenders.append(f"{rel}:{node.lineno} {f.id}() inside launch half {fn}()")
+            for child in ast.iter_child_nodes(node):
+                visit(child)
+            if is_fn:
+                stack.pop()
+
+        visit(ast.parse((port / rel).read_text()))
+    assert not offenders, "\n  ".join(["blocking host fetch:"] + offenders)
+
+
+def test_begin_halves_start_their_transfer():
+    """Every kernel-level begin half launches its kernel and starts the
+    device->host copy (ops/transfer.start_fetch) in the same function."""
+    halves = (
+        ("models/router.py", None, r"match_(ids|hash)_begin"),
+        ("ops/fanout.py", "FanoutDeviceState", r"resolve_begin"),
+        ("ops/retained.py", "RetainedIndex", r"read_begin"),
+    )
+    found, offenders = [], []
+    for rel, cls, name_re in halves:
+        tree = ast.parse((REPO / "emqx_tpu_torch" / rel).read_text())
+        scopes = [n for n in ast.walk(tree) if isinstance(n, ast.ClassDef) and n.name == cls] \
+            if cls else [tree]
+        for scope in scopes:
+            for node in ast.walk(scope):
+                if not (isinstance(node, ast.FunctionDef) and re.fullmatch(name_re, node.name)):
+                    continue
+                found.append(f"{rel}:{node.name}")
+                calls = {
+                    n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", "")
+                    for n in ast.walk(node) if isinstance(n, ast.Call)
+                }
+                if "start_fetch" not in calls:
+                    offenders.append(f"{rel}:{node.lineno} {node.name}()")
+    assert len(found) == 4, found
+    assert not offenders, offenders
