@@ -90,11 +90,44 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    emqx_tpu_torch.broker.server` started as a user starts it (on the
    card by default) serves a retained read to a raw-socket client, and
    is stopped. Printed last: the phase's seconds, by stage.
-9. Summary: one line per kernel (times, bound, launches, equal), the
+9. The sub-sharded mesh routing path on the one card: a
+   Router(max_levels=16, mesh=make_mesh(2, 4, devices=["cuda"] * 8))
+   given phase 3's route set. (a) K10 and K11 at 1,024 topics and K9 at
+   64 over the table's full capacity (2,097,152 rows), each equal to its
+   plain version, 32 topics' rows equal to the host oracle's
+   (Router.match_filters). (b) The mesh sync and warm_up shapes (each
+   batch shape's first escalation step, the churn scatters); counters
+   set to 0; 16 pipelined 1024-topic batches of phase 5's mix with
+   phase 5's churn between them, every answer checked against the host
+   path at begin and at finish as in phase 5; counters read: K14, K16,
+   K17 and the fused K18 sync must have run (steady churn touches rows
+   and slots together, so the standalone row and slot scatters run
+   there only at warm-up). Printed: topics/s, escalations, device
+   batches against host fallbacks, mesh_combine_seconds. Then each mesh
+   kernel against its plain version on the router's own state (K13
+   counts, packed and apply_delta, K14 over both legs' tiles, K15, K16,
+   K17, K18 on a churn's delta, also against host truth), timed (median
+   of 20 CUDA-event launches; the plain versions over 3); K16, K17 and
+   K14 again at a block capacity of at most half the largest tile count
+   (the per-tile truncation, exact counts past it, the combine's cut,
+   which at least one leg must reach); then
+   one 1024-topic batch with the block capacity forced to
+   ESCALATION_MH, which both legs must escalate past, against the host
+   path. (c) The padded (1, 3) layout with churn, with and without the
+   class index; on the hashed one, counters set to 0 and two route
+   adds that grow the class index (row-only sync: K13 apply_delta) and
+   then the table (full row upload, slot-only sync: K18 slot delta),
+   each answer against the host path; the dry run's Broker(mesh=...)
+   publish of 24 rooms with exact delivery counts;
+   DispatchEngine.warmup() reporting 4 shards.
+10. Summary: one line per kernel (times, bound, launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line (launches of K1-K4
    from phase 5, of the dense-only K2 from phase 6, of K5-K7 and K12
-   from phase 7, of K8 from phase 8's server rounds), then, as the last
-   line, `{"ok": true, "device": {...}}`.
+   from phase 7, of K8 from phase 8's server rounds, of K14, K16, K17
+   and the fused K18 from phase 9's batches, of K13 apply_delta and the
+   K18 slot delta from phase 9 (c)'s growth syncs; K9-K11, K13's counts
+   and packed and K15 are on no serve path and show 0), then, as the last line,
+   `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -147,6 +180,13 @@ N_SINGLE = 128
 N_RH = 64
 N_RET_CHURN = 256
 SUB_FILTERS = 8
+# phase 9: the sub-sharded mesh routing path on one card
+MESH = (2, 4)
+N_MESH_BATCHES = 16
+DENSE_B = 64
+MESH_ORACLE_TOPICS = 32
+PLAIN_REPEATS = 3  # the plain versions of phase 9 are timed over 3 calls
+ESCALATION_MH = 2  # phase 9's forced block capacity, below both legs' block totals
 # filter classes (see ret_filter) and their shares: a wave's, a client's
 WAVE_MIX = (("A", 70), ("B", 10), ("C", 10), ("D", 8), ("E", 1), ("F", 1))
 CLIENT_MIX = (("A", 30), ("B", 15), ("C", 15), ("D", 15), ("F", 10), ("X", 15))
@@ -180,6 +220,16 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def set_bounds(recs) -> None:
+    """Each record's bound: the larger of its bytes over the card's
+    memory rate and its operations over its peak rate, and which."""
+    for r in recs.values():
+        t_bytes = r["bytes"] / H100_BYTES_PER_S
+        t_ops = r["ops"] / H100_OPS_PER_S
+        r["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
 def max_abs_err(got, want) -> int:
@@ -439,10 +489,7 @@ def check_kernels(router, skel, topics, rng):
         shape=f"dirty_slots={len(set(ix.dirty_slots))} padded={idx.shape}",
     )
     torch.cuda.synchronize()
-    for name, r in recs.items():
-        r["bound_ms"] = 1e3 * max(r["bytes"] / H100_BYTES_PER_S, r["ops"] / H100_OPS_PER_S)
-        r["bound_by"] = ("bytes" if r["bytes"] / H100_BYTES_PER_S
-                         >= r["ops"] / H100_OPS_PER_S else "operations")
+    set_bounds(recs)
     return recs
 
 
@@ -946,10 +993,7 @@ def check_broker_kernels(broker, skel, rng, deliveries):
               f"{scalar_ms:.6f} ms",
     )
     torch.cuda.synchronize()
-    for r in recs.values():
-        r["bound_ms"] = 1e3 * max(r["bytes"] / H100_BYTES_PER_S, r["ops"] / H100_OPS_PER_S)
-        r["bound_by"] = ("bytes" if r["bytes"] / H100_BYTES_PER_S
-                         >= r["ops"] / H100_OPS_PER_S else "operations")
+    set_bounds(recs)
     return recs, versus
 
 
@@ -1222,10 +1266,7 @@ def check_retained_kernel(ret, rng):
                   f"amb={int(got[1].sum())} lanes_screened={int(nbm.sum())}",
         )
     torch.cuda.synchronize()
-    for r in out.values():
-        r["bound_ms"] = 1e3 * max(r["bytes"] / H100_BYTES_PER_S, r["ops"] / H100_OPS_PER_S)
-        r["bound_by"] = ("bytes" if r["bytes"] / H100_BYTES_PER_S
-                         >= r["ops"] / H100_OPS_PER_S else "operations")
+    set_bounds(out)
     small = out[RI.BATCH_LADDER[0]]
     rec = out[RI.MAX_BATCH]
     rec["shape"] += (f"; at B=8: ms={small['ms']:.6f} plain_ms={small['plain_ms']:.6f} "
@@ -1605,6 +1646,528 @@ def retained_phase(rng, card):
     return rec, s["launches"]
 
 
+# --- the sub-sharded mesh routing path (phase 9) -----------------------------------
+
+
+def mesh_of(shape):
+    """A (dp, sub) mesh whose every shard sits on DEVICE (one card)."""
+    from emqx_tpu_torch.parallel.mesh import make_mesh
+
+    n_dp, n_sub = shape
+    return make_mesh(n_dp, n_sub, devices=[DEVICE] * (n_dp * n_sub))
+
+
+def host_rows(router, topic):
+    """The table rows of the filters the host oracle (Router.match_filters:
+    exact dict + trie walk) gives for `topic`, sorted."""
+    import numpy as np
+
+    rows = []
+    for f in router.match_filters(topic):
+        r = router._filter_row.get(f)
+        if r is None:
+            r = router._exact_row[f]
+        rows.append(r)
+    return np.sort(np.array(rows, np.int64))
+
+
+def u32(t):
+    """A uint32 tensor's int32 view (comparisons, host copies)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def dense_work(filters, b):
+    """(bytes, operations) the dense predicate needs for b topics over a
+    table: the active mask, each live row once, the topics once; per
+    (topic, live row) its length/flag checks and a compare per level."""
+    L = int(filters.words.shape[1])
+    act = filters.active
+    n_act = int(act.sum())
+    plen_sum = int(filters.prefix_len[act].sum())
+    n = int(act.shape[0])
+    return n + n_act * (4 * L + 6) + b * (4 * L + 5), b * (plen_sum + 3 * n_act), n_act
+
+
+def check_dense_forms(router, topics):
+    """Phase 9 (a): K9-K11 on the card over the route table (its full
+    capacity) against their plain versions; K10/K11 at BATCH topics, K9
+    at DENSE_B; MESH_ORACLE_TOPICS topics against the host oracle."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.device import resolve, to_device
+    from emqx_tpu_torch.ops import match as M
+    from emqx_tpu_torch.ops.table import EncodedFilters
+
+    dev = resolve(DEVICE)
+    t = router.table
+    filters = EncodedFilters(*(to_device(a, dev) for a in t.snapshot()))
+    enc = M.encode_topics(t.vocab, topics, router.max_levels)
+    denc = M.EncodedTopics(*(to_device(a, dev) for a in enc))
+    small = M.EncodedTopics(*(x[:DENSE_B] for x in denc))
+    B, L = enc.ids.shape
+    N = int(filters.words.shape[0])
+    recs = {}
+    packed = M.match_packed(filters, denc)
+    err = max_abs_err([u32(packed)], [u32(M.match_packed_ref(filters, denc))])
+    counts = M.match_counts(filters, denc)
+    err_c = max_abs_err([counts], [M.match_counts_ref(filters, denc)])
+    dense = M.match_dense(filters, small)
+    err_d = max_abs_err([dense], [M.match_dense_ref(filters, small)])
+    host = u32(packed).cpu().numpy().view(np.uint32)
+    hcounts = counts.cpu().numpy()
+    for i in range(MESH_ORACLE_TOPICS):
+        want = host_rows(router, topics[i])
+        if not np.array_equal(M.unpack_indices(host[i]), want) or hcounts[i] != len(want):
+            raise AssertionError(f"K10/K11 topic {topics[i]!r}: rows differ from the host oracle")
+    if not np.array_equal(dense.cpu().numpy(), np.unpackbits(
+            host[:DENSE_B].view(np.uint8), axis=1, bitorder="little").astype(bool)):
+        raise AssertionError("K9 differs from K10's bitmap")
+    nbytes, ops, n_act = dense_work(filters, B)
+    nb_small, ops_small, _ = dense_work(filters, DENSE_B)
+    shape = f"N={N} L={L} active={n_act}"
+    recs["match_packed"] = dict(
+        ms=median_ms(lambda: M.match_packed(filters, denc)),
+        plain_ms=median_ms(lambda: M.match_packed_ref(filters, denc), PLAIN_REPEATS),
+        bytes=nbytes + B * N // 8, ops=ops, err=err, library_ms=None,
+        shape=f"B={B} {shape} set_bits={int(counts.sum())}")
+    recs["match_counts"] = dict(
+        ms=median_ms(lambda: M.match_counts(filters, denc)),
+        plain_ms=median_ms(lambda: M.match_counts_ref(filters, denc), PLAIN_REPEATS),
+        bytes=nbytes + 4 * B, ops=ops, err=err_c, library_ms=None, shape=f"B={B} {shape}")
+    recs["match_dense"] = dict(
+        ms=median_ms(lambda: M.match_dense(filters, small)),
+        plain_ms=median_ms(lambda: M.match_dense_ref(filters, small), PLAIN_REPEATS),
+        bytes=nb_small + DENSE_B * N, ops=ops_small, err=err_d, library_ms=None,
+        shape=f"B={DENSE_B} {shape} output_bytes={DENSE_B * N}")
+    del filters, packed, dense
+    torch.cuda.synchronize()
+    set_bounds(recs)
+    return recs
+
+
+def clone_tree(x):
+    """A deep copy of nested tuples of tensors."""
+    if isinstance(x, tuple):
+        return type(x)(*(clone_tree(a) for a in x)) if hasattr(x, "_fields") \
+            else tuple(clone_tree(a) for a in x)
+    return x.clone()
+
+
+def flat(x):
+    """Nested tuples of tensors -> a flat list (int32 views of uint32)."""
+    if isinstance(x, tuple):
+        return [t for a in x for t in flat(a)]
+    return [u32(x)]
+
+
+def check_mesh_kernels(router, skel, exact, rng, card):
+    """Phase 9 (d) and the checks of K13, K16 and K17: every mesh kernel
+    against its plain version on the card, on the mesh router's own
+    state at the slice's shapes (BATCH topics, the table's block
+    capacity), then timed."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import match as M
+    from emqx_tpu_torch.ops.hash_index import BUCKET_W
+    from emqx_tpu_torch.ops.table import pad_pow2_batches
+    from emqx_tpu_torch.parallel import mesh as MS
+    from emqx_tpu_torch.parallel import sharded_match as S
+
+    dt = router.device_table
+    mesh = dt.mesh
+    if len(mesh.groups) != 1:
+        raise AssertionError(f"expected every shard on one card: {mesh}")
+    dt.sync()
+    n_dp, n_sub = mesh.shape["dp"], mesh.shape["sub"]
+    n_tiles = n_dp * n_sub
+    tiles = S._tiles(mesh, 0)
+    topics = publish_batch(rng, skel, exact)
+    enc = M.encode_topics(router.table.vocab, topics, router.max_levels)
+    (t_dev,) = MS.put_topics(enc, mesh)
+    B, L = enc.ids.shape
+    b_loc = B // n_dp
+    mh = dt._block_mh()
+    recs = {}
+
+    # K17: the hash leg's tiles
+    meta, slots = dt._dev_meta[0], dt._dev_slots[0]
+    nb = router.index.n_buckets
+    nb_loc = int(slots.probe.shape[0]) // n_sub
+    C = int(meta.plen.shape[0])
+    h_got = S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh)
+    h_want = S.hash_tiles_ref(meta, slots, t_dev, tiles, nb_loc, nb, b_loc, mh)
+    err = max_abs_err(h_got, h_want)
+    from emqx_tpu_torch.ops.hash_index import class_hash_ref
+
+    elig = class_hash_ref(meta, t_dev)[0]
+    n_elig = int(elig.sum())
+    h_hits = int(h_got[2].clamp(max=mh).sum())
+    recs["mesh_match_ids_hash"] = dict(
+        ms=median_ms(lambda: S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh)),
+        plain_ms=median_ms(lambda: S.hash_tiles_ref(
+            meta, slots, t_dev, tiles, nb_loc, nb, b_loc, mh), PLAIN_REPEATS),
+        bytes=C * 11 + B * (4 * L + 5) + n_elig * 2 * 4 + h_hits * 12 + n_tiles * (mh * 8 + 4) + 4,
+        ops=B * C * 8 + n_elig * (8 * L + 24) + h_hits * 40, err=err, library_ms=None,
+        shape=f"tiles={n_tiles} B={B} C={C} buckets={nb} per_shard={nb_loc} max_hits={mh} "
+              f"flagged_per_tile={h_got[2].tolist()} amb={int(h_got[3])}")
+
+    # K16: the residual leg's tiles
+    (f_res,) = dt._filters(residual=True)
+    n_loc = int(f_res.words.shape[0]) // n_sub
+    d_got = S._tiles_match_ids(mesh, 0, f_res, t_dev, mh)
+    err = max_abs_err(d_got, S.match_ids_tiles_ref(f_res, t_dev, tiles, n_loc, b_loc, mh))
+    nbytes, ops, n_act = dense_work(f_res, B)
+    recs["mesh_match_ids"] = dict(
+        ms=median_ms(lambda: S._tiles_match_ids(mesh, 0, f_res, t_dev, mh)),
+        plain_ms=median_ms(lambda: S.match_ids_tiles_ref(
+            f_res, t_dev, tiles, n_loc, b_loc, mh), PLAIN_REPEATS),
+        bytes=nbytes + n_tiles * (mh * 8 + 4), ops=ops, err=err, library_ms=None,
+        shape=f"tiles={n_tiles} B={B} rows_per_shard={n_loc} L={L} residual_rows={n_act} "
+              f"max_hits={mh} hits_per_tile={d_got[2].tolist()}")
+
+    # K14 over both legs' tile buffers (the gather is a view on one card)
+    for leg, parts in (("hash", h_got[:3]), ("dense", d_got)):
+        (_d, _j, a_all), (_, _, b_all), (_, _, c_all) = (
+            S._gather_sub(mesh, [p])[0] for p in parts)
+        got = S._combine_launch(a_all, b_all, c_all, mh)
+        err = max_abs_err(got, S.combine_pairs_ref(a_all, b_all, c_all, mh))
+        if leg == "hash":
+            # all of a (its sign marks a valid entry), b only where a
+            # is valid, the counts; the outputs written whole
+            n_valid = int((a_all >= 0).sum())
+            recs["combine_pairs"] = dict(
+                ms=median_ms(lambda: S._combine_launch(a_all, b_all, c_all, mh)),
+                plain_ms=median_ms(lambda: S.combine_pairs_ref(a_all, b_all, c_all, mh),
+                                   PLAIN_REPEATS),
+                bytes=n_tiles * (mh * 4 + 4) + n_valid * 4 + n_dp * (mh * 8 + 4), ops=0,
+                err=err, library_ms=None,
+                shape=f"dp={n_dp} sub={n_sub} max_hits={mh} gathered={n_sub * mh} "
+                      f"valid={n_valid} totals={got[2].tolist()} (the dense leg's too: equal)")
+        elif err:
+            raise AssertionError("K14 differs on the dense leg")
+
+    # the overflow paths: each leg's tiles and their combine at the
+    # largest power of two up to half the leg's largest tile count (the
+    # per-tile truncation, the exact count past mh; the combine's cut)
+    over = {}
+    for leg, cnt in (("hash", h_got[2]), ("dense", d_got[2])):
+        top = int(cnt.max())
+        if top < 2:
+            raise AssertionError(f"the {leg} leg has no tile count to overflow: {cnt.tolist()}")
+        mh_o = 1 << ((top // 2).bit_length() - 1)
+        if leg == "hash":
+            got = S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh_o)
+            max_abs_err(got, S.hash_tiles_ref(meta, slots, t_dev, tiles, nb_loc, nb, b_loc, mh_o))
+            got = got[:3]
+        else:
+            got = S._tiles_match_ids(mesh, 0, f_res, t_dev, mh_o)
+            max_abs_err(got, S.match_ids_tiles_ref(f_res, t_dev, tiles, n_loc, b_loc, mh_o))
+        (_d, _j, a_all), (_, _, b_all), (_, _, c_all) = (
+            S._gather_sub(mesh, [p])[0] for p in got)
+        comb = S._combine_launch(a_all, b_all, c_all, mh_o)
+        max_abs_err(comb, S.combine_pairs_ref(a_all, b_all, c_all, mh_o))
+        over[leg] = dict(max_hits=mh_o, tile_counts=cnt.tolist(), valid_per_block=(
+            a_all >= 0).sum(dim=1).tolist(), totals=comb[2].tolist())
+    if not any(max(v["valid_per_block"]) > v["max_hits"] for v in over.values()):
+        raise AssertionError(f"no combine cut its block at max_hits: {over}")
+    log(f"mesh overflow: K17, K16 and K14 equal to their plain versions below the "
+        f"tile counts {over} [{card}]")
+
+    # K15: the salted one-entry buffers, combined
+    probe = S.make_combine_probe_kernel(mesh, mh)
+    salt = 12345
+
+    def probe_ref():
+        a, b, c = S.combine_probe_ref(salt, tiles, mh, t_dev.ids.device)
+        return S.combine_pairs_ref(a.reshape(n_dp, -1), b.reshape(n_dp, -1),
+                                   c.reshape(n_dp, n_sub), mh)
+
+    got = probe(salt)
+    err = max_abs_err([got[0], got[1], got[2].reshape(-1)], list(probe_ref()))
+    recs["combine_probe"] = dict(
+        ms=median_ms(lambda: probe(salt)), plain_ms=median_ms(probe_ref, PLAIN_REPEATS),
+        # the salted buffers written (a, b, counts), then the combine's
+        # bytes on them: all of a, b at its one valid entry per tile,
+        # the counts, the outputs
+        bytes=n_tiles * (mh * 8 + 4) + n_tiles * (mh * 4 + 8) + n_dp * (mh * 8 + 4),
+        ops=0, err=err, library_ms=None,
+        shape=f"dp={n_dp} sub={n_sub} max_hits={mh} salt={salt}")
+
+    # K13 counts and packed over the full table's tiles
+    counts_k, packed_k, apply_delta = S.make_sharded_kernels(mesh)
+    (f_all,) = dt._dev
+    n_loc = int(f_all.words.shape[0]) // n_sub
+    cnt = counts_k(dt._dev, (t_dev,))
+    cnt_ref = torch.zeros(B, dtype=torch.int32, device=cnt.device)
+    S.dense_tiles_ref(M.FORM_COUNTS, f_all, t_dev, tiles, n_loc, b_loc, cnt_ref)
+    err = max_abs_err([cnt], [cnt_ref])
+    pk = packed_k(dt._dev, (t_dev,))
+    pk_ref = torch.zeros(pk.shape, dtype=torch.int32, device=pk.device)
+    S.dense_tiles_ref(M.FORM_PACKED, f_all, t_dev, tiles, n_loc, b_loc, pk_ref)
+    err_p = max_abs_err([u32(pk)], [pk_ref])
+    nbytes, ops, n_act = dense_work(f_all, B)
+
+    def counts_ref():
+        out = torch.zeros(B, dtype=torch.int32, device=cnt.device)
+        S.dense_tiles_ref(M.FORM_COUNTS, f_all, t_dev, tiles, n_loc, b_loc, out)
+
+    def packed_ref():
+        out = torch.zeros(pk.shape, dtype=torch.int32, device=pk.device)
+        S.dense_tiles_ref(M.FORM_PACKED, f_all, t_dev, tiles, n_loc, b_loc, out)
+
+    shape = f"tiles={n_tiles} B={B} rows_per_shard={n_loc} L={L} active={n_act}"
+    recs["mesh_match_counts"] = dict(
+        ms=median_ms(lambda: counts_k(dt._dev, (t_dev,))),
+        plain_ms=median_ms(counts_ref, PLAIN_REPEATS), bytes=nbytes + 4 * B, ops=ops,
+        err=err, library_ms=None, shape=shape)
+    recs["mesh_match_packed"] = dict(
+        ms=median_ms(lambda: packed_k(dt._dev, (t_dev,))),
+        plain_ms=median_ms(packed_ref, PLAIN_REPEATS),
+        bytes=nbytes + B * n_loc * n_sub // 8, ops=ops, err=err_p, library_ms=None,
+        shape=shape)
+    del pk, pk_ref
+
+    # K13 apply_delta, K18 slot delta and fused sync: two churns' deltas
+    # on copies of the mesh state; the router syncs them for real later
+    churn(router, skel, rng)
+    churn(router, skel, rng)
+    t = router.table
+    ix = router.index
+    rows = pad_pow2_batches(np.unique(np.asarray(t.dirty, np.int32)), dt.DELTA_BATCH)
+    sidx = pad_pow2_batches(np.unique(np.asarray(ix.dirty_slots, np.int32)), dt.DELTA_BATCH)
+    stage = dt._stage
+    rcols = [stage(c) for c in (rows, t.words[rows], t.prefix_len[rows], t.has_hash[rows],
+                                t.root_wild[rows], t.active[rows])]
+    scols = [stage(c) for c in (sidx, ix.slots.fp[sidx], ix.slots.bucket[sidx],
+                                ix.slots.probe[sidx // BUCKET_W])]
+    base_f, base_s = dt._dev, S._slot_cols(dt._dev_slots)
+    host_f = MS.put_filters(t.snapshot(), mesh)
+    sfp, sbkt = MS.pad_slots(np.array(ix.slots.fp), np.array(ix.slots.bucket), n_sub)
+    host_s = (MS.put_sub(sfp, mesh), MS.put_sub(sbkt, mesh),
+              MS.put_sub(np.array(ix.slots.probe), mesh))
+    out = {}
+    for name, run, ref in (
+        ("mesh_apply_delta",
+         lambda f, s: apply_delta(f, *rcols),
+         lambda f, s: S.scatter_owned_rows_ref(f[0], mesh.groups[0].subs, *(c[0] for c in rcols))),
+        ("mesh_slot_delta",
+         lambda f, s: S.make_slot_delta_kernel(mesh)(*s, *scols),
+         lambda f, s: S.scatter_owned_slots_ref(
+             S.SlotArrays(*(x[0] for x in s)), mesh.groups[0].subs, *(c[0] for c in scols))),
+        ("mesh_sync",
+         lambda f, s: S.make_mesh_sync_kernel(mesh)(f, *s, *rcols, *scols),
+         lambda f, s: (S.scatter_owned_rows_ref(f[0], mesh.groups[0].subs, *(c[0] for c in rcols)),
+                       S.scatter_owned_slots_ref(S.SlotArrays(*(x[0] for x in s)),
+                                                 mesh.groups[0].subs, *(c[0] for c in scols)))),
+    ):
+        fa, sa = clone_tree(base_f), clone_tree(base_s)
+        fb, sb = clone_tree(base_f), clone_tree(base_s)
+        run(fa, sa)
+        ref(fb, sb)
+        e = max_abs_err(flat(fa) + flat(sa), flat(fb) + flat(sb))
+        truth_f = flat(host_f) if name != "mesh_slot_delta" else flat(base_f)
+        truth_s = flat(host_s) if name != "mesh_apply_delta" else flat(base_s)
+        e = max(e, max_abs_err(flat(fa) + flat(sa), truth_f + truth_s))
+        out[name] = (e, fa, sa, fb, sb, run, ref)
+    n3, n4 = int(rows.size), int(sidx.size)
+    row_bytes = 2 * n3 * (4 * L + 7) + n3 * 4
+    slot_bytes = n4 * 16 + n4 * 12
+    for name, nbytes, shape in (
+        ("mesh_apply_delta", row_bytes, f"dirty_rows={len(set(t.dirty))} padded={rows.shape}"),
+        ("mesh_slot_delta", slot_bytes,
+         f"dirty_slots={len(set(ix.dirty_slots))} padded={sidx.shape}"),
+        ("mesh_sync", row_bytes + slot_bytes, f"rows {rows.shape} + slots {sidx.shape}"),
+    ):
+        e, fa, sa, fb, sb, run, ref = out[name]
+        recs[name] = dict(
+            ms=median_ms(lambda: run(fa, sa)),
+            plain_ms=median_ms(lambda: ref(fb, sb), PLAIN_REPEATS),
+            bytes=nbytes, ops=0, err=e, library_ms=None,
+            shape=f"shards={n_sub} {shape}")
+    del out, host_f, host_s
+    torch.cuda.synchronize()
+    set_bounds(recs)
+    return recs
+
+
+def oracle_check(router, topics, tag):
+    """Every answer of one begin/finish batch equals the host path's."""
+    got = router.match_filters_finish(router.match_filters_begin(topics))
+    for t, g in zip(topics, got):
+        if sorted(g) != sorted(router.match_filters(t)):
+            raise AssertionError(f"{tag}: {t!r} -> {sorted(g)}, host "
+                                 f"{sorted(router.match_filters(t))}")
+
+
+GROWTH_PATH = ("mesh_apply_delta", "mesh_slot_delta")
+GROWTH_STEP, GROWTH_STEPS = 50, 40  # routes a growth step adds, steps at most
+
+
+def small_mesh_checks(card):
+    """Phase 9 (c): the padded (1, 3) layout with churn, hashed and
+    dense-only (row-only syncs); on the hashed one the growth syncs
+    (counters from zero just before them); the dry run's
+    Broker(mesh=...) publish of 24 rooms and DispatchEngine.warmup() on
+    the (2, 4) mesh; every answer against the host path. Returns (the
+    seconds, the growth syncs' launches)."""
+    import torch
+
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.pubsub import Broker
+    from emqx_tpu_torch.models.router import Router
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.parallel.mesh import shard_rows
+
+    t0 = time.perf_counter()
+    pairs = [(f"a/{i}/+", f"s{i}") for i in range(300)]
+    pairs += [("b/#", "sb"), ("exact/topic/x", "sx"), ("c/+/d", "scd")]
+    topics = [f"a/{i}/z" for i in range(0, 300, 7)] + [
+        "b/q/w", "exact/topic/x", "c/9/d", "no/match/here"]
+    m3 = mesh_of((1, 3))
+    for use_hash_index in (True, False):
+        r = Router(mesh=m3, use_hash_index=use_hash_index)
+        r.add_routes(pairs)
+        r.device_table.sync()
+        if shard_rows(r.table.capacity, m3) * 3 == r.table.capacity:
+            raise AssertionError("the (1, 3) layout does not pad")
+        oracle_check(r, topics, f"mesh(1,3) hash={use_hash_index}")
+        r.delete_routes([(f"a/{i}/+", f"s{i}") for i in range(7)])
+        r.add_routes([(f"p/{i}/+", f"p{i}") for i in range(23)])
+        oracle_check(r, topics + [f"p/{i}/q" for i in range(23)],
+                     f"mesh(1,3) hash={use_hash_index} churn")
+        if not use_hash_index:
+            continue
+        # growth: routes added GROWTH_STEP at a time until the class
+        # index has doubled its buckets alone (slots re-uploaded, rows by
+        # the row-only scatter) and the table its rows alone (rows
+        # re-uploaded, slots by the slot-only scatter)
+        _build.reset_launches()
+        sizes = [(r.table.capacity, r.index.n_buckets)]
+        for step in range(GROWTH_STEPS):
+            r.add_routes([(f"g{step}/{i}/+", f"g{i}") for i in range(GROWTH_STEP)])
+            oracle_check(r, [f"g{step}/{i}/z" for i in range(0, GROWTH_STEP, 5)] + topics,
+                         f"mesh(1,3) growth {step}")
+            if (r.table.capacity, r.index.n_buckets) != sizes[-1]:
+                sizes.append((r.table.capacity, r.index.n_buckets))
+            torch.cuda.synchronize()
+            growth = {n: _build.KERNELS[n].launches for n in GROWTH_PATH}
+            if min(growth.values()) > 0:
+                break
+        if min(growth.values()) <= 0:
+            raise AssertionError(f"the growth syncs skipped a scatter: {growth}, "
+                                 f"(capacity, buckets) {sizes}")
+
+    b = Broker(max_levels=6, mesh=mesh_of(MESH))
+    delivered = {}
+    for i in range(24):
+        s, _ = b.open_session(f"c{i}", True)
+        b.subscribe(s, f"room/{i}/+", SubOpts(qos=0))
+        delivered[f"c{i}"] = []
+        s.outgoing_sink = delivered[f"c{i}"].extend
+    s_all, _ = b.open_session("watch", True)
+    b.subscribe(s_all, "room/#", SubOpts(qos=1))
+    delivered["watch"] = []
+    s_all.outgoing_sink = delivered["watch"].extend
+    counts = b.publish_batch([Message(topic=f"room/{i}/t", payload=b"x", qos=1)
+                              for i in range(24)])
+    if counts != [2] * 24 or len(delivered["watch"]) != 24 or any(
+            len(delivered[f"c{i}"]) != 1 for i in range(24)):
+        raise AssertionError(f"mesh broker delivered {counts}")
+    info = b.enable_dispatch_engine(queue_depth=64).warmup()
+    if info.get("mesh_shards") != MESH[1]:
+        raise AssertionError(f"engine warm-up on the mesh: {info}")
+
+    log(f"mesh small checks: (1,3) padded layout with churn (hash and dense-only), "
+        f"growth syncs (capacity, buckets) {sizes} launches {growth}, "
+        f"Broker(mesh) 24 rooms {sum(counts)} deliveries, engine warm-up {info} [{card}]")
+    return time.perf_counter() - t0, growth
+
+
+MESH_PATH = ("mesh_match_ids_hash", "mesh_match_ids", "combine_pairs", "mesh_sync")
+
+
+def mesh_phase(rng, card):
+    """Phase 9. Returns (kernel records, launches in the main path's run)."""
+    import gc
+
+    import torch
+
+    from emqx_tpu_torch.models.router import Router
+    from emqx_tpu_torch.ops import _build
+
+    stages = {}
+    t_phase = time.perf_counter()
+    mesh = mesh_of(MESH)
+    router = Router(max_levels=16, mesh=mesh)
+    skel, exact, host_s = add_route_set(router, rng)
+    stages["set-up"] = time.perf_counter() - t_phase
+    log(f"mesh: {mesh} routes={router.stats()} residual_rows="
+        f"{len(router.index.residual_rows)} host_build_s={host_s:.3f} [{card}]")
+
+    t0 = time.perf_counter()
+    recs = check_dense_forms(router, publish_batch(rng, skel, exact))
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages["dense forms"] = time.perf_counter() - t0
+
+    # the main path: sync and warm-up, then counters from zero just
+    # before the timed batches
+    t0 = time.perf_counter()
+    router.device_table.sync()
+    warmed = router.warmup_shapes(max_batch=BATCH)
+    warm_s = time.perf_counter() - t0
+    _build.reset_launches()
+    rate, esc, served, busy, moved = serve(router, skel, exact, rng, N_MESH_BATCHES)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    stages["serve"] = time.perf_counter() - t0
+    c = router.telemetry.counters
+    h = router.telemetry.family_hist.get("mesh_combine_seconds")
+    log(f"mesh slice: {served} topics in {N_MESH_BATCHES} batches on a {MESH} mesh, "
+        f"{rate:.1f} topics/s (begin+finish wall, syncs included), "
+        f"overflow_escalations={esc}, block_max_hits={router.device_table._block_mh()}, "
+        f"device batches {c.get('dispatch_batches_total', 0)} against host answers "
+        f"(amb fallbacks) {c.get('host_fallback_total', 0)}, "
+        f"topics_with_routes_changed_in_flight={moved}, warmup_shapes={warmed} in "
+        f"{warm_s:.3f} s, mesh_combine_seconds p50="
+        f"{1e3 * h.percentile(50) if h else 0:.4f} ms, launches={launches} [{card}]")
+    missing = [n for n in MESH_PATH if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"mesh kernels never launched on the main path: {missing}")
+    if not moved:
+        raise AssertionError("no topic saw a route change in flight")
+
+    t0 = time.perf_counter()
+    recs.update(check_mesh_kernels(router, skel, exact, rng, card))
+    oracle_check(router, publish_batch(rng, skel, exact)[:256], "mesh after the checks")
+    # escalation: one batch with the block capacity forced below both
+    # legs' block totals, every answer against the host path
+    dt = router.device_table
+    dt.default_mh, dt._mh_floor = ESCALATION_MH, 0
+    c = router.telemetry.counters
+    before = {k: c.get(k, 0) for k in ("escalations_total", "hash_overflow_retries_total")}
+    oracle_check(router, publish_batch(rng, skel, exact), "mesh escalation")
+    esc = {k: c.get(k, 0) - v for k, v in before.items()}
+    if min(esc.values()) < 1:
+        raise AssertionError(f"a leg did not escalate past max_hits={ESCALATION_MH}: {esc}")
+    log(f"mesh escalation: block capacity {ESCALATION_MH} -> floor {dt._mh_floor}, "
+        f"dense leg escalations {esc['escalations_total']}, hash leg "
+        f"{esc['hash_overflow_retries_total']}, every answer equal to the host path [{card}]")
+    stages["kernel checks"] = time.perf_counter() - t0
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages["small checks"], growth = small_mesh_checks(card)
+    log(f"phase 9: {time.perf_counter() - t_phase:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + f") [{card}]")
+    return recs, dict(launches, **growth)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1721,16 +2284,23 @@ def main(argv=None) -> int:
         np.random.default_rng(args.seed + 2), card)
     lap(8)
 
+    # phase 9: the sub-sharded mesh routing path
+    m_recs, m_launches = mesh_phase(np.random.default_rng(args.seed + 3), card)
+    recs.update(m_recs)
+    lap(9)
+
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
     for name in b_recs:
         path_launches[name] = b_launches[name]
+    for name in m_recs:
+        path_launches[name] = m_launches[name]
     for name, r in recs.items():
         log(f"kernel {name}: ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} equal=True [{r['shape']}] [{card}]")
 
-    # phase 9: summary
+    # phase 10: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -1752,6 +2322,30 @@ def main(argv=None) -> int:
                           "emqx_tpu/ops/transfer.py:150"),
         "retained_probe": ("emqx_tpu_torch/ops/csrc/retained_probe.cu",
                            "emqx_tpu/ops/retained.py:81"),
+        "match_dense": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+                        "emqx_tpu/ops/match.py:120"),
+        "match_packed": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+                         "emqx_tpu/ops/match.py:129"),
+        "match_counts": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+                         "emqx_tpu/ops/match.py:214"),
+        "mesh_match_counts": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+                              "emqx_tpu/parallel/sharded_match.py:58"),
+        "mesh_match_packed": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+                              "emqx_tpu/parallel/sharded_match.py:58"),
+        "mesh_apply_delta": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                             "emqx_tpu/parallel/sharded_match.py:58"),
+        "combine_pairs": ("emqx_tpu_torch/ops/csrc/combine.cu",
+                          "emqx_tpu/parallel/sharded_match.py:146"),
+        "combine_probe": ("emqx_tpu_torch/ops/csrc/combine.cu",
+                          "emqx_tpu/parallel/sharded_match.py:165"),
+        "mesh_match_ids": ("emqx_tpu_torch/ops/csrc/dense_match.cu",
+                           "emqx_tpu/parallel/sharded_match.py:202"),
+        "mesh_match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
+                                "emqx_tpu/parallel/sharded_match.py:260"),
+        "mesh_slot_delta": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                            "emqx_tpu/parallel/sharded_match.py:439"),
+        "mesh_sync": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                      "emqx_tpu/parallel/sharded_match.py:493"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

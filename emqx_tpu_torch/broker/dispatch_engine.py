@@ -215,6 +215,9 @@ class DispatchEngine:
         self.transfer_chunk_kb = chunk_kb
         info["transfer_chunk_kb"] = chunk_kb
         info["aot_shapes"] = router.warmup_shapes(self.queue_depth)
+        if router.mesh is not None:
+            # the mesh's serve state at readiness: its shard count
+            info["mesh_shards"] = router.device_table.n_shards
         if not self.warmed:
             gc.collect()
             gc.freeze()

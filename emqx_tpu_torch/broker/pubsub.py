@@ -73,11 +73,14 @@ class Broker:
         shared_strategy: str = "random",
         hooks: Optional[Hooks] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         """`device` goes to the Router and the Retainer: None means the
         CUDA card (raising when none is present); "cpu" runs every
-        kernel's plain version on the host."""
-        self.router = Router(max_levels=max_levels, device=device)
+        kernel's plain version on the host. With `mesh` the router's
+        table is sub-sharded across it (Router(mesh=...)) and the
+        retainer sits on the mesh's first device."""
+        self.router = Router(max_levels=max_levels, device=device, mesh=mesh)
         self.shared = SharedSubs(strategy=shared_strategy)
         self.retainer = Retainer(device=self.router.device)
         self.hooks = hooks or Hooks()

@@ -11,11 +11,14 @@ read, so both implementations can compute on identical state.
 (`DestStore.seg_off/seg_len/edge_client/edge_opts`) that the fanout
 kernels read, and `retained_state_from_numpy` for a retained index's
 cuckoo table (`RetainedIndex._slots`) that K8 reads.
+`mesh_state_from_numpy` lays the same route-table arrays onto a port
+mesh (parallel/mesh.py) with the reference ShardedDeviceTable's padding:
+trailing inert rows, bucket-aligned inert slots.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ import torch
 from .device import DeviceLike, resolve, to_device
 from .ops.hash_index import ClassMeta, SlotArrays
 from .ops.table import EncodedFilters
+from .parallel import mesh as mesh_mod
 
 
 class DeviceState(NamedTuple):
@@ -86,4 +90,35 @@ def retained_state_from_numpy(probe, fp, bucket, device: DeviceLike = None) -> R
         to_device(np.asarray(probe, np.uint32), dev),
         to_device(np.asarray(fp, np.uint32), dev),
         to_device(np.asarray(bucket, np.int32), dev),
+    )
+
+
+class MeshState(NamedTuple):
+    """Device state of a mesh table, one entry per mesh group (the
+    distinct devices, parallel/mesh.py): sub-sharded filters, slots and
+    residual mask; replicated class meta."""
+
+    filters: Tuple[EncodedFilters, ...]
+    meta: Tuple[ClassMeta, ...]
+    slots: Tuple[SlotArrays, ...]
+    residual: Tuple[torch.Tensor, ...]
+
+
+def mesh_state_from_numpy(filters, class_meta, slots, residual_mask, mesh) -> MeshState:
+    """Host arrays (as for device_state_from_numpy; the slots' fp and
+    bucket flat over all buckets) -> a MeshState on `mesh`, padded as
+    the reference's ShardedDeviceTable pads: filter rows and the
+    residual mask trail-padded to a multiple of n_sub with inert zeros,
+    slots padded to whole buckets per shard (fp 0, bucket -1). Copies."""
+    n_sub = mesh.shape[mesh_mod.SUB_AXIS]
+    fp, bucket, probe = (np.asarray(a) for a in slots)
+    fp, bucket = mesh_mod.pad_slots(fp.astype(np.uint32), bucket.astype(np.int32), n_sub)
+    slot_cols = (mesh_mod.put_sub(fp, mesh), mesh_mod.put_sub(bucket, mesh),
+                 mesh_mod.put_sub(probe.astype(np.uint32), mesh))
+    meta_cols = [mesh_mod.put_repl(np.asarray(a), mesh) for a in class_meta]
+    return MeshState(
+        mesh_mod.put_filters(EncodedFilters(*(np.asarray(a) for a in filters)), mesh),
+        tuple(ClassMeta(*c) for c in zip(*meta_cols)),
+        tuple(SlotArrays(*c) for c in zip(*slot_cols)),
+        mesh_mod.put_sub(np.asarray(residual_mask, bool), mesh),
     )

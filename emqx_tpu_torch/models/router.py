@@ -1,6 +1,6 @@
 """The route table: Topic/Filter -> destinations, with a device-resident
 wildcard matcher kept coherent by batched incremental sync
-(counterpart of emqx_tpu/models/router.py, single device).
+(counterpart of emqx_tpu/models/router.py).
 
 Reproduces the reference v2 routing split (apps/emqx/src/emqx_router.erl):
   * exact-topic routes in a plain host hash table (?ROUTE_TAB), which
@@ -20,8 +20,11 @@ Destinations live twice: in the host dest dicts (the oracle and the
 single-publish path) and in a CSR destination store fed by the same
 route transitions (ops/fanout.py DestStore), mirrored on the card so a
 matched filter set resolves to its deduped delivery plan through kernel
-K5 (`resolve_fanout_begin/finish`). The mesh, quarantine, chaos seams
-and the native churn core of the reference are not part of this port.
+K5 (`resolve_fanout_begin/finish`). With a mesh
+(`Router(mesh=...)`, parallel/mesh.py) the table is sub-sharded across
+it (parallel/sharded_match.py ShardedDeviceTable) behind the same
+surface. The shard failure domain, quarantine, chaos seams and the
+native churn core of the reference are not part of this port.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ..ops.table import (
     next_pow2,
     pad_pow2_batches,
 )
+from ..parallel.sharded_match import ShardedDeviceTable
 
 Dest = Hashable
 
@@ -457,9 +461,16 @@ class Router:
         device: DeviceLike = None,
         use_hash_index: bool = True,
         telemetry=None,
+        mesh=None,
     ) -> None:
         """`device` None means CUDA (raising when no card is present);
-        pass "cpu" to run the kernels' plain versions on the host."""
+        pass "cpu" to run the kernels' plain versions on the host.
+
+        With `mesh` (parallel/mesh.py Mesh) the wildcard table lives
+        SUB-SHARDED across the mesh (ShardedDeviceTable): the hash leg
+        runs with the cuckoo buckets split over sub, the dense kernel
+        serves only residual rows, as on one device, and `device` is
+        not read."""
         self.max_levels = max_levels
         # exact topics: dest store (host hash for the single-publish
         # cut-through) + device rows for the batched path
@@ -495,10 +506,16 @@ class Router:
             telemetry if telemetry is not None else KernelTelemetry()
         )
         self.index = ClassIndex(max_levels) if use_hash_index else None
-        self.device_table = DeviceTable(
-            self.table, device=device, index=self.index,
-            telemetry=self.telemetry,
-        )
+        self.mesh = mesh
+        if mesh is not None:
+            self.device_table = ShardedDeviceTable(
+                self.table, mesh, index=self.index, telemetry=self.telemetry,
+            )
+        else:
+            self.device_table = DeviceTable(
+                self.table, device=device, index=self.index,
+                telemetry=self.telemetry,
+            )
         # CSR destination store — the resolve half of the publish path
         # (ops/fanout.py): one segment of (client, packed subopts)
         # edges per table-resident filter row, fed by the same route
@@ -1253,6 +1270,7 @@ class Router:
         b = 1
         cap = next_pow2(max(1, max_batch))
         ix = self.index
+        mesh = self.mesh is not None
         while b <= cap:
             enc = match_ops.encode_topics(
                 self.table.vocab, (), self.max_levels, pad_to=b
@@ -1264,8 +1282,14 @@ class Router:
                     dt.match_ids_finish(dt.match_ids_begin(enc, residual=True))
             else:
                 dt.match_ids_finish(dt.match_ids_begin(enc))
+            if mesh:
+                # the first escalation step (2x capacity) per batch shape
+                warmed += dt.warmup_escalated(enc)
             warmed += 1
             b *= 2
+        if mesh:
+            # the churn syncs' row / slot / fused scatters
+            warmed += dt.warmup_deltas()
         tel = self.telemetry
         if tel.enabled and warmed:
             tel.count("aot_warmups_total", warmed)

@@ -19,6 +19,15 @@ The Router/DeviceTable hot path reports into one always-on collector:
     ambiguity host fallbacks, rows the pattern-class index couldn't
     class (residual).
 
+The mesh path (parallel/sharded_match.py) reports the residual wait of
+its finish halves as the family `mesh_combine_seconds`
+(observe_family), the last churn sync's row+slot batch as the
+`mesh_sync_batch_rows` gauge, the layout as `mesh_shards`, and
+per-shard host->device rows as the labeled counter family
+`mesh_shard_transfer_rows_total{shard=...}`; its launch shapes under the
+keys `mesh_match_ids`, `mesh_match_ids_hash`, `apply_delta`,
+`mesh_slot_delta` and `mesh_sync`.
+
 `NullKernelTelemetry` keeps the hot path branch-free when disabled:
 every record method is a bound no-op and `clock` returns 0.0 without a
 syscall, so instrumented code never tests a flag.
@@ -120,6 +129,8 @@ class KernelTelemetry:
         # transfer's `transfer_seconds`)
         self.family_hist: Dict[str, StreamingHistogram] = {}
         self.counters: Dict[str, int] = {}
+        # labeled counter families: name -> {((k, v), ...) -> count}
+        self.labeled_counters: Dict[str, Dict[Tuple[Tuple[str, str], ...], int]] = {}
         self.gauges: Dict[str, float] = {}
         self._shape_keys: Dict[str, Set[tuple]] = {}
         self._trace_seq = 0
@@ -147,6 +158,16 @@ class KernelTelemetry:
 
     def count(self, name: str, n: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
+
+    def count_labeled(self, name: str, labels: Dict[str, str], n: int = 1) -> None:
+        """Increment one series of the labeled counter family `name`
+        (e.g. mesh_shard_transfer_rows_total{shard}): two dict probes and
+        a tuple build."""
+        fam = self.labeled_counters.get(name)
+        if fam is None:
+            fam = self.labeled_counters[name] = {}
+        key = tuple(sorted(labels.items()))
+        fam[key] = fam.get(key, 0) + n
 
     def set_gauge(self, name: str, value: float) -> None:
         self.gauges[name] = value
@@ -197,14 +218,11 @@ class KernelTelemetry:
         gauges. Called after sync when device state changed; all O(1)
         attribute reads plus a handful of nbytes sums."""
         table = dtable.table
-        hbm = 0
-        for arrs in (
-            dtable._dev, dtable._dev_meta, dtable._dev_slots,
-        ):
-            if arrs is not None:
-                hbm += sum(int(a.nbytes) for a in arrs)
-        if dtable._dev_residual is not None:
-            hbm += int(dtable._dev_residual.nbytes)
+        hbm = sum(
+            _nbytes(a) for a in (
+                dtable._dev, dtable._dev_meta, dtable._dev_slots, dtable._dev_residual,
+            )
+        )
         self.set_gauge("device_table_bytes", hbm)
         self.set_gauge("device_table_capacity", table.capacity)
         self.set_gauge("device_table_rows", len(table))
@@ -239,6 +257,16 @@ class KernelTelemetry:
             self.tracer.finish(span)
 
 
+def _nbytes(x) -> int:
+    """Bytes of a tensor or of nested tuples of tensors (a mesh table
+    holds one tuple per device); 0 for None."""
+    if x is None:
+        return 0
+    if isinstance(x, tuple):
+        return sum(_nbytes(a) for a in x)
+    return int(x.nbytes)
+
+
 class NullKernelTelemetry:
     """Branch-free disabled collector: instrumented code calls the same
     methods and multiplies out to nothing — no flag tests on the hot
@@ -261,6 +289,9 @@ class NullKernelTelemetry:
         pass
 
     def count(self, name, n=1) -> None:
+        pass
+
+    def count_labeled(self, name, labels, n=1) -> None:
         pass
 
     def set_gauge(self, name, value) -> None:

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 
 
 class KernelBuildError(RuntimeError):

@@ -27,7 +27,9 @@ struct LaneVerdict {
 };
 
 // The 2 * BUCKET_W lanes are bytes 0-3 of w1 (bucket b1), then bytes 0-3
-// of w2 (b2). l1 is the first lane whose byte equals the probe byte, l2
+// of w2 (b2). A mesh shard (K17) passes 0 as the word of a bucket it does
+// not own: no probe byte is 0, so those lanes never byte-match, which is
+// the reference's per-bucket lane validity. l1 is the first lane whose byte equals the probe byte, l2
 // the first other one; with no such lane each is lane 0 (argmax's rule
 // in the JAX programs). Only l1 and l2 have their full fingerprint read.
 __device__ __forceinline__ LaneVerdict verify_lanes(

@@ -1,6 +1,7 @@
-// Shared pieces of the compacting match kernels (hash_match.cu,
-// dense_match.cu): the single-block exclusive scan that turns per-block
-// match counts into write offsets, and the output fill.
+// Shared pieces of the compacting kernels (hash_match.cu,
+// dense_match.cu, combine.cu): the single-block exclusive scan that turns
+// per-block match counts into write offsets, the output fill, and the
+// per-tile counts of a mesh launch.
 //
 // Both compacting kernels run as count pass -> scan -> write pass. The
 // TPU programs compacted with jnp.nonzero inside one XLA program; on a
@@ -58,6 +59,18 @@ __global__ void fill_results(int* __restrict__ a, int* __restrict__ b, int n,
     b[i] = -1;
   }
   if (zero != nullptr && i == 0) *zero = 0;
+}
+
+// A mesh launch compacts each of its n_tiles tiles on its own: a tile's
+// segments are the seg_tile consecutive ones from k * seg_tile, so its
+// exact count is the span of their offsets (offs from the scan above,
+// total its grand total).
+__global__ void tile_totals(const int* __restrict__ offs, const int* __restrict__ total,
+                            int seg_tile, int n_tiles, int* __restrict__ cnt) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n_tiles) return;
+  const int hi = k + 1 < n_tiles ? offs[(k + 1) * seg_tile] : *total;
+  cnt[k] = hi - offs[k * seg_tile];
 }
 
 static inline int ceil_div(long long a, long long b) {

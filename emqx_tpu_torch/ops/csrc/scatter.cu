@@ -122,3 +122,156 @@ extern "C" int emqx_scatter_cols(int* a, int* b, int n_dst, const int* idx,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// --- the mesh's owned scatters ------------------------------------------------
+//
+// K13's `apply_delta` (emqx_tpu/parallel/sharded_match.py
+// `make_sharded_kernels`), K18's `make_slot_delta_kernel` and
+// `make_mesh_sync_kernel`: every shard receives the same [nb, K] batch of
+// GLOBAL ids and writes only what it owns -- filter row r at r - s *
+// local_n, cuckoo slot i at i - s * n_loc, probe word i / 4 at i / 4 - s *
+// nb_loc, for shard s -- and skips every other id (the reference's
+// mode='drop' with its clamp of negative indices; here an index below 0
+// or past the shard is simply never written). A device holds the shards
+// subs[0..n_subs) back to back, so shard subs[k] starts at k * local_n
+// (rows), k * n_loc (slots) and k * nb_loc (probe words); grid.y walks
+// them. Padding repeats the last dirty id with the same values, and a
+// probe word's writers (the slots of one bucket) carry the same
+// host-merged word, so the write order does not change the result.
+// Bounded like K3/K4: a sync moves a few hundred KB, so the launch
+// dominates.
+
+namespace {
+
+__device__ __forceinline__ void owned_row(int* __restrict__ words, int* __restrict__ plen,
+                                          uint8_t* __restrict__ has_hash,
+                                          uint8_t* __restrict__ root_wild,
+                                          uint8_t* __restrict__ active, int local_n, int L,
+                                          int s, int k, const int* __restrict__ rows,
+                                          const int* __restrict__ w,
+                                          const int* __restrict__ p,
+                                          const uint8_t* __restrict__ h,
+                                          const uint8_t* __restrict__ rw,
+                                          const uint8_t* __restrict__ act, long long q) {
+  const long long e = q / L;
+  const int i = static_cast<int>(q - e * L);
+  const long long local = static_cast<long long>(rows[e]) - static_cast<long long>(s) * local_n;
+  if (local < 0 || local >= local_n) return;
+  const long long dst = static_cast<long long>(k) * local_n + local;
+  words[dst * L + i] = w[q];
+  if (i == 0) {
+    plen[dst] = p[e];
+    has_hash[dst] = h[e];
+    root_wild[dst] = rw[e];
+    active[dst] = act[e];
+  }
+}
+
+__device__ __forceinline__ void owned_slot(uint32_t* __restrict__ fp,
+                                           int* __restrict__ bucket,
+                                           uint32_t* __restrict__ probe, int n_loc,
+                                           int nb_loc, int s, int k,
+                                           const int* __restrict__ idx,
+                                           const uint32_t* __restrict__ f,
+                                           const int* __restrict__ b,
+                                           const uint32_t* __restrict__ pw, long long e) {
+  const int i = idx[e];
+  if (i < 0) return;
+  const long long ls = static_cast<long long>(i) - static_cast<long long>(s) * n_loc;
+  if (ls >= 0 && ls < n_loc) {
+    fp[static_cast<long long>(k) * n_loc + ls] = f[e];
+    bucket[static_cast<long long>(k) * n_loc + ls] = b[e];
+  }
+  const long long lb = static_cast<long long>(i / 4) - static_cast<long long>(s) * nb_loc;
+  if (lb >= 0 && lb < nb_loc) probe[static_cast<long long>(k) * nb_loc + lb] = pw[e];
+}
+
+__global__ void mesh_rows_k(int* words, int* plen, uint8_t* has_hash, uint8_t* root_wild,
+                            uint8_t* active, int local_n, int L, const int* subs,
+                            const int* rows, const int* w, const int* p, const uint8_t* h,
+                            const uint8_t* rw, const uint8_t* act, long long n) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (q >= n * L) return;
+  owned_row(words, plen, has_hash, root_wild, active, local_n, L, subs[blockIdx.y],
+            blockIdx.y, rows, w, p, h, rw, act, q);
+}
+
+__global__ void mesh_slots_k(uint32_t* fp, int* bucket, uint32_t* probe, int n_loc,
+                             int nb_loc, const int* subs, const int* idx,
+                             const uint32_t* f, const int* b, const uint32_t* pw,
+                             long long n) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  owned_slot(fp, bucket, probe, n_loc, nb_loc, subs[blockIdx.y], blockIdx.y, idx, f, b,
+             pw, e);
+}
+
+// one launch for both streams: threads [0, n_rows * L) write rows, the
+// next n_slots threads write slots
+__global__ void mesh_sync_k(int* words, int* plen, uint8_t* has_hash, uint8_t* root_wild,
+                            uint8_t* active, int local_n, int L, uint32_t* fp,
+                            int* bucket, uint32_t* probe, int n_loc, int nb_loc,
+                            const int* subs, const int* rows, const int* w, const int* p,
+                            const uint8_t* h, const uint8_t* rw, const uint8_t* act,
+                            long long n_rows, const int* idx, const uint32_t* f,
+                            const int* b, const uint32_t* pw, long long n_slots) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int s = subs[blockIdx.y], k = blockIdx.y;
+  const long long nr = n_rows * L;
+  if (q < nr) {
+    owned_row(words, plen, has_hash, root_wild, active, local_n, L, s, k, rows, w, p, h,
+              rw, act, q);
+  } else if (q < nr + n_slots) {
+    owned_slot(fp, bucket, probe, n_loc, nb_loc, s, k, idx, f, b, pw, q - nr);
+  }
+}
+
+inline int blocks_of(long long n) { return static_cast<int>((n + 255) / 256); }
+
+}  // namespace
+
+// K13 apply_delta: n = nb * K row entries. Returns cudaGetLastError().
+extern "C" int emqx_mesh_scatter_rows(int* words, int* plen, uint8_t* has_hash,
+                                      uint8_t* root_wild, uint8_t* active, int local_n,
+                                      int L, const int* subs, int n_subs,
+                                      const int* rows, const int* w, const int* p,
+                                      const uint8_t* h, const uint8_t* rw,
+                                      const uint8_t* act, long long n,
+                                      cudaStream_t stream) {
+  if (n > 0)
+    mesh_rows_k<<<dim3(blocks_of(n * L), n_subs), 256, 0, stream>>>(
+        words, plen, has_hash, root_wild, active, local_n, L, subs, rows, w, p, h, rw,
+        act, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18 slot delta: n = nb * K slot entries. Returns cudaGetLastError().
+extern "C" int emqx_mesh_scatter_slots(uint32_t* fp, int* bucket, uint32_t* probe,
+                                       int n_loc, int nb_loc, const int* subs,
+                                       int n_subs, const int* idx, const uint32_t* f,
+                                       const int* b, const uint32_t* pw, long long n,
+                                       cudaStream_t stream) {
+  if (n > 0)
+    mesh_slots_k<<<dim3(blocks_of(n), n_subs), 256, 0, stream>>>(
+        fp, bucket, probe, n_loc, nb_loc, subs, idx, f, b, pw, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18 fused sync: a row batch and a slot batch in one launch. Returns
+// cudaGetLastError().
+extern "C" int emqx_mesh_sync(int* words, int* plen, uint8_t* has_hash,
+                              uint8_t* root_wild, uint8_t* active, int local_n, int L,
+                              uint32_t* fp, int* bucket, uint32_t* probe, int n_loc,
+                              int nb_loc, const int* subs, int n_subs, const int* rows,
+                              const int* w, const int* p, const uint8_t* h,
+                              const uint8_t* rw, const uint8_t* act, long long n_rows,
+                              const int* idx, const uint32_t* f, const int* b,
+                              const uint32_t* pw, long long n_slots,
+                              cudaStream_t stream) {
+  const long long n = n_rows * L + n_slots;
+  if (n > 0)
+    mesh_sync_k<<<dim3(blocks_of(n), n_subs), 256, 0, stream>>>(
+        words, plen, has_hash, root_wild, active, local_n, L, fp, bucket, probe, n_loc,
+        nb_loc, subs, rows, w, p, h, rw, act, n_rows, idx, f, b, pw, n_slots);
+  return static_cast<int>(cudaGetLastError());
+}

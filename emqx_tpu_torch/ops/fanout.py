@@ -43,6 +43,7 @@ import torch
 
 from ..device import DeviceLike, resolve, to_device
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
+from ..parallel.mesh import primary_device
 from . import transfer as transfer_ops
 from ._build import I, P, CudaKernel
 from .match import check_tensor
@@ -703,10 +704,16 @@ class FanoutDeviceState:
     pow2-padded dirty scatter (K6/K7, in place) otherwise, and the plan
     kernel (K5) launched in begin() with its device->host copy started
     at once, so the pipelined dispatch overlaps the resolve with the
-    match fetch."""
+    match fetch. With `mesh` it serves a ShardedDeviceTable: the mirror
+    lives on the mesh's primary device, where K5 runs (no other device
+    reads it)."""
 
-    def __init__(self, store: DestStore, device: DeviceLike = None, telemetry=None):
+    def __init__(
+        self, store: DestStore, device: DeviceLike = None, mesh=None, telemetry=None
+    ):
         self.store = store
+        if mesh is not None:
+            device = primary_device(mesh)
         self.device = resolve(device)
         self.telemetry = telemetry if telemetry is not None else _NULL_TEL
         self._seg_off: Optional[torch.Tensor] = None

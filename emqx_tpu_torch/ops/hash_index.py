@@ -874,14 +874,9 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).to(torch.int64) & M32
 
 
-def match_ids_hash_ref(
-    meta: ClassMeta,
-    slots: SlotArrays,
-    topics: EncodedTopics,
-    max_hits: int = 4096,
-):
-    """Plain PyTorch version of K1, on any device: (ti int32 [max_hits],
-    bi int32 [max_hits], total int32 scalar, amb int32 scalar)."""
+def class_hash_ref(meta: ClassMeta, topics: EncodedTopics):
+    """The eligibility and the h1/fp mix of every (topic, class) pair:
+    (elig bool [B, C], h1, fp int64 [B, C] holding uint32 values)."""
     dev = topics.ids.device
     ids = topics.ids.to(torch.int64)
     b, max_levels = ids.shape
@@ -903,6 +898,62 @@ def match_ids_hash_ref(
         x = torch.where(lit[None, :], ids[:, i:i + 1] + 1, 0)
         h1 = ((h1 ^ x) * _H1_MUL) & M32
         fp = ((fp ^ ((x * _FP_XOR) & M32)) * _FP_MUL) & M32
+    return elig, h1, fp
+
+
+def has_byte_ref(w: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
+    """Whether any byte of each probe word w equals its probe byte
+    (rep = the byte repeated four times; int64 holding uint32)."""
+    x = w ^ rep
+    return (((x - 0x01010101) & M32) & (~x & M32) & 0x80808080) != 0
+
+
+def verify_lanes_ref(pb1, pb2, pfp, pw1, pw2, slot_fp, slot_bucket):
+    """Phase 2 of the cuckoo probe over flagged pairs (csrc/cuckoo.cuh
+    `verify_lanes`): the lane-byte screen of both probe words, the full
+    fingerprint of the first and second byte-matching lanes (lane 0 when
+    absent, argmax's rule), the winner's bucket id. pb1/pb2 are the
+    buckets' positions in slot_fp/slot_bucket (clamped into range: a
+    lane is read only when it byte-matched). Returns (ok, bucket id,
+    amb) per pair."""
+    pp8 = torch.clamp_min(pfp >> 24, 1)
+    lid = torch.arange(2 * BUCKET_W, dtype=torch.int64, device=pfp.device)
+    shift = 8 * (lid & 3)
+    lane_byte = torch.where(
+        lid[None, :] < BUCKET_W, pw1[:, None] >> shift, pw2[:, None] >> shift
+    ) & 0xFF
+    bm = lane_byte == pp8[:, None]
+    nbm = bm.sum(1)
+    l1 = torch.argmax(bm.to(torch.int32), 1)  # first byte-matching lane
+    bm2 = bm & (lid[None, :] != l1[:, None])
+    l2 = torch.argmax(bm2.to(torch.int32), 1)  # second (0 when absent)
+    last = slot_fp.shape[0] - 1
+
+    def slot_of(ln):
+        s = torch.where(ln < BUCKET_W, pb1, pb2) * BUCKET_W + (ln & 3)
+        return s.clamp(0, last)
+
+    s1 = slot_of(l1)
+    s2 = slot_of(l2)
+    fps = _u32(slot_fp)
+    ok1 = (nbm >= 1) & (fps[s1] == pfp)
+    ok2 = (nbm >= 2) & (fps[s2] == pfp)
+    nmatch = ok1.to(torch.int32) + ok2.to(torch.int32)
+    g = slot_bucket[torch.where(ok1, s1, s2)].to(torch.int64)
+    return (nmatch > 0) & (g >= 0), g, (nmatch > 1) | (nbm > 2)
+
+
+def match_ids_hash_ref(
+    meta: ClassMeta,
+    slots: SlotArrays,
+    topics: EncodedTopics,
+    max_hits: int = 4096,
+):
+    """Plain version of K1, on any device: (ti int32 [max_hits],
+    bi int32 [max_hits], total int32 scalar, amb int32 scalar)."""
+    dev = topics.ids.device
+    c = meta.plen.shape[0]
+    elig, h1, fp = class_hash_ref(meta, topics)
     mask = slots.probe.shape[0] - 1
     b1 = h1 & mask
     b2 = b1 ^ ((((fp | 1) * _ALT_MUL) & M32) & mask)
@@ -911,12 +962,7 @@ def match_ids_hash_ref(
     probe = _u32(slots.probe)
     w1 = probe[b1]
     w2 = probe[b2]
-
-    def has_byte(w):
-        x = w ^ rep
-        return (((x - 0x01010101) & M32) & (~x & M32) & 0x80808080) != 0
-
-    pairhit = elig & (has_byte(w1) | has_byte(w2))
+    pairhit = elig & (has_byte_ref(w1, rep) | has_byte_ref(w2, rep))
     total = int(pairhit.sum())
     pflat = torch.nonzero(pairhit.reshape(-1)).squeeze(1)[:max_hits]
     h = pflat.numel()
@@ -924,37 +970,13 @@ def match_ids_hash_ref(
     bi = torch.full((max_hits,), -1, dtype=torch.int32, device=dev)
     amb = 0
     if h:
-        pb1 = b1.reshape(-1)[pflat]
-        pb2 = b2.reshape(-1)[pflat]
-        pfp = fp.reshape(-1)[pflat]
-        pw1 = w1.reshape(-1)[pflat]
-        pw2 = w2.reshape(-1)[pflat]
-        pp8 = torch.clamp_min(pfp >> 24, 1)
-        lid = torch.arange(2 * BUCKET_W, dtype=torch.int64, device=dev)
-        shift = 8 * (lid & 3)
-        lane_byte = torch.where(
-            lid[None, :] < BUCKET_W, pw1[:, None] >> shift, pw2[:, None] >> shift
-        ) & 0xFF
-        bm = lane_byte == pp8[:, None]
-        nbm = bm.sum(1)
-        l1 = torch.argmax(bm.to(torch.int32), 1)  # first byte-matching lane
-        bm2 = bm & (lid[None, :] != l1[:, None])
-        l2 = torch.argmax(bm2.to(torch.int32), 1)  # second (0 when absent)
-
-        def slot_of(ln):
-            return torch.where(ln < BUCKET_W, pb1, pb2) * BUCKET_W + (ln & 3)
-
-        s1 = slot_of(l1)
-        s2 = slot_of(l2)
-        fps = _u32(slots.fp)
-        ok1 = (nbm >= 1) & (fps[s1] == pfp)
-        ok2 = (nbm >= 2) & (fps[s2] == pfp)
-        nmatch = ok1.to(torch.int32) + ok2.to(torch.int32)
-        g = slots.bucket[torch.where(ok1, s1, s2)].to(torch.int64)
-        ok = (nmatch > 0) & (g >= 0)
+        ok, g, amb_flag = verify_lanes_ref(
+            b1.reshape(-1)[pflat], b2.reshape(-1)[pflat], fp.reshape(-1)[pflat],
+            w1.reshape(-1)[pflat], w2.reshape(-1)[pflat], slots.fp, slots.bucket,
+        )
         ti[:h] = torch.where(ok, pflat // c, -1).to(torch.int32)
         bi[:h] = torch.where(ok, g, -1).to(torch.int32)
-        amb = int(((nmatch > 1) | (nbm > 2)).sum())
+        amb = int(amb_flag.sum())
     scalar = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     return ti, bi, scalar(total), scalar(amb)
 

@@ -4,8 +4,10 @@ Host half: `encode_topics` (dictionary-encode a publish batch, with
 inert pow2 padding), `GenMatchCache` (generation-stamped topic →
 filters cache) and `oracle_match_rows` (the pure-Python ground truth).
 
-Device half: kernel K2 `match_ids` (ops/csrc/dense_match.cu) and its
-plain PyTorch version `match_ids_ref`, which evaluate
+Device half: kernel K2 `match_ids` (ops/csrc/dense_match.cu) and the
+dense forms K9 `match_dense`, K10 `match_packed` and K11 `match_counts`
+(ops/csrc/dense_forms.cu), each beside its plain PyTorch version
+(`*_ref`). All evaluate one predicate (csrc/dense_pred.cuh)
 
     match[b, n] = active[n]
                 & ~(dollar[b] & root_wild[n])              # $-root rule
@@ -13,20 +15,23 @@ plain PyTorch version `match_ids_ref`, which evaluate
                    else tlen[b] >= plen[n])                # level count
                 & all_{i < plen[n]} (W[n,i] == '+' or W[n,i] == t[b,i])
 
-and return the first `max_hits` matching (topic, row) pairs in
-(chunk, topic, row) order plus the exact total.
+K2 returns the first `max_hits` matching (topic, row) pairs in
+(chunk, topic, row) order plus the exact total; K9 the bool [B, N]
+matrix, K10 the same packed into uint32 [B, N/32] (bit k of word j is
+row 32j + k), K11 the int32 [B] counts. `unpack_indices`/`unpack_all`
+turn packed rows back into row ids on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import topic as topic_mod
-from ._build import I, P, CudaKernel
+from ._build import I, LL, P, CudaKernel
 from .table import EncodedFilters
 from .vocab import PLUS, Vocab
 
@@ -170,16 +175,10 @@ def match_ids(
     dev = filters.words.device
     if dev.type == "cpu":
         return match_ids_ref(filters, topics, max_hits, chunk)
-    n, levels = filters.words.shape
-    if not 1 <= levels <= MAX_KERNEL_LEVELS:
-        raise ValueError(f"max_levels {levels} outside 1..{MAX_KERNEL_LEVELS}")
+    n, levels = check_filters(filters, dev)
     chunk = min(chunk, n)
     if n % chunk:
         raise ValueError(f"table rows {n} not a multiple of chunk {chunk}")
-    check_tensor("words", filters.words, torch.int32, (n, levels), dev)
-    check_tensor("prefix_len", filters.prefix_len, torch.int32, (n,), dev)
-    for name in ("has_hash", "root_wild", "active"):
-        check_tensor(name, getattr(filters, name), torch.bool, (n,), dev)
     b = check_topics(topics, levels, dev)
     ti = torch.empty(max_hits, dtype=torch.int32, device=dev)
     ri = torch.empty(max_hits, dtype=torch.int32, device=dev)
@@ -194,6 +193,157 @@ def match_ids(
         scratch.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     return ti, ri, total
+
+
+# --- K9-K11: the plain PyTorch versions ----------------------------------
+
+
+def match_dense_ref(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
+    """Plain version of K9: the bool [B, N] match matrix."""
+    return _match_block_ref(topics.ids, topics.lens, topics.dollar, *filters)
+
+
+def _pack_bits_ref(ok: torch.Tensor) -> torch.Tensor:
+    """bool [B, N] -> uint32 [B, N//32], bit k of word j = row j*32+k
+    (built in int32, whose shifts wrap as uint32's do)."""
+    b, n = ok.shape
+    grouped = ok.reshape(b, n // 32, 32).to(torch.int32)
+    word = torch.zeros((b, n // 32), dtype=torch.int32, device=ok.device)
+    for k in range(32):
+        word |= grouped[:, :, k] << k
+    return word.view(torch.uint32)
+
+
+def _check_chunk(n: int, chunk: int) -> int:
+    chunk = min(chunk, n)
+    if n % chunk:
+        raise ValueError(f"table rows {n} not a multiple of chunk {chunk}")
+    if n % 32:
+        raise ValueError(f"table rows {n} not a multiple of 32")
+    return chunk
+
+
+def match_packed_ref(
+    filters: EncodedFilters, topics: EncodedTopics, chunk: int = 65536
+) -> torch.Tensor:
+    """Plain version of K10, chunk by chunk over the rows (the chunk
+    bounds memory and changes nothing in the result)."""
+    n = filters.words.shape[0]
+    chunk = _check_chunk(n, chunk)
+    return torch.cat([
+        _pack_bits_ref(match_dense_ref(
+            EncodedFilters(*(a[off:off + chunk] for a in filters)), topics))
+        for off in range(0, n, chunk)
+    ], dim=1)
+
+
+def match_counts_ref(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
+    """Plain version of K11: int32 [B] matches per topic."""
+    return match_dense_ref(filters, topics).sum(dim=1, dtype=torch.int32)
+
+
+# --- K9-K11: the CUDA kernel (one entry point, three modes) ---------------
+
+FORM_DENSE, FORM_PACKED, FORM_COUNTS = 0, 1, 2
+_FORMS_ARGTYPES = [I, P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, LL, P]
+_MATCH_DENSE = CudaKernel("match_dense", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
+_MATCH_PACKED = CudaKernel("match_packed", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
+_MATCH_COUNTS = CudaKernel("match_counts", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
+
+
+def check_filters(filters: EncodedFilters, device) -> tuple:
+    """(rows, levels) of a device filter table, checked for the kernels."""
+    n, levels = filters.words.shape
+    if not 1 <= levels <= MAX_KERNEL_LEVELS:
+        raise ValueError(f"max_levels {levels} outside 1..{MAX_KERNEL_LEVELS}")
+    check_tensor("words", filters.words, torch.int32, (n, levels), device)
+    check_tensor("prefix_len", filters.prefix_len, torch.int32, (n,), device)
+    for name in ("has_hash", "root_wild", "active"):
+        check_tensor(name, getattr(filters, name), torch.bool, (n,), device)
+    return n, levels
+
+
+def launch_dense_forms(
+    kernel: CudaKernel, mode: int, filters: EncodedFilters, topics: EncodedTopics,
+    n_loc: int, b_loc: int, tiles: Optional[torch.Tensor], n_tiles: int,
+    out: torch.Tensor, out_w: int,
+) -> None:
+    """Launch the dense forms kernel over `n_tiles` tiles of n_loc rows
+    and b_loc topics (tiles None: the one tile (0, 0, 0, 0)), writing
+    `out` ([B, out_w] for K9/K10, [B] for K11). Used by K9-K11 and by
+    the mesh's K13 (parallel/sharded_match.py)."""
+    dev = filters.words.device
+    check_filters(filters, dev)
+    check_topics(topics, filters.words.shape[1], dev)
+    kernel(
+        mode, filters.words.data_ptr(), filters.prefix_len.data_ptr(),
+        filters.has_hash.data_ptr(), filters.root_wild.data_ptr(),
+        filters.active.data_ptr(), n_loc, filters.words.shape[1],
+        topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
+        b_loc, None if tiles is None else tiles.data_ptr(), n_tiles,
+        out.data_ptr(), out_w, out.numel(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+
+
+def match_dense(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
+    """bool [B, N] match matrix (tests and small tables: B*N bytes).
+    CUDA tensors launch kernel K9; CPU tensors take the plain version."""
+    dev = filters.words.device
+    if dev.type == "cpu":
+        return match_dense_ref(filters, topics)
+    n = filters.words.shape[0]
+    b = topics.ids.shape[0]
+    out = torch.empty((b, n), dtype=torch.bool, device=dev)
+    launch_dense_forms(_MATCH_DENSE, FORM_DENSE, filters, topics, n, b, None, 1, out, n)
+    return out
+
+
+def match_packed(
+    filters: EncodedFilters, topics: EncodedTopics, chunk: int = 65536
+) -> torch.Tensor:
+    """uint32 [B, N//32] packed match bitmap. `chunk` must divide the
+    row count, as the reference asserts; it changes nothing in the
+    result. CUDA tensors launch kernel K10; CPU tensors take the plain
+    version."""
+    dev = filters.words.device
+    if dev.type == "cpu":
+        return match_packed_ref(filters, topics, chunk)
+    n = filters.words.shape[0]
+    _check_chunk(n, chunk)
+    b = topics.ids.shape[0]
+    out = torch.empty((b, n // 32), dtype=torch.uint32, device=dev)
+    launch_dense_forms(
+        _MATCH_PACKED, FORM_PACKED, filters, topics, n, b, None, 1, out, n // 32
+    )
+    return out
+
+
+def match_counts(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
+    """int32 [B] matches per topic. CUDA tensors launch kernel K11; CPU
+    tensors take the plain version."""
+    dev = filters.words.device
+    if dev.type == "cpu":
+        return match_counts_ref(filters, topics)
+    n = filters.words.shape[0]
+    b = topics.ids.shape[0]
+    out = torch.empty(b, dtype=torch.int32, device=dev)
+    launch_dense_forms(_MATCH_COUNTS, FORM_COUNTS, filters, topics, n, b, None, 1, out, 1)
+    return out
+
+
+def unpack_indices(packed_row: np.ndarray) -> np.ndarray:
+    """uint32 [N//32] -> int64 row ids of set bits (host, numpy)."""
+    bits = np.unpackbits(
+        np.ascontiguousarray(packed_row, dtype=np.uint32).view(np.uint8),
+        bitorder="little",
+    )
+    return np.flatnonzero(bits)
+
+
+def unpack_all(packed: np.ndarray) -> List[np.ndarray]:
+    """uint32 [B, N//32] -> per-topic arrays of matched row ids."""
+    return [unpack_indices(packed[i]) for i in range(packed.shape[0])]
 
 
 # --- host helpers -----------------------------------------------------------

@@ -1,0 +1,1071 @@
+"""Match and table update over a (dp, sub) mesh (the port's counterpart of
+emqx_tpu/parallel/sharded_match.py).
+
+Filter rows and cuckoo buckets are split over the sub axis, topic
+batches over dp (parallel/mesh.py). Per (dp, sub) tile the per-shard
+programs run on the tile's own slices and emit global ids; their
+compacted results are then combined across the sub axis on the device
+(K14), so a dispatch fetches one [n_dp, mh] buffer whatever the shard
+count. Route churn reaches every shard as one batch of global ids, and
+each shard writes only the rows, slots and probe words it owns.
+
+Kernels (each a hand-written CUDA kernel beside its plain PyTorch
+version, which CPU tensors take):
+
+  K13  `make_sharded_kernels`: per-tile counts and packed bitmap (the
+       dense forms kernel, csrc/dense_forms.cu) and `apply_delta`, the
+       owned-row scatter (csrc/scatter.cu)
+  K14  `_combine_pairs`: the order-preserving recompaction over sub plus
+       the summed counts (csrc/combine.cu)
+  K15  `make_combine_probe_kernel`: K14 on salted one-entry buffers
+  K16  `make_match_ids_kernel`: per-tile dense compaction
+       (csrc/dense_match.cu) + K14
+  K17  `make_sharded_hash_kernel`: per-tile cuckoo probe over the owned
+       buckets (csrc/hash_match.cu) + K14
+  K18  `make_slot_delta_kernel`, `make_mesh_sync_kernel`: the owned
+       slot scatter, alone and fused with the row scatter
+
+One launch per distinct device covers the tiles it holds. The
+all_gather over sub is a view where a device holds a dp block's every
+shard back to back (always, on one device), a copy otherwise; the psum
+is a sum inside K14.
+
+`ShardedDeviceTable` is the mesh mirror of a FilterTable and its class
+index behind DeviceTable's sync/begin/finish surface, with the
+reference's escalation (a sticky per-block floor). The reference's
+admission knob (degrading small tables to one device) and its shard
+failure domain (evacuate/restore) are not part of this port yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..obs.kernel_telemetry import NULL as _NULL_TEL
+from ..obs.profiler import STAGE_MARK
+from ..ops import match as match_ops
+from ..ops import transfer as transfer_ops
+from ..ops._build import I, LL, P, CudaKernel
+from ..ops.fanout import FanoutDeviceState
+from ..ops.hash_index import (
+    _ALT_MUL,
+    BUCKET_W,
+    M32,
+    ClassMeta,
+    SlotArrays,
+    _u32,
+    class_hash_ref,
+    has_byte_ref,
+    verify_lanes_ref,
+)
+from ..ops.match import EncodedTopics, _match_block_ref, check_tensor
+from ..ops.table import EncodedFilters, pad_pow2_batches
+from . import mesh as mesh_mod
+from .mesh import DP_AXIS, SUB_AXIS, Mesh
+
+# --- the kernels' C entry points ----------------------------------------------
+
+_MESH_COUNTS = CudaKernel(
+    "mesh_match_counts", "dense_forms.cu", "emqx_dense_forms", match_ops._FORMS_ARGTYPES
+)
+_MESH_PACKED = CudaKernel(
+    "mesh_match_packed", "dense_forms.cu", "emqx_dense_forms", match_ops._FORMS_ARGTYPES
+)
+_MESH_ROWS = CudaKernel(
+    "mesh_apply_delta", "scatter.cu", "emqx_mesh_scatter_rows",
+    [P, P, P, P, P, I, I, P, I, P, P, P, P, P, P, LL, P],
+)
+_COMBINE = CudaKernel(
+    "combine_pairs", "combine.cu", "emqx_combine_pairs",
+    [P, P, P, I, I, I, P, P, P, P, P],
+)
+_PROBE = CudaKernel(
+    "combine_probe", "combine.cu", "emqx_combine_probe", [I, P, I, I, P, P, P, P]
+)
+_MESH_IDS = CudaKernel(
+    "mesh_match_ids", "dense_match.cu", "emqx_mesh_match_ids",
+    [P, P, P, P, P, I, I, P, P, P, I, I, P, I, I, P, P, P, P, P],
+)
+_MESH_HASH = CudaKernel(
+    "mesh_match_ids_hash", "hash_match.cu", "emqx_mesh_match_ids_hash",
+    [P, P, P, P, P, I, P, P, P, I, I, P, P, P, I, I, P, I, I, P, P, P, P, P, P],
+)
+_MESH_SLOTS = CudaKernel(
+    "mesh_slot_delta", "scatter.cu", "emqx_mesh_scatter_slots",
+    [P, P, P, I, I, P, I, P, P, P, P, LL, P],
+)
+_MESH_SYNC = CudaKernel(
+    "mesh_sync", "scatter.cu", "emqx_mesh_sync",
+    [P, P, P, P, P, I, I, P, P, P, I, I, P, I, P, P, P, P, P, P, LL, P, P, P, P, LL, P],
+)
+
+DENSE_CHUNK = 65536  # rows a K16 block walks (ops/match.py's chunk)
+
+
+def _launch(kernel: CudaKernel, dev: torch.device, *args) -> None:
+    """Launch on `dev`'s current stream with `dev` current."""
+    with torch.cuda.device(dev):
+        kernel(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+
+
+def _tiles(mesh: Mesh, gi: int):
+    """Python rows (dp_i, sub_i, dp_pos, sub_pos) of group gi's tiles."""
+    g = mesh.groups[gi]
+    return [(i, j, g.dps.index(i), g.subs.index(j)) for i, j in g.tiles]
+
+
+def _wrap32(x: int) -> int:
+    return ((x + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+# --- plain PyTorch versions (one group's tiles) ------------------------------------
+
+
+def match_ids_tiles_ref(f: EncodedFilters, t: EncodedTopics, tiles, n_loc: int,
+                        b_loc: int, mh: int):
+    """Plain version of K16's per-tile leg: (ti, ri int32 [n_tiles, mh]
+    global ids in the tile's (topic, row) order, cnt int32 [n_tiles])."""
+    dev = f.words.device
+    n_tiles = len(tiles)
+    ti = torch.full((n_tiles, mh), -1, dtype=torch.int32, device=dev)
+    ri = torch.full((n_tiles, mh), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    for k, (dp_i, sub_i, dp_pos, sub_pos) in enumerate(tiles):
+        rs = slice(sub_pos * n_loc, (sub_pos + 1) * n_loc)
+        ts = slice(dp_pos * b_loc, (dp_pos + 1) * b_loc)
+        ok = _match_block_ref(t.ids[ts], t.lens[ts], t.dollar[ts], *(a[rs] for a in f))
+        idx = torch.nonzero(ok.reshape(-1)).squeeze(1)
+        cnt[k] = idx.numel()
+        idx = idx[:mh]
+        h = idx.numel()
+        ti[k, :h] = (idx // n_loc + dp_i * b_loc).to(torch.int32)
+        ri[k, :h] = (idx % n_loc + sub_i * n_loc).to(torch.int32)
+    return ti, ri, cnt
+
+
+def hash_tiles_ref(meta: ClassMeta, slots: SlotArrays, t: EncodedTopics, tiles,
+                   nb_loc: int, n_buckets: int, b_loc: int, mh: int):
+    """Plain version of K17's per-tile leg: (ti, bi int32 [n_tiles, mh],
+    cnt int32 [n_tiles] flagged pairs, amb int32 scalar over the tiles).
+    Buckets use the logical mask n_buckets - 1; a tile probes only the
+    buckets [sub_i * nb_loc, (sub_i + 1) * nb_loc) its shard owns."""
+    dev = t.ids.device
+    n_tiles = len(tiles)
+    c = meta.plen.shape[0]
+    ti = torch.full((n_tiles, mh), -1, dtype=torch.int32, device=dev)
+    bi = torch.full((n_tiles, mh), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    amb = 0
+    mask = n_buckets - 1
+    for k, (dp_i, sub_i, dp_pos, sub_pos) in enumerate(tiles):
+        ts = slice(dp_pos * b_loc, (dp_pos + 1) * b_loc)
+        elig, h1, fp = class_hash_ref(meta, EncodedTopics(*(a[ts] for a in t)))
+        probe = _u32(slots.probe[sub_pos * nb_loc:(sub_pos + 1) * nb_loc])
+        s_fp = slots.fp[sub_pos * nb_loc * BUCKET_W:(sub_pos + 1) * nb_loc * BUCKET_W]
+        s_bkt = slots.bucket[sub_pos * nb_loc * BUCKET_W:(sub_pos + 1) * nb_loc * BUCKET_W]
+        rep = torch.clamp_min(fp >> 24, 1) * 0x01010101
+        b1 = h1 & mask
+        b2 = b1 ^ ((((fp | 1) * _ALT_MUL) & M32) & mask)
+        off = sub_i * nb_loc
+
+        def owned(bkt):
+            lb = bkt - off
+            inside = (lb >= 0) & (lb < nb_loc)
+            lb = lb.clamp(0, nb_loc - 1)
+            # a bucket the shard does not own reads as the word 0: no
+            # lane of it byte-matches (probe bytes are >= 1)
+            return lb, torch.where(inside, probe[lb], 0)
+
+        l1, w1 = owned(b1)
+        l2, w2 = owned(b2)
+        pairhit = elig & (has_byte_ref(w1, rep) | has_byte_ref(w2, rep))
+        cnt[k] = int(pairhit.sum())
+        pflat = torch.nonzero(pairhit.reshape(-1)).squeeze(1)[:mh]
+        h = pflat.numel()
+        if not h:
+            continue
+        ok, g, amb_flag = verify_lanes_ref(
+            l1.reshape(-1)[pflat], l2.reshape(-1)[pflat], fp.reshape(-1)[pflat],
+            w1.reshape(-1)[pflat], w2.reshape(-1)[pflat], s_fp, s_bkt,
+        )
+        ti[k, :h] = torch.where(ok, pflat // c + dp_i * b_loc, -1).to(torch.int32)
+        bi[k, :h] = torch.where(ok, g, -1).to(torch.int32)
+        amb += int(amb_flag.sum())
+    return ti, bi, cnt, torch.tensor(amb, dtype=torch.int32, device=dev)
+
+
+def combine_pairs_ref(a_all: torch.Tensor, b_all: torch.Tensor, cnt: torch.Tensor,
+                      mh: int):
+    """Plain version of K14 over dp blocks gathered on one device:
+    a_all, b_all [n, n_sub * mh], cnt [n, n_sub] -> (ca, cb int32 [n, mh],
+    totals int32 [n]): the valid (a >= 0) entries in sub-major order,
+    truncated to mh, -1 past them; totals the summed counts."""
+    n = a_all.shape[0]
+    ca = torch.full((n, mh), -1, dtype=torch.int32, device=a_all.device)
+    cb = torch.full((n, mh), -1, dtype=torch.int32, device=a_all.device)
+    for j in range(n):
+        pos = torch.nonzero(a_all[j] >= 0).squeeze(1)[:mh]
+        ca[j, :pos.numel()] = a_all[j][pos]
+        cb[j, :pos.numel()] = b_all[j][pos]
+    return ca, cb, cnt.sum(dim=1, dtype=torch.int32)
+
+
+def combine_probe_ref(salt: int, tiles, mh: int, device):
+    """Plain version of K15's buffers: per tile one entry a = salt +
+    sub_i + 1, b = salt * 2 + 1 (int32, wrapping) at position 0, -1
+    elsewhere; cnt 1 where a >= 0."""
+    n_tiles = len(tiles)
+    a = torch.full((n_tiles, mh), -1, dtype=torch.int32, device=device)
+    b = torch.full((n_tiles, mh), -1, dtype=torch.int32, device=device)
+    cnt = torch.zeros(n_tiles, dtype=torch.int32, device=device)
+    for k, (_dp_i, sub_i, _dp_pos, _sub_pos) in enumerate(tiles):
+        va = _wrap32(salt + sub_i + 1)
+        a[k, 0] = va
+        b[k, 0] = _wrap32(salt * 2 + 1)
+        cnt[k] = int(va >= 0)
+    return a, b, cnt
+
+
+def dense_tiles_ref(mode: int, f: EncodedFilters, t: EncodedTopics, tiles,
+                    n_loc: int, b_loc: int, out: torch.Tensor) -> None:
+    """Plain version of K13's counts (mode FORM_COUNTS: add into int32
+    [B]) and packed bitmap (FORM_PACKED: write the tile's block of the
+    [B, N/32] bitmap, given as its int32 view) over one group's tiles."""
+    for dp_i, sub_i, dp_pos, sub_pos in tiles:
+        rs = slice(sub_pos * n_loc, (sub_pos + 1) * n_loc)
+        ts = slice(dp_pos * b_loc, (dp_pos + 1) * b_loc)
+        ok = _match_block_ref(t.ids[ts], t.lens[ts], t.dollar[ts], *(a[rs] for a in f))
+        to = slice(dp_i * b_loc, (dp_i + 1) * b_loc)
+        if mode == match_ops.FORM_COUNTS:
+            out[to] += ok.sum(dim=1, dtype=torch.int32)
+        else:
+            w = n_loc // 32
+            out[to, sub_i * w:(sub_i + 1) * w] = match_ops._pack_bits_ref(ok).view(torch.int32)
+
+
+def scatter_owned_rows_ref(dev: EncodedFilters, subs: Sequence[int], rows, words,
+                           plen, hh, rw, act) -> None:
+    """Plain version of K13's `apply_delta` on one group's tensors (in
+    place): batch by batch (the reference's scan order), each held
+    shard s writes the global rows in [s * local_n, (s + 1) * local_n)."""
+    local_n = dev.words.shape[0] // len(subs)
+    for k, s in enumerate(subs):
+        for j in range(rows.shape[0]):
+            local = rows[j].to(torch.int64) - s * local_n
+            keep = (local >= 0) & (local < local_n)
+            dst = local[keep] + k * local_n
+            dev.words[dst] = words[j][keep]
+            dev.prefix_len[dst] = plen[j][keep]
+            dev.has_hash[dst] = hh[j][keep]
+            dev.root_wild[dst] = rw[j][keep]
+            dev.active[dst] = act[j][keep]
+
+
+def scatter_owned_slots_ref(slots: SlotArrays, subs: Sequence[int], idx, fp, bucket,
+                            probe) -> None:
+    """Plain version of K18's slot scatter on one group's tensors (in
+    place): each held shard s writes the slots in [s * n_loc, (s + 1) *
+    n_loc) and the probe words of buckets [s * nb_loc, (s + 1) * nb_loc).
+    uint32 columns go through their int32 view (same bits)."""
+    n_loc = slots.fp.shape[0] // len(subs)
+    nb_loc = slots.probe.shape[0] // len(subs)
+    fp_dev = slots.fp.view(torch.int32)
+    probe_dev = slots.probe.view(torch.int32)
+    for k, s in enumerate(subs):
+        for j in range(idx.shape[0]):
+            i = idx[j].to(torch.int64)
+            ls = i - s * n_loc
+            keep = (i >= 0) & (ls >= 0) & (ls < n_loc)
+            fp_dev[ls[keep] + k * n_loc] = fp[j].view(torch.int32)[keep]
+            slots.bucket[ls[keep] + k * n_loc] = bucket[j][keep]
+            lb = torch.div(i, BUCKET_W, rounding_mode="floor") - s * nb_loc
+            keep = (i >= 0) & (lb >= 0) & (lb < nb_loc)
+            probe_dev[lb[keep] + k * nb_loc] = probe[j].view(torch.int32)[keep]
+
+
+# --- per-group launches: kernel on CUDA tensors, plain version on the CPU ---------
+
+
+def _tiles_match_ids(mesh: Mesh, gi: int, f: EncodedFilters, t: EncodedTopics, mh: int):
+    g = mesh.groups[gi]
+    n_loc = f.words.shape[0] // len(g.subs)
+    b_loc = t.ids.shape[0] // len(g.dps)
+    dev = f.words.device
+    if dev.type == "cpu":
+        return match_ids_tiles_ref(f, t, _tiles(mesh, gi), n_loc, b_loc, mh)
+    _n, levels = match_ops.check_filters(f, dev)
+    match_ops.check_topics(t, levels, dev)
+    n_tiles = len(g.tiles)
+    chunk = min(DENSE_CHUNK, n_loc)
+    n_chunks = -(-n_loc // chunk)
+    ti = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
+    ri = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
+    cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * n_tiles * b_loc * n_chunks + 1, dtype=torch.int32, device=dev)
+    _launch(
+        _MESH_IDS, dev,
+        f.words.data_ptr(), f.prefix_len.data_ptr(), f.has_hash.data_ptr(),
+        f.root_wild.data_ptr(), f.active.data_ptr(), n_loc, levels,
+        t.ids.data_ptr(), t.lens.data_ptr(), t.dollar.data_ptr(), b_loc, chunk,
+        mesh.tile_table(gi).data_ptr(), n_tiles, mh,
+        ti.data_ptr(), ri.data_ptr(), cnt.data_ptr(), scratch.data_ptr(),
+    )
+    return ti, ri, cnt
+
+
+def _tiles_hash(mesh: Mesh, gi: int, meta: ClassMeta, slots: SlotArrays,
+                t: EncodedTopics, n_buckets: int, mh: int):
+    g = mesh.groups[gi]
+    nb_loc = slots.probe.shape[0] // len(g.subs)
+    b_loc = t.ids.shape[0] // len(g.dps)
+    dev = t.ids.device
+    if dev.type == "cpu":
+        return hash_tiles_ref(meta, slots, t, _tiles(mesh, gi), nb_loc, n_buckets,
+                              b_loc, mh)
+    levels = t.ids.shape[1]
+    if not 1 <= levels <= match_ops.MAX_KERNEL_LEVELS:
+        raise ValueError(f"max_levels {levels} outside 1..{match_ops.MAX_KERNEL_LEVELS}")
+    match_ops.check_topics(t, levels, dev)
+    c = meta.plen.shape[0]
+    check_tensor("meta.plen", meta.plen, torch.int32, (c,), dev)
+    check_tensor("meta.plus", meta.plus, torch.uint32, (c,), dev)
+    for name in ("has_hash", "root_wild", "active"):
+        check_tensor(f"meta.{name}", getattr(meta, name), torch.bool, (c,), dev)
+    if n_buckets < 1 or n_buckets & (n_buckets - 1):
+        raise ValueError(f"bucket count {n_buckets} is not a power of two")
+    n_sub_here = len(g.subs)
+    check_tensor("slots.probe", slots.probe, torch.uint32, (n_sub_here * nb_loc,), dev)
+    n_slots = n_sub_here * nb_loc * BUCKET_W
+    check_tensor("slots.fp", slots.fp, torch.uint32, (n_slots,), dev)
+    check_tensor("slots.bucket", slots.bucket, torch.int32, (n_slots,), dev)
+    n_tiles = len(g.tiles)
+    ti = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
+    bi = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
+    cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    amb = torch.empty((), dtype=torch.int32, device=dev)
+    n_blk = -(-(b_loc * c) // 256)
+    scratch = torch.empty(2 * n_tiles * n_blk + 1, dtype=torch.int32, device=dev)
+    _launch(
+        _MESH_HASH, dev,
+        meta.plen.data_ptr(), meta.has_hash.data_ptr(), meta.root_wild.data_ptr(),
+        meta.plus.data_ptr(), meta.active.data_ptr(), c,
+        slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(),
+        nb_loc, n_buckets, t.ids.data_ptr(), t.lens.data_ptr(), t.dollar.data_ptr(),
+        b_loc, levels, mesh.tile_table(gi).data_ptr(), n_tiles, mh,
+        ti.data_ptr(), bi.data_ptr(), cnt.data_ptr(), amb.data_ptr(), scratch.data_ptr(),
+    )
+    return ti, bi, cnt, amb
+
+
+def _combine_launch(a_all: torch.Tensor, b_all: torch.Tensor, cnt: torch.Tensor, mh: int):
+    dev = a_all.device
+    if dev.type == "cpu":
+        return combine_pairs_ref(a_all, b_all, cnt, mh)
+    n, width = a_all.shape
+    n_sub = cnt.shape[1]
+    if width != n_sub * mh:
+        raise ValueError(f"gathered width {width} is not n_sub * mh = {n_sub * mh}")
+    check_tensor("a_all", a_all, torch.int32, (n, width), dev)
+    check_tensor("b_all", b_all, torch.int32, (n, width), dev)
+    check_tensor("cnt", cnt, torch.int32, (n, n_sub), dev)
+    ca = torch.empty((n, mh), dtype=torch.int32, device=dev)
+    cb = torch.empty((n, mh), dtype=torch.int32, device=dev)
+    tot = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * n * (-(-width // 256)) + 1, dtype=torch.int32, device=dev)
+    _launch(
+        _COMBINE, dev, a_all.data_ptr(), b_all.data_ptr(), cnt.data_ptr(), n, n_sub, mh,
+        ca.data_ptr(), cb.data_ptr(), tot.data_ptr(), scratch.data_ptr(),
+    )
+    return ca, cb, tot
+
+
+# --- the collectives ---------------------------------------------------------------
+
+
+def _gather_sub(mesh: Mesh, parts: Sequence[torch.Tensor]):
+    """all_gather over sub: per-group per-tile rows ([n_tiles_g, w])
+    -> [(device, dp blocks, [len(dp blocks), n_sub * w])], each dp
+    block's n_sub rows side by side on the block's first device. A view
+    when one device holds every tile (row-major); copies otherwise."""
+    n_dp, n_sub = mesh.shape[DP_AXIS], mesh.shape[SUB_AXIS]
+    if len(mesh.groups) == 1:
+        return [(mesh.groups[0].device, list(range(n_dp)), parts[0].reshape(n_dp, -1))]
+    by_dev: dict = {}
+    for j in range(n_dp):
+        d = mesh.devices[j, 0]
+        rows = []
+        for s in range(n_sub):
+            gi, k = mesh.locate(j, s)
+            rows.append(parts[gi][k].reshape(-1).to(d))
+        by_dev.setdefault(d, []).append((j, torch.cat(rows)))
+    return [(d, [j for j, _ in items], torch.stack([v for _, v in items]))
+            for d, items in by_dev.items()]
+
+
+def _to_primary(mesh: Mesh, pieces) -> torch.Tensor:
+    """[(dp blocks, tensor [len, ...])] -> one [n_dp, ...] tensor on the
+    primary device, in dp order (the piece itself when it already is)."""
+    if len(pieces) == 1 and pieces[0][0] == list(range(mesh.shape[DP_AXIS])):
+        return pieces[0][1]
+    prim = mesh_mod.primary_device(mesh)
+    order = sorted((j, t[k]) for dps, t in pieces for k, j in enumerate(dps))
+    return torch.stack([t.to(prim) for _j, t in order])
+
+
+def _combine_pairs(mesh: Mesh, parts, mh: int):
+    """K14 over a per-tile result: parts holds one (a [n_tiles_g, mh],
+    b, cnt [n_tiles_g]) per group. Returns (ca, cb [n_dp, mh], totals
+    [n_dp, 1]) on the primary device."""
+    ga = _gather_sub(mesh, [p[0] for p in parts])
+    gb = _gather_sub(mesh, [p[1] for p in parts])
+    gc = _gather_sub(mesh, [p[2] for p in parts])
+    outs = [_combine_launch(a, b, c, mh) for (_d, _j, a), (_, _, b), (_, _, c)
+            in zip(ga, gb, gc)]
+    dps = [j for _d, j, _a in ga]
+    ca = _to_primary(mesh, [(j, o[0]) for j, o in zip(dps, outs)])
+    cb = _to_primary(mesh, [(j, o[1]) for j, o in zip(dps, outs)])
+    tot = _to_primary(mesh, [(j, o[2]) for j, o in zip(dps, outs)])
+    return ca, cb, tot.reshape(-1, 1)
+
+
+def _sum_to_primary(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """psum of per-group partials onto the primary device."""
+    if len(parts) == 1:
+        return parts[0]
+    prim = mesh_mod.primary_device(mesh)
+    acc = parts[0].to(prim, copy=True)
+    for p in parts[1:]:
+        acc += p.to(prim)
+    return acc
+
+
+def _repl(mesh: Mesh, a) -> Tuple[torch.Tensor, ...]:
+    """A delta array for every device: numpy is placed once per device,
+    an already placed per-group tuple passes through."""
+    if isinstance(a, np.ndarray):
+        return mesh_mod.put_repl(a, mesh)
+    return tuple(a)
+
+
+# --- the programs ---------------------------------------------------------------------
+
+
+def _owned_rows_args(d: EncodedFilters, n_subs: int, dev, r, w, p, h, rw, a):
+    """The checked C arguments of an owned-row scatter on one device:
+    (the table's five columns, its rows a shard, its levels) and (the
+    delta's row ids and five columns, its entry count)."""
+    n, levels = match_ops.check_filters(d, dev)
+    shape = tuple(r.shape)
+    check_tensor("rows", r, torch.int32, shape, dev)
+    check_tensor("words", w, torch.int32, shape + (levels,), dev)
+    check_tensor("prefix_len", p, torch.int32, shape, dev)
+    for name, x in (("has_hash", h), ("root_wild", rw), ("active", a)):
+        check_tensor(name, x, torch.bool, shape, dev)
+    table = (d.words.data_ptr(), d.prefix_len.data_ptr(), d.has_hash.data_ptr(),
+             d.root_wild.data_ptr(), d.active.data_ptr(), n // n_subs, levels)
+    delta = (r.data_ptr(), w.data_ptr(), p.data_ptr(), h.data_ptr(), rw.data_ptr(),
+             a.data_ptr(), r.numel())
+    return table, delta
+
+
+def make_sharded_kernels(mesh: Mesh):
+    """The mesh-partitioned dense kernels (K13). Returns (match_counts,
+    match_packed, apply_delta):
+
+      match_counts(filters, topics) -> int32 [B] (counts summed over sub)
+      match_packed(filters, topics) -> uint32 [B, N/32] (tiled over
+          (dp, sub); each shard's row count a multiple of 32)
+      apply_delta(dev, rows, words, plen, hh, rw, act) -> dev, written
+          in place: [n_b, K] global row ids and their columns, each
+          shard writing the rows it owns
+
+    filters/dev and topics are put_filters / put_topics values; the
+    delta columns numpy arrays (or per-group tuples already placed)."""
+    n_sub = mesh.shape[SUB_AXIS]
+
+    def _forms(kernel, mode, filters, topics):
+        outs = []
+        for gi, g in enumerate(mesh.groups):
+            f, t = filters[gi], topics[gi]
+            n_loc = f.words.shape[0] // len(g.subs)
+            b_loc = t.ids.shape[0] // len(g.dps)
+            b = b_loc * mesh.shape[DP_AXIS]
+            if mode == match_ops.FORM_PACKED and n_loc % 32:
+                raise ValueError(f"shard rows {n_loc} not a multiple of 32")
+            w = n_loc * n_sub // 32
+            if mode == match_ops.FORM_COUNTS:
+                out = torch.zeros(b, dtype=torch.int32, device=g.device)
+            else:
+                out = torch.zeros((b, w), dtype=torch.uint32, device=g.device)
+            if g.device.type == "cpu":
+                dense_tiles_ref(mode, f, t, _tiles(mesh, gi), n_loc, b_loc,
+                                out if mode == match_ops.FORM_COUNTS
+                                else out.view(torch.int32))
+            else:
+                with torch.cuda.device(g.device):
+                    match_ops.launch_dense_forms(
+                        kernel, mode, f, t, n_loc, b_loc, mesh.tile_table(gi),
+                        len(g.tiles), out, w,
+                    )
+            outs.append(out)
+        return outs, b_loc, n_loc
+
+    def match_counts(filters, topics):
+        outs, _b, _n = _forms(_MESH_COUNTS, match_ops.FORM_COUNTS, filters, topics)
+        return _sum_to_primary(mesh, outs)
+
+    def match_packed(filters, topics):
+        outs, b_loc, n_loc = _forms(_MESH_PACKED, match_ops.FORM_PACKED, filters, topics)
+        if len(outs) == 1:
+            return outs[0]
+        # every tile's block from the device that computed it
+        prim = mesh_mod.primary_device(mesh)
+        out = outs[0].to(prim, copy=True)
+        w = n_loc // 32
+        for gi, g in enumerate(mesh.groups):
+            for i, j in g.tiles:
+                blk = (slice(i * b_loc, (i + 1) * b_loc), slice(j * w, (j + 1) * w))
+                out[blk] = outs[gi][blk].to(prim)
+        return out
+
+    def apply_delta(dev, rows, words, plen, hh, rw, act):
+        cols = [_repl(mesh, a) for a in (rows, words, plen, hh, rw, act)]
+        for gi, g in enumerate(mesh.groups):
+            d = dev[gi]
+            r, w_, p, h, rw_, a = (c[gi] for c in cols)
+            if g.device.type == "cpu":
+                scatter_owned_rows_ref(d, g.subs, r, w_, p, h, rw_, a)
+                continue
+            table, delta = _owned_rows_args(d, len(g.subs), g.device, r, w_, p, h, rw_, a)
+            _launch(_MESH_ROWS, g.device, *table, mesh.sub_table(gi).data_ptr(),
+                    len(g.subs), *delta)
+        return dev
+
+    return match_counts, match_packed, apply_delta
+
+
+def make_combine_probe_kernel(mesh: Mesh, mh: int):
+    """K15, the combine-only probe of the reference's mesh microscope:
+    probe(salt) builds one salted entry per shard on the device and
+    runs exactly the match kernels' cross-shard reduction (K14) over
+    them. Returns (ca, cb [n_dp, mh], total [n_dp, 1])."""
+
+    def probe(salt: int):
+        parts = []
+        for gi, g in enumerate(mesh.groups):
+            if g.device.type == "cpu":
+                parts.append(combine_probe_ref(salt, _tiles(mesh, gi), mh, g.device))
+                continue
+            n_tiles = len(g.tiles)
+            a = torch.empty((n_tiles, mh), dtype=torch.int32, device=g.device)
+            b = torch.empty((n_tiles, mh), dtype=torch.int32, device=g.device)
+            cnt = torch.empty(n_tiles, dtype=torch.int32, device=g.device)
+            _launch(_PROBE, g.device, _wrap32(salt), mesh.tile_table(gi).data_ptr(),
+                    n_tiles, mh, a.data_ptr(), b.data_ptr(), cnt.data_ptr())
+            parts.append((a, b, cnt))
+        return _combine_pairs(mesh, parts, mh)
+
+    return probe
+
+
+def make_match_ids_kernel(mesh: Mesh, max_hits_per_block: int):
+    """K16 + K14: every (dp, sub) tile matches its local [B/dp, N/sub]
+    plane and compacts its hits to (topic, row) pairs with global ids;
+    the shards then combine over sub on the device. match_ids(filters,
+    topics) returns (ti [dp, mh], ri [dp, mh], totals [dp, 1]); slots
+    are -1 past each dp block's count, and a block whose total exceeds
+    max_hits_per_block overflowed (the caller escalates)."""
+    mh = max_hits_per_block
+
+    def match_ids(filters, topics):
+        parts = [_tiles_match_ids(mesh, gi, filters[gi], topics[gi], mh)
+                 for gi in range(len(mesh.groups))]
+        return _combine_pairs(mesh, parts, mh)
+
+    return match_ids
+
+
+def make_sharded_hash_kernel(mesh: Mesh, max_hits_per_block: int,
+                             n_buckets: Optional[int] = None):
+    """K17 + K14: the pattern-class cuckoo probe with buckets split over
+    sub. kernel(meta, slots, topics) -> (ti [dp, mh], bi [dp, mh],
+    totals [dp, 1], amb [1, 1]): candidates combined over sub on the
+    device, totals the summed flagged-pair counts (escalation), amb the
+    mesh-wide ambiguity. `n_buckets` is the LOGICAL (power-of-two)
+    bucket count, needed when the shards carry trailing pad buckets;
+    None means n_sub times the shard width."""
+    mh = max_hits_per_block
+    n_sub = mesh.shape[SUB_AXIS]
+
+    def kernel(meta, slots, topics):
+        parts, ambs = [], []
+        for gi, g in enumerate(mesh.groups):
+            nb = n_buckets
+            if nb is None:
+                nb = slots[gi].probe.shape[0] // len(g.subs) * n_sub
+            ti, bi, cnt, amb = _tiles_hash(mesh, gi, meta[gi], slots[gi], topics[gi], nb, mh)
+            parts.append((ti, bi, cnt))
+            ambs.append(amb)
+        ca, cb, tot = _combine_pairs(mesh, parts, mh)
+        return ca, cb, tot, _sum_to_primary(mesh, ambs).reshape(1, 1)
+
+    return kernel
+
+
+def _slot_launch(mesh: Mesh, gi: int, sfp, sbkt, probe, idx, fpv, bktv, pwv,
+                 rows_args=None) -> None:
+    """One group's owned slot scatter (K18), fused with the owned row
+    scatter when rows_args = (dev, rows, words, plen, hh, rw, act)."""
+    g = mesh.groups[gi]
+    n_subs = len(g.subs)
+    n_loc = sfp.shape[0] // n_subs
+    nb_loc = probe.shape[0] // n_subs
+    if g.device.type == "cpu":
+        if rows_args is not None:
+            scatter_owned_rows_ref(rows_args[0], g.subs, *rows_args[1:])
+        scatter_owned_slots_ref(SlotArrays(sfp, sbkt, probe), g.subs, idx, fpv, bktv, pwv)
+        return
+    dev = g.device
+    check_tensor("slots.fp", sfp, torch.uint32, (n_loc * n_subs,), dev)
+    check_tensor("slots.bucket", sbkt, torch.int32, (n_loc * n_subs,), dev)
+    check_tensor("slots.probe", probe, torch.uint32, (nb_loc * n_subs,), dev)
+    if n_loc != nb_loc * BUCKET_W:
+        raise ValueError(f"slot shards ({n_loc}) are not bucket-aligned ({nb_loc})")
+    shape = tuple(idx.shape)
+    check_tensor("idx", idx, torch.int32, shape, dev)
+    check_tensor("fp", fpv, torch.uint32, shape, dev)
+    check_tensor("bucket", bktv, torch.int32, shape, dev)
+    check_tensor("probe", pwv, torch.uint32, shape, dev)
+    slot_ptrs = (sfp.data_ptr(), sbkt.data_ptr(), probe.data_ptr(), n_loc, nb_loc)
+    delta_ptrs = (idx.data_ptr(), fpv.data_ptr(), bktv.data_ptr(), pwv.data_ptr(),
+                  idx.numel())
+    if rows_args is None:
+        _launch(_MESH_SLOTS, dev, *slot_ptrs, mesh.sub_table(gi).data_ptr(), n_subs,
+                *delta_ptrs)
+        return
+    table, delta = _owned_rows_args(rows_args[0], n_subs, dev, *rows_args[1:])
+    _launch(_MESH_SYNC, dev, *table, *slot_ptrs, mesh.sub_table(gi).data_ptr(), n_subs,
+            *delta, *delta_ptrs)
+
+
+def make_slot_delta_kernel(mesh: Mesh):
+    """K18's incremental cuckoo-slot sync: apply(sfp, sbkt, probe, idx,
+    fpv, bktv, pwv) writes, in place, the slots and probe words each
+    shard owns from [n_b, K] global slot ids; returns (sfp, sbkt,
+    probe). The device arrays are per-group tuples (put_sub), the delta
+    numpy arrays or placed per-group tuples."""
+
+    def apply(sfp, sbkt, probe, idx, fpv, bktv, pwv):
+        cols = [_repl(mesh, a) for a in (idx, fpv, bktv, pwv)]
+        for gi in range(len(mesh.groups)):
+            _slot_launch(mesh, gi, sfp[gi], sbkt[gi], probe[gi], *(c[gi] for c in cols))
+        return sfp, sbkt, probe
+
+    return apply
+
+
+def make_mesh_sync_kernel(mesh: Mesh):
+    """K18's fused churn sync: a filter-row delta batch and a cuckoo-slot
+    delta batch in ONE launch per device, each shard writing what it
+    owns, in place. apply(dev, sfp, sbkt, probe, rows, words, plen, hh,
+    rw, act, sidx, sfpv, sbktv, spwv) -> (dev, sfp, sbkt, probe)."""
+
+    def apply(dev, sfp, sbkt, probe, rows, words, plen, hh, rw, act,
+              sidx, sfpv, sbktv, spwv):
+        rcols = [_repl(mesh, a) for a in (rows, words, plen, hh, rw, act)]
+        scols = [_repl(mesh, a) for a in (sidx, sfpv, sbktv, spwv)]
+        for gi in range(len(mesh.groups)):
+            _slot_launch(
+                mesh, gi, sfp[gi], sbkt[gi], probe[gi], *(c[gi] for c in scols),
+                rows_args=(dev[gi],) + tuple(c[gi] for c in rcols),
+            )
+        return dev, sfp, sbkt, probe
+
+    return apply
+
+
+# --- the mesh mirror of a FilterTable ------------------------------------------------
+
+
+def _slot_cols(sa) -> Tuple[tuple, tuple, tuple]:
+    """Per-group SlotArrays -> (fps, buckets, probes) per-group tuples."""
+    return tuple(s.fp for s in sa), tuple(s.bucket for s in sa), tuple(s.probe for s in sa)
+
+
+class ShardedDeviceTable:
+    """Mesh-resident mirror of a FilterTable: rows sub-sharded across
+    the mesh, topics dp-sharded, batched delta sync through the owned
+    scatters — DeviceTable's sync()/match surface over a mesh. With
+    `index`, the pattern-class cuckoo table is ALSO mesh-resident
+    (buckets sub-sharded) and match_hash runs K17; the dense kernel
+    (K16) then serves only residual (unclassed) rows."""
+
+    DELTA_BATCH = 1024  # rows per delta batch (syncer batch size)
+
+    def __init__(
+        self,
+        table,
+        mesh: Mesh,
+        max_hits_per_block: int = 2048,
+        index=None,
+        telemetry=None,
+    ) -> None:
+        self.table = table
+        self.mesh = mesh
+        self.index = index
+        self.telemetry = telemetry if telemetry is not None else _NULL_TEL
+        self.device = mesh_mod.primary_device(mesh)
+        self._dev: Optional[Tuple[EncodedFilters, ...]] = None
+        self._synced_capacity = 0
+        _mc, _mp, self._apply_delta = make_sharded_kernels(mesh)
+        self._match_ids_cache: dict = {}
+        self._hash_cache: dict = {}
+        self.default_mh = max_hits_per_block
+        # sticky escalation floor: the combined buffer budgets the SUM
+        # of per-shard hits, so once a batch overflows every later batch
+        # of the workload would too; the floor lasts as long as the layout
+        self._mh_floor = 0
+        self._dev_meta: Optional[Tuple[ClassMeta, ...]] = None
+        self._dev_slots: Optional[Tuple[SlotArrays, ...]] = None
+        self._dev_residual: Optional[Tuple[torch.Tensor, ...]] = None
+        self._apply_slot_delta = make_slot_delta_kernel(mesh) if index is not None else None
+        self._mesh_sync = make_mesh_sync_kernel(mesh) if index is not None else None
+        self.fanout = None
+        # transfer chunk cap (ops/transfer.chunk_hits), as DeviceTable's
+        self.transfer_chunk_hits: Optional[int] = None
+        if self.telemetry.enabled:
+            self.telemetry.set_gauge("mesh_shards", self.n_shards)
+
+    def attach_fanout(self, store) -> None:
+        """Mirror a CSR destination store for the resolve kernel (K5),
+        which runs on the primary device: the only device that reads it."""
+        self.fanout = FanoutDeviceState(store, mesh=self.mesh, telemetry=self.telemetry)
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.shape[SUB_AXIS]
+
+    def shard_of_row(self, row: int) -> int:
+        """The sub shard serving a table row (ceil-padded slices)."""
+        return row // mesh_mod.shard_rows(self.table.capacity, self.mesh)
+
+    def shard_of_slot(self, slot: int) -> int:
+        """The sub shard serving a cuckoo slot (bucket-aligned slices)."""
+        nb_loc = -(-self.index.n_buckets // self.n_shards)
+        return slot // (nb_loc * BUCKET_W)
+
+    # --- kernels by shape -------------------------------------------------------
+
+    def _match_kernel(self, mh: int):
+        k = self._match_ids_cache.get(mh)
+        if k is None:
+            k = self._match_ids_cache[mh] = make_match_ids_kernel(self.mesh, mh)
+        return k
+
+    def _hash_kernel(self, mh: int):
+        # keyed on (mh, logical bucket count): growth changes the mask,
+        # and on a padded layout it cannot be read off the shard width
+        nb = self.index.n_buckets
+        k = self._hash_cache.get((mh, nb))
+        if k is None:
+            k = self._hash_cache[(mh, nb)] = make_sharded_hash_kernel(self.mesh, mh, nb)
+        return k
+
+    # --- sync -------------------------------------------------------------------------
+
+    def _put_sub(self, a: np.ndarray, pad_value=0) -> Tuple[torch.Tensor, ...]:
+        n_sub = self.n_shards
+        parts = mesh_mod.put_sub(a, self.mesh, pad_value)
+        self._count_shard_rows(np.full(n_sub, -(-a.shape[0] // n_sub), np.int64))
+        return parts
+
+    def _count_shard_rows(self, per_shard) -> None:
+        """Per-shard host->device rows
+        (`mesh_shard_transfer_rows_total{shard=...}`): the combined fetch
+        does not depend on the shard count, so upload skew shows here."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        for s, n in enumerate(per_shard.tolist()):
+            if n:
+                tel.count_labeled("mesh_shard_transfer_rows_total", {"shard": str(s)}, n)
+
+    def _stage(self, a: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        return mesh_mod.put_repl(a, self.mesh)
+
+    def _sync_index(self) -> None:
+        ix = self.index
+        n_sub = self.n_shards
+        # buckets per shard: ceil(n_buckets / n_sub); the trailing pad
+        # buckets are inert (mesh.pad_slots) and the logical mask never
+        # probes them
+        if ix.meta_dirty or self._dev_meta is None:
+            cols = [mesh_mod.put_repl(np.array(a), self.mesh) for a in ix.packed_meta()]
+            self._dev_meta = tuple(ClassMeta(*c) for c in zip(*cols))
+            ix.meta_dirty = False
+        if ix.rebuilt or self._dev_slots is None:
+            ix.dirty_slots.clear()
+            fp, bkt = mesh_mod.pad_slots(np.array(ix.slots.fp), np.array(ix.slots.bucket), n_sub)
+            cols = (self._put_sub(fp), self._put_sub(bkt), self._put_sub(np.array(ix.slots.probe)))
+            self._dev_slots = tuple(SlotArrays(*c) for c in zip(*cols))
+            ix.rebuilt = False
+        elif ix.dirty_slots:
+            dirty = np.unique(np.asarray(ix.dirty_slots, np.int32))
+            ix.dirty_slots.clear()
+            idx = pad_pow2_batches(dirty, self.DELTA_BATCH)
+            self.telemetry.record_shape("mesh_slot_delta", (idx.shape[0], len(ix.slots.fp)))
+            self._apply_slot_delta(
+                *_slot_cols(self._dev_slots),
+                self._stage(idx), self._stage(ix.slots.fp[idx]),
+                self._stage(ix.slots.bucket[idx]),
+                self._stage(ix.slots.probe[idx // BUCKET_W]),
+            )
+        cap_padded = self.table.capacity + (-self.table.capacity) % n_sub
+        held = len(self.mesh.groups[0].subs) * cap_padded // n_sub
+        if ix.residual_dirty or self._dev_residual is None or (
+            self._dev_residual[0].shape[0] != held
+        ):
+            mask = np.zeros(self.table.capacity, bool)
+            if ix.residual_rows:
+                mask[list(ix.residual_rows)] = True
+            self._dev_residual = self._put_sub(mask)
+            ix.residual_dirty = False
+
+    def sync(self) -> int:
+        """Bring the mesh up to date; returns rows written."""
+        tel = self.telemetry
+        t0 = tel.clock()
+        pending = len(self.table.dirty)
+        n, full = self._sync_impl()
+        if tel.enabled and (n or full):
+            tel.record_sync(rows=n, seconds=tel.clock() - t0, pending=pending, full=full)
+            tel.observe_device_table(self)
+        return n
+
+    def _sync_impl(self) -> Tuple[int, bool]:
+        t = self.table
+        if self._dev is None or t.grew or t.capacity != self._synced_capacity:
+            n = len(t.dirty)
+            t.drain_dirty()
+            self._dev = mesh_mod.put_filters(t.snapshot(), self.mesh)
+            self._synced_capacity = t.capacity
+            if self.index is not None:
+                self._sync_index()
+            return n, True
+        dirty = t.drain_dirty()  # ndarray: row 0 alone is falsy — test the length
+        if len(dirty) == 0:
+            if self.index is not None:
+                self._sync_index()
+            return 0, False
+        total = len(dirty)
+        rows = pad_pow2_batches(dirty, self.DELTA_BATCH)
+        n_b = rows.shape[0]
+        tel = self.telemetry
+        if tel.enabled:
+            n_sub = self.n_shards
+            rs = mesh_mod.shard_rows(t.capacity, self.mesh)
+            self._count_shard_rows(
+                np.bincount(np.clip(np.asarray(dirty) // rs, 0, n_sub - 1), minlength=n_sub))
+        stage = self._stage
+        row_args = (
+            stage(rows), stage(t.words[rows]), stage(t.prefix_len[rows]),
+            stage(t.has_hash[rows]), stage(t.root_wild[rows]), stage(t.active[rows]),
+        )
+        ix = self.index
+        if ix is not None and ix.dirty_slots and not ix.rebuilt and self._dev_slots is not None:
+            # steady-state churn touches rows AND cuckoo slots: both
+            # delta streams in ONE launch per device
+            sdirty = np.unique(np.asarray(ix.dirty_slots, np.int32))
+            ix.dirty_slots.clear()
+            sidx = pad_pow2_batches(sdirty, self.DELTA_BATCH)
+            tel.record_shape(
+                "mesh_sync", (n_b, sidx.shape[0], t.capacity, t.max_levels, len(ix.slots.fp))
+            )
+            if tel.enabled:
+                tel.set_gauge("mesh_sync_batch_rows", total + len(sdirty))
+            self._mesh_sync(
+                self._dev, *_slot_cols(self._dev_slots), *row_args,
+                stage(sidx), stage(ix.slots.fp[sidx]), stage(ix.slots.bucket[sidx]),
+                stage(ix.slots.probe[sidx // BUCKET_W]),
+            )
+            self._sync_index()  # meta/residual legs only — slots done
+            return total, False
+        tel.record_shape("apply_delta", (n_b, t.capacity, t.max_levels))
+        if tel.enabled:
+            tel.set_gauge("mesh_sync_batch_rows", total)
+        self._apply_delta(self._dev, *row_args)
+        if ix is not None:
+            self._sync_index()
+        return total, False
+
+    # --- batched match: begin launches and starts the fetch, finish waits ----------
+
+    def _block_mh(self) -> int:
+        """Per-block hit capacity: the transfer chunk's floor power of
+        two when one is set below the default, raised to the sticky
+        escalation floor."""
+        mh = self.default_mh
+        cap = self.transfer_chunk_hits
+        if cap is not None and mh > cap >= 1024:
+            mh = 1 << (cap.bit_length() - 1)
+        return max(mh, self._mh_floor)
+
+    def _padded_batch(self, enc: EncodedTopics) -> int:
+        b = int(enc.ids.shape[0])
+        return b + (-b) % self.mesh.shape[DP_AXIS]
+
+    def _batch_of(self, t_dev) -> int:
+        """The padded batch size of placed topics."""
+        g = self.mesh.groups[0]
+        return t_dev[0].ids.shape[0] // len(g.dps) * self.mesh.shape[DP_AXIS]
+
+    def _filters(self, residual: bool) -> Tuple[EncodedFilters, ...]:
+        if not residual:
+            return self._dev
+        return tuple(d._replace(active=r) for d, r in zip(self._dev, self._dev_residual))
+
+    def match_ids_begin(self, enc: EncodedTopics, residual: bool = False):
+        """Launch the sharded dense compaction (K16 + K14) over the full
+        table or the residual rows and begin the result copy. Returns a
+        handle for match_ids_finish (ticket last)."""
+        if self._dev is None:
+            raise RuntimeError("sync() before matching")
+        dev = self._filters(residual)
+        t_dev = mesh_mod.put_topics(enc, self.mesh)
+        mh = self._block_mh()
+        self.telemetry.record_shape("mesh_match_ids", (self._padded_batch(enc), mh))
+        out = self._match_kernel(mh)(dev, t_dev)
+        STAGE_MARK.stage = "ticket_start"
+        return (dev, t_dev, mh, transfer_ops.start_fetch(out, self.telemetry))
+
+    def match_ids_finish(self, pending):
+        """Wait for a begun dense match, escalating the per-block
+        capacity while a dp block's total overflows it (sticky: the new
+        capacity becomes the floor). Returns (ti, ri) host arrays of the
+        valid pairs; ti may hold dp-padding topic indices."""
+        dev, t_dev, mh, ticket = pending
+        tel = self.telemetry
+        t0 = tel.clock()
+        ti, ri, totals = ticket.wait()
+        while int(totals.max(initial=0)) > mh:
+            tel.count("escalations_total")
+            mh = max(mh * 2, 1 << int(totals.max()).bit_length())
+            tel.record_shape("mesh_match_ids", (self._batch_of(t_dev), mh))
+            self._mh_floor = max(self._mh_floor, mh)
+            ti, ri, totals = transfer_ops.start_fetch(
+                self._match_kernel(mh)(dev, t_dev), tel).wait()
+        ti = ti.reshape(-1)
+        ri = ri.reshape(-1)
+        keep = ti >= 0
+        if tel.enabled:
+            tel.observe_family("mesh_combine_seconds", tel.clock() - t0)
+        return ti[keep], ri[keep]
+
+    def match_ids(self, enc: EncodedTopics, residual: bool = False):
+        """(ti, ri) of every (topic, row) hit through the dense kernels."""
+        return self.match_ids_finish(self.match_ids_begin(enc, residual))
+
+    def match_hash_begin(self, enc: EncodedTopics):
+        """Launch the sharded hash kernel (K17 + K14) and begin the
+        result copy. Returns a handle for match_hash_finish (ticket
+        last)."""
+        if self._dev_slots is None:
+            raise RuntimeError("sync() before matching")
+        t_dev = mesh_mod.put_topics(enc, self.mesh)
+        mh = self._block_mh()
+        self.telemetry.record_shape("mesh_match_ids_hash", (self._padded_batch(enc), mh))
+        out = self._hash_kernel(mh)(self._dev_meta, self._dev_slots, t_dev)
+        STAGE_MARK.stage = "ticket_start"
+        return (t_dev, mh, transfer_ops.start_fetch(out, self.telemetry))
+
+    def match_hash_finish(self, pending):
+        """Wait for a begun hash match, escalating as match_ids_finish
+        does. Returns (ti, bi, amb): the valid (topic, bucket id)
+        candidates (ti may hold dp-padding topics) and the mesh-wide
+        ambiguity count (amb > 0: the caller re-matches on the host)."""
+        t_dev, mh, ticket = pending
+        tel = self.telemetry
+        t0 = tel.clock()
+        ti, bi, totals, amb = ticket.wait()
+        while int(totals.max(initial=0)) > mh:
+            tel.count("hash_overflow_retries_total")
+            mh = max(mh * 2, 1 << int(totals.max()).bit_length())
+            tel.record_shape("mesh_match_ids_hash", (self._batch_of(t_dev), mh))
+            self._mh_floor = max(self._mh_floor, mh)
+            ti, bi, totals, amb = transfer_ops.start_fetch(
+                self._hash_kernel(mh)(self._dev_meta, self._dev_slots, t_dev), tel).wait()
+        ti = ti.reshape(-1)
+        bi = bi.reshape(-1)
+        keep = ti >= 0
+        if tel.enabled:
+            tel.observe_family("mesh_combine_seconds", tel.clock() - t0)
+        return ti[keep], bi[keep], int(amb.reshape(-1)[0])
+
+    def match_hash(self, enc: EncodedTopics):
+        """(ti, bi, amb) through the sharded hash kernel."""
+        return self.match_hash_finish(self.match_hash_begin(enc))
+
+    # --- warm-up -------------------------------------------------------------------
+
+    def warmup_deltas(self) -> int:
+        """Run the churn sync kernels (row delta, slot delta, fused) at
+        their small batch shapes (1 and 2 batches) once, so the first
+        serve-time churn finds them built and their shape keys recorded.
+        Re-applies row/slot 0's current host truth: every launch is a
+        no-op on the data. Needs a completed full sync; returns the
+        launches made."""
+        if self._dev is None:
+            return 0
+        t = self.table
+        k = self.DELTA_BATCH
+        tel = self.telemetry
+        stage = self._stage
+        warmed = 0
+        for n_b in (1, 2):
+            idx = np.zeros((n_b, k), np.int32)
+            row_args = (
+                stage(idx), stage(t.words[idx]), stage(t.prefix_len[idx]),
+                stage(t.has_hash[idx]), stage(t.root_wild[idx]), stage(t.active[idx]),
+            )
+            tel.record_shape("apply_delta", (n_b, t.capacity, t.max_levels))
+            self._apply_delta(self._dev, *row_args)
+            warmed += 1
+            ix = self.index
+            if ix is None or self._dev_slots is None:
+                continue
+            slot_args = (
+                stage(idx), stage(ix.slots.fp[idx]), stage(ix.slots.bucket[idx]),
+                stage(ix.slots.probe[idx // BUCKET_W]),
+            )
+            tel.record_shape("mesh_slot_delta", (n_b, len(ix.slots.fp)))
+            self._apply_slot_delta(*_slot_cols(self._dev_slots), *slot_args)
+            warmed += 1
+            tel.record_shape(
+                "mesh_sync", (n_b, n_b, t.capacity, t.max_levels, len(ix.slots.fp))
+            )
+            self._mesh_sync(self._dev, *_slot_cols(self._dev_slots), *row_args, *slot_args)
+            warmed += 1
+        return warmed
+
+    def warmup_escalated(self, enc: EncodedTopics) -> int:
+        """Launch both match kernels once at twice the current block
+        capacity for this batch shape, so a serve-time overflow finds the
+        first escalation step's shape key recorded. Results are dropped
+        unfetched."""
+        if self._dev is None:
+            return 0
+        t_dev = mesh_mod.put_topics(enc, self.mesh)
+        b = self._padded_batch(enc)
+        mh2 = self._block_mh() * 2
+        self.telemetry.record_shape("mesh_match_ids", (b, mh2))
+        self._match_kernel(mh2)(self._dev, t_dev)
+        warmed = 1
+        if self._dev_slots is not None:
+            self.telemetry.record_shape("mesh_match_ids_hash", (b, mh2))
+            self._hash_kernel(mh2)(self._dev_meta, self._dev_slots, t_dev)
+            warmed += 1
+        return warmed

@@ -152,3 +152,52 @@ def test_gen_match_cache_is_generation_stamped():
     c.put("c", 2, ())
     c.put("d", 2, ())
     assert c.evictions == 1 and len(c) == 2
+
+
+# --- K9-K11: the dense forms ---------------------------------------------------
+
+# (seed, n_filters, capacity, pad_to, chunk)
+FORM_CASES = [
+    (10, 300, 1024, 0, 65536),   # one chunk covers the table
+    (11, 500, 1024, 64, 256),    # chunked, pow2-padded topics
+    (12, 900, 2048, 0, 512),     # a larger table, chunked
+]
+
+
+@pytest.mark.parametrize("seed,n_filters,capacity,pad_to,chunk", FORM_CASES)
+def test_dense_forms_equal_reference(seed, n_filters, capacity, pad_to, chunk):
+    jt, tt, topics = _twin_tables(seed, n_filters, capacity=capacity)
+    enc = JM.encode_topics(jt.vocab, topics, jt.max_levels, pad_to=pad_to)
+    f = _torch(jt.snapshot(), EncodedFilters)
+    t = _torch(enc, TM.EncodedTopics)
+    dense = TM.match_dense(f, t)
+    assert dense.dtype == torch.bool
+    assert np.array_equal(np.asarray(JM.match_dense(jt.snapshot(), enc)), dense.numpy())
+    packed = TM.match_packed(f, t, chunk=chunk)
+    want = np.asarray(JM.match_packed(jt.snapshot(), enc, chunk=chunk))
+    assert packed.dtype == torch.uint32
+    assert np.array_equal(want, packed.view(torch.int32).numpy().view(np.uint32))
+    counts = TM.match_counts(f, t)
+    assert np.array_equal(np.asarray(JM.match_counts(jt.snapshot(), enc)), counts.numpy())
+    # the host unpack of the port's bitmap is the oracle's row set
+    oracle = TM.oracle_match_rows(tt, topics)
+    host = packed.view(torch.int32).numpy().view(np.uint32)
+    for i, rows in enumerate(oracle):
+        assert np.array_equal(TM.unpack_indices(host[i]), JM.unpack_indices(want[i]))
+        assert np.array_equal(TM.unpack_all(host)[i], rows)
+        assert int(counts[i]) == len(rows)
+
+
+def test_match_packed_refuses_what_the_reference_refuses():
+    jt, _tt, topics = _twin_tables(13, 100)
+    enc = JM.encode_topics(jt.vocab, topics, jt.max_levels)
+    f = _torch(jt.snapshot(), EncodedFilters)
+    t = _torch(enc, TM.EncodedTopics)
+    with pytest.raises(ValueError, match="chunk"):
+        TM.match_packed(f, t, chunk=768)  # 1024 rows: not a multiple
+    with pytest.raises(AssertionError):
+        JM.match_packed(jt.snapshot(), enc, chunk=768)
+    # 32 rows short of a word boundary
+    short = EncodedFilters(*(a[:1000] for a in f))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        TM.match_packed(short, t, chunk=1000)

@@ -384,9 +384,12 @@ def test_kernel_argtypes_match_the_c_entry_points():
     import emqx_tpu_torch.broker.pubsub  # noqa: F401  (every kernel module)
 
     assert sorted(_build.KERNELS) == [
-        "match_ids", "match_ids_hash", "probe_add_one", "resolve_fanout",
-        "retained_probe", "scatter_edges", "scatter_rows", "scatter_segs",
-        "scatter_slots"]
+        "combine_pairs", "combine_probe", "match_counts", "match_dense",
+        "match_ids", "match_ids_hash", "match_packed", "mesh_apply_delta",
+        "mesh_match_counts", "mesh_match_ids", "mesh_match_ids_hash",
+        "mesh_match_packed", "mesh_slot_delta", "mesh_sync", "probe_add_one",
+        "resolve_fanout", "retained_probe", "scatter_edges", "scatter_rows",
+        "scatter_segs", "scatter_slots"]
     for k in _build.KERNELS.values():
         assert list(k.argtypes) == _c_params(k.source, k.symbol), k.name
 
@@ -407,7 +410,8 @@ def test_port_imports_neither_jax_nor_reference():
     names = {str(p.relative_to(REPO)) for p in files}
     for mod in ("ops/fanout.py", "broker/pubsub.py", "broker/dispatch_engine.py",
                 "broker/session.py", "models/retainer.py", "ops/retained.py",
-                "broker/channel.py", "broker/server.py"):
+                "broker/channel.py", "broker/server.py", "parallel/mesh.py",
+                "parallel/sharded_match.py", "convert.py"):
         assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
@@ -448,9 +452,9 @@ def _fetch_gate():
 def test_no_blocking_host_fetch_outside_finish_sites():
     allowlist, begin_re, shape_attr, fetch_kind = _fetch_gate()
     port = REPO / "emqx_tpu_torch"
-    # the mesh modules (parallel/) are not ported yet
     present = {rel: a for rel, a in allowlist.items() if (port / rel).exists()}
     assert "ops/retained.py" in present and "ops/fanout.py" in present
+    assert "parallel/sharded_match.py" in present and "parallel/mesh.py" in present
     offenders = []
     for rel, allowed in present.items():
         stack = []
@@ -489,6 +493,7 @@ def test_begin_halves_start_their_transfer():
     device->host copy (ops/transfer.start_fetch) in the same function."""
     halves = (
         ("models/router.py", None, r"match_(ids|hash)_begin"),
+        ("parallel/sharded_match.py", None, r"match_(ids|hash)_begin"),
         ("ops/fanout.py", "FanoutDeviceState", r"resolve_begin"),
         ("ops/retained.py", "RetainedIndex", r"read_begin"),
     )
@@ -508,5 +513,5 @@ def test_begin_halves_start_their_transfer():
                 }
                 if "start_fetch" not in calls:
                     offenders.append(f"{rel}:{node.lineno} {node.name}()")
-    assert len(found) == 4, found
+    assert len(found) == 6, found
     assert not offenders, offenders
