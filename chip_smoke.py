@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (emqx_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--serve]
+
+`--serve` runs phases 1-3, then only the serve paths of phases 5, 6 and
+9 (no kernel checks) and prints their rates on one line: the quick way
+to compare two trees in many turns of one call.
 
 Phases (any failure exits non-zero; no phase swallows an exception):
 
@@ -15,10 +19,21 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 4. Kernel vs plain, on the card, at the slice's shapes: K1 on a 1024-topic
    batch (and once with max_hits below the total), K2 over the residual
    mask of the full table capacity and over the full table's own active
-   mask (the dense-only mode's shape), K3/K4 on one churn sync. Every
-   output must equal the plain PyTorch version's on the same inputs
-   exactly (integer outputs: the tolerance is 0). Each kernel's median
-   time over 20 launches (CUDA events) and the plain version's are taken.
+   mask (the dense-only mode's shape), then K2 at its edge cases on
+   edited clones of the table (max_hits below the total; 4,096 extra
+   live '#' rows in one chunk, past one block's hit record; an all-dead
+   mask; live rows only in the last chunk; B = 1 and 2,048; N = chunk),
+   K3/K4 on one churn sync. Every output must equal the plain PyTorch
+   version's on the same inputs exactly (integer outputs: the tolerance
+   is 0). Times, for every kernel of every phase, its plain version and
+   (where one exists) the one PyTorch call computing the same function:
+   `call_ms`, the median of 20 single calls each between two CUDA events
+   (with the card idle, this holds the host's enqueue of the call too);
+   `device_ms`, a run of 50 calls back to back between one event pair,
+   over 50, with the stream held by a spin kernel while the host
+   enqueues the run, so the run reads the card's time; `enqueue_ms`, the
+   host clock over that loop. `ms`, `plain_ms` and `library_ms` in the
+   kernels line are the device times.
 5. Slice end to end: warm-up; launch counters set to 0; 32 batches of
    1024 Zipf-distributed topics through match_filters_begin/finish,
    pipelined two deep, match cache off; counters read. Between batches
@@ -44,8 +59,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    and no_local / retain-as-published subscriptions (262,144 client
    rows). K5 (at the 150k-fan and a 2k-fan plan), K6/K7 (one churn's
    delta sync) and K12 (the probe's scalar and 1 MB buffer) against
-   their plain versions, exactly; the 150k-fan plan by host walk and by
-   device resolve. Then the DispatchEngine (queue_depth 1024, pipeline
+   their plain versions, exactly (K12 also in int32 and float32 at the
+   scalar, 1 MB, 64 MB, an odd length 2^18 + 3 and that length from a
+   view one element in, the 64 MB buffer timed against torch.add, and
+   K12 and the scalar against torch.add, the library yardstick); the
+   150k-fan plan by host walk and by device resolve. Then the DispatchEngine (queue_depth 1024, pipeline
    depth 2, the default match cache, fanout min_fan 1024,
    transfer_chunk_kb 0 so warm-up probes the link through K12) with the
    counters set to 0 just before its warm-up: 32 windows of 1,024 QoS-0
@@ -106,8 +124,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    batches against host fallbacks, mesh_combine_seconds. Then each mesh
    kernel against its plain version on the router's own state (K13
    counts, packed and apply_delta, K14 over both legs' tiles, K15, K16,
-   K17, K18 on a churn's delta, also against host truth), timed (median
-   of 20 CUDA-event launches; the plain versions over 3); K16, K17 and
+   K17, K18 on a churn's delta, also against host truth), timed as in
+   phase 4 (the plain versions, hundreds of ms a call, over 3 calls
+   both ways); K16, K17 and
    K14 again at a block capacity of at most half the largest tile count
    (the per-tile truncation, exact counts past it, the combine's cut,
    which at least one leg must reach); then
@@ -121,7 +140,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    publish of 24 rooms with exact delivery counts;
    DispatchEngine.warmup() reporting 4 shards.
 10. Summary: one line per kernel (times, bound, launches, equal), the
-   run's seconds and each phase's, one `{"kernels": [...]}` JSON line (launches of K1-K4
+   run's seconds and each phase's, one `{"kernels": [...]}` JSON line
+   (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
+   `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1-K4
    from phase 5, of the dense-only K2 from phase 6, of K5-K7 and K12
    from phase 7, of K8 from phase 8's server rounds, of K14, K16, K17
    and the fused K18 from phase 9's batches, of K13 apply_delta and the
@@ -153,7 +174,12 @@ N_BATCHES = 32
 N_DENSE_BATCHES = 8
 CHURN = 1000
 SWAP = 256
-REPEATS = 20
+REPEATS = 20  # calls of a single-call time
+DEVICE_RUN = 50  # calls of a device-time run
+HOLD_S = 0.25  # the longest the stream is held while the host enqueues a run
+# spin-kernel cycles a second: at or above the H100's top SM clock, so a
+# hold lasts at least as long as asked
+SPIN_HZ = 2.0e9
 # phase 7: the broker publish path
 N_PFAN = 100_000
 N_MFAN_GROUPS = 16
@@ -185,7 +211,7 @@ MESH = (2, 4)
 N_MESH_BATCHES = 16
 DENSE_B = 64
 MESH_ORACLE_TOPICS = 32
-PLAIN_REPEATS = 3  # the plain versions of phase 9 are timed over 3 calls
+PLAIN_REPEATS = 3  # the plain versions of phase 9 are timed over 3 calls, both ways
 ESCALATION_MH = 2  # phase 9's forced block capacity, below both legs' block totals
 # filter classes (see ret_filter) and their shares: a wave's, a client's
 WAVE_MIX = (("A", 70), ("B", 10), ("C", 10), ("D", 8), ("E", 1), ("F", 1))
@@ -205,8 +231,11 @@ def card_line() -> str:
 
 
 def median_ms(fn, repeats: int = REPEATS) -> float:
-    """Median of `repeats` single-call times on the current stream, by
-    CUDA events (one warm-up call first)."""
+    """A call's single-call time (`call_ms`): the median of `repeats`
+    calls, each alone between two CUDA events on the current stream (one
+    warm-up call first). With the card idle, the event pair also holds
+    the host's enqueue of the call, which leads the reading of a small
+    kernel."""
     import torch
 
     fn()
@@ -220,6 +249,78 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def run_ms(fn, n: int = DEVICE_RUN):
+    """A call's device time (`device_ms`) and host enqueue time
+    (`enqueue_ms`): n calls back to back between one pair of CUDA events,
+    after a warm-up call, over n. A spin kernel first holds the stream
+    for twice the host's enqueue time of the run (when that is at most
+    HOLD_S), so the calls run back to back on the card and the run reads
+    the card's time, not the host's; the enqueue time is the host clock
+    over the same loop. A function that waits for the card inside (a
+    plain version's nonzero) runs at the host's pace all the same."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if 2 * n * one_s <= HOLD_S:
+        torch.cuda._sleep(int(2 * n * one_s * SPIN_HZ))
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, 1e3 * enqueue_s / n
+
+
+def timed(kernel, plain, library=None, plain_repeats: int = REPEATS,
+          plain_run: int = DEVICE_RUN):
+    """The times of a kernel record: for the kernel, its plain version
+    and (where one PyTorch call computes the same function) that call,
+    the single-call time (`*call_ms`), the device time and the host
+    enqueue time of a run (`*device_ms`, `*enqueue_ms`). `ms`,
+    `plain_ms` and `library_ms` are the device times."""
+    rec = {}
+    for key, fn, repeats, n in (("", kernel, REPEATS, DEVICE_RUN),
+                                ("plain_", plain, plain_repeats, plain_run),
+                                ("library_", library, REPEATS, DEVICE_RUN)):
+        if fn is None:
+            rec.update({f"{key}ms": None, f"{key}call_ms": None,
+                        f"{key}device_ms": None, f"{key}enqueue_ms": None})
+            continue
+        rec[f"{key}call_ms"] = median_ms(fn, repeats)
+        rec[f"{key}device_ms"], rec[f"{key}enqueue_ms"] = run_ms(fn, n)
+        rec[f"{key}ms"] = rec[f"{key}device_ms"]
+    return rec
+
+
+def launch_breakdown(fn, calls: int = 10) -> str:
+    """Device microseconds per call of each kernel a wrapper launches,
+    by torch.profiler over `calls` calls, largest first."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.device_time_total / calls, re.search(r"(\w+(?:<\w+>)?)\(", ev.key))
+                   for ev in prof.key_averages() if ev.device_time_total), reverse=True,
+                  key=lambda r: r[0])
+    return ", ".join(f"{m.group(1) if m else '?'} {us:.3f}" for us, m in rows)
 
 
 def set_bounds(recs) -> None:
@@ -416,8 +517,8 @@ def check_kernels(router, skel, topics, rng):
                 + mh * 8 + 8)
     ops_k1 = B * C * 8 + n_elig * (8 * L + 24) + hits * 40
     recs["match_ids_hash"] = dict(
-        ms=median_ms(lambda: H.match_ids_hash(meta, slots, denc, max_hits=mh)),
-        plain_ms=median_ms(lambda: H.match_ids_hash_ref(meta, slots, denc, max_hits=mh)),
+        **timed(lambda: H.match_ids_hash(meta, slots, denc, max_hits=mh),
+                lambda: H.match_ids_hash_ref(meta, slots, denc, max_hits=mh)),
         bytes=bytes_k1, ops=ops_k1, err=err,
         shape=f"B={B} C={C} buckets={int(slots.probe.shape[0])} max_hits={mh} "
               f"total={total} overflow_max_hits={small}",
@@ -439,12 +540,15 @@ def check_kernels(router, skel, topics, rng):
         bytes_k2 = N + n_act * (4 * L + 6) + B * (4 * L + 5) + mh2 * 8 + 4
         ops_k2 = B * (plen_sum + 3 * n_act)
         recs[name] = dict(
-            ms=median_ms(lambda: M.match_ids(filters, denc, max_hits=mh2)),
-            plain_ms=median_ms(lambda: M.match_ids_ref(filters, denc, max_hits=mh2)),
+            **timed(lambda: M.match_ids(filters, denc, max_hits=mh2),
+                    lambda: M.match_ids_ref(filters, denc, max_hits=mh2)),
             bytes=bytes_k2, ops=ops_k2, err=err,
             shape=f"B={B} N={N} L={L} active={n_act} max_hits={mh2} "
-                  f"total={int(got[2])} written={hits2}",
+                  f"total={int(got[2])} written={hits2}; its launches, device us a call: "
+                  + launch_breakdown(lambda: M.match_ids(filters, denc, max_hits=mh2)),
         )
+    cases = match_ids_edge_cases(dt.filters(), denc, int(got[2]))
+    recs["match_ids_dense_only"]["shape"] += "; edge cases equal: " + "; ".join(cases)
 
     # K3/K4: one churn sync, applied to copies of the device state
     churn(router, skel, rng)
@@ -464,8 +568,7 @@ def check_kernels(router, skel, topics, rng):
     err = max(err, max_abs_err(a, host))
     n3 = int(rows.size)
     recs["scatter_rows"] = dict(
-        ms=median_ms(lambda: R.scatter_rows(a, *cols)),
-        plain_ms=median_ms(lambda: R.scatter_rows_ref(b, *cols)),
+        **timed(lambda: R.scatter_rows(a, *cols), lambda: R.scatter_rows_ref(b, *cols)),
         bytes=2 * n3 * (4 * L + 7) + n3 * 4, ops=0, err=err,
         shape=f"dirty_rows={len(set(t.dirty))} padded={rows.shape} L={L}",
     )
@@ -483,14 +586,71 @@ def check_kernels(router, skel, topics, rng):
                           [to_device(x, dev).view(torch.int32) for x in ix.slots]))
     n4 = int(idx.size)
     recs["scatter_slots"] = dict(
-        ms=median_ms(lambda: R.scatter_slots(a, *scols)),
-        plain_ms=median_ms(lambda: R.scatter_slots_ref(b, *scols)),
+        **timed(lambda: R.scatter_slots(a, *scols), lambda: R.scatter_slots_ref(b, *scols)),
         bytes=n4 * 16 + n4 * 12, ops=0, err=err,
         shape=f"dirty_slots={len(set(ix.dirty_slots))} padded={idx.shape}",
     )
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs
+
+
+def match_ids_edge_cases(filters, denc, total):
+    """K2 against its plain version, exactly, at its edge cases, on
+    edited clones of the dense-only table (never the router's own
+    state): max_hits below the total; 4,096 extra live '#' rows in one
+    chunk (one block's hits past its list capacity: it walks again),
+    at the default max_hits and at one that holds every hit; an
+    all-dead mask; live rows only in the last chunk (chunk 0's rows
+    copied there); B = 1 and B = 2,048; N = chunk. Returns one line a
+    case."""
+    import torch
+
+    from emqx_tpu_torch.ops import match as M
+    from emqx_tpu_torch.ops.table import EncodedFilters, next_pow2
+
+    N = int(filters.words.shape[0])
+    chunk = min(65536, N)
+    mh = max(4096, next_pow2(4 * int(denc.ids.shape[0])))
+    out = []
+
+    def check(name, f, t, max_hits):
+        got = M.match_ids(f, t, max_hits=max_hits)
+        max_abs_err(got, M.match_ids_ref(f, t, max_hits=max_hits))
+        out.append(f"{name} (B={int(t.ids.shape[0])} N={int(f.words.shape[0])} "
+                   f"max_hits={max_hits}): total={int(got[2])}")
+        return int(got[2])
+
+    def clone():
+        return EncodedFilters(*(x.clone() for x in filters))
+
+    check("max_hits below the total", filters, denc, max(1, total // 3))
+    f = clone()
+    dead = (~f.active).view(-1, chunk).sum(dim=1)
+    k = min(4096, int(dead.max()))
+    c = int(torch.nonzero(dead >= k)[0])
+    rows = c * chunk + torch.nonzero(~f.active[c * chunk:(c + 1) * chunk])[:k, 0]
+    f.words[rows] = 0
+    f.prefix_len[rows] = 0
+    f.has_hash[rows] = True
+    f.root_wild[rows] = True
+    f.active[rows] = True
+    big = check(f"{k} '#' rows in chunk {c}", f, denc, mh)
+    check(f"{k} '#' rows in chunk {c}, every hit placed", f, denc, next_pow2(big))
+    f = clone()
+    f.active.zero_()
+    if check("all rows dead", f, denc, mh):
+        raise AssertionError("K2 matched rows of an all-dead mask")
+    f = clone()
+    for x in f:
+        x[N - chunk:] = x[:chunk]
+    f.active[:N - chunk] = False
+    check("live rows only in the last chunk", f, denc, mh)
+    del f
+    check("B = 1", filters, M.EncodedTopics(*(x[:1].contiguous() for x in denc)), mh)
+    check("B = 2,048", filters, M.EncodedTopics(*(torch.cat([x, x]) for x in denc)), 2 * mh)
+    check("N = chunk", EncodedFilters(*(x[:chunk].clone() for x in filters)), denc, mh)
+    return out
 
 
 # --- the slice end to end ------------------------------------------------------
@@ -930,8 +1090,8 @@ def check_broker_kernels(broker, skel, rng, deliveries):
                       f"winners={int(got[1])}")
     total = int(got[2])
     recs["resolve_fanout"] = dict(
-        ms=median_ms(lambda: F.resolve_fanout(*state, trows, n_clients=nc, max_fan=max_fan)),
-        plain_ms=median_ms(lambda: F.resolve_fanout_ref(*state, trows, nc, max_fan)),
+        **timed(lambda: F.resolve_fanout(*state, trows, n_clients=nc, max_fan=max_fan),
+                lambda: F.resolve_fanout_ref(*state, trows, nc, max_fan)),
         bytes=len(rows_arr) * 12 + total * 8 + max_fan * 4 + 8,
         ops=total * (4 * max(1, len(rows_arr).bit_length()) + 16),
         err=err, shape="; ".join(shapes),
@@ -949,7 +1109,7 @@ def check_broker_kernels(broker, skel, rng, deliveries):
     versus = (f"plan at fan {fan} ({len(broker._build_fanout_plan(pairs)[0])} "
               f"winners): host walk {statistics.median(host_ms):.3f} ms, device "
               f"resolve begin+finish {statistics.median(dev_ms):.3f} ms, K5 "
-              f"kernel {recs['resolve_fanout']['ms']:.6f} ms")
+              f"kernel {recs['resolve_fanout']['device_ms']:.6f} ms (device)")
 
     # K6/K7: one churn's delta, on copies of the mirror. Its index is
     # one no pair uses (its own late joiners and mfan group) and even
@@ -971,30 +1131,64 @@ def check_broker_kernels(broker, skel, rng, deliveries):
         e = max(max_abs_err(a, b), max_abs_err(a, [to_device(c, dev) for c in cols]))
         n = int(idx.size)
         recs[name] = dict(
-            ms=median_ms(lambda: fn(*a, *vals)),
-            plain_ms=median_ms(lambda: F.scatter_cols_ref(*b, *vals)),
+            **timed(lambda: fn(*a, *vals), lambda: F.scatter_cols_ref(*b, *vals)),
             bytes=n * 12 + 2 * len(set(n_dirty)) * 4, ops=0, err=e,
             shape=f"dirty={len(set(n_dirty))} padded={idx.shape} "
                   f"table={int(base[0].shape[0])}",
         )
 
-    # K12: the probe's float32 scalar and its 1 MB int32 fetch buffer
+    # K12: the probe's float32 scalar and its 1 MB int32 fetch buffer,
+    # timed against torch.add; its edge cases equal to the plain version
     x = torch.tensor(0.5, dtype=torch.float32, device=dev)
     buf = torch.arange(1 << 18, dtype=torch.int32, device=dev)
-    e = max(max_abs_err([T.add_one(x)], [T.add_one_ref(x)]),
-            max_abs_err([T.add_one(buf)], [T.add_one_ref(buf)]))
-    scalar_ms = median_ms(lambda: T.add_one(x))
+    e, cases = add_one_edge_cases(dev)
+    scalar = timed(lambda: T.add_one(x), lambda: T.add_one_ref(x), lambda: torch.add(x, 1))
     recs["probe_add_one"] = dict(
-        ms=median_ms(lambda: T.add_one(buf)),
-        plain_ms=median_ms(lambda: T.add_one_ref(buf)),
-        library_ms=median_ms(lambda: torch.add(buf, 1)),
+        **timed(lambda: T.add_one(buf), lambda: T.add_one_ref(buf), lambda: torch.add(buf, 1)),
         bytes=2 * buf.nbytes, ops=buf.numel(), err=e,
-        shape=f"int32 [{buf.numel()}] (the fetch leg); float32 scalar "
-              f"{scalar_ms:.6f} ms",
+        shape=f"int32 [{buf.numel()}] (the fetch leg); " + "; ".join(
+            [f"float32 scalar: {times_line(scalar)}"] + cases),
     )
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs, versus
+
+
+def times_line(r) -> str:
+    """A record's times, kernel, plain version and library call."""
+    out = [f"call_ms={r['call_ms']:.6f} device_ms={r['device_ms']:.6f} "
+           f"enqueue_ms={r['enqueue_ms']:.6f}",
+           f"plain call_ms={r['plain_call_ms']:.6f} device_ms={r['plain_device_ms']:.6f}"]
+    if r.get("library_call_ms") is not None:
+        out.append(f"library call_ms={r['library_call_ms']:.6f} device_ms="
+                   f"{r['library_device_ms']:.6f} enqueue_ms={r['library_enqueue_ms']:.6f}")
+    return ", ".join(out)
+
+
+def add_one_edge_cases(dev):
+    """K12 against its plain version, exactly, in int32 and float32: the
+    scalar, 1 MB, 64 MB, an odd length (2^18 + 3) and the same from a
+    view one element in (its pointer off the 16-byte grid); the 64 MB
+    buffer timed against torch.add, where the bytes and not the launch
+    show. Returns (the largest error, one line a case)."""
+    import torch
+
+    from emqx_tpu_torch.ops import transfer as T
+
+    err, out = 0, []
+    for dtype in (torch.int32, torch.float32):
+        for n, off in ((1, 0), (1 << 18, 0), (1 << 24, 0), ((1 << 18) + 3, 0),
+                       ((1 << 18) + 3, 1)):
+            x = torch.arange(n + off, device=dev).to(dtype)[off:]
+            err = max(err, max_abs_err([T.add_one(x)], [T.add_one_ref(x)]))
+            if n == 1 << 24:
+                r = timed(lambda: T.add_one(x), lambda: T.add_one_ref(x),
+                          lambda: torch.add(x, 1))
+                out.append(f"{str(dtype)[6:]} [{n}] 64 MB: {times_line(r)}, bound_ms="
+                           f"{1e3 * 2 * x.nbytes / H100_BYTES_PER_S:.6f}")
+        out.append(f"{str(dtype)[6:]} scalar, 1 MB, 64 MB, [2^18+3] and its view "
+                   f"at offset 1 equal")
+    return err, out
 
 
 def broker_phase(rng, card):
@@ -1259,9 +1453,9 @@ def check_retained_kernel(ret, rng):
         nbytes = (b * 9 + len(keys) * 8 + int(np.minimum(nbm, 2).sum()) * 4
                   + hits * 4 + b * 5)
         out[b] = dict(
-            ms=median_ms(lambda: RI.probe_retained(*tabs, *staged)),
-            plain_ms=median_ms(lambda: RI.probe_retained_ref(*tabs, *staged)),
-            bytes=nbytes, ops=b * 40, err=err, library_ms=None,
+            **timed(lambda: RI.probe_retained(*tabs, *staged),
+                    lambda: RI.probe_retained_ref(*tabs, *staged)),
+            bytes=nbytes, ops=b * 40, err=err,
             shape=f"B={b} buckets={int(tabs[0].shape[0])} hits={hits} "
                   f"amb={int(got[1].sum())} lanes_screened={int(nbm.sum())}",
         )
@@ -1269,7 +1463,7 @@ def check_retained_kernel(ret, rng):
     set_bounds(out)
     small = out[RI.BATCH_LADDER[0]]
     rec = out[RI.MAX_BATCH]
-    rec["shape"] += (f"; at B=8: ms={small['ms']:.6f} plain_ms={small['plain_ms']:.6f} "
+    rec["shape"] += (f"; at B=8: {times_line(small)} "
                      f"bound_ms={small['bound_ms']:.9f} [{small['shape']}]")
     return rec
 
@@ -1615,7 +1809,7 @@ def retained_phase(rng, card):
     t0 = time.perf_counter()
     rec = check_retained_kernel(ret, rng)
     stages["kernel"] = time.perf_counter() - t0
-    log(f"kernel retained_probe: ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
+    log(f"kernel retained_probe: {times_line(rec)} "
         f"bound_ms={rec['bound_ms']:.6f} [{rec['shape']}] [{card}]")
     t0 = time.perf_counter()
     s = server_phase(broker, rng, card)
@@ -1729,18 +1923,18 @@ def check_dense_forms(router, topics):
     nb_small, ops_small, _ = dense_work(filters, DENSE_B)
     shape = f"N={N} L={L} active={n_act}"
     recs["match_packed"] = dict(
-        ms=median_ms(lambda: M.match_packed(filters, denc)),
-        plain_ms=median_ms(lambda: M.match_packed_ref(filters, denc), PLAIN_REPEATS),
-        bytes=nbytes + B * N // 8, ops=ops, err=err, library_ms=None,
+        **timed(lambda: M.match_packed(filters, denc),
+                lambda: M.match_packed_ref(filters, denc), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=nbytes + B * N // 8, ops=ops, err=err,
         shape=f"B={B} {shape} set_bits={int(counts.sum())}")
     recs["match_counts"] = dict(
-        ms=median_ms(lambda: M.match_counts(filters, denc)),
-        plain_ms=median_ms(lambda: M.match_counts_ref(filters, denc), PLAIN_REPEATS),
-        bytes=nbytes + 4 * B, ops=ops, err=err_c, library_ms=None, shape=f"B={B} {shape}")
+        **timed(lambda: M.match_counts(filters, denc),
+                lambda: M.match_counts_ref(filters, denc), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=nbytes + 4 * B, ops=ops, err=err_c, shape=f"B={B} {shape}")
     recs["match_dense"] = dict(
-        ms=median_ms(lambda: M.match_dense(filters, small)),
-        plain_ms=median_ms(lambda: M.match_dense_ref(filters, small), PLAIN_REPEATS),
-        bytes=nb_small + DENSE_B * N, ops=ops_small, err=err_d, library_ms=None,
+        **timed(lambda: M.match_dense(filters, small),
+                lambda: M.match_dense_ref(filters, small), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=nb_small + DENSE_B * N, ops=ops_small, err=err_d,
         shape=f"B={DENSE_B} {shape} output_bytes={DENSE_B * N}")
     del filters, packed, dense
     torch.cuda.synchronize()
@@ -1807,11 +2001,11 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     n_elig = int(elig.sum())
     h_hits = int(h_got[2].clamp(max=mh).sum())
     recs["mesh_match_ids_hash"] = dict(
-        ms=median_ms(lambda: S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh)),
-        plain_ms=median_ms(lambda: S.hash_tiles_ref(
-            meta, slots, t_dev, tiles, nb_loc, nb, b_loc, mh), PLAIN_REPEATS),
+        **timed(lambda: S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh),
+                lambda: S.hash_tiles_ref(meta, slots, t_dev, tiles, nb_loc, nb, b_loc, mh),
+                plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         bytes=C * 11 + B * (4 * L + 5) + n_elig * 2 * 4 + h_hits * 12 + n_tiles * (mh * 8 + 4) + 4,
-        ops=B * C * 8 + n_elig * (8 * L + 24) + h_hits * 40, err=err, library_ms=None,
+        ops=B * C * 8 + n_elig * (8 * L + 24) + h_hits * 40, err=err,
         shape=f"tiles={n_tiles} B={B} C={C} buckets={nb} per_shard={nb_loc} max_hits={mh} "
               f"flagged_per_tile={h_got[2].tolist()} amb={int(h_got[3])}")
 
@@ -1822,10 +2016,10 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     err = max_abs_err(d_got, S.match_ids_tiles_ref(f_res, t_dev, tiles, n_loc, b_loc, mh))
     nbytes, ops, n_act = dense_work(f_res, B)
     recs["mesh_match_ids"] = dict(
-        ms=median_ms(lambda: S._tiles_match_ids(mesh, 0, f_res, t_dev, mh)),
-        plain_ms=median_ms(lambda: S.match_ids_tiles_ref(
-            f_res, t_dev, tiles, n_loc, b_loc, mh), PLAIN_REPEATS),
-        bytes=nbytes + n_tiles * (mh * 8 + 4), ops=ops, err=err, library_ms=None,
+        **timed(lambda: S._tiles_match_ids(mesh, 0, f_res, t_dev, mh),
+                lambda: S.match_ids_tiles_ref(f_res, t_dev, tiles, n_loc, b_loc, mh),
+                plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=nbytes + n_tiles * (mh * 8 + 4), ops=ops, err=err,
         shape=f"tiles={n_tiles} B={B} rows_per_shard={n_loc} L={L} residual_rows={n_act} "
               f"max_hits={mh} hits_per_tile={d_got[2].tolist()}")
 
@@ -1840,11 +2034,11 @@ def check_mesh_kernels(router, skel, exact, rng, card):
             # is valid, the counts; the outputs written whole
             n_valid = int((a_all >= 0).sum())
             recs["combine_pairs"] = dict(
-                ms=median_ms(lambda: S._combine_launch(a_all, b_all, c_all, mh)),
-                plain_ms=median_ms(lambda: S.combine_pairs_ref(a_all, b_all, c_all, mh),
-                                   PLAIN_REPEATS),
+                **timed(lambda: S._combine_launch(a_all, b_all, c_all, mh),
+                        lambda: S.combine_pairs_ref(a_all, b_all, c_all, mh),
+                        plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
                 bytes=n_tiles * (mh * 4 + 4) + n_valid * 4 + n_dp * (mh * 8 + 4), ops=0,
-                err=err, library_ms=None,
+                err=err,
                 shape=f"dp={n_dp} sub={n_sub} max_hits={mh} gathered={n_sub * mh} "
                       f"valid={n_valid} totals={got[2].tolist()} (the dense leg's too: equal)")
         elif err:
@@ -1889,12 +2083,12 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     got = probe(salt)
     err = max_abs_err([got[0], got[1], got[2].reshape(-1)], list(probe_ref()))
     recs["combine_probe"] = dict(
-        ms=median_ms(lambda: probe(salt)), plain_ms=median_ms(probe_ref, PLAIN_REPEATS),
+        **timed(lambda: probe(salt), probe_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         # the salted buffers written (a, b, counts), then the combine's
         # bytes on them: all of a, b at its one valid entry per tile,
         # the counts, the outputs
         bytes=n_tiles * (mh * 8 + 4) + n_tiles * (mh * 4 + 8) + n_dp * (mh * 8 + 4),
-        ops=0, err=err, library_ms=None,
+        ops=0, err=err,
         shape=f"dp={n_dp} sub={n_sub} max_hits={mh} salt={salt}")
 
     # K13 counts and packed over the full table's tiles
@@ -1921,13 +2115,11 @@ def check_mesh_kernels(router, skel, exact, rng, card):
 
     shape = f"tiles={n_tiles} B={B} rows_per_shard={n_loc} L={L} active={n_act}"
     recs["mesh_match_counts"] = dict(
-        ms=median_ms(lambda: counts_k(dt._dev, (t_dev,))),
-        plain_ms=median_ms(counts_ref, PLAIN_REPEATS), bytes=nbytes + 4 * B, ops=ops,
-        err=err, library_ms=None, shape=shape)
+        **timed(lambda: counts_k(dt._dev, (t_dev,)), counts_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=nbytes + 4 * B, ops=ops, err=err, shape=shape)
     recs["mesh_match_packed"] = dict(
-        ms=median_ms(lambda: packed_k(dt._dev, (t_dev,))),
-        plain_ms=median_ms(packed_ref, PLAIN_REPEATS),
-        bytes=nbytes + B * n_loc * n_sub // 8, ops=ops, err=err_p, library_ms=None,
+        **timed(lambda: packed_k(dt._dev, (t_dev,)), packed_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=nbytes + B * n_loc * n_sub // 8, ops=ops, err=err_p,
         shape=shape)
     del pk, pk_ref
 
@@ -1984,9 +2176,8 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     ):
         e, fa, sa, fb, sb, run, ref = out[name]
         recs[name] = dict(
-            ms=median_ms(lambda: run(fa, sa)),
-            plain_ms=median_ms(lambda: ref(fb, sb), PLAIN_REPEATS),
-            bytes=nbytes, ops=0, err=e, library_ms=None,
+            **timed(lambda: run(fa, sa), lambda: ref(fb, sb), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+            bytes=nbytes, ops=0, err=e,
             shape=f"shards={n_sub} {shape}")
     del out, host_f, host_s
     torch.cuda.synchronize()
@@ -2168,9 +2359,61 @@ def mesh_phase(rng, card):
     return recs, dict(launches, **growth)
 
 
+def serve_rates(router, skel, exact, rng, seed: int, card: str) -> None:
+    """`--serve`: phases 5, 6 and 9's serve paths as the full run drives
+    them (warm-up, then the timed batches with churn, every answer
+    checked against the host path), phase 5's busy share and leg
+    medians, without the kernel checks; one line of their rates. Two
+    trees compare in many turns of one call with it. `host_encode_ms`
+    (the median of 20 host encodes of one batch, no device work) reads
+    the host's own speed in that process, against which a host-bound
+    rate is read."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.models.router import Router
+    from emqx_tpu_torch.ops import match as M
+
+    out = {}
+    batch = publish_batch(np.random.default_rng(seed), skel, exact)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        M.encode_topics(router.table.vocab, batch, router.max_levels)
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["host_encode_ms"] = statistics.median(times)
+    router.warmup_shapes(max_batch=BATCH)
+    out["topics_s"] = serve(router, skel, exact, rng)[0]
+    out["legs_p50_ms"] = {leg: round(h.percentile(50) * 1e3, 4)
+                          for leg, h in sorted(router.telemetry.hist.items())}
+    dev_s, wall_s, _n = device_busy_share(router, skel, exact, rng)
+    out["busy_share"] = dev_s / wall_s
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense, skel, exact, _ = build_router(np.random.default_rng(seed), DEVICE,
+                                         use_hash_index=False)
+    dense.warmup_shapes(max_batch=BATCH)
+    out["dense_only_topics_s"] = serve(dense, skel, exact, rng, N_DENSE_BATCHES)[0]
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng9 = np.random.default_rng(seed + 3)
+    mesh = Router(max_levels=16, mesh=mesh_of(MESH))
+    skel, exact, _ = add_route_set(mesh, rng9)
+    mesh.device_table.sync()
+    mesh.warmup_shapes(max_batch=BATCH)
+    out["mesh_topics_s"] = serve(mesh, skel, exact, rng9, N_MESH_BATCHES)[0]
+    log(f"serve: {json.dumps(out)} [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--serve", action="store_true",
+                    help="only the serve paths of phases 5, 6 and 9, for A/B turns")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2212,6 +2455,9 @@ def main(argv=None) -> int:
         f"classes={router.index.active_hi()} host_build_s={host_s:.3f} [{card}]")
     if not router.index.residual_rows:
         raise AssertionError("the residual leg has no rows")
+    if args.serve:
+        serve_rates(router, skel, exact, rng, args.seed, card)
+        return 0
 
     lap(3)
     # phase 4: kernel vs plain
@@ -2296,7 +2542,7 @@ def main(argv=None) -> int:
     for name in m_recs:
         path_launches[name] = m_launches[name]
     for name, r in recs.items():
-        log(f"kernel {name}: ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+        log(f"kernel {name}: {times_line(r)} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} equal=True [{r['shape']}] [{card}]")
 
@@ -2355,7 +2601,9 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms"), "verified": True,
+            "library_ms": r["library_ms"], "call_ms": r["call_ms"],
+            "device_ms": r["device_ms"], "plain_call_ms": r["plain_call_ms"],
+            "library_call_ms": r["library_call_ms"], "verified": True,
         })
     log(f"run: {time.perf_counter() - t_run:.3f} s; seconds by phase {phase_s} [{card}]")
     log(json.dumps({"kernels": kernels}))

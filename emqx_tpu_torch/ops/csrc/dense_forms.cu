@@ -19,7 +19,8 @@
 // (K10) or 4B (K11).
 //
 // Design: a block owns RT rows of one tile, stages each warp's 32 rows
-// in shared memory once, and walks every topic of the tile's block TB at
+// in shared memory once (transposed, at a padded stride: see
+// dense_pred.cuh), and walks every topic of the tile's block TB at
 // a time (topics staged in shared memory, read from L2 by each block).
 // Per topic the warp's 32 verdicts are one ballot: K10 writes it as the
 // packed word (the 32 rows of a warp are one word, since a tile's row
@@ -55,8 +56,8 @@ struct FormsArgs {
 };
 
 size_t smem_bytes(int L) {
-  // s_tw [TB*L] + s_rw [WARPS*L*32] + s_tl, s_td, s_cnt [TB each]
-  return sizeof(int) * (size_t(TB) * L + size_t(WARPS) * L * 32 + 3 * TB);
+  // s_tw [TB*L] + s_rw [WARPS*L*STAGE_STRIDE] + s_tl, s_td, s_cnt [TB each]
+  return sizeof(int) * (size_t(TB) * L + size_t(WARPS) * L * STAGE_STRIDE + 3 * TB);
 }
 
 template <int MODE>
@@ -65,7 +66,7 @@ __global__ void __launch_bounds__(RT) forms_pass(FormsArgs a) {
   const int L = a.L;
   int* s_tw = smem;
   int* s_rw = s_tw + TB * L;
-  int* s_tl = s_rw + WARPS * L * 32;
+  int* s_tl = s_rw + WARPS * L * STAGE_STRIDE;
   int* s_td = s_tl + TB;
   int* s_cnt = s_td + TB;
 
@@ -76,7 +77,7 @@ __global__ void __launch_bounds__(RT) forms_pass(FormsArgs a) {
   const long long r_base = static_cast<long long>(tl_.sub_pos) * a.n_loc;
   const bool act = row < a.n_loc && a.active[r_base + row];
   const unsigned am = __ballot_sync(EMQX_FULL_MASK, act);
-  int* my_rw = s_rw + warp * L * 32;
+  int* my_rw = s_rw + warp * L * STAGE_STRIDE;
   int pl = 0;
   bool hh = false, rw = false;
   if (am) {

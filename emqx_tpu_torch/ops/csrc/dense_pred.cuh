@@ -7,9 +7,23 @@
 //            & (has_hash[n] ? len[b] >= plen[n] : len[b] == plen[n])
 //            & all_{i < plen[n]} (words[n, i] == PLUS | words[n, i] == ids[b, i])
 //
-// The kernels stage a warp's 32 consecutive rows in shared memory,
-// transposed, so lane l reads level i of its own row at rw[i * 32 + l]
-// (conflict-free), and hold a tile of topics in shared memory too.
+// in two parts, each defined once below:
+//   * the head: a topic is the header hdr = (len << 1) | dollar, a row
+//     the window (lo, span, rwm) of `row_window`; the length and $-root
+//     rules hold iff hdr - lo <= span (unsigned) and !(hdr & rwm);
+//   * the levels: `level_ok` for each i < min(plen, L).
+//
+// Two ways to hold a row's words:
+//   * staged (K9-K11): a warp's 32 consecutive rows in shared memory,
+//     transposed with a padded stride, so lane l reads level i of its
+//     own row at rw[i * STAGE_STRIDE + l] (conflict-free) and the staging
+//     stores spread over the banks;
+//   * in registers (K2, K16): each thread gathers one live row by id
+//     (`RegRow`), its first REG_LEVELS levels in registers, deeper levels
+//     read from the table when a row has them. Its `quick` test is the
+//     head and level 0 -- branch-free, a few integer operations, and
+//     what rejects almost every pair -- and `rest` the levels after 0.
+// Both hold a tile of topics in shared memory (broadcast reads).
 //
 // A tile is one (dp, sub) shard pair of a mesh: the kernels read the
 // tile's local rows and topics and write global ids. tiles[k] holds
@@ -26,7 +40,9 @@
 #define EMQX_FULL_MASK 0xFFFFFFFFu
 #endif
 
-constexpr int DENSE_PLUS = 1;  // vocab id of '+'
+constexpr int DENSE_PLUS = 1;    // vocab id of '+'
+constexpr int STAGE_STRIDE = 33;  // staged words per level: 32 rows + 1 pad
+constexpr int REG_LEVELS = 16;    // levels of a register row
 
 struct Tile {
   int dp_i, sub_i, dp_pos, sub_pos;
@@ -37,9 +53,37 @@ __device__ __forceinline__ Tile load_tile(const int* __restrict__ tiles, int k) 
   return Tile{tiles[4 * k], tiles[4 * k + 1], tiles[4 * k + 2], tiles[4 * k + 3]};
 }
 
+// --- the predicate ----------------------------------------------------------
+
+__device__ __forceinline__ int topic_header(int len, bool dollar) {
+  return (len << 1) | (dollar ? 1 : 0);
+}
+
+struct RowWindow {
+  int lo;        // 2 * plen
+  unsigned span;  // 1 (len == plen: hdr is 2 plen or 2 plen + 1), or any (len >= plen)
+  int rwm;       // 1 when a $-topic (hdr & 1) may not match: the root is wild
+};
+
+__device__ __forceinline__ RowWindow row_window(int pl, bool hh, bool root_wild) {
+  return RowWindow{2 * pl, hh ? 0x7fffffffu : 1u, root_wild ? 1 : 0};
+}
+
+// The length and $-root rules.
+__device__ __forceinline__ bool head_ok(int hdr, const RowWindow& w) {
+  return static_cast<unsigned>(hdr - w.lo) <= w.span && !(hdr & w.rwm);
+}
+
+// One level: the row's word w against the topic's t.
+__device__ __forceinline__ bool level_ok(int w, int t) {
+  return w == DENSE_PLUS || w == t;
+}
+
+// --- staged rows (K9-K11) -------------------------------------------------
+
 // Stage rows [row0, row0 + 32) of words [*, L] (rows at or past row_end
-// read as 0) into rw, transposed: rw[i * 32 + r] = words[row0 + r, i].
-// Every lane of the warp calls it.
+// read as 0) into rw, transposed: rw[i * STAGE_STRIDE + r] = words[row0 + r,
+// i]. Every lane of the warp calls it.
 __device__ __forceinline__ void stage_warp_rows(int* __restrict__ rw,
                                                 const int* __restrict__ words,
                                                 long long row0, long long row_end,
@@ -47,22 +91,75 @@ __device__ __forceinline__ void stage_warp_rows(int* __restrict__ rw,
   for (int e = lane; e < 32 * L; e += 32) {
     const int r = e / L, i = e - r * L;
     const long long g = row0 + r;
-    rw[i * 32 + r] = g < row_end ? words[g * L + i] : 0;
+    rw[i * STAGE_STRIDE + r] = g < row_end ? words[g * L + i] : 0;
   }
   __syncwarp();
 }
 
 // The predicate for one live row (active checked by the caller): topic
-// length tl, $-flag td, words tw[L]; the row's plen, has_hash, root_wild
-// and its staged words rw[i * 32].
+// length tl, $-flag td, words tw[L]; the row's plen, has_hash,
+// root_wild and its staged words (rw[i * STAGE_STRIDE] is level i).
 __device__ __forceinline__ bool dense_pred(int tl, bool td, const int* tw, int pl,
                                            bool hh, bool rw_flag,
                                            const int* rw, int L) {
-  if (!(hh ? tl >= pl : tl == pl) || (td && rw_flag)) return false;
+  if (!head_ok(topic_header(tl, td), row_window(pl, hh, rw_flag))) return false;
   const int lim = min(pl, L);
-  for (int i = 0; i < lim; ++i) {
-    const int w = rw[i * 32];
-    if (w != DENSE_PLUS && w != tw[i]) return false;
+  for (int i = 0; i < lim; ++i)
+    if (!level_ok(rw[i * STAGE_STRIDE], tw[i])) return false;
+  return true;
+}
+
+// --- register rows (K2, K16) ----------------------------------------------
+
+struct RegRow {
+  int w[REG_LEVELS];  // levels 0 .. REG_LEVELS - 1 (0 past L)
+  const int* src;     // the row in the table, for levels >= REG_LEVELS
+  int lim;            // levels to compare: min(plen, L)
+  RowWindow win;
+  int w0;             // level 0 to match, or -1: any (no level, or '+')
+};
+
+// Gather row r of the table. vec: words is 16-byte aligned and L a
+// multiple of 4, so each group of 4 levels is one 16-byte load.
+__device__ __forceinline__ void load_reg_row(RegRow& row, const int* __restrict__ words,
+                                             const int* __restrict__ plen,
+                                             const uint8_t* __restrict__ has_hash,
+                                             const uint8_t* __restrict__ root_wild,
+                                             long long r, int L, bool vec) {
+  const int* src = words + r * L;
+  row.src = src;
+#pragma unroll
+  for (int q = 0; q < REG_LEVELS / 4; ++q) {
+    if (vec && 4 * q < L) {
+      const int4 v = reinterpret_cast<const int4*>(src)[q];
+      row.w[4 * q] = v.x;
+      row.w[4 * q + 1] = v.y;
+      row.w[4 * q + 2] = v.z;
+      row.w[4 * q + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) row.w[4 * q + j] = 4 * q + j < L ? src[4 * q + j] : 0;
+    }
   }
+  const int pl = plen[r];
+  row.lim = min(pl, L);
+  row.win = row_window(pl, has_hash[r], root_wild[r]);
+  row.w0 = row.lim == 0 || row.w[0] == DENSE_PLUS ? -1 : row.w[0];
+}
+
+// The head and level 0 of topic (hdr, tw0).
+__device__ __forceinline__ bool quick(int hdr, int tw0, const RegRow& row) {
+  return head_ok(hdr, row.win) && (row.w0 < 0 || row.w0 == tw0);
+}
+
+// Levels 1 .. lim - 1 against the topic's words tw.
+__device__ __forceinline__ bool rest(const int* tw, const RegRow& row) {
+#pragma unroll
+  for (int i = 1; i < REG_LEVELS; ++i) {
+    if (i >= row.lim) return true;
+    if (!level_ok(row.w[i], tw[i])) return false;
+  }
+  for (int i = REG_LEVELS; i < row.lim; ++i)
+    if (!level_ok(row.src[i], tw[i])) return false;
   return true;
 }

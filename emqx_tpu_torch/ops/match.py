@@ -35,8 +35,8 @@ from ._build import I, LL, P, CudaKernel
 from .table import EncodedFilters
 from .vocab import PLUS, Vocab
 
-# the CUDA kernels stage row words per warp in shared memory; deeper
-# tables are refused on the CUDA path
+# the CUDA kernels hold a tile of topics' words (and K9-K11 their rows'
+# words) in shared memory; deeper tables are refused on the CUDA path
 MAX_KERNEL_LEVELS = 128
 
 
@@ -135,8 +135,56 @@ def match_ids_ref(
 
 _MATCH_IDS = CudaKernel(
     "match_ids", "dense_match.cu", "emqx_match_ids",
-    [P, P, P, P, P, I, I, P, P, P, I, I, I, P, P, P, P, P],
+    [P, P, P, P, P, I, I, P, P, P, I, I, I, P, P, P, P, LL, P],
 )
+
+# dense_match.cu's launch geometry (its constants of the same names)
+LIST_ROWS = 4096  # rows of the active mask one compaction block reads
+DENSE_TB = 128  # topics of one match block
+DENSE_WARPS = 16  # warps of one match block
+DENSE_HCAP = 1024  # hits one match block records before it must walk again
+DENSE_PARTS = 4  # parts of a chunk's live list, a match block each
+SEG_TILE = 4096  # segments one block of the segment scan covers
+
+
+class DenseGeometry(NamedTuple):
+    """The launch of K2/K16 over `n_rows` rows (shards of n_loc) and
+    `n_tiles` tiles of b_loc topics: its compaction blocks, live-list
+    capacity, chunks a shard, match blocks (items: tile, chunk, part of
+    the chunk's live list, topic tile), (tile, topic, chunk) segments,
+    the hits one block records, and the int32 scratch it needs in all
+    (the layout dense_match.cu carves: each region rounded up to 4
+    ints)."""
+
+    n_ranges: int
+    list_cap: int
+    n_chunks: int
+    n_items: int
+    n_seg: int
+    hcap: int
+    scratch: int
+
+
+def dense_geometry(n_rows: int, n_loc: int, b_loc: int, chunk: int,
+                   n_tiles: int = 1) -> DenseGeometry:
+    if n_rows % n_loc:
+        raise ValueError(f"{n_rows} rows are not whole shards of {n_loc}")
+    n_ranges = -(-n_rows // LIST_ROWS)
+    n_chunks = -(-n_loc // chunk)
+    n_items = n_tiles * n_chunks * DENSE_PARTS * -(-b_loc // DENSE_TB)
+    n_seg = n_tiles * b_loc * n_chunks
+    regions = (
+        n_ranges, n_ranges,  # live rows per compaction block, their offsets
+        n_rows,  # the live list
+        n_rows // n_loc * n_chunks + 1,  # list offset of each chunk, and the end
+        n_seg * DENSE_PARTS, n_seg,  # counts of each part of a segment, offsets
+        -(-n_seg // SEG_TILE), -(-n_seg // SEG_TILE), 1,  # tile sums, their prefixes, total
+        n_items,  # hits per item
+        4 * n_items * DENSE_HCAP,  # recorded hits (topic, rank in the part, ti, ri)
+        n_items * DENSE_WARPS * DENSE_TB,  # warp offsets of overflowed items
+    )
+    return DenseGeometry(n_ranges, n_rows, n_chunks, n_items, n_seg, DENSE_HCAP,
+                         sum(-(-r // 4) * 4 for r in regions))
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -183,14 +231,16 @@ def match_ids(
     ti = torch.empty(max_hits, dtype=torch.int32, device=dev)
     ri = torch.empty(max_hits, dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * (n // chunk) * b, dtype=torch.int32, device=dev)
+    geo = dense_geometry(n, n, b, chunk)
+    scratch = torch.empty(geo.scratch, dtype=torch.int32, device=dev)
     _MATCH_IDS(
         filters.words.data_ptr(), filters.prefix_len.data_ptr(),
         filters.has_hash.data_ptr(), filters.root_wild.data_ptr(),
         filters.active.data_ptr(), n, levels,
         topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
         b, chunk, max_hits, ti.data_ptr(), ri.data_ptr(), total.data_ptr(),
-        scratch.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        scratch.data_ptr(), geo.scratch,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     return ti, ri, total
 

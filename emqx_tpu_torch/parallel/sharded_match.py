@@ -88,7 +88,7 @@ _PROBE = CudaKernel(
 )
 _MESH_IDS = CudaKernel(
     "mesh_match_ids", "dense_match.cu", "emqx_mesh_match_ids",
-    [P, P, P, P, P, I, I, P, P, P, I, I, P, I, I, P, P, P, P, P],
+    [P, P, P, P, P, I, I, I, P, P, P, I, I, P, I, I, P, P, P, P, LL, P],
 )
 _MESH_HASH = CudaKernel(
     "mesh_match_ids_hash", "hash_match.cu", "emqx_mesh_match_ids_hash",
@@ -103,7 +103,7 @@ _MESH_SYNC = CudaKernel(
     [P, P, P, P, P, I, I, P, P, P, I, I, P, I, P, P, P, P, P, P, LL, P, P, P, P, LL, P],
 )
 
-DENSE_CHUNK = 65536  # rows a K16 block walks (ops/match.py's chunk)
+DENSE_CHUNK = 65536  # rows of a chunk of K16's segments (ops/match.py's chunk)
 
 
 def _launch(kernel: CudaKernel, dev: torch.device, *args) -> None:
@@ -301,18 +301,19 @@ def _tiles_match_ids(mesh: Mesh, gi: int, f: EncodedFilters, t: EncodedTopics, m
     match_ops.check_topics(t, levels, dev)
     n_tiles = len(g.tiles)
     chunk = min(DENSE_CHUNK, n_loc)
-    n_chunks = -(-n_loc // chunk)
+    n_rows = f.words.shape[0]
+    geo = match_ops.dense_geometry(n_rows, n_loc, b_loc, chunk, n_tiles)
     ti = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
     ri = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
     cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * n_tiles * b_loc * n_chunks + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(geo.scratch, dtype=torch.int32, device=dev)
     _launch(
         _MESH_IDS, dev,
         f.words.data_ptr(), f.prefix_len.data_ptr(), f.has_hash.data_ptr(),
-        f.root_wild.data_ptr(), f.active.data_ptr(), n_loc, levels,
+        f.root_wild.data_ptr(), f.active.data_ptr(), n_rows, n_loc, levels,
         t.ids.data_ptr(), t.lens.data_ptr(), t.dollar.data_ptr(), b_loc, chunk,
         mesh.tile_table(gi).data_ptr(), n_tiles, mh,
-        ti.data_ptr(), ri.data_ptr(), cnt.data_ptr(), scratch.data_ptr(),
+        ti.data_ptr(), ri.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), geo.scratch,
     )
     return ti, ri, cnt
 

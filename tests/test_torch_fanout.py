@@ -293,6 +293,19 @@ def test_probe_link_and_chunk_cap_equal_reference():
             assert tt._cap_hits(mh) == jt._cap_hits(mh), (chunk_kb, mh)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("n,off", [(1, 0), ((1 << 18) + 3, 0), ((1 << 18) + 3, 1)])
+def test_add_one_plain_equals_reference(dtype, n, off):
+    """K12's plain version against the reference's `x + 1` in int32 and
+    float32: the scalar, an odd length (2^18 + 3) and the same from a
+    view one element in."""
+    x = np.random.default_rng(n + off).uniform(-1e6, 1e6, n + off).astype(dtype)
+    got = TT.add_one(torch.from_numpy(x)[off:])
+    want = np.asarray(jnp.asarray(x[off:]) + 1)
+    assert str(got.dtype) == f"torch.{want.dtype}"
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # --- a failed build is never replaced by a plain version ---------------------------
 
 

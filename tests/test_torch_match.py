@@ -79,7 +79,9 @@ def test_table_and_encoding_match_reference(seed):
     )
 
 
-# (seed, n_filters, pad_to, max_hits, chunk, residual)
+# (seed, n_filters, pad_to, max_hits, chunk, residual): residual False
+# keeps the table's own active mask, True takes a residual subset of it,
+# and a name edits the table as `_edit_table` says
 CASES = [
     (3, 300, 0, 4096, 65536, False),    # one chunk covers the table
     (4, 300, 0, 4096, 256, False),      # chunk < N: (chunk, topic, row) order
@@ -87,18 +89,52 @@ CASES = [
     (6, 300, 64, 4096, 512, False),     # pow2-padded topics match nothing
     (7, 600, 64, 32, 128, True),        # residual active mask + overflow
     (8, 800, 0, 4096, 1024, True),      # residual mask, larger table
+    (14, 300, 0, 4096, 256, "last_chunk"),   # live rows only in the last chunk
+    (15, 300, 0, 4096, 256, "all_dead"),     # no live row at all
+    (16, 300, 0, 4096, 2048, "hash_rows"),   # one segment past a block's hit list
+    (17, 300, 200, 4096, 512, False),   # B = 200: not a multiple of the topic tile
 ]
+
+
+def _edit_table(snap, how, chunk):
+    """The K2 edge cases, on the reference table's numpy snapshot:
+    'last_chunk' copies the first chunk's rows into the last chunk and
+    kills every other row; 'all_dead' kills every row; 'hash_rows' grows
+    the table to 2,048 rows and makes DENSE_HCAP + 100 dead rows live
+    '#' filters, so one (chunk, topic) segment holds more hits than one
+    match block records."""
+    f = {k: np.array(v) for k, v in snap._asdict().items()}
+    n = len(f["active"])
+    if how == "last_chunk":
+        for v in f.values():
+            v[n - chunk:] = v[:chunk]
+        f["active"][:n - chunk] = False
+    elif how == "all_dead":
+        f["active"][:] = False
+    else:
+        grow = 2048 - n
+        for k, v in f.items():
+            f[k] = np.concatenate([v, np.zeros((grow,) + v.shape[1:], v.dtype)])
+        rows = np.flatnonzero(~f["active"])[:TM.DENSE_HCAP + 100]
+        f["words"][rows] = 0
+        f["prefix_len"][rows] = 0
+        f["has_hash"][rows] = True
+        f["root_wild"][rows] = True
+        f["active"][rows] = True
+    return type(snap)(**f)
 
 
 @pytest.mark.parametrize("seed,n_filters,pad_to,max_hits,chunk,residual", CASES)
 def test_match_ids_equals_reference(seed, n_filters, pad_to, max_hits, chunk, residual):
     jt, tt, topics = _twin_tables(seed, n_filters)
     snap = jt.snapshot()
-    if residual:
+    if residual is True:
         # the router's residual leg: the same table with `active`
         # replaced by a mask over a subset of the live rows
         mask = snap.active & (np.random.default_rng(seed).random(len(snap.active)) < 0.5)
         snap = snap._replace(active=mask)
+    elif residual:
+        snap = _edit_table(snap, residual, chunk)
     enc = JM.encode_topics(jt.vocab, topics, jt.max_levels, pad_to=pad_to)
     want = JM.match_ids(snap, enc, max_hits=max_hits, chunk=chunk)
     got = TM.match_ids(
@@ -106,12 +142,77 @@ def test_match_ids_equals_reference(seed, n_filters, pad_to, max_hits, chunk, re
         max_hits=max_hits, chunk=chunk,
     )
     assert int(got[2]) == int(want[2])
-    if not residual and max_hits < 4096:
+    if residual is False and max_hits < 4096:
         assert int(got[2]) > max_hits  # the overflow case really overflows
+    if residual == "all_dead":
+        assert int(got[2]) == 0 and (got[0].numpy() == -1).all()
+    if residual == "last_chunk":
+        assert int(got[2]) > 0 and (got[1][:int(got[2])].numpy() >= len(snap.active) - chunk).all()
+    if residual == "hash_rows":
+        # some (chunk, topic) segment really holds more than one block records
+        non_dollar = int((~enc.dollar[:len(topics)]).sum())
+        assert int(got[2]) >= non_dollar * (TM.DENSE_HCAP + 100) > 4096
     assert _equal(want, got)
     if pad_to:
         ti = got[0].numpy()
         assert not (ti >= len(topics)).any()
+
+
+# (n_chunks, B, live): the geometry at N = chunk and N = 32 chunks, B up
+# to 2,048, with no row and with every row live
+GEOMETRY_CASES = [
+    (n_chunks, b, live) for n_chunks in (1, 32) for b in (1, 1023, 2048)
+    for live in ("none", "all")
+]
+
+
+@pytest.mark.parametrize("n_chunks,b,live", GEOMETRY_CASES)
+def test_dense_geometry_covers_every_segment(n_chunks, b, live):
+    """K2's launch geometry: the compaction blocks cover the rows, the
+    live list holds every live row, the match blocks (items, in the
+    kernel's (chunk, part, topic tile) order) own each part of each
+    (chunk, topic) segment exactly once, the scratch holds every region;
+    the plain version's total at the same shape is what the live rows
+    give (every live row a '#' filter: it matches every non-$ topic)."""
+    chunk = 128
+    n = n_chunks * chunk
+    geo = TM.dense_geometry(n, n, b, chunk)
+    assert geo.n_chunks == n_chunks and geo.hcap == TM.DENSE_HCAP
+    assert (geo.n_ranges - 1) * TM.LIST_ROWS < n <= geo.n_ranges * TM.LIST_ROWS
+    n_live = n if live == "all" else 0
+    assert n_live <= geo.list_cap == n
+    n_tt = -(-b // TM.DENSE_TB)
+    parts = TM.DENSE_PARTS
+    assert geo.n_items == n_chunks * parts * n_tt and geo.n_seg == n_chunks * b
+    owned = []
+    for item in range(geo.n_items):
+        tt, part, c = item % n_tt, item // n_tt % parts, item // (n_tt * parts) % n_chunks
+        owned += [(c * b + t) * parts + part
+                  for t in range(tt * TM.DENSE_TB, min(b, (tt + 1) * TM.DENSE_TB))]
+    assert sorted(owned) == list(range(geo.n_seg * parts))
+    n_stiles = -(-geo.n_seg // TM.SEG_TILE)
+    regions = [geo.n_ranges, geo.n_ranges, n, n_chunks + 1, geo.n_seg * parts, geo.n_seg,
+               n_stiles, n_stiles, 1,
+               geo.n_items, 4 * geo.n_items * geo.hcap,
+               geo.n_items * TM.DENSE_WARPS * TM.DENSE_TB]
+    assert geo.scratch == sum(-(-r // 4) * 4 for r in regions) >= sum(regions)
+    # the K16 form: 4 shards of n rows, 8 tiles
+    mesh = TM.dense_geometry(4 * n, n, b, chunk, n_tiles=8)
+    assert mesh.n_items == 8 * geo.n_items and mesh.n_seg == 8 * geo.n_seg
+    assert mesh.scratch > geo.scratch
+    f = EncodedFilters(
+        torch.zeros((n, 4), dtype=torch.int32), torch.zeros(n, dtype=torch.int32),
+        torch.ones(n, dtype=torch.bool), torch.ones(n, dtype=torch.bool),
+        torch.full((n,), live == "all"),
+    )
+    rng = np.random.default_rng(b)
+    t = TM.EncodedTopics(
+        torch.from_numpy(rng.integers(2, 9, (b, 4), dtype=np.int32)),
+        torch.from_numpy(rng.integers(0, 6, b, dtype=np.int32)),
+        torch.from_numpy(rng.random(b) < 0.1),
+    )
+    _ti, _ri, total = TM.match_ids(f, t, max_hits=64, chunk=chunk)
+    assert int(total) == n_live * int((~t.dollar).sum())
 
 
 def test_match_ids_ref_is_the_oracle():
