@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    filters over 600 distinct '+'/'#' skeletons (past the 256-class budget,
    so the residual dense leg runs), $SYS filters and 300 exact topics.
 4. Kernel vs plain, on the card, at the slice's shapes: K1 on a 1024-topic
-   batch (and once with max_hits below the total), K2 over the residual
+   batch (at the router's first bound, below the total and at
+   next_pow2(total)), K2 over the residual
    mask of the full table capacity and over the full table's own active
    mask (the dense-only mode's shape), then K2 at its edge cases on
    edited clones of the table (max_hits below the total; 4,096 extra
@@ -44,7 +45,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    host path (Router.match_filters: exact dict + trie) gives at both its
    begin and its finish, and only filters it gives at one of them: equal
    to the host path wherever no route of the topic changed in flight.
-   Every kernel's launch counter must be > 0. One line per kernel: its
+   Every kernel's launch counter must be > 0. K1's launches, the
+   escalations, the hash leg's bound floor, amb batches and host
+   fallbacks are printed; more than one escalation, or more than
+   N_BATCHES + 1 K1 launches, fails (the bound sticks after the first
+   overflow). One line per kernel: its
    times, its bound and its launches here, and the host legs of the run
    (encode, sync, hash, dense, unpack). Then 8 more batches run under
    torch.profiler for the device's busy share of the begin+finish wall.
@@ -57,7 +62,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    QoS 2 (a ~150k gathered fan, ~100k after dedup), 16 groups of 2,048
    sessions on `mfan/{g}/+`, 8 shared members on `$share/g1/pfan/+/x`,
    and no_local / retain-as-published subscriptions (262,144 client
-   rows). K5 (at the 150k-fan and a 2k-fan plan), K6/K7 (one churn's
+   rows). K5 (at a 2k-fan and the 150k-fan plan, on persistent tables
+   carried from the one plan into the other, and on a fresh table;
+   two records), K6/K7 (one churn's
    delta sync) and K12 (the probe's scalar and 1 MB buffer) against
    their plain versions, exactly (K12 also in int32 and float32 at the
    scalar, 1 MB, 64 MB, an odd length 2^18 + 3 and that length from a
@@ -144,7 +151,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1-K4
    from phase 5, of the dense-only K2 from phase 6, of K5-K7 and K12
-   from phase 7, of K8 from phase 8's server rounds, of K14, K16, K17
+   from phase 7 (K5's two records both show K5's), of K8 from phase
+   8's server rounds, of K14, K16, K17
    and the fused K18 from phase 9's batches, of K13 apply_delta and the
    K18 slot delta from phase 9 (c)'s growth syncs; K9-K11, K13's counts
    and packed and K15 are on no serve path and show 0), then, as the last line,
@@ -305,7 +313,9 @@ def timed(kernel, plain, library=None, plain_repeats: int = REPEATS,
 
 def launch_breakdown(fn, calls: int = 10) -> str:
     """Device microseconds per call of each kernel a wrapper launches,
-    by torch.profiler over `calls` calls, largest first."""
+    by torch.profiler over `calls` calls, largest first. A trace that
+    comes back with no device activity (seen once late in a full run)
+    is taken again."""
     import re
 
     import torch
@@ -313,14 +323,17 @@ def launch_breakdown(fn, calls: int = 10) -> str:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((ev.device_time_total / calls, re.search(r"(\w+(?:<\w+>)?)\(", ev.key))
-                   for ev in prof.key_averages() if ev.device_time_total), reverse=True,
-                  key=lambda r: r[0])
-    return ", ".join(f"{m.group(1) if m else '?'} {us:.3f}" for us, m in rows)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((ev.device_time_total / calls, re.search(r"(\w+(?:<\w+>)?)\(", ev.key),
+                        ev.key) for ev in prof.key_averages() if ev.device_time_total),
+                      reverse=True, key=lambda r: r[0])
+        if rows:
+            break
+    return ", ".join(f"{m.group(1) if m else key} {us:.3f}" for us, m, key in rows) or "no trace"
 
 
 def set_bounds(recs) -> None:
@@ -506,6 +519,7 @@ def check_kernels(router, skel, topics, rng):
             H.match_ids_hash(meta, slots, denc, max_hits=bound),
             H.match_ids_hash_ref(meta, slots, denc, max_hits=bound)))
     C = int(meta.plen.shape[0])
+    k1_cases = match_ids_hash_edge_cases(meta, slots, denc, mh)
     tl = denc.lens[:, None]
     pl = meta.plen[None, :]
     elig = (torch.where(meta.has_hash[None, :], tl >= pl, tl == pl)
@@ -521,7 +535,10 @@ def check_kernels(router, skel, topics, rng):
                 lambda: H.match_ids_hash_ref(meta, slots, denc, max_hits=mh)),
         bytes=bytes_k1, ops=ops_k1, err=err,
         shape=f"B={B} C={C} buckets={int(slots.probe.shape[0])} max_hits={mh} "
-              f"total={total} overflow_max_hits={small}",
+              f"total={total} amb={int(got[3])}; equal also at max_hits {small} and "
+              f"{next_pow2(total)}, and at its edge cases: {'; '.join(k1_cases)}; "
+              f"its launches, device us a call: "
+              + launch_breakdown(lambda: H.match_ids_hash(meta, slots, denc, max_hits=mh)),
     )
 
     # K2: the residual leg over the full table capacity, then the
@@ -593,6 +610,31 @@ def check_kernels(router, skel, topics, rng):
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs
+
+
+def match_ids_hash_edge_cases(meta, slots, denc, mh):
+    """K1 against its plain version, exactly, off phase 5's shape: 37
+    classes (a block spans more topics than it stages: the level ids
+    come from global memory), 512 classes (the router's twice over: a
+    topic spans two blocks), B = 1, and max_hits 1 (every block's ranks
+    past it). Returns one line a case."""
+    import torch
+
+    from emqx_tpu_torch.ops import hash_index as H
+    from emqx_tpu_torch.ops import match as M
+
+    out = []
+    one = M.EncodedTopics(*(x[:1].contiguous() for x in denc))
+    for name, m, t, hits in (
+        ("C = 37", H.ClassMeta(*(x[:37].contiguous() for x in meta)), denc, mh),
+        ("C = 512", H.ClassMeta(*(torch.cat([x, x]) for x in meta)), denc, mh),
+        ("B = 1", meta, one, mh),
+        ("max_hits = 1", meta, denc, 1),
+    ):
+        got = H.match_ids_hash(m, slots, t, max_hits=hits)
+        max_abs_err(got, H.match_ids_hash_ref(m, slots, t, max_hits=hits))
+        out.append(f"{name}: total={int(got[2])}")
+    return out
 
 
 def match_ids_edge_cases(filters, denc, total):
@@ -1040,10 +1082,52 @@ def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
     return rec
 
 
+def k5_scratch(F, n_clients, dev):
+    """K5's persistent keys, or None on a tree without them (the parent
+    of an A/B pair, which times K5 without)."""
+    cls = getattr(F, "FanoutScratch", None)
+    return cls(n_clients, dev) if cls is not None else None
+
+
+def k5_call(fn, state, rows, n_clients, max_fan, scratch):
+    """K5 (`fn`: the wrapper or its plain version) on persistent keys
+    where the tree has them."""
+    extra = {} if scratch is None else {"scratch": scratch}
+    return fn(*state, rows, n_clients=n_clients, max_fan=max_fan, **extra)
+
+
+def resolve_fanout_edge_cases(F, state, rows_arr, nc, max_fan, dev):
+    """K5 against its plain version, exactly, off the broker's shapes:
+    the pfan plan's rows padded to M = 2,048 (past the rows a gather
+    block scans itself: one scan launch, the search in global memory),
+    and on a tree with persistent keys the last epoch and the wrap after
+    it (the one clear of the keys). Returns one line a case."""
+    import numpy as np
+
+    from emqx_tpu_torch.device import to_device
+
+    out = []
+    wide = np.full(2048, -1, np.int32)
+    wide[: len(rows_arr)] = rows_arr
+    wide = to_device(wide, dev)
+    k_scr, p_scr = k5_scratch(F, nc, dev), k5_scratch(F, nc, dev)
+    for name in ("M = 2,048", "the last epoch", "the wrap"):
+        if name != "M = 2,048":
+            if k_scr is None:
+                continue
+            if name == "the last epoch":
+                k_scr.epoch = p_scr.epoch = F.EPOCH_LIMIT - 1
+        got = k5_call(F.resolve_fanout, state, wide, nc, max_fan, k_scr)
+        max_abs_err(got, k5_call(F.resolve_fanout_ref, state, wide, nc, max_fan, p_scr))
+        out.append(f"{name}: winners={int(got[1])} epoch={getattr(k_scr, 'epoch', None)}")
+    return out
+
+
 def check_broker_kernels(broker, skel, rng, deliveries):
-    """K5 at the pfan (150k gathered) and an mfan plan's shapes, K6/K7
-    on one churn's delta sync, K12 on the probe's scalar and 1 MB
-    buffer: each against its plain version on the same CUDA inputs.
+    """K5 at the pfan (150k gathered) and an mfan (2k) plan's shapes on
+    persistent tables, K6/K7 on one churn's delta sync, K12 on the
+    probe's scalar and 1 MB buffer: each against its plain version on
+    the same CUDA inputs.
     Also the host walk's and the device resolve's time for the pfan
     plan. Returns (records, host-vs-device line)."""
     import numpy as np
@@ -1067,9 +1151,14 @@ def check_broker_kernels(broker, skel, rng, deliveries):
         router._fanout_flush(rows)
         return pairs, key, rows
 
-    shapes = []
-    err = 0
-    for topic in ("mfan/3/v0", "pfan/0/x"):
+    # K5 on persistent tables, as FanoutDeviceState holds them: one
+    # scratch for the kernel and one for its plain version, each carried
+    # from the mfan plan into the pfan plan (the pfan call meets the
+    # mfan call's keys of an older epoch), each plan against the other's
+    # and against the host oracle
+    nc = store.client_pow2()
+    k_scr, p_scr = k5_scratch(F, nc, dev), k5_scratch(F, nc, dev)
+    for name, topic in (("resolve_fanout_small", "mfan/3/v0"), ("resolve_fanout", "pfan/0/x")):
         pairs, key, rows = rows_of(topic)
         fan_dev.sync()
         fan = store.fan_of(rows)
@@ -1077,25 +1166,38 @@ def check_broker_kernels(broker, skel, rng, deliveries):
         rows_arr = np.full(next_pow2(max(len(rows), 4)), -1, np.int32)
         rows_arr[: len(rows)] = rows
         trows = to_device(rows_arr, dev)
-        nc = store.client_pow2()
         state = fan_dev.tensors()
-        got = F.resolve_fanout(*state, trows, n_clients=nc, max_fan=max_fan)
-        want = F.resolve_fanout_ref(*state, trows, nc, max_fan)
-        err = max(err, max_abs_err(got, want))
+        got = k5_call(F.resolve_fanout, state, trows, nc, max_fan, k_scr)
+        want = k5_call(F.resolve_fanout_ref, state, trows, nc, max_fan, p_scr)
+        err = max_abs_err(got, want)
+        # and against a fresh table of this call alone
+        err = max(err, max_abs_err(got, F.resolve_fanout(*state, trows, n_clients=nc,
+                                                         max_fan=max_fan)))
         out = got[0].cpu().numpy()
         if store.build_plan(out[out >= 0]) != broker._build_fanout_plan(pairs):
             raise AssertionError(f"K5 plan for {key} differs from the host oracle")
-        shapes.append(f"{topic}: M={len(rows_arr)} fan={fan} max_fan={max_fan} "
-                      f"n_clients={nc} E={int(state[2].shape[0])} "
-                      f"winners={int(got[1])}")
-    total = int(got[2])
-    recs["resolve_fanout"] = dict(
-        **timed(lambda: F.resolve_fanout(*state, trows, n_clients=nc, max_fan=max_fan),
-                lambda: F.resolve_fanout_ref(*state, trows, nc, max_fan)),
-        bytes=len(rows_arr) * 12 + total * 8 + max_fan * 4 + 8,
-        ops=total * (4 * max(1, len(rows_arr).bit_length()) + 16),
-        err=err, shape="; ".join(shapes),
-    )
+        total = int(got[2])
+        m = len(rows_arr)
+
+        def run(state=state, trows=trows, max_fan=max_fan):
+            return k5_call(F.resolve_fanout, state, trows, nc, max_fan, k_scr)
+
+        def plain(state=state, trows=trows, max_fan=max_fan):
+            return k5_call(F.resolve_fanout_ref, state, trows, nc, max_fan, p_scr)
+
+        recs[name] = dict(
+            **timed(run, plain),
+            bytes=m * 12 + total * 8 + max_fan * 4 + 8,
+            ops=total * (4 * max(1, m.bit_length()) + 16),
+            err=err,
+            shape=f"{topic}: M={m} fan={fan} max_fan={max_fan} n_clients={nc} "
+                  f"E={int(state[2].shape[0])} winners={int(got[1])} "
+                  f"epoch={getattr(k_scr, 'epoch', None)}; "
+                  f"launches are K5's over phase 7, both plan shapes; its launches, "
+                  f"device us a call: " + launch_breakdown(run),
+        )
+    recs["resolve_fanout"]["shape"] += "; edge cases equal: " + "; ".join(
+        resolve_fanout_edge_cases(F, state, rows_arr, nc, max_fan, dev))
     # the pfan plan three ways: the host walk, the device resolve end to
     # end (begin + finish, plan materialized), the kernel alone
     host_ms, dev_ms = [], []
@@ -2007,7 +2109,9 @@ def check_mesh_kernels(router, skel, exact, rng, card):
         bytes=C * 11 + B * (4 * L + 5) + n_elig * 2 * 4 + h_hits * 12 + n_tiles * (mh * 8 + 4) + 4,
         ops=B * C * 8 + n_elig * (8 * L + 24) + h_hits * 40, err=err,
         shape=f"tiles={n_tiles} B={B} C={C} buckets={nb} per_shard={nb_loc} max_hits={mh} "
-              f"flagged_per_tile={h_got[2].tolist()} amb={int(h_got[3])}")
+              f"flagged_per_tile={h_got[2].tolist()} amb={int(h_got[3])}; its launches, "
+              f"device us a call: " + launch_breakdown(
+                  lambda: S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh)))
 
     # K16: the residual leg's tiles
     (f_res,) = dt._filters(residual=True)
@@ -2359,6 +2463,22 @@ def mesh_phase(rng, card):
     return recs, dict(launches, **growth)
 
 
+def host_encode_ms(router, skel, exact, seed: int) -> float:
+    """The host's own speed in this process: the median of 20 host
+    encodes of one batch, no device work."""
+    import numpy as np
+
+    from emqx_tpu_torch.ops import match as M
+
+    batch = publish_batch(np.random.default_rng(seed), skel, exact)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        M.encode_topics(router.table.vocab, batch, router.max_levels)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def serve_rates(router, skel, exact, rng, seed: int, card: str) -> None:
     """`--serve`: phases 5, 6 and 9's serve paths as the full run drives
     them (warm-up, then the timed batches with churn, every answer
@@ -2374,18 +2494,10 @@ def serve_rates(router, skel, exact, rng, seed: int, card: str) -> None:
     import torch
 
     from emqx_tpu_torch.models.router import Router
-    from emqx_tpu_torch.ops import match as M
 
-    out = {}
-    batch = publish_batch(np.random.default_rng(seed), skel, exact)
-    times = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        M.encode_topics(router.table.vocab, batch, router.max_levels)
-        times.append(1e3 * (time.perf_counter() - t0))
-    out["host_encode_ms"] = statistics.median(times)
+    out = {"host_encode_ms": host_encode_ms(router, skel, exact, seed)}
     router.warmup_shapes(max_batch=BATCH)
-    out["topics_s"] = serve(router, skel, exact, rng)[0]
+    out["topics_s"], out["escalations"] = serve(router, skel, exact, rng)[:2]
     out["legs_p50_ms"] = {leg: round(h.percentile(50) * 1e3, 4)
                           for leg, h in sorted(router.telemetry.hist.items())}
     dev_s, wall_s, _n = device_busy_share(router, skel, exact, rng)
@@ -2482,10 +2594,23 @@ def main(argv=None) -> int:
                   "p99_ms": round(h.percentile(99) * 1e3, 4)}
             for leg, h in sorted(router.telemetry.hist.items())}
     log(f"slice legs (host clock, telemetry histograms): {json.dumps(legs)}")
+    c = router.telemetry.counters
+    # a tree without the sticky bound (the parent of an A/B pair) is read,
+    # not held to it
+    floor = getattr(router.device_table, "_hash_mh_floor", None)
+    log(f"slice hash leg: K1 launches {launches['match_ids_hash']} over {N_BATCHES} "
+        f"batches, escalations {esc}, bound floor {floor}, amb batches "
+        f"{c.get('ambiguous_batches_total', 0)}, host fallbacks "
+        f"{c.get('host_fallback_total', 0)}, host_encode_ms "
+        f"{host_encode_ms(router, skel, exact, args.seed):.4f} [{card}]")
     missing = [n for n in ("match_ids_hash", "match_ids", "scatter_rows",
                            "scatter_slots") if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if floor is not None and (esc > 1 or launches["match_ids_hash"] > N_BATCHES + 1):
+        raise AssertionError(f"the hash leg's bound did not stick: {esc} escalations, "
+                             f"{launches['match_ids_hash']} K1 launches over {N_BATCHES} "
+                             f"batches")
     if not moved:
         raise AssertionError("no topic saw a route change in flight")
     dev_s, wall_s, n = device_busy_share(router, skel, exact, rng)
@@ -2538,7 +2663,7 @@ def main(argv=None) -> int:
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
     for name in b_recs:
-        path_launches[name] = b_launches[name]
+        path_launches[name] = b_launches[name.replace("resolve_fanout_small", "resolve_fanout")]
     for name in m_recs:
         path_launches[name] = m_launches[name]
     for name, r in recs.items():
@@ -2560,6 +2685,8 @@ def main(argv=None) -> int:
                           "emqx_tpu/models/router.py:100"),
         "resolve_fanout": ("emqx_tpu_torch/ops/csrc/fanout.cu",
                            "emqx_tpu/ops/fanout.py:137"),
+        "resolve_fanout_small": ("emqx_tpu_torch/ops/csrc/fanout.cu",
+                                 "emqx_tpu/ops/fanout.py:137"),
         "scatter_segs": ("emqx_tpu_torch/ops/csrc/scatter.cu",
                          "emqx_tpu/ops/fanout.py:95"),
         "scatter_edges": ("emqx_tpu_torch/ops/csrc/scatter.cu",

@@ -208,6 +208,14 @@ class DeviceTable:
         # one RTT; None = unbounded (the exact-size escalation retry
         # keeps correctness either way)
         self.transfer_chunk_hits: Optional[int] = None
+        # the hash leg's sticky floor: the largest next_pow2(total) an
+        # overflow has needed, so a steady stream of batches whose
+        # flagged pairs pass the first bound escalates once, not every
+        # batch (the mesh's _mh_floor); and the last begun hash launch
+        # (bound, ticket), whose overflow raises the floor as soon as its
+        # count has landed
+        self._hash_mh_floor = 0
+        self._last_hash: Optional[Tuple[int, transfer_ops.FetchTicket]] = None
 
     def attach_fanout(self, store: fanout_ops.DestStore) -> None:
         """Mirror a CSR destination store on this device — the
@@ -341,23 +349,42 @@ class DeviceTable:
     def _topics(self, enc: match_ops.EncodedTopics) -> match_ops.EncodedTopics:
         return match_ops.EncodedTopics(*(self._put(a) for a in enc))
 
+    def _landed_overflow(self) -> int:
+        """next_pow2 of the last begun hash launch's total when that
+        launch overflowed its bound and its count has already landed on
+        the host, else 0. Never blocks: it reads the fetch only once
+        ready() says it has landed. So the second batch of a two-deep
+        pipeline launches at the bound the first one needed, and only
+        the first escalates."""
+        last = self._last_hash
+        if last is None or not last[1].ready():
+            return 0
+        mh, ticket = last
+        total = int(ticket.wait()[2])
+        return next_pow2(total) if total > mh else 0
+
     def match_hash_begin(self, enc: match_ops.EncodedTopics):
         """Launch the pattern-class hash kernel + begin the result
-        transfer; no host wait is forced. Returns an opaque handle for
+        transfer; no host wait is forced. The bound is the first one
+        raised to the sticky floor. Returns an opaque handle for
         match_hash_finish (ticket last)."""
         meta, slots = self.hash_state()
         b = int(enc.ids.shape[0])
-        mh = self._cap_hits(max(1024, next_pow2(2 * b)))
+        self._hash_mh_floor = max(self._hash_mh_floor, self._landed_overflow())
+        mh = max(self._cap_hits(max(1024, next_pow2(2 * b))), self._hash_mh_floor)
         shape = (b, int(meta.plen.shape[0]), int(slots.fp.shape[0]))
         self.telemetry.record_shape("match_ids_hash", shape + (mh,))
         denc = self._topics(enc)
         dev = hash_ops.match_ids_hash(meta, slots, denc, max_hits=mh)
         STAGE_MARK.stage = "ticket_start"
-        return (denc, mh, shape, transfer_ops.start_fetch(dev, self.telemetry))
+        ticket = transfer_ops.start_fetch(dev, self.telemetry)
+        self._last_hash = (mh, ticket)
+        return (denc, mh, shape, ticket)
 
     def match_hash_finish(self, pending):
         """Force a begun hash match, re-launching at next_pow2(total)
-        while the compacted buffer overflows. Returns (ti, bi, amb):
+        while the compacted buffer overflows; that bound becomes the
+        floor of later begins. Returns (ti, bi, amb):
         candidate arrays sliced to the true hit count — entries with
         bi < 0 (phase-2 rejects) or ti beyond the live batch (pow2
         padding) are the caller's to skip."""
@@ -371,6 +398,7 @@ class DeviceTable:
             tel = self.telemetry
             tel.count("hash_overflow_retries_total")
             mh = next_pow2(total)
+            self._hash_mh_floor = max(self._hash_mh_floor, mh)
             tel.record_shape("match_ids_hash", shape + (mh,))
             meta, slots = self.hash_state()
             ti, bi, total, amb = transfer_ops.start_fetch(

@@ -5,38 +5,58 @@
 // occurrence order, keep per client the edge of highest granted QoS
 // (earliest occurrence on ties), and emit the winners in order of each
 // client's first occurrence — exactly Broker._build_fanout_plan's
-// `best`-dict order.
+// `best`-dict order. out[p] is the winning edge of the client whose
+// first occurrence is position p, -1 everywhere else.
 //
-// Five launches on one stream, no host round trip:
-//   1. row_lens_k     masked segment length per matched row [M];
-//   2. exclusive_scan_1block (scan.cuh) of those lengths, which also
-//      writes `total`; M is the matched filter count, so one block is
-//      enough;
-//   3. init_k         tw = -1, tf = max_fan over n_clients, out = -1,
-//                     n_winners = 0;
-//   4. gather_k       one thread per gathered position e < max_fan: an
-//                     upper-bound binary search over the inclusive
-//                     scan (searchsorted side="right", clipped to M-1)
-//                     names the row, the edge id src[e] is kept in
-//                     scratch, and an ok lane does
-//                       atomicMax(tw[cl], qos << 24 | 2^24-1-e)
-//                       atomicMin(tf[cl], e);
-//   5. winners_k      one thread per client: a present client writes
-//                     out[tf[c]] = src[2^24-1 - (tw[c] & 0xFFFFFF)],
-//                     and warp-aggregated atomics count n_winners.
+// Two launches on one stream (three when more than FUSED_ROWS filters
+// matched), no host round trip, and no pass over the client registry:
+//   1. gather_k     one thread per gathered position e < max_fan. Each
+//                   block first scans the matched rows' masked segment
+//                   lengths in shared memory (M is the matched-filter
+//                   count, a power of two >= 4: a few loads a block);
+//                   block 0 writes `total` and n_winners = 0. Past
+//                   FUSED_ROWS rows, scan_rows_k (one block) writes the
+//                   scan once and the blocks search it in global memory.
+//                   An upper-bound binary search over the inclusive scan
+//                   (searchsorted side="right", clipped to M-1) names the
+//                   row; the edge id src[e] and the lane's client (or -1)
+//                   are kept in scratch, and an ok lane does
+//                     atomicMax(tw[cl], epoch << 32 | qos << 24 | 2^24-1-e)
+//                     atomicMin(tf[cl], (EPOCH_LIMIT - epoch) << 32 | e);
+//   2. winners_k    one thread per position: e is its client's first
+//                   occurrence exactly when it is ok and tf[cl] holds e's
+//                   own key; it writes out[e] = src[2^24-1 - (tw[cl] &
+//                   0xFFFFFF)] and is counted into n_winners (warp-
+//                   aggregated atomics); every other position writes -1.
 // Max and min do not depend on the order the atomics land in, so the
 // result is exact whatever order the blocks run in. JAX's mode="drop"
 // sentinels become skipped writes: a lane that is not ok, or a client
 // row >= n_clients, touches nothing; every gather is clamped into its
 // array, as JAX clamps out-of-range gathers.
 //
-// What bounds it on the H100: bytes. At the broker phase's 150k fan
-// the work is ~150k edge reads (8 bytes each, scattered by segment),
-// two atomics per edge on 1 MB client tables, and the O(n_clients)
-// init and winner passes over 262,144 clients (~3 MB in all) — a few
-// microseconds of HBM time, so launch latency and the five dependent
-// launches dominate. A later PR can fuse init into the winner pass of
-// the previous call.
+// The winner and first-position keys (tw, tf: 64 bits each, interleaved
+// as keys[2c], keys[2c+1], so the winner pass reads both in one 16-byte
+// load) persist across calls: FanoutDeviceState owns them and grows
+// them with the client registry. They stay valid by epoch tags (choice
+// (b) of the two ways, over a reset pass of the clients a call touched,
+// which would cost a launch a call): each call has an epoch one above
+// the last; a key of an older epoch is below every key of this one in
+// tw and above every key of this one in tf, so stale entries lose both
+// races with no clearing. Keys stay below 2^63 (epoch <= EPOCH_LIMIT =
+// 2^31 - 1), so the plain version holds them in int64 with the same
+// bits. A fresh table, and the call after epoch EPOCH_LIMIT, clear it
+// once (clear_k: tw = 0, the epoch before any; tf = 2^63 - 1, above any
+// key) and restart at epoch 1. Calls that share the tables must run in
+// order: the port enqueues every resolve (the engine's overlapped ones
+// too) on one stream, so call k+1's gather runs after call k's winners.
+//
+// What bounds it on the H100: bytes. At the broker phase's 150k fan the
+// work is ~150k edge reads (8 bytes each, scattered by segment), two
+// 64-bit atomics per ok edge and one 16-byte read back on the client
+// keys, ~16 bytes of scratch per position; at the 2k mfan plan a few
+// tens of kilobytes. Both are microseconds of HBM time, so the two
+// dependent launches set the time; the work now follows the fan, not the
+// 262,144-row registry that the earlier init and winner sweeps walked.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -44,122 +64,181 @@
 
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int THREADS = 256;
 constexpr int POS_MASK = (1 << 24) - 1;
 constexpr int QOS_MASK = 0x3;
 constexpr int SKIP_BIT = 1 << 7;
+constexpr int FUSED_ROWS = 1024;  // matched rows a gather block scans itself
+constexpr u64 EPOCH_LIMIT = 0x7FFFFFFFull;
+constexpr u64 FIRST_EMPTY = 0x7FFFFFFFFFFFFFFFull;
 
-__global__ void row_lens_k(const int* __restrict__ seg_len, int C,
-                           const int* __restrict__ rows, int M,
-                           int* __restrict__ lens) {
+__device__ __forceinline__ u64 first_key(u64 epoch, int e) {
+  return ((EPOCH_LIMIT - epoch) << 32) | static_cast<u64>(e);
+}
+
+__global__ void clear_k(ulonglong2* __restrict__ keys, int cap) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const int r = rows[i];
-  lens[i] = r >= 0 ? seg_len[min(r, C - 1)] : 0;
+  if (i < cap) keys[i] = make_ulonglong2(0ull, FIRST_EMPTY);
 }
 
-__global__ void init_k(int* __restrict__ tw, int* __restrict__ tf, int nc,
-                       int* __restrict__ out, int max_fan,
-                       int* __restrict__ n_win) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < nc) {
-    tw[i] = -1;
-    tf[i] = max_fan;
+// The matched rows' masked segment lengths, scanned inclusively into
+// incl[0, M), their segment starts into start[0, M); returns the total.
+// Every thread of the block calls it.
+__device__ int scan_rows(const int* __restrict__ seg_off, const int* __restrict__ seg_len,
+                         int C, const int* __restrict__ rows, int M, int* incl,
+                         int* start) {
+  int carry = 0;
+  for (int base = 0; base < M; base += THREADS) {
+    const int i = base + threadIdx.x;
+    int len = 0;
+    int off = 0;
+    if (i < M) {
+      const int r = rows[i];
+      const int rr = r >= 0 ? min(r, C - 1) : 0;
+      len = r >= 0 ? seg_len[rr] : 0;
+      off = seg_off[rr];
+    }
+    int tile;
+    const int before = block_exclusive_scan(len, tile);
+    if (i < M) {
+      incl[i] = carry + before + len;
+      start[i] = off;
+    }
+    carry += tile;
   }
-  if (i < max_fan) out[i] = -1;
-  if (i == 0) *n_win = 0;
+  return carry;
 }
 
-__global__ void gather_k(const int* __restrict__ seg_off, int C,
-                         const int* __restrict__ edge_client,
-                         const int* __restrict__ edge_opts, int E,
-                         const int* __restrict__ rows,
-                         const int* __restrict__ lens,
-                         const int* __restrict__ excl, int M,
-                         const int* __restrict__ total_p, int n_clients,
-                         int max_fan, int* __restrict__ tw,
-                         int* __restrict__ tf, int* __restrict__ src_out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(THREADS)
+scan_rows_k(const int* __restrict__ seg_off, const int* __restrict__ seg_len, int C,
+            const int* __restrict__ rows, int M, int* __restrict__ incl,
+            int* __restrict__ start, int* __restrict__ total) {
+  const int t = scan_rows(seg_off, seg_len, C, rows, M, incl, start);
+  if (threadIdx.x == 0) *total = t;
+}
+
+__global__ void __launch_bounds__(THREADS)
+gather_k(const int* __restrict__ seg_off, const int* __restrict__ seg_len, int C,
+         const int* __restrict__ rows, const int* __restrict__ edge_client,
+         const int* __restrict__ edge_opts, int E, const int* __restrict__ g_incl,
+         const int* __restrict__ g_start, int M, int* __restrict__ total_p,
+         int* __restrict__ n_win, int n_clients, int max_fan, u64 epoch,
+         u64* __restrict__ keys, int* __restrict__ src_out, int* __restrict__ cl_out) {
+  extern __shared__ int s_rows[];  // [2 * M] when fused: incl, then start
+  const bool fused = M <= FUSED_ROWS;
+  const int* inc = g_incl;
+  const int* st = g_start;
+  int total;
+  if (fused) {
+    total = scan_rows(seg_off, seg_len, C, rows, M, s_rows, s_rows + M);
+    __syncthreads();
+    inc = s_rows;
+    st = s_rows + M;
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      *total_p = total;
+      *n_win = 0;
+    }
+  } else {
+    total = *total_p;
+    if (blockIdx.x == 0 && threadIdx.x == 0) *n_win = 0;
+  }
+  const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e >= max_fan) return;
-  const int total = *total_p;
-  // first row whose inclusive end (excl + lens) lies beyond e
+  // first row whose inclusive end lies beyond e
   int lo = 0;
   int hi = M;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (excl[mid] + lens[mid] > e) {
+    if (inc[mid] > e) {
       hi = mid;
     } else {
       lo = mid + 1;
     }
   }
   const int fi = min(lo, M - 1);
-  // excl[fi] is the inclusive scan at fi-1, and 0 at fi == 0
-  const int prev = excl[fi];
-  int src = 0;
-  if (e < min(total, max_fan)) {
-    const int r = rows[fi];
-    const int rr = r >= 0 ? min(r, C - 1) : 0;
-    src = seg_off[rr] + (e - prev);
-  }
+  const int prev = fi > 0 ? inc[fi - 1] : 0;
+  const int src = e < min(total, max_fan) ? st[fi] + (e - prev) : 0;
   src_out[e] = src;
   const int s = min(max(src, 0), E - 1);
   const int cl = edge_client[s];
   const int op = edge_opts[s];
   // tombstones and shared legs carry client -1; skip-bit edges have a
   // client row but no suboption (the oracle's subopts.get miss)
-  const bool ok = e < total && cl >= 0 && (op & SKIP_BIT) == 0;
-  if (ok && cl < n_clients) {
-    atomicMax(&tw[cl], ((op & QOS_MASK) << 24) | (POS_MASK - e));
-    atomicMin(&tf[cl], e);
+  const bool ok = e < total && cl >= 0 && cl < n_clients && (op & SKIP_BIT) == 0;
+  cl_out[e] = ok ? cl : -1;
+  if (ok) {
+    const u64 w = static_cast<u64>(((op & QOS_MASK) << 24) | (POS_MASK - e));
+    atomicMax(&keys[2 * static_cast<size_t>(cl)], (epoch << 32) | w);
+    atomicMin(&keys[2 * static_cast<size_t>(cl) + 1], first_key(epoch, e));
   }
 }
 
-__global__ void winners_k(const int* __restrict__ tw,
-                          const int* __restrict__ tf, int nc,
-                          const int* __restrict__ src, int max_fan,
-                          int* __restrict__ out, int* __restrict__ n_win) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  bool present = false;
-  if (c < nc) {
-    const int w = tw[c];
-    if (w >= 0) {
-      present = true;
-      const int p = min(max(POS_MASK - (w & POS_MASK), 0), max_fan - 1);
-      const int slot = tf[c];
-      if (slot >= 0 && slot < max_fan) out[slot] = src[p];
+__global__ void __launch_bounds__(THREADS)
+winners_k(const int* __restrict__ cl_at, const int* __restrict__ src, int max_fan,
+          u64 epoch, const ulonglong2* __restrict__ keys, int* __restrict__ out,
+          int* __restrict__ n_win) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  bool first = false;
+  if (e < max_fan) {
+    const int c = cl_at[e];
+    int o = -1;
+    if (c >= 0) {
+      const ulonglong2 k = keys[c];  // (tw, tf)
+      if (k.y == first_key(epoch, e)) {
+        first = true;
+        const int p = POS_MASK - static_cast<int>(k.x & POS_MASK);
+        o = src[min(max(p, 0), max_fan - 1)];
+      }
     }
+    out[e] = o;
   }
   // every thread of the warp reaches the ballot (no early return)
-  const unsigned mask = __ballot_sync(EMQX_FULL_MASK, present);
+  const unsigned mask = __ballot_sync(EMQX_FULL_MASK, first);
   if ((threadIdx.x & 31) == 0 && mask != 0u) atomicAdd(n_win, __popc(mask));
 }
 
 }  // namespace
 
-// out int32 [max_fan], n_win / total int32 scalars; scratch: lens and
-// excl int32 [M], tw and tf int32 [n_clients], src int32 [max_fan].
-// Returns cudaGetLastError().
+// out int32 [max_fan], n_win / total int32 scalars. scratch holds
+// scratch_len >= 2 * M + 2 * max_fan ints (incl, start [M]; src, the
+// lanes' clients [max_fan]); keys holds 2 * cap >= 2 * n_clients 64-bit
+// keys (tw, tf of each client) that persist across calls, and epoch
+// (1..2^31-1) is one above the last call's on these keys; clear != 0
+// clears them first (a fresh table, or the call after the last epoch).
+// Returns cudaErrorInvalidValue for a bad shape or scratch, else
+// cudaGetLastError().
 extern "C" int emqx_resolve_fanout(const int* seg_off, const int* seg_len,
                                    int C, const int* edge_client,
                                    const int* edge_opts, int E,
                                    const int* rows, int M, int n_clients,
                                    int max_fan, int* out, int* n_win,
-                                   int* total, int* lens, int* excl, int* tw,
-                                   int* tf, int* src, cudaStream_t stream) {
-  if (C < 1 || E < 1 || M < 1 || n_clients < 1 || max_fan < 1) {
+                                   int* total, int* scratch, long long scratch_len,
+                                   unsigned long long* keys, int cap, int epoch,
+                                   int clear, cudaStream_t stream) {
+  if (C < 1 || E < 1 || M < 1 || n_clients < 1 || max_fan < 1 || cap < n_clients ||
+      epoch < 1 || static_cast<u64>(epoch) > EPOCH_LIMIT ||
+      scratch_len < 2LL * M + 2LL * max_fan) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  row_lens_k<<<ceil_div(M, THREADS), THREADS, 0, stream>>>(seg_len, C, rows,
-                                                           M, lens);
-  exclusive_scan_1block<<<1, SCAN_THREADS, 0, stream>>>(lens, excl, M, total);
-  const long long n_init = n_clients > max_fan ? n_clients : max_fan;
-  init_k<<<ceil_div(n_init, THREADS), THREADS, 0, stream>>>(tw, tf, n_clients,
-                                                           out, max_fan, n_win);
-  gather_k<<<ceil_div(max_fan, THREADS), THREADS, 0, stream>>>(
-      seg_off, C, edge_client, edge_opts, E, rows, lens, excl, M, total,
-      n_clients, max_fan, tw, tf, src);
-  winners_k<<<ceil_div(n_clients, THREADS), THREADS, 0, stream>>>(
-      tw, tf, n_clients, src, max_fan, out, n_win);
+  int* incl = scratch;
+  int* start = scratch + M;
+  int* src = scratch + 2 * M;
+  int* cl_at = src + max_fan;
+  const u64 ep = static_cast<u64>(epoch);
+  ulonglong2* kv = reinterpret_cast<ulonglong2*>(keys);
+  if (clear) clear_k<<<ceil_div(cap, THREADS), THREADS, 0, stream>>>(kv, cap);
+  const bool fused = M <= FUSED_ROWS;
+  if (!fused) {
+    scan_rows_k<<<1, THREADS, 0, stream>>>(seg_off, seg_len, C, rows, M, incl, start,
+                                           total);
+  }
+  const size_t smem = fused ? 2 * M * sizeof(int) : 0;
+  const int blocks = ceil_div(max_fan, THREADS);
+  gather_k<<<blocks, THREADS, smem, stream>>>(seg_off, seg_len, C, rows, edge_client,
+                                              edge_opts, E, incl, start, M, total, n_win,
+                                              n_clients, max_fan, ep, keys, src, cl_at);
+  winners_k<<<blocks, THREADS, 0, stream>>>(cl_at, src, max_fan, ep, kv, out, n_win);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,16 +37,29 @@
 // What bounds it on the H100: B*C hash mixes of L levels (a few integer
 // operations each) and two 4-byte gathers per pair from a probe array
 // that fits in the 50 MB L2; the sparse phase touches two fingerprints
-// and one bucket id per surviving pair. At B=1024 and a handful of
-// classes this is microseconds of work, so launch overhead and the
-// three-pass structure dominate.
+// and one bucket id per surviving pair. At B=1024 and 256 classes this
+// is microseconds of work, so the launches and the passes over the
+// pairs set the time.
 //
-// Design: one thread per pair. The count pass flags pairs and writes
-// one count per block; a one-block scan gives each block its offset;
-// the write pass recomputes the flags, ranks each flagged pair inside
-// its block with warp ballots, and runs phase 2 for pairs ranked below
-// max_hits within their tile. Blocks whose offset is already past
-// max_hits exit at once.
+// Design: one pass, one thread per pair, each pair hashed once. A block
+// owns HT consecutive pairs of a tile and takes its place in the tile's
+// order from an atomic ticket (never blockIdx), so it waits only on
+// blocks that are already running: forward progress holds however the
+// grid is scheduled. It flags its pairs, counts them with warp ballots,
+// and publishes its count at once (status A); warp 0 then looks back
+// over the earlier blocks' status words 32 at a time, adding counts (A)
+// until it meets an inclusive prefix (P), and publishes its own prefix
+// (P). A status word is one 64-bit store, flag and value together, so
+// no fence orders them. Each flagged pair then has its rank (block
+// prefix + warp offset + lane rank) and runs phase 2 only when ranked
+// below max_hits; ranks past max_hits still count into the exact total.
+// The tile's last block writes the tile's total and fills the -1 tail.
+// The ticket, `amb` and the status words live in the scratch, which one
+// cudaMemsetAsync zeroes before the pass (ops/hash_index.py
+// `hash_geometry` sizes it). At phase 5's shape (C = 256 = HT) a block
+// is one topic; a block stages the level ids of the (at most
+// STAGE_TOPICS) topics its pairs span in shared memory, and any other C
+// reads them from global memory.
 #include "cuckoo.cuh"
 #include "scan.cuh"
 #include "dense_pred.cuh"  // Tile, load_tile
@@ -55,6 +68,13 @@ namespace {
 
 constexpr int HT = 256;  // pairs per block
 constexpr int WARPS = HT / 32;
+constexpr int STAGE_TOPICS = 4;   // topic rows a block stages
+constexpr int STAGE_LEVELS = 128; // ops/match.py MAX_KERNEL_LEVELS
+
+typedef unsigned long long u64;
+constexpr u64 FLAG_A = 1ull << 32;  // the block's own count is published
+constexpr u64 FLAG_P = 2ull << 32;  // the inclusive prefix is published
+constexpr u64 FLAG_MASK = 3ull << 32;
 
 constexpr uint32_t H1_SEED = 0x811C9DC5u, H1_CLS = 0x9E3779B1u, H1_MUL = 16777619u;
 constexpr uint32_t FP_SEED = 0x2545F491u, FP_CLS = 0x85EBCA6Bu;
@@ -78,12 +98,13 @@ struct HashArgs {
   int b_loc, L;
   const int* tiles;           // [n_tiles, 4], or null for one tile
   int n_blk;                  // blocks a tile
-  int* counts;                // [n_tiles * n_blk] count pass output
-  const int* offs;            // [n_tiles * n_blk] write pass input
+  unsigned* ticket;           // scratch[0]: the next block's place
+  int* out_amb;               // scratch[1]
+  u64* status;                // [n_tiles * n_blk], from scratch[2]
   int max_hits;
   int* out_ti;                // [n_tiles, max_hits]
   int* out_bi;
-  int* out_amb;
+  int* out_cnt;               // [n_tiles] exact flagged pairs (K1: total)
 };
 
 __device__ __forceinline__ bool has_byte(uint32_t w, uint32_t rep) {
@@ -105,15 +126,14 @@ __device__ __forceinline__ uint32_t owned_word(const HashArgs& a, const uint32_t
 }
 
 // Pair (topic, class c) of a tile: the topic's row `row` of this
-// device's topic arrays.
+// device's topic arrays, its level ids at `ids` (shared or global).
 __device__ __forceinline__ Probe probe_pair(const HashArgs& a, const Tile& tl,
-                                            size_t row, int c) {
+                                            size_t row, const int* ids, int c) {
   Probe r{false, 0u, 0u, 0u, 0u, 0u};
   const int pl = a.plen[c];
   const int tl_len = a.t_len[row];
   const bool len_ok = a.has_hash[c] ? tl_len >= pl : tl_len == pl;
   if (!(len_ok && a.active[c] && !(a.t_dollar[row] && a.root_wild[c]))) return r;
-  const int* ids = a.t_ids + row * a.L;
   const uint32_t cid = static_cast<uint32_t>(c);
   const uint32_t plus = a.plus[c];
   uint32_t h1 = H1_SEED ^ (cid * H1_CLS);
@@ -138,38 +158,113 @@ __device__ __forceinline__ Probe probe_pair(const HashArgs& a, const Tile& tl,
   return r;
 }
 
-template <bool WRITE>
-__global__ void __launch_bounds__(HT) hash_pass(HashArgs a) {
+__device__ __forceinline__ u64 load_status(const u64* s) {
+  return *reinterpret_cast<const volatile u64*>(s);
+}
+
+__device__ __forceinline__ void store_status(u64* s, u64 w) {
+  *reinterpret_cast<volatile u64*>(s) = w;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(EMQX_FULL_MASK, v, d);
+  return v;
+}
+
+// The sum of the counts of blocks 0..blk-1 of a tile (st: the tile's
+// status words), by the whole warp: lane l reads block top - l; the
+// window waits until each of its blocks has published, adds the counts
+// down to and including the nearest inclusive prefix, and moves 32
+// blocks down while it has met none. Before block 0 reads as a prefix
+// of 0. (A step of 64-256 words, which waits on more blocks at once,
+// timed slower at phase 5's and phase 9's shapes on an H100.)
+__device__ int look_back(const u64* st, int blk, int lane) {
+  int excl = 0;
+  for (int top = blk - 1;; top -= 32) {
+    const int j = top - lane;
+    u64 w = j >= 0 ? load_status(st + j) : FLAG_P;
+    while (__any_sync(EMQX_FULL_MASK, (w & FLAG_MASK) == 0ull)) {
+      if ((w & FLAG_MASK) == 0ull) w = load_status(st + j);
+    }
+    const unsigned pm = __ballot_sync(EMQX_FULL_MASK, (w & FLAG_MASK) == FLAG_P);
+    const int stop = pm ? __ffs(pm) - 1 : 31;
+    excl += warp_sum(lane <= stop ? static_cast<int>(static_cast<uint32_t>(w)) : 0);
+    if (pm) return excl;
+  }
+}
+
+__global__ void __launch_bounds__(HT) hash_compact(HashArgs a) {
+  __shared__ int s_ids[STAGE_TOPICS * STAGE_LEVELS];
   __shared__ int s_wc[WARPS];
-  const int tile = blockIdx.y;
-  const int blk = tile * a.n_blk + blockIdx.x;
-  const int base_off = WRITE ? a.offs[tile * a.n_blk] : 0;
-  if (WRITE && a.offs[blk] - base_off >= a.max_hits) return;  // block-uniform
-  const Tile tl = load_tile(a.tiles, tile);
+  __shared__ int s_place, s_excl, s_count;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long p = static_cast<long long>(blockIdx.x) * HT + tid;
+  if (tid == 0) s_place = static_cast<int>(atomicAdd(a.ticket, 1u));
+  __syncthreads();
+  const int tile = s_place / a.n_blk;
+  const int blk = s_place - tile * a.n_blk;
+  const Tile tl = load_tile(a.tiles, tile);
   const long long n = static_cast<long long>(a.b_loc) * a.C;
+  const long long p0 = static_cast<long long>(blk) * HT;
+  const int b0 = static_cast<int>(p0 / a.C);
+  const int b_end = static_cast<int>(min(p0 + HT - 1, n - 1) / a.C);
+  const size_t row0 = static_cast<size_t>(tl.dp_pos) * a.b_loc + b0;
+  const bool staged = b_end - b0 < STAGE_TOPICS && a.L <= STAGE_LEVELS;
+  if (staged) {
+    const int n_ids = (b_end - b0 + 1) * a.L;
+    for (int i = tid; i < n_ids; i += HT) s_ids[i] = a.t_ids[row0 * a.L + i];
+  }
+  __syncthreads();
+
+  const long long p = p0 + tid;
   Probe pr{false, 0u, 0u, 0u, 0u, 0u};
   int b = 0;
   if (p < n) {
     b = static_cast<int>(p / a.C);
-    pr = probe_pair(a, tl, static_cast<size_t>(tl.dp_pos) * a.b_loc + b,
-                    static_cast<int>(p - static_cast<long long>(b) * a.C));
+    const int k = b - b0;
+    const int* ids = staged ? s_ids + k * a.L : a.t_ids + (row0 + k) * a.L;
+    pr = probe_pair(a, tl, row0 + k, ids, static_cast<int>(p - static_cast<long long>(b) * a.C));
   }
   const unsigned m = __ballot_sync(EMQX_FULL_MASK, pr.hit);
   if (lane == 0) s_wc[warp] = __popc(m);
   __syncthreads();
-  if (!WRITE) {
-    if (tid == 0) {
-      int s = 0;
-      for (int w = 0; w < WARPS; ++w) s += s_wc[w];
-      a.counts[blk] = s;
+  if (warp == 0) {
+    // warp offsets, the block's count; publish, look back, publish
+    const int wc = lane < WARPS ? s_wc[lane] : 0;
+    int inc = wc;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(EMQX_FULL_MASK, inc, d);
+      if (lane >= d) inc += y;
     }
-    return;
+    const int count = __shfl_sync(EMQX_FULL_MASK, inc, 31);
+    if (lane < WARPS) s_wc[lane] = inc - wc;
+    u64* st = a.status + static_cast<size_t>(tile) * a.n_blk;
+    int excl = 0;
+    if (blk == 0) {
+      if (lane == 0) store_status(st, FLAG_P | static_cast<uint32_t>(count));
+    } else {
+      if (lane == 0) store_status(st + blk, FLAG_A | static_cast<uint32_t>(count));
+      excl = look_back(st, blk, lane);
+      if (lane == 0) store_status(st + blk, FLAG_P | static_cast<uint32_t>(excl + count));
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      s_count = count;
+    }
+  }
+  __syncthreads();
+  const int excl = s_excl;
+  const size_t o_tile = static_cast<size_t>(tile) * a.max_hits;
+  if (blk == a.n_blk - 1) {
+    // the tile's last block: its exact count and the -1 tail
+    const int total = excl + s_count;
+    if (tid == 0) a.out_cnt[tile] = total;
+    for (int i = min(total, a.max_hits) + tid; i < a.max_hits; i += HT) {
+      a.out_ti[o_tile + i] = -1;
+      a.out_bi[o_tile + i] = -1;
+    }
   }
   if (!pr.hit) return;
-  int dst = a.offs[blk] - base_off + __popc(m & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) dst += s_wc[w];
+  const int dst = excl + s_wc[warp] + __popc(m & ((1u << lane) - 1u));
   if (dst >= a.max_hits) return;
 
   // phase 2: exact lane-byte compare over the 2*BUCKET_W lanes; verify
@@ -186,71 +281,69 @@ __global__ void __launch_bounds__(HT) hash_pass(HashArgs a) {
       bi = g;
     }
   }
-  const size_t o = static_cast<size_t>(tile) * a.max_hits + dst;
-  a.out_ti[o] = ti;
-  a.out_bi[o] = bi;
+  a.out_ti[o_tile + dst] = ti;
+  a.out_bi[o_tile + dst] = bi;
   if (v.amb) atomicAdd(a.out_amb, 1);
 }
 
-void launch(HashArgs a, int n_tiles, int* scratch, int* out_total, cudaStream_t stream) {
-  const int nseg = n_tiles * a.n_blk;
-  a.counts = scratch;
-  a.offs = scratch + nseg;
-  const dim3 grid(a.n_blk, n_tiles);
-  hash_pass<false><<<grid, HT, 0, stream>>>(a);
-  exclusive_scan_1block<<<1, SCAN_THREADS, 0, stream>>>(
-      scratch, scratch + nseg, nseg, out_total);
-  fill_results<<<max(1, ceil_div(static_cast<long long>(a.max_hits) * n_tiles, 256)),
-                 256, 0, stream>>>(a.out_ti, a.out_bi, a.max_hits * n_tiles, a.out_amb);
-  hash_pass<true><<<grid, HT, 0, stream>>>(a);
+// Zero the scratch (ticket, amb, status words), then the one pass.
+// Returns cudaErrorInvalidValue when the scratch is short.
+int launch(HashArgs a, int n_tiles, int* scratch, long long scratch_len,
+           cudaStream_t stream) {
+  const long long need = 2 + 2LL * n_tiles * a.n_blk;
+  if (a.n_blk < 1 || n_tiles < 1 || a.max_hits < 1 || scratch_len < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.ticket = reinterpret_cast<unsigned*>(scratch);
+  a.out_amb = scratch + 1;
+  a.status = reinterpret_cast<u64*>(scratch + 2);
+  const cudaError_t rc = cudaMemsetAsync(scratch, 0, need * sizeof(int), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  hash_compact<<<n_tiles * a.n_blk, HT, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1. Returns cudaGetLastError() after the launches. scratch holds
-// 2 * ceil(B*C / 256) ints. Outputs: ti, bi [max_hits] (-1 past the
-// hit count and for pairs phase 2 rejects), total (exact flagged-pair
-// count), amb.
+// K1. scratch holds scratch_len >= 2 + 2 * ceil(B*C / 256) ints
+// (ops/hash_index.py `hash_geometry`); scratch[1] is the `amb` output.
+// Outputs: ti, bi [max_hits] (-1 past the hit count and for pairs phase
+// 2 rejects), total (exact flagged-pair count), amb (pairs ranked below
+// max_hits with two verified lanes or more than two byte-matching ones).
 extern "C" int emqx_match_ids_hash(
     const int* plen, const uint8_t* has_hash, const uint8_t* root_wild,
     const uint32_t* plus, const uint8_t* active, int C,
     const uint32_t* slot_fp, const int* slot_bucket, const uint32_t* probe,
     int S, const int* t_ids, const int* t_len, const uint8_t* t_dollar, int B,
     int L, int max_hits, int* out_ti, int* out_bi, int* out_total,
-    int* out_amb, int* scratch, cudaStream_t stream) {
+    int* scratch, long long scratch_len, cudaStream_t stream) {
   HashArgs a{plen, has_hash, root_wild, plus, active, C,
              slot_fp, slot_bucket, probe, S, static_cast<uint32_t>(S - 1),
              t_ids, t_len, t_dollar, B, L, nullptr,
              ceil_div(static_cast<long long>(B) * C, HT),
-             nullptr, nullptr, max_hits, out_ti, out_bi, out_amb};
-  launch(a, 1, scratch, out_total, stream);
-  return static_cast<int>(cudaGetLastError());
+             nullptr, nullptr, nullptr, max_hits, out_ti, out_bi, out_total};
+  return launch(a, 1, scratch, scratch_len, stream);
 }
 
 // K17. The n_tiles tiles of this device (tiles [n_tiles, 4]): b_loc
 // topics a dp block, nb_loc buckets a sub shard, n_buckets the logical
-// (power-of-two) bucket count. scratch holds 2 * n_tiles * ceil(b_loc*C /
-// 256) + 1 ints. Outputs: ti, bi [n_tiles, max_hits] (global ids, -1 past
-// each tile's count and for rejects), cnt [n_tiles] (exact flagged
-// pairs), amb (over every tile).
+// (power-of-two) bucket count. scratch holds scratch_len >= 2 + 2 *
+// n_tiles * ceil(b_loc*C / 256) ints (`hash_geometry`); scratch[1] is the
+// `amb` output (over every tile). Outputs: ti, bi [n_tiles, max_hits]
+// (global ids, -1 past each tile's count and for rejects), cnt [n_tiles]
+// (exact flagged pairs).
 extern "C" int emqx_mesh_match_ids_hash(
     const int* plen, const uint8_t* has_hash, const uint8_t* root_wild,
     const uint32_t* plus, const uint8_t* active, int C,
     const uint32_t* slot_fp, const int* slot_bucket, const uint32_t* probe,
     int nb_loc, int n_buckets, const int* t_ids, const int* t_len,
     const uint8_t* t_dollar, int b_loc, int L, const int* tiles, int n_tiles,
-    int max_hits, int* out_ti, int* out_bi, int* out_cnt, int* out_amb,
-    int* scratch, cudaStream_t stream) {
-  const int n_blk = ceil_div(static_cast<long long>(b_loc) * C, HT);
+    int max_hits, int* out_ti, int* out_bi, int* out_cnt,
+    int* scratch, long long scratch_len, cudaStream_t stream) {
   HashArgs a{plen, has_hash, root_wild, plus, active, C,
              slot_fp, slot_bucket, probe, nb_loc,
              static_cast<uint32_t>(n_buckets - 1),
-             t_ids, t_len, t_dollar, b_loc, L, tiles, n_blk,
-             nullptr, nullptr, max_hits, out_ti, out_bi, out_amb};
-  const int nseg = n_tiles * n_blk;
-  int* total = scratch + 2 * nseg;
-  launch(a, n_tiles, scratch, total, stream);
-  tile_totals<<<ceil_div(n_tiles, 256), 256, 0, stream>>>(scratch + nseg, total, n_blk,
-                                                          n_tiles, out_cnt);
-  return static_cast<int>(cudaGetLastError());
+             t_ids, t_len, t_dollar, b_loc, L, tiles,
+             ceil_div(static_cast<long long>(b_loc) * C, HT),
+             nullptr, nullptr, nullptr, max_hits, out_ti, out_bi, out_cnt};
+  return launch(a, n_tiles, scratch, scratch_len, stream);
 }

@@ -1,16 +1,18 @@
-// Shared pieces of the compacting kernels (hash_match.cu,
-// dense_match.cu, combine.cu): the single-block exclusive scan that turns
-// per-block match counts into write offsets, the output fill, and the
-// per-tile counts of a mesh launch.
+// Shared pieces of the compacting kernels (dense_match.cu, combine.cu,
+// fanout.cu, hash_match.cu): the block-wide exclusive scan and the
+// single-block exclusive scan that turns per-block match counts into
+// write offsets.
 //
-// The compacting kernels run as count pass -> scan -> write (or place)
-// pass. The TPU programs compacted with jnp.nonzero inside one XLA
-// program; on a GPU the blocks of one grid run in no order, so the
-// order-preserving compaction needs the counts of every earlier block
-// before any block writes. The count arrays are small (one int per block
-// or per (chunk, topic) segment), so one block of SCAN_THREADS threads
-// scans them, 16K counts a tile; K2's segments are scanned by tiles in
-// parallel (dense_match.cu `part_scan`) and their tile sums here.
+// K2 and K14 compact as count pass -> scan -> write (or place) pass. The
+// TPU programs compacted with jnp.nonzero inside one XLA program; on a
+// GPU the blocks of one grid run in no order, so the order-preserving
+// compaction needs the counts of every earlier block before any block
+// writes. The count arrays are small (one int per block or per (chunk,
+// topic) segment), so one block of SCAN_THREADS threads scans them, 16K
+// counts a tile; K2's segments are scanned by tiles in parallel
+// (dense_match.cu `part_scan`) and their tile sums here. K1/K17
+// (hash_match.cu) compact in one pass with a decoupled look-back
+// instead, and K5 (fanout.cu) scans its matched rows inside one block.
 #pragma once
 
 #include <cstdint>
@@ -98,30 +100,6 @@ exclusive_scan_1block(const int* __restrict__ counts, int* __restrict__ offs,
     carry += tile;
   }
   if (threadIdx.x == 0) *total = carry;
-}
-
-// Result slots past the true hit count hold -1 (jnp.nonzero's
-// fill_value=-1); the optional counter starts at 0.
-__global__ void fill_results(int* __restrict__ a, int* __restrict__ b, int n,
-                             int* __restrict__ zero) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    a[i] = -1;
-    b[i] = -1;
-  }
-  if (zero != nullptr && i == 0) *zero = 0;
-}
-
-// A mesh launch compacts each of its n_tiles tiles on its own: a tile's
-// segments are the seg_tile consecutive ones from k * seg_tile, so its
-// exact count is the span of their offsets (offs from the scan above,
-// total its grand total).
-__global__ void tile_totals(const int* __restrict__ offs, const int* __restrict__ total,
-                            int seg_tile, int n_tiles, int* __restrict__ cnt) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n_tiles) return;
-  const int hi = k + 1 < n_tiles ? offs[(k + 1) * seg_tile] : *total;
-  cnt[k] = hi - offs[k * seg_tile];
 }
 
 static inline int ceil_div(long long a, long long b) {

@@ -45,7 +45,7 @@ from ..device import DeviceLike, resolve, to_device
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
 from ..parallel.mesh import primary_device
 from . import transfer as transfer_ops
-from ._build import I, P, CudaKernel
+from ._build import LL, I, P, CudaKernel
 from .match import check_tensor
 from .table import next_pow2, pad_pow2_batches
 
@@ -159,6 +159,42 @@ def scatter_edges(edge_client, edge_opts, idx, cl, op) -> None:
 
 # --- K5: the dedup/max-QoS plan kernel ---------------------------------------
 
+# K5's persistent keys are 64 bits, tagged with the call's epoch
+# (csrc/fanout.cu): epochs run 1..EPOCH_LIMIT, so every key stays below
+# 2^63 and an int64 tensor holds the kernel's unsigned keys bit for bit
+EPOCH_LIMIT = (1 << 31) - 1
+FIRST_EMPTY = (1 << 63) - 1  # a cleared first-position entry: above any key
+
+
+class FanoutScratch:
+    """K5's winner and first-position keys of each client (`keys` int64
+    [capacity, 2]: tw, tf), kept across calls so that no call sweeps the
+    client registry. Each call takes the next epoch; keys of older
+    epochs lose every race, so the keys are cleared only when fresh and
+    after the last epoch. Calls that share one scratch must run in order
+    (one stream)."""
+
+    def __init__(self, capacity: int, device: torch.device) -> None:
+        self.capacity = capacity
+        self.keys = torch.empty((capacity, 2), dtype=torch.int64, device=device)
+        self.epoch = 0  # the last call's epoch; 0: the keys need a clear
+
+    def next_epoch(self) -> Tuple[int, bool]:
+        """(this call's epoch, whether the keys are cleared first);
+        committed by `self.epoch = epoch` once the call has launched."""
+        if self.epoch == 0 or self.epoch >= EPOCH_LIMIT:
+            return 1, True
+        return self.epoch + 1, False
+
+
+def _check_scratch(scratch: FanoutScratch, n_clients: int, dev: torch.device) -> None:
+    if n_clients > scratch.capacity:
+        raise ValueError(
+            f"resolve_fanout: n_clients={n_clients} exceeds the scratch's "
+            f"{scratch.capacity} client rows"
+        )
+    check_tensor("scratch.keys", scratch.keys, torch.int64, (scratch.capacity, 2), dev)
+
 
 def resolve_fanout_ref(
     seg_off: torch.Tensor,  # int32 [C]
@@ -168,69 +204,80 @@ def resolve_fanout_ref(
     rows: torch.Tensor,  # int32 [M] matched filter rows, -1 padded
     n_clients: int,
     max_fan: int,
+    scratch: Optional[FanoutScratch] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K5, step for step the reference's program.
+    """Plain version of K5, step for step the kernel's launches on the
+    same epoch-tagged keys (a fresh scratch when none is given).
     Returns (slots int32 [max_fan], n_winners int32 [], total int32
     []): slots[p] is the winning global edge index for the client whose
-    first occurrence in the gathered fan was position p, or -1. JAX's
-    mode="drop" sentinels (client n_clients, slot max_fan) land in one
-    extra trailing element of tw/tf/out that is sliced off, because
-    torch raises on out-of-range scatter indices."""
+    first occurrence in the gathered fan was position p, or -1 — the
+    reference program's outputs."""
     m = rows.shape[0]
     dev = rows.device
-    i32 = torch.int32
+    i32, i64 = torch.int32, torch.int64
+    if scratch is None:
+        scratch = FanoutScratch(n_clients, dev)
+    _check_scratch(scratch, n_clients, dev)
+    epoch, clear = scratch.next_epoch()
+    keys = scratch.keys.view(-1)  # tw of client c at 2c, tf at 2c + 1
+    if clear:
+        scratch.keys[:, 0] = 0
+        scratch.keys[:, 1] = FIRST_EMPTY
+    # the gather: masked lengths and starts of the matched rows, their scan
     valid_row = rows >= 0
-    rr = torch.where(valid_row, rows, 0).long()
+    rr = torch.where(valid_row, rows.clamp(max=seg_off.shape[0] - 1), 0).long()
     lens = torch.where(valid_row, seg_len[rr], 0)
-    offs = seg_off[rr]
-    cum = torch.cumsum(lens, 0, dtype=i32)
-    total = cum[-1]
+    start = seg_off[rr]
+    incl = torch.cumsum(lens, 0, dtype=i32)
+    total = incl[-1]
     e = torch.arange(max_fan, dtype=i32, device=dev)
-    fi = torch.searchsorted(cum, e, right=True).clamp(max=m - 1)
-    prev = torch.where(fi > 0, cum[(fi - 1).clamp(min=0)], 0)
+    fi = torch.searchsorted(incl, e, right=True).clamp(max=m - 1)
+    prev = torch.where(fi > 0, incl[(fi - 1).clamp(min=0)], 0)
     src = torch.where(
-        e < torch.clamp(total, max=max_fan), offs[fi] + (e - prev), 0
+        e < torch.clamp(total, max=max_fan), start[fi] + (e - prev), 0
     ).to(i32)
-    cl = edge_client[src.long()]
-    op = edge_opts[src.long()]
+    s = src.clamp(0, edge_client.shape[0] - 1).long()
+    cl = edge_client[s]
+    op = edge_opts[s]
     # tombstones and shared legs carry client -1; skip-bit edges have a
     # client row but no suboption (the oracle's subopts.get miss)
-    ok = (e < total) & (cl >= 0) & ((op & SKIP_BIT) == 0)
-    cl_ok = torch.where(ok & (cl < n_clients), cl, n_clients).long()
-    wkey = ((op & QOS_MASK) << 24) | (_POS_MASK - e)
-    tw = torch.full((n_clients + 1,), -1, dtype=i32, device=dev)
-    tw.scatter_reduce_(0, cl_ok, torch.where(ok, wkey, -1), "amax")
-    tf = torch.full((n_clients + 1,), max_fan, dtype=i32, device=dev)
-    tf.scatter_reduce_(0, cl_ok, torch.where(ok, e, max_fan), "amin")
-    tw = tw[:n_clients]
-    tf = tf[:n_clients]
-    present = tw >= 0
-    p_win = _POS_MASK - (tw & _POS_MASK)
-    win_edge = src[p_win.clamp(0, max_fan - 1).long()]
-    # plan order: first occurrence IS the output slot
-    slot = torch.where(present, tf, max_fan).long()
-    out = torch.full((max_fan + 1,), -1, dtype=i32, device=dev)
-    out[slot] = torch.where(present, win_edge, -1)
-    return out[:max_fan], present.sum(dtype=i32), total
+    ok = (e < total) & (cl >= 0) & (cl < n_clients) & ((op & SKIP_BIT) == 0)
+    cl_at = torch.where(ok, cl, -1)
+    first_key = ((EPOCH_LIMIT - epoch) << 32) | e.to(i64)
+    win_key = (epoch << 32) | (((op & QOS_MASK) << 24) | (_POS_MASK - e)).to(i64)
+    idx = 2 * cl_at[ok].long()
+    keys.scatter_reduce_(0, idx, win_key[ok], "amax")
+    keys.scatter_reduce_(0, idx + 1, first_key[ok], "amin")
+    # the winner pass: a position is its client's first occurrence when
+    # its own key won the first-position race
+    c = 2 * cl_at.clamp(min=0).long()
+    first = (cl_at >= 0) & (keys[c + 1] == first_key)
+    p_win = _POS_MASK - (keys[c] & _POS_MASK)
+    out = torch.where(first, src[p_win.clamp(0, max_fan - 1)], -1).to(i32)
+    scratch.epoch = epoch
+    return out, first.sum(dtype=i32), total
 
 
 _RESOLVE_FANOUT = CudaKernel(
     "resolve_fanout", "fanout.cu", "emqx_resolve_fanout",
-    [P, P, I, P, P, I, P, I, I, I, P, P, P, P, P, P, P, P, P],
+    [P, P, I, P, P, I, P, I, I, I, P, P, P, P, LL, P, I, I, I, P],
 )
 
 
 def resolve_fanout(
     seg_off, seg_len, edge_client, edge_opts, rows,
-    n_clients: int, max_fan: int,
+    n_clients: int, max_fan: int, scratch: Optional[FanoutScratch] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dedup/max-QoS plan (replaces the jitted `resolve_fanout` of
     the reference). CUDA tensors launch kernel K5; CPU tensors take the
-    plain version. Same outputs as resolve_fanout_ref."""
+    plain version. Same outputs as resolve_fanout_ref. `scratch` holds
+    the winner keys across calls (FanoutDeviceState passes its own);
+    without one, a fresh scratch is made and cleared for this call."""
     d = seg_off.device
     if d.type == "cpu":
         return resolve_fanout_ref(
-            seg_off, seg_len, edge_client, edge_opts, rows, n_clients, max_fan
+            seg_off, seg_len, edge_client, edge_opts, rows, n_clients, max_fan,
+            scratch,
         )
     c = seg_off.shape[0]
     e = edge_client.shape[0]
@@ -245,25 +292,26 @@ def resolve_fanout(
     check_tensor("edge_client", edge_client, torch.int32, (e,), d)
     check_tensor("edge_opts", edge_opts, torch.int32, (e,), d)
     check_tensor("rows", rows, torch.int32, (m,), d)
+    if scratch is None:
+        scratch = FanoutScratch(n_clients, d)
+    _check_scratch(scratch, n_clients, d)
+    epoch, clear = scratch.next_epoch()
     i32 = torch.int32
     out = torch.empty(max_fan, dtype=i32, device=d)
     n_win = torch.empty((), dtype=i32, device=d)
     total = torch.empty((), dtype=i32, device=d)
-    # scratch: masked lens + their exclusive scan [M], the winner-key
-    # and first-position tables [n_clients], the gathered sources
-    lens = torch.empty(m, dtype=i32, device=d)
-    excl = torch.empty(m, dtype=i32, device=d)
-    tw = torch.empty(n_clients, dtype=i32, device=d)
-    tf = torch.empty(n_clients, dtype=i32, device=d)
-    src = torch.empty(max_fan, dtype=i32, device=d)
+    # per call: the rows' inclusive scan and starts [M], the gathered
+    # sources and the lanes' clients [max_fan]
+    work = torch.empty(2 * m + 2 * max_fan, dtype=i32, device=d)
     _RESOLVE_FANOUT(
         seg_off.data_ptr(), seg_len.data_ptr(), c,
         edge_client.data_ptr(), edge_opts.data_ptr(), e,
         rows.data_ptr(), m, n_clients, max_fan,
         out.data_ptr(), n_win.data_ptr(), total.data_ptr(),
-        lens.data_ptr(), excl.data_ptr(), tw.data_ptr(), tf.data_ptr(),
-        src.data_ptr(), _stream(d),
+        work.data_ptr(), work.numel(), scratch.keys.data_ptr(),
+        scratch.capacity, epoch, int(clear), _stream(d),
     )
+    scratch.epoch = epoch
     return out, n_win, total
 
 
@@ -704,9 +752,10 @@ class FanoutDeviceState:
     pow2-padded dirty scatter (K6/K7, in place) otherwise, and the plan
     kernel (K5) launched in begin() with its device->host copy started
     at once, so the pipelined dispatch overlaps the resolve with the
-    match fetch. With `mesh` it serves a ShardedDeviceTable: the mirror
-    lives on the mesh's primary device, where K5 runs (no other device
-    reads it)."""
+    match fetch; K5's winner keys (FanoutScratch) persist across
+    resolves and grow with the client registry. With `mesh` it serves a
+    ShardedDeviceTable: the mirror lives on the mesh's primary device,
+    where K5 runs (no other device reads it)."""
 
     def __init__(
         self, store: DestStore, device: DeviceLike = None, mesh=None, telemetry=None
@@ -720,6 +769,9 @@ class FanoutDeviceState:
         self._seg_len: Optional[torch.Tensor] = None
         self._edge_client: Optional[torch.Tensor] = None
         self._edge_opts: Optional[torch.Tensor] = None
+        # K5's winner keys, kept across resolves and grown with the
+        # client registry (every resolve runs on the one current stream)
+        self._scratch: Optional[FanoutScratch] = None
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.device)
@@ -787,8 +839,11 @@ class FanoutDeviceState:
             (len(rows_arr), max_fan, nc, self.store.edge_capacity),
         )
         state = self.tensors()
+        if self._scratch is None or self._scratch.capacity < nc:
+            self._scratch = FanoutScratch(nc, self.device)
         dev = resolve_fanout(
-            *state, self._put(rows_arr), n_clients=nc, max_fan=max_fan
+            *state, self._put(rows_arr), n_clients=nc, max_fan=max_fan,
+            scratch=self._scratch,
         )
         ticket = transfer_ops.start_fetch(dev, tel)
         return (ticket, fan, tel.clock() - t0, state)

@@ -67,7 +67,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ._build import I, P, CudaKernel
+from ._build import LL, I, P, CudaKernel
 from .match import MAX_KERNEL_LEVELS, EncodedTopics, check_tensor, check_topics
 from .table import FilterTable
 from .vocab import PLUS
@@ -983,9 +983,29 @@ def match_ids_hash_ref(
 
 # --- K1: the CUDA kernel --------------------------------------------------
 
+HASH_PAIRS = 256  # (topic, class) pairs a block of K1/K17 owns (csrc/hash_match.cu HT)
+
+
+class HashGeometry(NamedTuple):
+    n_blk: int  # blocks a tile: ceil(b_loc * C / HASH_PAIRS)
+    n_status: int  # status words: one a block of every tile
+    scratch: int  # int32 scratch: the ticket, amb, then the 64-bit status words
+
+
+def hash_geometry(b_loc: int, c: int, n_tiles: int = 1) -> HashGeometry:
+    """The launch geometry of K1 (one tile) and K17 (n_tiles tiles of
+    b_loc topics): block t of the grid takes ticket t, which names tile
+    t // n_blk and its pairs [blk * HASH_PAIRS, (blk + 1) * HASH_PAIRS)
+    in flat (topic, class) order, blk = t % n_blk. The C side refuses a
+    shorter scratch."""
+    n_blk = -(-(b_loc * c) // HASH_PAIRS)
+    n_status = n_tiles * n_blk
+    return HashGeometry(n_blk, n_status, 2 + 2 * n_status)
+
+
 _MATCH_IDS_HASH = CudaKernel(
     "match_ids_hash", "hash_match.cu", "emqx_match_ids_hash",
-    [P, P, P, P, P, I, P, P, P, I, P, P, P, I, I, I, P, P, P, P, P, P],
+    [P, P, P, P, P, I, P, P, P, I, P, P, P, I, I, I, P, P, P, P, LL, P],
 )
 
 
@@ -996,7 +1016,7 @@ def match_ids_hash(
     max_hits: int = 4096,
 ):
     """Probe every (topic, class) pair's two cuckoo buckets in one
-    launch: returns (topic_idx int32 [max_hits], bucket_id int32
+    pass: returns (topic_idx int32 [max_hits], bucket_id int32
     [max_hits], total int32 scalar, amb int32 scalar) on the tables'
     device.
 
@@ -1031,19 +1051,20 @@ def match_ids_hash(
     check_tensor("slots.probe", slots.probe, torch.uint32, (s,), dev)
     check_tensor("slots.fp", slots.fp, torch.uint32, (s * BUCKET_W,), dev)
     check_tensor("slots.bucket", slots.bucket, torch.int32, (s * BUCKET_W,), dev)
+    if max_hits < 1:
+        raise ValueError(f"max_hits {max_hits} < 1")
     ti = torch.empty(max_hits, dtype=torch.int32, device=dev)
     bi = torch.empty(max_hits, dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
-    amb = torch.empty((), dtype=torch.int32, device=dev)
-    n_blocks = -(-(b * c) // 256)
-    scratch = torch.empty(2 * n_blocks, dtype=torch.int32, device=dev)
+    # the kernel zeroes its scratch; element 1 is the amb count
+    scratch = torch.empty(hash_geometry(b, c).scratch, dtype=torch.int32, device=dev)
     _MATCH_IDS_HASH(
         meta.plen.data_ptr(), meta.has_hash.data_ptr(), meta.root_wild.data_ptr(),
         meta.plus.data_ptr(), meta.active.data_ptr(), c,
         slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(), s,
         topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
         b, levels, max_hits, ti.data_ptr(), bi.data_ptr(), total.data_ptr(),
-        amb.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr(), scratch.numel(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    return ti, bi, total, amb
+    return ti, bi, total, scratch[1]

@@ -60,6 +60,7 @@ from ..ops.hash_index import (
     _u32,
     class_hash_ref,
     has_byte_ref,
+    hash_geometry,
     verify_lanes_ref,
 )
 from ..ops.match import EncodedTopics, _match_block_ref, check_tensor
@@ -92,7 +93,7 @@ _MESH_IDS = CudaKernel(
 )
 _MESH_HASH = CudaKernel(
     "mesh_match_ids_hash", "hash_match.cu", "emqx_mesh_match_ids_hash",
-    [P, P, P, P, P, I, P, P, P, I, I, P, P, P, I, I, P, I, I, P, P, P, P, P, P],
+    [P, P, P, P, P, I, P, P, P, I, I, P, P, P, I, I, P, I, I, P, P, P, P, LL, P],
 )
 _MESH_SLOTS = CudaKernel(
     "mesh_slot_delta", "scatter.cu", "emqx_mesh_scatter_slots",
@@ -347,9 +348,9 @@ def _tiles_hash(mesh: Mesh, gi: int, meta: ClassMeta, slots: SlotArrays,
     ti = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
     bi = torch.empty((n_tiles, mh), dtype=torch.int32, device=dev)
     cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    amb = torch.empty((), dtype=torch.int32, device=dev)
-    n_blk = -(-(b_loc * c) // 256)
-    scratch = torch.empty(2 * n_tiles * n_blk + 1, dtype=torch.int32, device=dev)
+    # the kernel zeroes its scratch; element 1 is the amb count
+    scratch = torch.empty(hash_geometry(b_loc, c, n_tiles).scratch, dtype=torch.int32,
+                          device=dev)
     _launch(
         _MESH_HASH, dev,
         meta.plen.data_ptr(), meta.has_hash.data_ptr(), meta.root_wild.data_ptr(),
@@ -357,9 +358,9 @@ def _tiles_hash(mesh: Mesh, gi: int, meta: ClassMeta, slots: SlotArrays,
         slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(),
         nb_loc, n_buckets, t.ids.data_ptr(), t.lens.data_ptr(), t.dollar.data_ptr(),
         b_loc, levels, mesh.tile_table(gi).data_ptr(), n_tiles, mh,
-        ti.data_ptr(), bi.data_ptr(), cnt.data_ptr(), amb.data_ptr(), scratch.data_ptr(),
+        ti.data_ptr(), bi.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), scratch.numel(),
     )
-    return ti, bi, cnt, amb
+    return ti, bi, cnt, scratch[1]
 
 
 def _combine_launch(a_all: torch.Tensor, b_all: torch.Tensor, cnt: torch.Tensor, mh: int):

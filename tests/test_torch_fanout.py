@@ -128,6 +128,57 @@ def test_resolve_fanout_equals_reference(seed, n_rows, n_clients, max_len, exact
     assert len(set(client[win].tolist())) == len(win) == int(t_n)
 
 
+def test_resolve_fanout_sequence_on_one_scratch_equals_reference():
+    """K5's persistent tables: 24 seeded calls on one FanoutScratch, the
+    clients shared across calls (every call sees stale keys of earlier
+    epochs for the same clients), the client count growing (the scratch
+    then grows and starts cleared, as FanoutDeviceState grows it), and
+    the epoch forced to its last value (the next call clears the tables
+    and restarts at epoch 1). Every call equals the reference program."""
+    rng = np.random.default_rng(11)
+    schedule = [16] * 8 + [48] * 8 + [200] * 8
+    scratch = None
+    clears = []
+    for k, n_clients in enumerate(schedule):
+        seg_off, seg_len, client, opts, rows, fan = _random_state(
+            rng, 40, n_clients, 16
+        )
+        max_fan = JF.fan_bucket(max(fan, 64))
+        if scratch is None or scratch.capacity < n_clients:
+            scratch = TF.FanoutScratch(1 << (n_clients - 1).bit_length(), CPU)
+        if k == 12:
+            scratch.epoch = TF.EPOCH_LIMIT - 1
+        epoch, clear = scratch.next_epoch()
+        if clear:
+            clears.append(k)
+        j_out, j_n, j_total = JF.resolve_fanout(
+            jnp.asarray(seg_off), jnp.asarray(seg_len), jnp.asarray(client),
+            jnp.asarray(opts), jnp.asarray(rows),
+            n_clients=n_clients, max_fan=max_fan,
+        )
+        st = fanout_state_from_numpy(seg_off, seg_len, client, opts, "cpu")
+        t_out, t_n, t_total = TF.resolve_fanout(
+            *st, _t(rows), n_clients=n_clients, max_fan=max_fan, scratch=scratch
+        )
+        np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out), err_msg=f"call {k}")
+        assert int(t_n) == int(j_n) and int(t_total) == int(j_total) == fan
+        assert scratch.epoch == epoch
+        if k == 12:
+            assert epoch == TF.EPOCH_LIMIT and not clear
+    # fresh at 0, grown at 8 and 16, the wrap at 13
+    assert clears == [0, 8, 13, 16]
+
+
+def test_resolve_fanout_refuses_a_scratch_too_small():
+    rng = np.random.default_rng(3)
+    seg_off, seg_len, client, opts, rows, fan = _random_state(rng, 16, 64, 8)
+    st = fanout_state_from_numpy(seg_off, seg_len, client, opts, "cpu")
+    scratch = TF.FanoutScratch(32, CPU)
+    with pytest.raises(ValueError, match="exceeds the scratch"):
+        TF.resolve_fanout(*st, _t(rows), n_clients=64, max_fan=64, scratch=scratch)
+    assert scratch.epoch == 0
+
+
 @pytest.mark.parametrize("seed,n_ids", [(0, 7), (1, 1500)])
 def test_scatter_segs_and_edges_equal_reference(seed, n_ids):
     rng = np.random.default_rng(seed)

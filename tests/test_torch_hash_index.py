@@ -106,6 +106,34 @@ def test_match_ids_hash_equals_reference(seed, n_filters, class_budget, max_hits
     _assert_equal(want, got)
 
 
+# (topics a tile, classes, tiles): phase 5's K1 (a block a topic), few
+# and many classes, one topic, K17's eight tiles of 512 topics
+GEOMETRY_CASES = [(1024, 256, 1), (64, 7, 1), (3, 300, 1), (1, 1, 1), (512, 256, 8),
+                  (5, 37, 3)]
+
+
+@pytest.mark.parametrize("b_loc,c,n_tiles", GEOMETRY_CASES)
+def test_hash_geometry_covers_every_block_and_tile(b_loc, c, n_tiles):
+    """K1/K17's one-pass launch geometry: grid block t takes ticket t,
+    tile t // n_blk and the HASH_PAIRS pairs from (t % n_blk) *
+    HASH_PAIRS; every tile's blocks own each of its b_loc * C pairs
+    exactly once, none is empty, and the scratch holds the ticket, amb
+    and one 64-bit status word a block."""
+    geo = TH.hash_geometry(b_loc, c, n_tiles)
+    n = b_loc * c
+    assert (geo.n_blk - 1) * TH.HASH_PAIRS < n <= geo.n_blk * TH.HASH_PAIRS
+    assert geo.n_status == n_tiles * geo.n_blk
+    assert geo.scratch == 2 + 2 * geo.n_status
+    owned = [[] for _ in range(n_tiles)]
+    for t in range(geo.n_status):
+        tile, blk = divmod(t, geo.n_blk)
+        pairs = range(blk * TH.HASH_PAIRS, min((blk + 1) * TH.HASH_PAIRS, n))
+        assert len(pairs) > 0
+        owned[tile] += pairs
+    assert all(sorted(o) == list(range(n)) for o in owned)
+    assert TH.hash_geometry(b_loc, c).scratch * n_tiles >= geo.scratch
+
+
 @pytest.mark.parametrize("bulk", [True, False])
 def test_port_class_index_equals_reference(bulk):
     """The port's copied host index, fed the same adds/removes, holds

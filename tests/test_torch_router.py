@@ -274,6 +274,126 @@ def test_escalation_after_a_sync_keeps_every_match():
         assert b <= set(g) <= a
 
 
+def test_sticky_hash_bound_escalates_once_across_batches():
+    """An overflow raises the hash leg's first bound for later batches
+    (the mesh's sticky floor): a second batch of the same shape runs at
+    the escalated bound and does not re-launch. Both batches equal the
+    reference router's answers."""
+    jr = JR.Router(max_levels=4)
+    tr = TR.Router(max_levels=4, device="cpu")
+    pairs = [(f"w/{i}/+", f"m{i}") for i in range(2000)]
+    pairs += [(f, f"s{k}") for k, f in enumerate(
+        ["w/+/q", "+/+/q", "+/+/+", "w/#", "+/#", "#", "w/+/#"])]
+    jr.add_routes(pairs)
+    tr.add_routes(pairs)
+    first = [f"w/{i}/q" for i in range(1500)]
+    assert tr.match_batch(first) == jr.match_batch(first)
+    c = tr.telemetry.counters
+    assert c["hash_overflow_retries_total"] == 1
+    floor = tr.device_table._hash_mh_floor
+    assert floor > 1024 * 2 and floor & (floor - 1) == 0
+    second = [f"w/{i}/q" for i in range(500, 2000)]
+    assert tr.match_batch(second) == jr.match_batch(second)
+    assert c["hash_overflow_retries_total"] == 1
+    assert tr.device_table._hash_mh_floor == floor
+
+
+def test_pipelined_batches_escalate_once_from_a_landed_overflow():
+    """Two batches in flight from a cold floor: the second begins after
+    the first one's overflowing count has landed, so it launches at the
+    bound the first needed; only the first escalates (at its finish).
+    Both equal the reference router's answers."""
+    jr = JR.Router(max_levels=4)
+    tr = TR.Router(max_levels=4, device="cpu")
+    pairs = [(f"w/{i}/+", f"m{i}") for i in range(2000)]
+    pairs += [(f, f"s{k}") for k, f in enumerate(
+        ["w/+/q", "+/+/q", "+/+/+", "w/#", "+/#", "#", "w/+/#"])]
+    jr.add_routes(pairs)
+    tr.add_routes(pairs)
+    batches = [[f"w/{i}/q" for i in range(k, k + 1500)] for k in (0, 300, 600)]
+    pending = [tr.match_filters_begin(batches[0]), tr.match_filters_begin(batches[1])]
+    assert tr.device_table._hash_mh_floor > 4096  # from batch 0's landed count
+    got = [tr.match_filters_finish(pending.pop(0))]
+    pending.append(tr.match_filters_begin(batches[2]))
+    got += [tr.match_filters_finish(p) for p in pending]
+    for topics, g in zip(batches, got):
+        assert [sorted(x) for x in g] == [sorted(x) for x in jr.match_filters_batch(topics)]
+    assert tr.telemetry.counters["hash_overflow_retries_total"] == 1
+
+
+def test_amb_host_fallbacks_under_churn_equal_reference(monkeypatch):
+    """Phase 5's churn in small: batches pipelined two deep, with
+    skeleton filters swapped for a twin (which takes the freed row and
+    bucket) while the previous batch is in flight. The amb host
+    fallbacks — pairs with more than two byte-matching lanes, or two
+    verified ones — come from the data, not the port: both routers
+    count the same ones, batch for batch, and give the same answers
+    wherever no route of the topic changed in flight (elsewhere the
+    port's answer lies between the host truth at begin and at finish).
+    The reference runs its Python host path, which the port copied: its
+    native route core interns words in another order, and other word
+    ids give other byte coincidences."""
+    from emqx_tpu.ops import speedups as JS
+
+    monkeypatch.setattr(JS, "load", lambda build=True: None)
+    rng = random.Random(0)
+    n = 5800
+    routes = []
+    for i in range(n):
+        routes += [(f"s/{i}/+", "a"), (f"s/+/{i}", "b"), (f"s/{i}/#", "c"),
+                   (f"+/{i}/{i % 7}", "d")]
+    skel = [f"k{j}/+/x{j % 5}/+" for j in range(60)] + [f"k{j}/+/#" for j in range(60)]
+    routes += [(f, "s") for f in skel]
+    jr = JR.Router(max_levels=6)
+    tr = TR.Router(max_levels=6, device="cpu")
+    jr.add_routes(routes)
+    tr.add_routes(routes)
+    assert np.array_equal(jr.table.words, tr.table.words)
+
+    def twin(f):
+        ws = f.split("/")
+        ws[max(k for k, w in enumerate(ws) if w not in ("+", "#"))] += "z"
+        return "/".join(ws)
+
+    pending = []
+    falls = []
+
+    def finish():
+        topics, before, jp, tp = pending.pop(0)
+        got = tr.match_filters_finish(tp)
+        want = jr.match_filters_finish(jp)
+        for t, g, w, b in zip(topics, got, want, before):
+            a = set(tr.match_filters(t))
+            assert b & a <= set(g) <= b | a
+            if a == b:  # no route of the topic changed in flight
+                assert sorted(g) == sorted(w)
+        falls.append(tuple(r.telemetry.counters.get("host_fallback_total", 0)
+                           for r in (jr, tr)))
+
+    for _ in range(24):
+        topics = [f"s/{rng.randrange(n)}/{rng.randrange(n)}" for _ in range(250)]
+        topics += [f"k{rng.randrange(60)}/v/x{rng.randrange(5)}/w" for _ in range(20)]
+        before = [set(tr.match_filters(t)) for t in topics]
+        pending.append((topics, before, jr.match_filters_begin(topics),
+                        tr.match_filters_begin(topics)))
+        for j in rng.sample(range(len(skel)), 10):
+            f = skel[j]
+            old, new = (f, twin(f)) if tr.has_route(f, "s") else (twin(f), f)
+            for r in (jr, tr):
+                r.delete_route(old, "s")
+                r.add_route(new, "s")
+        if len(pending) == 2:
+            finish()
+    while pending:
+        finish()
+    assert all(a == b for a, b in falls), falls
+    assert falls[-1][1] > 0  # the sequence reaches the fallback
+    for r in (jr, tr):
+        c = r.telemetry.counters
+        assert c["ambiguous_batches_total"] == c["host_fallback_total"] == falls[-1][1]
+        assert c.get("hash_overflow_retries_total", 0) == 0
+
+
 # (use_hash_index, class_budget): the dense-only leg, the residual dense
 # leg (the one class goes to "a/+/x", so the swapped filters are
 # residual), and the hash leg
