@@ -99,8 +99,15 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    5,000-filter wave, through RetainedIndex.read_begin/finish: every
    answer equals the host trie walk, and the timed waves' messages from
    Retainer.retained_read_begin/finish are the stored messages of the
-   host walk's names; device, host-walk and end-to-end filters/s. (b) K8 against its plain version over the live table at
-   B=4096 and B=8, exactly. (c) The port's Server on 127.0.0.1: 256 TCP
+   host walk's names; device, host-walk and end-to-end filters/s. (b) K8
+   at its edges, each equal to its plain version: a crafted table of
+   1,024 buckets (two verified lanes, three byte matches, a byte match
+   with a wrong fingerprint, a verified dead slot, a second lane that
+   verifies after a first that fails) with padding lanes in the middle,
+   then over the live table B = 1, 257 and every rung of BATCH_LADDER
+   (device_ms and enqueue_ms printed at each); then K8 against its
+   plain version over the live table at B=4096 and B=8, exactly, timed.
+   (c) The port's Server on 127.0.0.1: 256 TCP
    clients (half MQTT 5, half 3.1.1), each one 8-filter SUBSCRIBE (QoS
    1 grants on the one-name and exact filters, which the clients
    PUBACK), 128 single-filter SUBSCRIBEs (the B=1 read), 64 re-
@@ -111,7 +118,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    arrives, no drop counter moves, K8 launched, and device reads are at
    least 99% of the wildcard reads. Printed: subscribes/s, retained
    messages/s, SUBACK latency p50/p99, device reads against host
-   fallbacks, the churn's seconds, K8's launches. (d) `python -m
+   fallbacks, the churn's seconds, K8's launches, also by ladder rung. (d) `python -m
    emqx_tpu_torch.broker.server` started as a user starts it (on the
    card by default) serves a retained read to a raw-socket client, and
    is stopped. Printed last: the phase's seconds, by stage.
@@ -133,13 +140,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    counts, packed and apply_delta, K14 over both legs' tiles, K15, K16,
    K17, K18 on a churn's delta, also against host truth), timed as in
    phase 4 (the plain versions, hundreds of ms a call, over 3 calls
-   both ways); K16, K17 and
+   both ways); K14 first at its edges on synthetic rows (valid entries
+   scattered, a block cut at max_hits, every valid entry in the last
+   shard, counts above the valid entries, nothing valid, max_hits 1,
+   the padded (1, 3) layout), each equal to its plain version and
+   timed at the block capacity and at twice it (the widest a path
+   launches: warm_up's first escalation step), and K14 on the hash
+   leg's tiles at that width; K16, K17 and
    K14 again at a block capacity of at most half the largest tile count
    (the per-tile truncation, exact counts past it, the combine's cut,
-   which at least one leg must reach); then
+   which at least one leg must reach; K14 timed there too); then
    one 1024-topic batch with the block capacity forced to
    ESCALATION_MH, which both legs must escalate past, against the host
-   path. (c) The padded (1, 3) layout with churn, with and without the
+   path, every K14 call of it equal to its plain version. (c) The padded (1, 3) layout with churn, with and without the
    class index; on the hashed one, counters set to 0 and two route
    adds that grow the class index (row-only sync: K13 apply_delta) and
    then the table (full row upload, slot-only sync: K18 slot delta),
@@ -1379,10 +1392,11 @@ def broker_phase(rng, card):
 # --- retained reads and the server (phase 8) ---------------------------------------
 
 
-def ret_filter(cls: str, rng) -> str:
-    """One filter of a phase-8 class over the `dev/{g}/{k}/state` store."""
-    g = int(rng.integers(0, N_RET_GROUPS))
-    k = int(rng.integers(0, N_RET_PER_GROUP))
+def ret_filter(cls: str, rng, n_groups=None, per_group=None) -> str:
+    """One filter of a phase-8 class over the `dev/{g}/{k}/state` store
+    (g < n_groups, k < per_group; phase 8's sizes by default)."""
+    g = int(rng.integers(0, n_groups or N_RET_GROUPS))
+    k = int(rng.integers(0, per_group or N_RET_PER_GROUP))
     return {
         "A": f"dev/{g}/+/state",  # 100 names: the reference bench's filter
         "B": f"dev/{g}/#",  # 100 names
@@ -1417,6 +1431,17 @@ def ret_oracle(ret, flt, granted):
     return out
 
 
+def retained_names(n_groups=None, per_group=None, n_sys=None):
+    """Phase 8's stored names in store order: `dev/{g}/{k}/state` for
+    i < n_groups * per_group (g = i % n_groups, k = i // n_groups), then
+    `$SYS/{g}/x/state` for g < n_sys (phase 8's sizes by default)."""
+    g_n = n_groups or N_RET_GROUPS
+    for i in range(g_n * (per_group or N_RET_PER_GROUP)):
+        yield f"dev/{i % g_n}/{i // g_n}/state"
+    for g in range(N_RET_SYS if n_sys is None else n_sys):
+        yield f"$SYS/{g}/x/state"
+
+
 def build_retained(device):
     """Phase 8 set-up: a Broker on the card whose Retainer stores
     N_RET_GROUPS * N_RET_PER_GROUP names `dev/{g}/{k}/state` (64-byte
@@ -1432,11 +1457,11 @@ def build_retained(device):
     n = N_RET_GROUPS * N_RET_PER_GROUP
     ret.max_retained = n + N_RET_SYS + N_RET_CHURN
     t0 = time.perf_counter()
-    for i in range(n):
-        ret.retain(Message(topic=f"dev/{i % N_RET_GROUPS}/{i // N_RET_GROUPS}/state",
-                           payload=b"%064d" % i, qos=i % 3, retain=True))
-    for g in range(N_RET_SYS):
-        ret.retain(Message(topic=f"$SYS/{g}/x/state", payload=b"%064d" % g, retain=True))
+    for i, name in enumerate(retained_names()):
+        if i < n:
+            ret.retain(Message(topic=name, payload=b"%064d" % i, qos=i % 3, retain=True))
+        else:
+            ret.retain(Message(topic=name, payload=b"%064d" % (i - n), retain=True))
     store_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ret.enable_device(telemetry=KernelTelemetry())
@@ -1520,11 +1545,154 @@ def lane_matches(idx, keys):
     return nbm
 
 
-def check_retained_kernel(ret, rng):
-    """Phase 8 (b): K8 against its plain version on the card over the
-    live table, at B=4096 (a wave's top rung) and B=8 (a SUBSCRIBE
-    packet's rung), hits, misses and a padding lane. Returns the
-    record."""
+def k8_inputs(h1, fp, valid, dev):
+    """K8's three query tensors on `dev` (h1, fp uint32, valid bool),
+    built here so that the tool serves a tree with any staging."""
+    import numpy as np
+    import torch
+
+    def u32(a):
+        return torch.from_numpy(np.asarray(a, np.uint32).view(np.int32)).to(dev).view(
+            torch.uint32)
+
+    return u32(h1), u32(fp), torch.from_numpy(np.asarray(valid, bool)).to(dev)
+
+
+def k8_crafted(rng, dev):
+    """A small table of 1,024 buckets, about half its slots live, with
+    hand-made lanes, and one query per case: a key stored twice (two
+    verified lanes: amb), a key whose probe byte fills two more lanes
+    under other fingerprints (three byte matches: amb), a byte match with
+    a wrong fingerprint (-1), a verified lane whose slot is dead (its
+    probe byte set, bucket id -1: -1), and a first byte match that fails
+    before a second that verifies (the second's id). Returns ((probe, fp,
+    bucket) on dev, [(h1, fp, case, bid wanted or None, amb wanted)])."""
+    import numpy as np
+
+    from emqx_tpu_torch import convert
+    from emqx_tpu_torch.ops import hash_index as H
+
+    nb = 1024
+    live = rng.random(nb * 4) < 0.5
+    fp = np.where(live, rng.integers(1 << 24, 1 << 32, nb * 4), 0).astype(np.uint32)
+    bucket = np.where(live, rng.integers(0, 1 << 20, nb * 4), -1).astype(np.int32)
+    used = set()
+
+    def key(top):
+        """(h1, fp, b1, b2): a probe byte `top`, two buckets no earlier
+        case touched."""
+        while True:
+            b1 = int(rng.integers(0, nb))
+            f = (top << 24) | int(rng.integers(0, 1 << 24))
+            b2 = b1 ^ ((((f | 1) * 0x9E3779B9) & 0xFFFFFFFF) & (nb - 1))
+            if b1 not in used and b2 not in used:
+                used.update((b1, b2))
+                return b1, f, b1, b2
+
+    def seat(bkt, lane, f, g):
+        fp[bkt * 4 + lane] = f
+        bucket[bkt * 4 + lane] = g
+
+    def clear(*bkts):
+        for bkt in bkts:
+            for lane in range(4):
+                seat(bkt, lane, 0, -1)
+
+    cases = []
+    h1, f, b1, b2 = key(77)
+    seat(b1, 1, f, 111)
+    seat(b2, 2, f, 222)
+    cases.append((h1, f, "two_verified", None, True))
+    h1, f, b1, b2 = key(78)
+    seat(b1, 0, f, 333)
+    seat(b1, 3, f ^ 0x10, 334)
+    seat(b2, 1, f ^ 0x20, 335)
+    cases.append((h1, f, "three_bytes", None, True))
+    h1, f, b1, b2 = key(79)
+    clear(b1, b2)
+    seat(b1, 2, f ^ 1, 444)
+    cases.append((h1, f, "wrong_fp", -1, False))
+    h1, f, b1, b2 = key(80)
+    clear(b1, b2)
+    seat(b1, 0, f, -1)
+    dead = (b1, f)
+    cases.append((h1, f, "dead_slot", -1, False))
+    h1, f, b1, b2 = key(81)
+    clear(b1, b2)
+    seat(b1, 1, f ^ 2, 555)
+    seat(b2, 3, f, 556)
+    cases.append((h1, f, "second_lane", 556, False))
+    slots = H.SlotArrays(fp, bucket, np.zeros(nb, np.uint32))
+    H._pack_probe(slots)
+    slots.probe[dead[0]] |= np.uint32(dead[1] >> 24)  # lane 0's byte, its slot dead
+    return convert.retained_state_from_numpy(slots.probe, fp, bucket, dev), cases
+
+
+def k8_edge_cases(idx, tabs, rng, card):
+    """K8 at its edges on the card, each equal to its plain version: the
+    crafted table (`k8_crafted`; each case's own answer too), its cases
+    among live hits with every fifth lane and the last two padding; then
+    over the live table B = 1, 257 (not a multiple of the block) and
+    every rung of BATCH_LADDER: wave keys, a random (h1, fp) every eighth
+    lane (a miss), a wrong full fingerprint under a hit's probe byte
+    every ninth, every fifth lane padding and the last eighth padding.
+    Prints device_ms and enqueue_ms at every size. Returns the largest
+    error (0)."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import retained as RI
+
+    dev = tabs[0].device
+    ctabs, cases = k8_crafted(rng, dev)
+    c_fp = ctabs[1].cpu().view(torch.int32).numpy().view(np.uint32)
+    live = np.flatnonzero(ctabs[2].cpu().numpy() >= 0)[:40]
+    h1, fp = [int(s) // 4 for s in live], [int(c_fp[s]) for s in live]
+    for k, case in enumerate(cases):
+        h1.insert(5 * k + 1, case[0])
+        fp.insert(5 * k + 1, case[1])
+    valid = np.array([i % 5 != 4 and i < len(h1) - 2 for i in range(len(h1))])
+    q = k8_inputs(h1, fp, valid, dev)
+    got = RI.probe_retained(*ctabs, *q)
+    err = max_abs_err(got, RI.probe_retained_ref(*ctabs, *q))
+    bid, amb = (x.cpu().numpy() for x in got)
+    for k, (_h1, _fp, case, want_bid, want_amb) in enumerate(cases):
+        j = 5 * k + 1
+        if bool(amb[j]) != want_amb or want_bid not in (None, int(bid[j])):
+            raise AssertionError(f"K8 crafted case {case}: bid {int(bid[j])} amb "
+                                 f"{bool(amb[j])}, wanted {want_bid} {want_amb}")
+    if amb[~valid].any() or (bid[~valid] != -1).any():
+        raise AssertionError("K8 answered a padding lane")
+    lines = [f"crafted ({', '.join(c[2] for c in cases)}) equal"]
+    for b in (1, 257) + tuple(RI.BATCH_LADDER):
+        h1, fp = [], []
+        while len(h1) < b:
+            n = len(h1)
+            if n % 8 == 7:
+                h1.append(int(rng.integers(0, 1 << 32)))
+                fp.append(int(rng.integers(0, 1 << 32)))
+                continue
+            qk = idx._query(ret_filter(draw_classes(WAVE_MIX[:5], 1, rng)[0], rng))
+            if isinstance(qk, str):
+                continue
+            h1.append(qk[0])
+            fp.append(qk[1] ^ 1 if n % 9 == 8 and qk[1] >> 24 >= 2 else qk[1])
+        valid = [i % 5 != 4 and i < b - b // 8 for i in range(b)]
+        q = k8_inputs(h1, fp, valid, dev)
+        got = RI.probe_retained(*tabs, *q)
+        err = max(err, max_abs_err(got, RI.probe_retained_ref(*tabs, *q)))
+        d_ms, e_ms = run_ms(lambda: RI.probe_retained(*tabs, *q))
+        lines.append(f"B={b}: hits={int((got[0] >= 0).sum())} amb={int(got[1].sum())} "
+                     f"device_ms={d_ms:.6f} enqueue_ms={e_ms:.6f}")
+    log(f"K8 edge cases, each equal to its plain version: {'; '.join(lines)} [{card}]")
+    return err
+
+
+def check_retained_kernel(ret, rng, card):
+    """Phase 8 (b): K8 at its edge cases (`k8_edge_cases`), then against
+    its plain version on the card over the live table, at B=4096 (a
+    wave's top rung) and B=8 (a SUBSCRIBE packet's rung), hits, misses
+    and a padding lane, timed. Returns the record."""
     import numpy as np
     import torch
 
@@ -1532,6 +1700,7 @@ def check_retained_kernel(ret, rng):
 
     idx = ret._index
     tabs = idx._device_tables()
+    edge_err = k8_edge_cases(idx, tabs, rng, card)
     out = {}
     for b in (RI.MAX_BATCH, RI.BATCH_LADDER[0]):
         # the wave mix's probe keys, every eighth one a random (h1, fp)
@@ -1565,6 +1734,7 @@ def check_retained_kernel(ret, rng):
     set_bounds(out)
     small = out[RI.BATCH_LADDER[0]]
     rec = out[RI.MAX_BATCH]
+    rec["err"] = max(rec["err"], small["err"], edge_err)
     rec["shape"] += (f"; at B=8: {times_line(small)} "
                      f"bound_ms={small['bound_ms']:.9f} [{small['shape']}]")
     return rec
@@ -1731,6 +1901,7 @@ def server_phase(broker, rng, card):
     record and K8's launches in the phase."""
     import asyncio
     import resource
+    from collections import Counter
 
     from emqx_tpu_torch.broker.server import Server
     from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
@@ -1746,6 +1917,14 @@ def server_phase(broker, rng, card):
         raise AssertionError(f"open-file limit {soft}/{hard} is below {need}")
     stats = dict(subscribes=0, retained=0, suback_s=[])
     rec = {}
+    # K8's launches by ladder rung: every launch stages its rung first
+    rungs = Counter()
+    real_stage = idx._stage
+
+    def stage_counted(chunk):
+        staged = real_stage(chunk)
+        rungs[int(staged[0].shape[0])] += 1
+        return staged
 
     async def run():
         srv = Server(broker, host="127.0.0.1", port=0)
@@ -1761,6 +1940,7 @@ def server_phase(broker, rng, card):
             # counters from zero after the connects, just before the traffic
             _build.reset_launches()
             idx.tel = KernelTelemetry()
+            idx._stage = stage_counted
             walls = []
             for r in range(2):
                 t0 = time.perf_counter()
@@ -1799,6 +1979,7 @@ def server_phase(broker, rng, card):
             if after != drops or any(s.dropped for s in broker.sessions.values()):
                 raise AssertionError(f"drops moved: {drops} -> {after}")
         finally:
+            idx.__dict__.pop("_stage", None)
             for c in clients + [pub]:
                 if hasattr(c, "writer"):
                     await c.close()
@@ -1807,6 +1988,7 @@ def server_phase(broker, rng, card):
     asyncio.run(run())
     rec.update(stats)
     rec["launches"] = _build.KERNELS["retained_probe"].launches
+    rec["rungs"] = dict(sorted(rungs.items()))
     c = idx.tel.counters
     rec["device_reads"] = c.get("retained_device_reads_total", 0)
     rec["host_reads"] = c.get("retained_host_fallback_total", 0)
@@ -1909,7 +2091,7 @@ def retained_phase(rng, card):
             f"{host:.1f} filters/s ({dev / host:.2f}x); retained_read_begin/finish "
             f"{e2e:.1f} filters/s [{card}]")
     t0 = time.perf_counter()
-    rec = check_retained_kernel(ret, rng)
+    rec = check_retained_kernel(ret, rng, card)
     stages["kernel"] = time.perf_counter() - t0
     log(f"kernel retained_probe: {times_line(rec)} "
         f"bound_ms={rec['bound_ms']:.6f} [{rec['shape']}] [{card}]")
@@ -1928,7 +2110,7 @@ def retained_phase(rng, card):
         f"device reads {s['device_reads']}, host fallbacks {s['host_reads']}, "
         f"index builds {s['builds']}; churn of {s['churn']} retained publishes "
         f"served in {s['churn_s']:.3f} s ({s['live']} live deliveries); "
-        f"K8 launches {s['launches']} [{card}]")
+        f"K8 launches {s['launches']}, by rung {s['rungs']} [{card}]")
     if s["launches"] <= 0:
         raise AssertionError("the server phase never launched K8")
     if s["device_reads"] < 0.99 * reads:
@@ -2127,6 +2309,11 @@ def check_mesh_kernels(router, skel, exact, rng, card):
         shape=f"tiles={n_tiles} B={B} rows_per_shard={n_loc} L={L} residual_rows={n_act} "
               f"max_hits={mh} hits_per_tile={d_got[2].tolist()}")
 
+    # K14 at its edge cases, at this block capacity and at the widest a
+    # path launches (warm_up's first escalation step: twice it)
+    mh_wide = 2 * mh
+    k14_edge_cases(mh, mh_wide, t_dev.ids.device, rng, card)
+
     # K14 over both legs' tile buffers (the gather is a view on one card)
     for leg, parts in (("hash", h_got[:3]), ("dense", d_got)):
         (_d, _j, a_all), (_, _, b_all), (_, _, c_all) = (
@@ -2147,6 +2334,16 @@ def check_mesh_kernels(router, skel, exact, rng, card):
                       f"valid={n_valid} totals={got[2].tolist()} (the dense leg's too: equal)")
         elif err:
             raise AssertionError("K14 differs on the dense leg")
+    # K14 on the hash leg's tiles at the widest block capacity
+    wide = S._tiles_hash(mesh, 0, meta, slots, t_dev, nb, mh_wide)[:3]
+    (_d, _j, a_w), (_, _, b_w), (_, _, c_w) = (S._gather_sub(mesh, [p])[0] for p in wide)
+    max_abs_err(S._combine_launch(a_w, b_w, c_w, mh_wide),
+                S.combine_pairs_ref(a_w, b_w, c_w, mh_wide))
+    w_dev, w_enq = run_ms(lambda: S._combine_launch(a_w, b_w, c_w, mh_wide))
+    recs["combine_pairs"]["shape"] += (
+        f"; at the widest width served (max_hits={mh_wide}, gathered={n_sub * mh_wide}, "
+        f"valid={int((a_w >= 0).sum())}): equal, device_ms={w_dev:.6f} "
+        f"enqueue_ms={w_enq:.6f}")
 
     # the overflow paths: each leg's tiles and their combine at the
     # largest power of two up to half the leg's largest tile count (the
@@ -2168,8 +2365,10 @@ def check_mesh_kernels(router, skel, exact, rng, card):
             S._gather_sub(mesh, [p])[0] for p in got)
         comb = S._combine_launch(a_all, b_all, c_all, mh_o)
         max_abs_err(comb, S.combine_pairs_ref(a_all, b_all, c_all, mh_o))
+        k14_ms = run_ms(lambda: S._combine_launch(a_all, b_all, c_all, mh_o))
         over[leg] = dict(max_hits=mh_o, tile_counts=cnt.tolist(), valid_per_block=(
-            a_all >= 0).sum(dim=1).tolist(), totals=comb[2].tolist())
+            a_all >= 0).sum(dim=1).tolist(), totals=comb[2].tolist(),
+            k14_device_ms=round(k14_ms[0], 6), k14_enqueue_ms=round(k14_ms[1], 6))
     if not any(max(v["valid_per_block"]) > v["max_hits"] for v in over.values()):
         raise AssertionError(f"no combine cut its block at max_hits: {over}")
     log(f"mesh overflow: K17, K16 and K14 equal to their plain versions below the "
@@ -2287,6 +2486,56 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs
+
+
+K14_CASES = ("scattered", "cut", "last_shard", "counts_above", "all_invalid", "mh1",
+             "padded13")
+
+
+def k14_case(case, mh, dev, rng):
+    """One synthetic K14 input on dev: (a_all, b_all, cnt, max_hits) for
+    phase 9's (2, 4) layout unless the case says otherwise. Valid
+    entries (a >= 0) sit anywhere in a shard's buffer."""
+    import numpy as np
+    import torch
+
+    n_dp, n_sub = (1, 3) if case == "padded13" else (2, 4)
+    mh = 1 if case == "mh1" else mh
+    shape = (n_dp, n_sub, mh)
+    valid = rng.random(shape) < {"cut": 0.9, "mh1": 0.5, "counts_above": 0.3}.get(case, 0.12)
+    if case == "last_shard":
+        valid[:, :-1] = False
+    elif case == "all_invalid":
+        valid[:] = False
+    a = np.where(valid, rng.integers(0, 1 << 20, shape), -1).astype(np.int32)
+    b = np.where(valid, rng.integers(0, 1 << 20, shape), -1).astype(np.int32)
+    cnt = valid.sum(-1).astype(np.int32)
+    if case == "counts_above":
+        cnt += rng.integers(1, 4, cnt.shape).astype(np.int32)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x.reshape(n_dp, -1))).to(dev)
+
+    return put(a), put(b), put(cnt), mh
+
+
+def k14_edge_cases(mh, mh_wide, dev, rng, card):
+    """K14 on synthetic rows (`k14_case`), each equal to its plain
+    version and timed (device_ms, enqueue_ms) at phase 9's block
+    capacity and at the widest one served."""
+    from emqx_tpu_torch.parallel import sharded_match as S
+
+    lines = []
+    for case in K14_CASES:
+        times = []
+        for width in ((mh,) if case == "mh1" else (mh, mh_wide)):
+            a, b, c, m = k14_case(case, width, dev, rng)
+            max_abs_err(S._combine_launch(a, b, c, m), S.combine_pairs_ref(a, b, c, m))
+            d_ms, e_ms = run_ms(lambda: S._combine_launch(a, b, c, m))
+            times.append(f"max_hits={m} valid={int((a >= 0).sum())} device_ms={d_ms:.6f} "
+                         f"enqueue_ms={e_ms:.6f}")
+        lines.append(f"{case}: " + ", ".join(times))
+    log(f"K14 edge cases, each equal to its plain version: {'; '.join(lines)} [{card}]")
 
 
 def oracle_check(router, topics, tag):
@@ -2442,17 +2691,33 @@ def mesh_phase(rng, card):
     oracle_check(router, publish_batch(rng, skel, exact)[:256], "mesh after the checks")
     # escalation: one batch with the block capacity forced below both
     # legs' block totals, every answer against the host path
+    # (every K14 call of that batch held against its plain version)
+    from emqx_tpu_torch.parallel import sharded_match as S
+
     dt = router.device_table
     dt.default_mh, dt._mh_floor = ESCALATION_MH, 0
     c = router.telemetry.counters
     before = {k: c.get(k, 0) for k in ("escalations_total", "hash_overflow_retries_total")}
-    oracle_check(router, publish_batch(rng, skel, exact), "mesh escalation")
+    real_combine, widths = S._combine_launch, []
+
+    def combine_held(a, b, cnt, mh):
+        got = real_combine(a, b, cnt, mh)
+        max_abs_err(got, S.combine_pairs_ref(a, b, cnt, mh))
+        widths.append(mh)
+        return got
+
+    S._combine_launch = combine_held
+    try:
+        oracle_check(router, publish_batch(rng, skel, exact), "mesh escalation")
+    finally:
+        S._combine_launch = real_combine
     esc = {k: c.get(k, 0) - v for k, v in before.items()}
     if min(esc.values()) < 1:
         raise AssertionError(f"a leg did not escalate past max_hits={ESCALATION_MH}: {esc}")
     log(f"mesh escalation: block capacity {ESCALATION_MH} -> floor {dt._mh_floor}, "
         f"dense leg escalations {esc['escalations_total']}, hash leg "
-        f"{esc['hash_overflow_retries_total']}, every answer equal to the host path [{card}]")
+        f"{esc['hash_overflow_retries_total']}, every answer equal to the host path, "
+        f"K14 equal to its plain version at max_hits {widths} [{card}]")
     stages["kernel checks"] = time.perf_counter() - t0
     del router
     gc.collect()

@@ -51,7 +51,7 @@ from ..ops import hash_index as hash_ops
 from ..ops import match as match_ops
 from ..ops import topic as topic_mod
 from ..ops import transfer as transfer_ops
-from ..ops._build import I, P, CudaKernel
+from ..ops._build import I, P, CudaKernel, raw_stream
 from ..ops.hash_index import BUCKET_W, ClassIndex, ClassMeta, SlotArrays
 from ..ops.host_index import TopicTrie
 from ..ops.match import check_tensor
@@ -124,10 +124,6 @@ _SCATTER_SLOTS = CudaKernel(
 )
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def scatter_rows(
     dev: EncodedFilters, rows, words, prefix_len, has_hash, root_wild, active
 ) -> None:
@@ -154,7 +150,7 @@ def scatter_rows(
         dev.root_wild.data_ptr(), dev.active.data_ptr(), n, levels,
         rows.data_ptr(), words.data_ptr(), prefix_len.data_ptr(),
         has_hash.data_ptr(), root_wild.data_ptr(), active.data_ptr(),
-        rows.numel(), _stream(d),
+        rows.numel(), raw_stream(d),
     )
 
 
@@ -178,7 +174,7 @@ def scatter_slots(slots: SlotArrays, idx, fp, bucket, probe) -> None:
     _SCATTER_SLOTS(
         slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(),
         n_slots, idx.data_ptr(), fp.data_ptr(), bucket.data_ptr(),
-        probe.data_ptr(), idx.numel(), _stream(d),
+        probe.data_ptr(), idx.numel(), raw_stream(d),
     )
 
 

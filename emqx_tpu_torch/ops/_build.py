@@ -11,7 +11,8 @@ raises: there is no fallback to the plain PyTorch versions.
 Every entry point returns the `cudaGetLastError()` of its launches;
 `CudaKernel.__call__` raises on a non-zero code and counts one launch
 per successful call (`launches`), so a run can show that its main path
-went through the kernel.
+went through the kernel. Every wrapper passes its stream through
+`raw_stream`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emqx_tpu_torch"
 NVCC_FLAGS = (
@@ -34,6 +37,19 @@ NVCC_FLAGS = (
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+
+
+def raw_stream(device: torch.device) -> int:
+    """`device`'s current CUDA stream as an int, the last argument of
+    every entry point. torch's raw accessor skips building a
+    torch.cuda.Stream object, which cost K12 ~8 us of host time a launch
+    (more than its kernel); torch builds without CUDA lack it and build
+    the Stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    idx = device.index
+    return raw(torch.cuda.current_device() if idx is None else idx)
 
 
 class KernelBuildError(RuntimeError):

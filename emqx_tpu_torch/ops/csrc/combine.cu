@@ -9,7 +9,8 @@
 // count: `jnp.nonzero(a_all >= 0, size=mh, fill_value=-1)` over the
 // gathered vector. The block's total is the sum of its shards' exact
 // counts. When that total fits mh, every shard's count fitted too, so no
-// shard dropped an entry upstream.
+// shard dropped an entry upstream. Valid entries may sit anywhere in a
+// shard's buffer: nothing here assumes a compacted prefix.
 //
 // K15 replaces the buffer build of `make_combine_probe_kernel` (the mesh
 // microscope's combine-only probe): each shard's buffers hold one entry
@@ -18,68 +19,127 @@
 // then combines them.
 //
 // What bounds it on the H100: nothing the card notices -- n_sub * mh
-// ints read and mh written per dp block (a few hundred KB at most), so
-// the three launches dominate.
+// ints of a and b read and mh of each written per dp block (a few
+// hundred KB at most). The launch and the latency of the row's loads
+// set the time.
 //
-// Design: one thread per gathered entry; the count pass counts valid
-// entries per block, the one-block scan (scan.cuh) gives offsets, the
-// write pass ranks each valid entry inside its block by warp ballots and
-// writes it at its dp block's offset plus rank when that is below mh.
-#include "scan.cuh"
+// Design: one launch, one CTA of CT = 1,024 threads per dp block, no
+// scratch. The CTA walks its gathered row in tiles of CT * 4 entries,
+// each thread owning 4 consecutive ones (one 16-byte load of a and one
+// of b where the row allows it), with the next tile's loads issued
+// before the current one is ranked. Four ballots rank a thread's valid
+// entries inside its warp; every warp scans the CTA's warp totals from
+// shared memory itself (double-buffered, one barrier a tile), so an
+// entry lands at carry + its rank while that is below mh. The walk
+// stops once the carry reaches mh; the CTA then writes the -1 tail over
+// [min(carry, mh), mh) and the block's total. The four launches before
+// (count pass, one-block scan, fill, write pass) and their scratch are
+// gone.
+#include "scan.cuh"         // ceil_div, EMQX_FULL_MASK
 #include "dense_pred.cuh"  // Tile, load_tile
 
 namespace {
 
-constexpr int CT = 256;
+constexpr int CT = 1024;
 constexpr int WARPS = CT / 32;
+constexpr int PER = 4;  // consecutive entries a thread owns in a tile (a multiple of 4)
+constexpr int TILE = CT * PER;
 
-template <bool WRITE>
-__global__ void __launch_bounds__(CT)
-combine_pass(const int* __restrict__ a_all, const int* __restrict__ b_all, int width,
-             int n_blk, int* __restrict__ counts, const int* __restrict__ offs, int mh,
-             int* __restrict__ out_a, int* __restrict__ out_b) {
-  __shared__ int s_wc[WARPS];
-  const int j = blockIdx.y;  // dp block
-  const int blk = j * n_blk + blockIdx.x;
-  const int base_off = WRITE ? offs[j * n_blk] : 0;
-  if (WRITE && offs[blk] - base_off >= mh) return;  // block-uniform
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = blockIdx.x * CT + tid;
-  const size_t src = static_cast<size_t>(j) * width + i;
-  const bool v = i < width && a_all[src] >= 0;
-  const unsigned m = __ballot_sync(EMQX_FULL_MASK, v);
-  if (lane == 0) s_wc[warp] = __popc(m);
-  __syncthreads();
-  if (!WRITE) {
-    if (tid == 0) {
-      int s = 0;
-      for (int w = 0; w < WARPS; ++w) s += s_wc[w];
-      counts[blk] = s;
+struct Quad {
+  int a[PER];
+  int b[PER];
+};
+
+// The PER entries of a row from position i (entries past width read as
+// invalid). vec: the row allows 16-byte loads (width % 4 == 0 and both
+// bases aligned), so each group of four entries is all in or all out.
+__device__ __forceinline__ Quad load_quad(const int* __restrict__ a,
+                                          const int* __restrict__ b, int i, int width,
+                                          bool vec) {
+  Quad q;
+  if (vec) {
+#pragma unroll
+    for (int v = 0; v < PER; v += 4) {
+      int4 x = make_int4(-1, -1, -1, -1), y = x;
+      if (i + v < width) {
+        x = __ldg(reinterpret_cast<const int4*>(a + i + v));
+        y = __ldg(reinterpret_cast<const int4*>(b + i + v));
+      }
+      q.a[v] = x.x, q.a[v + 1] = x.y, q.a[v + 2] = x.z, q.a[v + 3] = x.w;
+      q.b[v] = y.x, q.b[v + 1] = y.y, q.b[v + 2] = y.z, q.b[v + 3] = y.w;
     }
-    return;
+    return q;
   }
-  if (!v) return;
-  int dst = offs[blk] - base_off + __popc(m & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) dst += s_wc[w];
-  if (dst < mh) {
-    out_a[static_cast<size_t>(j) * mh + dst] = a_all[src];
-    out_b[static_cast<size_t>(j) * mh + dst] = b_all[src];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const bool in = i + k < width;
+    q.a[k] = in ? __ldg(a + i + k) : -1;
+    q.b[k] = in ? __ldg(b + i + k) : -1;
   }
+  return q;
 }
 
-// outputs to -1, and each dp block's total: the sum of its shards' counts
-__global__ void combine_fill(int* __restrict__ out_a, int* __restrict__ out_b, int n,
-                             const int* __restrict__ cnt, int n_sub, int n_dp,
-                             int* __restrict__ out_tot) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    out_a[i] = -1;
-    out_b[i] = -1;
+__global__ void __launch_bounds__(CT)
+combine_k(const int* __restrict__ a_all, const int* __restrict__ b_all,
+          const int* __restrict__ cnt, int n_sub, int mh, bool vec,
+          int* __restrict__ out_a, int* __restrict__ out_b, int* __restrict__ out_tot) {
+  __shared__ int s_wc[2][WARPS];
+  const int j = blockIdx.x;  // dp block
+  const int width = n_sub * mh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* a = a_all + static_cast<size_t>(j) * width;
+  const int* b = b_all + static_cast<size_t>(j) * width;
+  int* oa = out_a + static_cast<size_t>(j) * mh;
+  int* ob = out_b + static_cast<size_t>(j) * mh;
+  const unsigned lt = (1u << lane) - 1u;
+
+  int carry = 0;
+  Quad cur = load_quad(a, b, tid * PER, width, vec);
+  for (int base = 0, t = 0; base < width && carry < mh; base += TILE, t ^= 1) {
+    const Quad nxt = load_quad(a, b, base + TILE + tid * PER, width, vec);
+    int before = 0, wc = 0;  // this lane's rank in its warp; the warp's count
+    unsigned mine = 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const unsigned m = __ballot_sync(EMQX_FULL_MASK, cur.a[k] >= 0);
+      before += __popc(m & lt);
+      wc += __popc(m);
+      mine |= ((m >> lane) & 1u) << k;
+    }
+    if (lane == 0) s_wc[t][warp] = wc;
+    __syncthreads();
+    // every warp scans the warp totals itself: no second barrier
+    const int w_cnt = lane < WARPS ? s_wc[t][lane] : 0;
+    int inc = w_cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(EMQX_FULL_MASK, inc, d);
+      if (lane >= d) inc += y;
+    }
+    const int w_off = __shfl_sync(EMQX_FULL_MASK, inc - w_cnt, warp);
+    const int tile_total = __shfl_sync(EMQX_FULL_MASK, inc, 31);
+    int dst = carry + w_off + before;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if ((mine >> k) & 1u) {
+        if (dst < mh) {
+          oa[dst] = cur.a[k];
+          ob[dst] = cur.b[k];
+        }
+        ++dst;
+      }
+    }
+    carry += tile_total;
+    cur = nxt;
   }
-  if (i < n_dp) {
+  for (int i = min(carry, mh) + tid; i < mh; i += CT) {
+    oa[i] = -1;
+    ob[i] = -1;
+  }
+  if (tid == 0) {
     int s = 0;
-    for (int k = 0; k < n_sub; ++k) s += cnt[i * n_sub + k];
-    out_tot[i] = s;
+    for (int k = 0; k < n_sub; ++k) s += cnt[j * n_sub + k];
+    out_tot[j] = s;
   }
 }
 
@@ -102,23 +162,18 @@ __global__ void probe_build(int salt, const int* __restrict__ tiles, int mh,
 
 // K14 over the n_dp dp blocks gathered on this device: a_all, b_all
 // [n_dp, n_sub * mh], cnt [n_dp, n_sub] (the shards' exact counts).
-// scratch holds 2 * n_dp * ceil(n_sub * mh / 256) + 1 ints. Outputs:
-// out_a, out_b [n_dp, mh], out_tot [n_dp]. Returns cudaGetLastError().
+// Outputs: out_a, out_b [n_dp, mh], out_tot [n_dp]. One launch.
+// Returns cudaGetLastError().
 extern "C" int emqx_combine_pairs(const int* a_all, const int* b_all, const int* cnt,
                                   int n_dp, int n_sub, int mh, int* out_a, int* out_b,
-                                  int* out_tot, int* scratch, cudaStream_t stream) {
-  const int width = n_sub * mh;
-  const int n_blk = ceil_div(width, CT);
-  const int nseg = n_dp * n_blk;
-  const dim3 grid(n_blk, n_dp);
-  combine_pass<false><<<grid, CT, 0, stream>>>(a_all, b_all, width, n_blk, scratch,
-                                               nullptr, mh, out_a, out_b);
-  exclusive_scan_1block<<<1, SCAN_THREADS, 0, stream>>>(scratch, scratch + nseg, nseg,
-                                                        scratch + 2 * nseg);
-  combine_fill<<<max(1, ceil_div(static_cast<long long>(n_dp) * mh, 256)), 256, 0,
-                 stream>>>(out_a, out_b, n_dp * mh, cnt, n_sub, n_dp, out_tot);
-  combine_pass<true><<<grid, CT, 0, stream>>>(a_all, b_all, width, n_blk, nullptr,
-                                              scratch + nseg, mh, out_a, out_b);
+                                  int* out_tot, cudaStream_t stream) {
+  const bool vec = (n_sub * mh) % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a_all) |
+                     reinterpret_cast<uintptr_t>(b_all)) & 15u) == 0;
+  if (n_dp > 0) {
+    combine_k<<<n_dp, CT, 0, stream>>>(a_all, b_all, cnt, n_sub, mh, vec, out_a, out_b,
+                                       out_tot);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,7 +45,7 @@ from ..device import DeviceLike, resolve, to_device
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
 from ..parallel.mesh import primary_device
 from . import transfer as transfer_ops
-from ._build import LL, I, P, CudaKernel
+from ._build import LL, I, P, CudaKernel, raw_stream
 from .match import check_tensor
 from .table import next_pow2, pad_pow2_batches
 
@@ -88,10 +88,6 @@ def pack_subopts(opts, shared: bool = False) -> int:
     if shared:
         w |= SHARED_BIT
     return w
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 # --- K6/K7: in-place two-column scatters -----------------------------------
@@ -139,7 +135,7 @@ def _scatter_cols(kernel: CudaKernel, a, b, idx, va, vb) -> None:
     check_tensor("vb", vb, torch.int32, shape, d)
     kernel(
         a.data_ptr(), b.data_ptr(), n, idx.data_ptr(), va.data_ptr(),
-        vb.data_ptr(), idx.numel(), _stream(d),
+        vb.data_ptr(), idx.numel(), raw_stream(d),
     )
 
 
@@ -309,7 +305,7 @@ def resolve_fanout(
         rows.data_ptr(), m, n_clients, max_fan,
         out.data_ptr(), n_win.data_ptr(), total.data_ptr(),
         work.data_ptr(), work.numel(), scratch.keys.data_ptr(),
-        scratch.capacity, epoch, int(clear), _stream(d),
+        scratch.capacity, epoch, int(clear), raw_stream(d),
     )
     scratch.epoch = epoch
     return out, n_win, total

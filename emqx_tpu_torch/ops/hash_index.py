@@ -61,13 +61,12 @@ next_pow2(total) and never falls back to full bitmaps.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
-from ._build import LL, I, P, CudaKernel
+from ._build import LL, I, P, CudaKernel, raw_stream
 from .match import MAX_KERNEL_LEVELS, EncodedTopics, check_tensor, check_topics
 from .table import FilterTable
 from .vocab import PLUS
@@ -1065,6 +1064,6 @@ def match_ids_hash(
         topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
         b, levels, max_hits, ti.data_ptr(), bi.data_ptr(), total.data_ptr(),
         scratch.data_ptr(), scratch.numel(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        raw_stream(dev),
     )
     return ti, bi, total, scratch[1]

@@ -24,14 +24,13 @@ turn packed rows back into row ids on the host.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import topic as topic_mod
-from ._build import I, LL, P, CudaKernel
+from ._build import I, LL, P, CudaKernel, raw_stream
 from .table import EncodedFilters
 from .vocab import PLUS, Vocab
 
@@ -240,7 +239,7 @@ def match_ids(
         topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
         b, chunk, max_hits, ti.data_ptr(), ri.data_ptr(), total.data_ptr(),
         scratch.data_ptr(), geo.scratch,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        raw_stream(dev),
     )
     return ti, ri, total
 
@@ -332,7 +331,7 @@ def launch_dense_forms(
         topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
         b_loc, None if tiles is None else tiles.data_ptr(), n_tiles,
         out.data_ptr(), out_w, out.numel(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        raw_stream(dev),
     )
 
 

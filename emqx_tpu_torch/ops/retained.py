@@ -44,12 +44,14 @@ pays only the residual wait.
 
 K8 (`probe_retained`) launches `csrc/retained_probe.cu` for CUDA
 tensors; `probe_retained_ref` is its plain PyTorch version, which CPU
-tensors take.
+tensors take. A launch moves one buffer each way: `stage_queries` packs
+a rung's (h1, fp, valid) into 9·B bytes copied to the device at once,
+and the wrapper writes both outputs into one 5·B-byte buffer, which the
+read's FetchTicket copies back in one piece.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -58,7 +60,7 @@ import torch
 from ..device import DeviceLike, resolve, to_device
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
 from . import topic as topic_mod
-from ._build import I, P, CudaKernel
+from ._build import I, P, CudaKernel, raw_stream
 from .hash_index import (
     BUCKET_W,
     M32,
@@ -138,35 +140,75 @@ _RETAINED_PROBE = CudaKernel(
 )
 
 
-def probe_retained(probe, fp_tab, bucket_tab, qh1, qfp, qvalid):
+def result_views(buf: torch.Tensor):
+    """(bid int32 [B], amb bool [B]) over a K8 result buffer of 5·B
+    bytes: the bucket ids' bytes, then the flags'."""
+    b = buf.shape[0] // 5
+    return buf[: 4 * b].view(torch.int32), buf[4 * b :].view(torch.bool)
+
+
+def host_result(buf: np.ndarray):
+    """(bids int32, ambs bool) numpy views of a K8 result buffer fetched
+    to the host (`result_views`' layout)."""
+    b = buf.shape[0] // 5
+    return buf[: 4 * b].view(np.int32), buf[4 * b :].view(np.bool_)
+
+
+def probe_retained(probe, fp_tab, bucket_tab, qh1, qfp, qvalid, out=None):
     """[B] exact-key probe: 2 probe-word gathers, byte screen, ≤2
     full-fingerprint verifies, one bucket-id gather. Returns
     (bucket_id int32 [B] — -1 miss, amb bool [B] — per-query host
-    escalation flags) on the queries' device.
+    escalation flags) on the queries' device, both views of one uint8
+    buffer of 5·B bytes (`result_views`): `out` when given, else a new
+    one.
 
     CUDA tensors launch kernel K8; CPU tensors take the plain version."""
     dev = qh1.device
+    b = qh1.shape[0]
+    if out is None:
+        out = torch.empty(5 * b, dtype=torch.uint8, device=dev)
+    elif dev.type != "cpu":
+        check_tensor("out", out, torch.uint8, (5 * b,), dev)
+    bid, amb = result_views(out)
     if dev.type == "cpu":
-        return probe_retained_ref(probe, fp_tab, bucket_tab, qh1, qfp, qvalid)
+        got = probe_retained_ref(probe, fp_tab, bucket_tab, qh1, qfp, qvalid)
+        bid.copy_(got[0])
+        amb.copy_(got[1])
+        return bid, amb
     s = probe.shape[0]
     if s < 1 or s & (s - 1):
         raise ValueError(f"bucket count {s} is not a power of two")
-    b = qh1.shape[0]
     check_tensor("probe", probe, torch.uint32, (s,), dev)
     check_tensor("fp_tab", fp_tab, torch.uint32, (s * BUCKET_W,), dev)
     check_tensor("bucket_tab", bucket_tab, torch.int32, (s * BUCKET_W,), dev)
     check_tensor("qh1", qh1, torch.uint32, (b,), dev)
     check_tensor("qfp", qfp, torch.uint32, (b,), dev)
     check_tensor("qvalid", qvalid, torch.bool, (b,), dev)
-    out = torch.empty(b, dtype=torch.int32, device=dev)
-    amb = torch.empty(b, dtype=torch.bool, device=dev)
+    fp_ptr, bucket_ptr = fp_tab.data_ptr(), bucket_tab.data_ptr()
+    if (fp_ptr | bucket_ptr) & 15:
+        # K8 reads a bucket's four lanes as one 16-byte vector
+        raise ValueError("fp_tab and bucket_tab must be 16-byte aligned")
     _RETAINED_PROBE(
-        probe.data_ptr(), fp_tab.data_ptr(), bucket_tab.data_ptr(), s,
+        probe.data_ptr(), fp_ptr, bucket_ptr, s,
         qh1.data_ptr(), qfp.data_ptr(), qvalid.data_ptr(), b,
-        out.data_ptr(), amb.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        bid.data_ptr(), amb.data_ptr(), raw_stream(dev),
     )
-    return out, amb
+    return bid, amb
+
+
+def stage_queries(h1, fp, valid, b: int, device: torch.device):
+    """(qh1 uint32, qfp uint32, qvalid bool [b]) on `device` for one K8
+    launch: the given queries' (h1, fp, valid) packed into one host
+    buffer of 9·b bytes (zero past them: padding lanes), one copy to the
+    device, the three tensors views of it."""
+    n = len(h1)
+    buf = np.zeros(9 * b, np.uint8)
+    buf[: 4 * b].view(np.uint32)[:n] = h1
+    buf[4 * b : 8 * b].view(np.uint32)[:n] = fp
+    buf[8 * b : 8 * b + n] = valid
+    t = to_device(buf, device)
+    return (t[: 4 * b].view(torch.uint32), t[4 * b : 8 * b].view(torch.uint32),
+            t[8 * b :].view(torch.bool))
 
 
 class ReadTicket:
@@ -511,9 +553,8 @@ class RetainedIndex:
         for b in BATCH_LADDER:
             if tel.enabled:
                 tel.record_shape(_KERNEL, (b, self._n_buckets))
-            z = to_device(np.zeros(b, np.uint32), self.device)
-            probe_retained(probe, fp_tab, bucket_tab, z, z,
-                           torch.zeros(b, dtype=torch.bool, device=self.device))
+            probe_retained(probe, fp_tab, bucket_tab,
+                           *stage_queries((), (), (), b, self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm_buckets = self._n_buckets
@@ -548,15 +589,10 @@ class RetainedIndex:
 
     def _stage(self, chunk):
         """(qh1, qfp, qvalid) on the device for up to MAX_BATCH probe
-        keys, padded to their ladder rung."""
+        keys, padded to their ladder rung (`stage_queries`)."""
         b = next(r for r in BATCH_LADDER if len(chunk) <= r)
-        qh1 = np.zeros(b, np.uint32)
-        qfp = np.zeros(b, np.uint32)
-        qvalid = np.zeros(b, bool)
-        qh1[: len(chunk)] = [q[0] for q in chunk]
-        qfp[: len(chunk)] = [q[1] for q in chunk]
-        qvalid[: len(chunk)] = True
-        return tuple(to_device(a, self.device) for a in (qh1, qfp, qvalid))
+        return stage_queries([q[0] for q in chunk], [q[1] for q in chunk], True, b,
+                             self.device)
 
     def read_begin(self, filters: Sequence[str]) -> ReadTicket:
         """Launch the batched probe for a wave of wildcard filters.
@@ -580,13 +616,16 @@ class RetainedIndex:
             for base in range(0, len(queries), MAX_BATCH):
                 chunk = queries[base : base + MAX_BATCH]
                 staged = self._stage(chunk)
+                b = staged[0].shape[0]
                 if tel.enabled:
-                    tel.record_shape(_KERNEL, (staged[0].shape[0], self._n_buckets))
+                    tel.record_shape(_KERNEL, (b, self._n_buckets))
                 t0 = tel.clock()
-                bid, amb = probe_retained(probe, fp_tab, bucket_tab, *staged)
+                buf = torch.empty(5 * b, dtype=torch.uint8, device=self.device)
+                probe_retained(probe, fp_tab, bucket_tab, *staged, buf)
                 if tel.enabled:
                     tel.observe_family("retained_probe_seconds", tel.clock() - t0)
-                chunks.append((start_fetch((bid, amb), tel), len(chunk), chunk))
+                # one copy carries both outputs
+                chunks.append((start_fetch((buf,), tel), len(chunk), chunk))
         return ReadTicket(plans, chunks, self.generation)
 
     def read_finish(self, ticket: ReadTicket) -> List[Optional[List[str]]]:
@@ -597,7 +636,7 @@ class RetainedIndex:
         stale = ticket.generation != self.generation
         dev_names: Dict[int, Optional[List[str]]] = {}
         for fetch, n_valid, metas in ticket.chunks:
-            bids, ambs = fetch.wait()
+            bids, ambs = host_result(fetch.wait()[0])
             for j in range(n_valid):
                 _h1, _fp, cid, proj, qi = metas[j]
                 if stale or bool(ambs[j]):

@@ -38,7 +38,7 @@ import torch
 
 from ..device import DeviceLike, resolve
 from ..obs.kernel_telemetry import NULL as _NULL_TEL
-from ._build import P, CudaKernel
+from ._build import P, CudaKernel, raw_stream
 
 # chunk clamp (KB): the auto-sizer never goes below one sync batch of
 # compacted pairs nor above what a single ring slot should pin in
@@ -143,17 +143,6 @@ _ADD_ONE = CudaKernel(
 )
 
 
-def _raw_stream(device: torch.device) -> int:
-    """`device`'s current CUDA stream as an int. torch's raw accessor
-    skips building a torch.cuda.Stream object, which costs the probe
-    ~8 us of host time a launch (the RTT floor it measures); torch
-    builds without CUDA lack it and build the Stream."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(device).cuda_stream
-    return raw(device.index)
-
-
 def add_one(x: torch.Tensor) -> torch.Tensor:
     """x + 1 for a float32 or int32 tensor (replaces the jitted `triv`
     of the reference's probe_link). CUDA tensors launch kernel K12; CPU
@@ -167,7 +156,7 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     _ADD_ONE(
         x.data_ptr(), y.data_ptr(), x.numel(),
-        1 if x.dtype == torch.float32 else 0, _raw_stream(x.device),
+        1 if x.dtype == torch.float32 else 0, raw_stream(x.device),
     )
     return y
 

@@ -39,7 +39,6 @@ failure domain (evacuate/restore) are not part of this port yet.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,7 +48,7 @@ from ..obs.kernel_telemetry import NULL as _NULL_TEL
 from ..obs.profiler import STAGE_MARK
 from ..ops import match as match_ops
 from ..ops import transfer as transfer_ops
-from ..ops._build import I, LL, P, CudaKernel
+from ..ops._build import I, LL, P, CudaKernel, raw_stream
 from ..ops.fanout import FanoutDeviceState
 from ..ops.hash_index import (
     _ALT_MUL,
@@ -82,7 +81,7 @@ _MESH_ROWS = CudaKernel(
 )
 _COMBINE = CudaKernel(
     "combine_pairs", "combine.cu", "emqx_combine_pairs",
-    [P, P, P, I, I, I, P, P, P, P, P],
+    [P, P, P, I, I, I, P, P, P, P],
 )
 _PROBE = CudaKernel(
     "combine_probe", "combine.cu", "emqx_combine_probe", [I, P, I, I, P, P, P, P]
@@ -108,9 +107,14 @@ DENSE_CHUNK = 65536  # rows of a chunk of K16's segments (ops/match.py's chunk)
 
 
 def _launch(kernel: CudaKernel, dev: torch.device, *args) -> None:
-    """Launch on `dev`'s current stream with `dev` current."""
+    """Launch on `dev`'s current stream with `dev` current: a multi-card
+    mesh launches each device's kernel in that device's context, and the
+    context is entered only when `dev` is not current already."""
+    if dev.index == torch.cuda.current_device():
+        kernel(*args, raw_stream(dev))
+        return
     with torch.cuda.device(dev):
-        kernel(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        kernel(*args, raw_stream(dev))
 
 
 def _tiles(mesh: Mesh, gi: int):
@@ -377,10 +381,9 @@ def _combine_launch(a_all: torch.Tensor, b_all: torch.Tensor, cnt: torch.Tensor,
     ca = torch.empty((n, mh), dtype=torch.int32, device=dev)
     cb = torch.empty((n, mh), dtype=torch.int32, device=dev)
     tot = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * n * (-(-width // 256)) + 1, dtype=torch.int32, device=dev)
     _launch(
         _COMBINE, dev, a_all.data_ptr(), b_all.data_ptr(), cnt.data_ptr(), n, n_sub, mh,
-        ca.data_ptr(), cb.data_ptr(), tot.data_ptr(), scratch.data_ptr(),
+        ca.data_ptr(), cb.data_ptr(), tot.data_ptr(),
     )
     return ca, cb, tot
 

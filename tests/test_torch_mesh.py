@@ -315,6 +315,52 @@ def test_combine_pairs_equals_reference(mesh8, seed, mh, fill):
         assert int(valid[0].sum()) > mh
 
 
+# K14's edges: (case, layout, mh); each case builds its own valid mask
+COMBINE_EDGES = [
+    ("mh1", "mesh8", 1),  # one slot a block: the first valid entry only
+    ("last_shard", "mesh8", 16),  # every valid entry in the last sub shard
+    ("counts_above", "mesh8", 16),  # counts above the valid entries (exact totals)
+    ("all_invalid", "mesh8", 16),  # nothing valid: all -1, totals still summed
+    ("scattered", "mesh8", 64),  # valid entries spread, not a compacted prefix
+    ("cut", "mesh8", 16),  # more valid entries than mh: cut in sub-major order
+    ("padded13", "mesh3", 16),  # the padded (1, 3) layout, n_dp = 1
+]
+
+
+@pytest.mark.parametrize("devs", sorted(DEVICE_SETS))
+@pytest.mark.parametrize("case,layout,mh", COMBINE_EDGES)
+def test_combine_pairs_edges_equal_reference(case, layout, mh, devs):
+    jmesh, tmesh = _meshes(SHAPES[layout], devs)
+    n_dp, n_sub = SHAPES[layout]
+    rng = np.random.default_rng(len(case) * 7 + mh)
+    shape = (n_dp, n_sub, mh)
+    valid = rng.random(shape) < {"cut": 0.9, "scattered": 0.1}.get(case, 0.5)
+    if case == "last_shard":
+        valid[:, :-1] = False
+    elif case == "all_invalid":
+        valid[:] = False
+    a = np.where(valid, rng.integers(0, 1000, shape), -1).astype(np.int32)
+    b = np.where(valid, rng.integers(0, 1 << 20, shape), -1).astype(np.int32)
+    cnt = valid.sum(-1).astype(np.int32)
+    if case == "counts_above":
+        cnt += rng.integers(1, 4, cnt.shape).astype(np.int32)
+    want = _jax_combine(jmesh, a.reshape(n_dp, -1), b.reshape(n_dp, -1), cnt, mh)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    parts = zip(*(_group_rows(tmesh, t(x)) for x in (
+        a.reshape(-1, mh), b.reshape(-1, mh), cnt.reshape(-1))))
+    got = TS._combine_pairs(tmesh, [tuple(x.to(g.device) for x in p)
+                                    for p, g in zip(parts, tmesh.groups)], mh)
+    _eq(want, got)
+    per_block = valid.reshape(n_dp, -1).sum(1)
+    if case == "cut":
+        assert (per_block > mh).all()
+    if case == "scattered":
+        # not a prefix: some shard has a hole before a valid entry
+        assert any(not v[:v.sum()].all() for v in valid.reshape(-1, mh))
+    if case == "all_invalid":
+        assert (np.asarray(want[0]) == -1).all()
+
+
 @pytest.mark.parametrize("salt", [0, 7, -2, 1_500_000_000])
 def test_combine_probe_equals_reference(mesh8, salt):
     """-2 makes sub 0's entry -1 (invalid); 1.5e9 wraps salt * 2 + 1."""

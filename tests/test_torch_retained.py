@@ -190,6 +190,154 @@ def test_probe_retained_equals_reference(seed, b):
         assert got[1][0] and want[1][0]
 
 
+def _port_queries(slots, qh1, qfp, qvalid):
+    st = convert.retained_state_from_numpy(slots.probe, slots.fp, slots.bucket, device="cpu")
+    q = (torch.from_numpy(qh1.view(np.int32)).view(torch.uint32),
+         torch.from_numpy(qfp.view(np.int32)).view(torch.uint32), torch.from_numpy(qvalid))
+    return st, q
+
+
+def test_probe_retained_writes_one_result_buffer():
+    """Both outputs are views of one 5·B-byte buffer (`out` when given):
+    the bucket ids' bytes, then the flags'; the values are the plain
+    version's."""
+    rng = random.Random(5)
+    idx = _jax_index(0)
+    qs = _queries(idx, rng)[:64]
+    b = 64
+    qh1 = np.array([q[0] for q in qs], np.uint32)
+    qfp = np.array([q[1] for q in qs], np.uint32)
+    qvalid = np.arange(b) % 5 != 4
+    st, q = _port_queries(idx._slots, qh1, qfp, qvalid)
+    want = TRI.probe_retained_ref(*st, *q)
+    buf = torch.full((5 * b,), 7, dtype=torch.uint8)
+    bid, amb = TRI.probe_retained(*st, *q, buf)
+    assert bid.data_ptr() == buf.data_ptr() and amb.data_ptr() == buf.data_ptr() + 4 * b
+    for got in ((bid, amb), TRI.result_views(buf), TRI.probe_retained(*st, *q)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    host = TRI.host_result(buf.numpy())
+    assert np.array_equal(host[0], want[0].numpy()) and np.array_equal(host[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("b", (1, 9, 257) + TRI.BATCH_LADDER)
+def test_stage_queries_one_buffer_equals_three_arrays(b):
+    """One 9·B-byte host buffer, one copy: (qh1, qfp, qvalid) equal the
+    three arrays, padding in the middle and at the tail (zeros), and K8
+    reads them as it reads three separate tensors."""
+    rng = np.random.default_rng(b)
+    n = max(1, b - b // 4)
+    h1 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    fp = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    valid = rng.random(n) < 0.8
+    valid[n // 2] = False
+    qh1, qfp, qvalid = TRI.stage_queries(h1, fp, valid, b, CPU)
+    want = [np.zeros(b, np.uint32), np.zeros(b, np.uint32), np.zeros(b, bool)]
+    for w, x in zip(want, (h1, fp, valid)):
+        w[:n] = x
+    assert (qh1.dtype, qfp.dtype, qvalid.dtype) == (torch.uint32, torch.uint32, torch.bool)
+    assert qfp.data_ptr() == qh1.data_ptr() + 4 * b
+    assert qvalid.data_ptr() == qh1.data_ptr() + 8 * b
+    assert np.array_equal(qh1.view(torch.int32).numpy().view(np.uint32), want[0])
+    assert np.array_equal(qfp.view(torch.int32).numpy().view(np.uint32), want[1])
+    assert np.array_equal(qvalid.numpy(), want[2])
+    idx = _jax_index(1)
+    st, q = _port_queries(idx._slots, *want)
+    got = TRI.probe_retained(*st, qh1, qfp, qvalid)
+    ref = TRI.probe_retained_ref(*st, *q)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _chunk_outputs(jax_ticket, port_ticket):
+    """Per chunk: (rung, the JAX (bid, amb), the port's), the port's
+    through its one fetched buffer."""
+    out = []
+    assert len(jax_ticket.chunks) == len(port_ticket.chunks)
+    for (fj, nj, mj), (ft, nt, mt) in zip(jax_ticket.chunks, port_ticket.chunks):
+        assert nj == nt and [m[:4] for m in mj] == [m[:4] for m in mt]
+        host = ft.wait()
+        assert len(host) == 1  # one copy carried both outputs
+        want = [np.asarray(x) for x in fj.wait()]
+        out.append((host[0].shape[0] // 5, want, TRI.host_result(host[0]), nj))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 9, 65, 513, TRI.MAX_BATCH + 37])
+def test_read_through_staging_equals_reference(n):
+    """A wave of n filters (every rung, and a storm past the top rung)
+    through the port's staging and one-buffer fetch: each chunk's rung,
+    every query's bucket id and amb flag, and the answers equal the
+    reference's read_begin/read_finish."""
+    rng = random.Random(n)
+    sides = [Side(True), Side(False)]
+    for name in _rand_names(rng, 250):
+        for s in sides:
+            s.put(name)
+    filters = [rng.choice(FILTERS + ["d/+/x", "x/#", "yy/+"]) for _ in range(n)]
+    tt, tj = (s.idx.read_begin(filters) for s in sides)
+    rungs = []
+    for b, want, got, nv in _chunk_outputs(tj, tt):
+        rungs.append(b)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        assert (got[0][nv:] == -1).all() and not got[1][nv:].any()
+    n_dev = sum(p[0] == "dev" for p in tt.plans)
+    assert n_dev > 0
+    assert rungs == [next(r for r in TRI.BATCH_LADDER if min(n_dev - k, TRI.MAX_BATCH) <= r)
+                     for k in range(0, n_dev, TRI.MAX_BATCH)]
+    got, want = ([_norm(r) for r in s.idx.read_finish(t)] for s, t in zip(sides, (tt, tj)))
+    assert got == want
+    assert sides[0].counters() == sides[1].counters()
+
+
+# phase 8's store and wave mix (chip_smoke.py) cut from 10,000 x 100
+# names + 1,024 $SYS to 320 x 100 + 33, which keeps its slot load
+# (~0.49 at full size, ~0.51 here)
+PHASE8_CUT = (320, 100, 33)
+
+
+def phase8_reads_equal(g, k, n_sys, waves):
+    """Phase 8's names (`chip_smoke.retained_names(g, k, n_sys)`) in the
+    reference's and the port's RetainedIndex, then `waves` waves of
+    4,096 filters of phase 8's mix through both: every query's probe
+    key, bucket id and amb flag, read for read, every answer and the
+    slot arrays must be equal. Returns (reads, ambiguous reads, the
+    distinct ambiguous filters, the port's slot load). At full size:
+    `phase8_reads_equal(10_000, 100, 1024, 12)`."""
+    import chip_smoke
+
+    j, t = JRI.RetainedIndex(), TRI.RetainedIndex(device="cpu")
+    for name in chip_smoke.retained_names(g, k, n_sys):
+        j.add(name)
+        t.add(name)
+    rng = np.random.default_rng(2)
+    reads, amb, amb_filters = 0, 0, set()
+    for _ in range(waves):
+        filters = [chip_smoke.ret_filter(c, rng, g, k)
+                   for c in chip_smoke.draw_classes(chip_smoke.WAVE_MIX, TRI.MAX_BATCH, rng)]
+        tj, tt = j.read_begin(filters), t.read_begin(filters)
+        for (_b, want, got, nv), (_f, _n, metas) in zip(_chunk_outputs(tj, tt), tt.chunks):
+            assert np.array_equal(got[0][:nv], want[0][:nv])
+            assert np.array_equal(got[1][:nv], want[1][:nv])
+            reads += nv
+            amb += int(got[1][:nv].sum())
+            amb_filters |= {filters[m[4]] for m, a in zip(metas, got[1]) if a}
+        assert [_norm(r) for r in t.read_finish(tt)] == [_norm(r) for r in j.read_finish(tj)]
+    assert np.array_equal(t._slots.fp, j._slots.fp)
+    assert np.array_equal(t._slots.bucket, j._slots.bucket)
+    return reads, amb, sorted(amb_filters), len(t._key_bid) / (TH.BUCKET_W * t._n_buckets)
+
+
+def test_phase8_mix_amb_flags_equal_reference_read_for_read():
+    """The K8 `amb` suspect (20 ambiguous probes in 46,984 wave reads on
+    the card): phase 8's seeded names and filter mix through the
+    reference's and the port's index agree read for read, so the port's
+    rate is the reference's own."""
+    reads, _amb, _filters, load = phase8_reads_equal(*PHASE8_CUT, waves=3)
+    assert reads > 10_000
+    assert 0.45 < load < 0.55
+
+
+
+
 # --- RetainedIndex against the JAX one -----------------------------------------------
 
 
@@ -314,7 +462,8 @@ def test_forced_ambiguity_escalates_never_answers_wrong(monkeypatch):
 
     def amb_kernel(*a):
         bid, amb = real(*a)
-        return bid, amb | True
+        amb.fill_(True)  # in place: the read fetches K8's one result buffer
+        return bid, amb
 
     monkeypatch.setattr(TRI, "probe_retained", amb_kernel)
     assert s.read(["a/+"]) == [None]
