@@ -64,8 +64,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    and no_local / retain-as-published subscriptions (262,144 client
    rows). K5 (at a 2k-fan and the 150k-fan plan, on persistent tables
    carried from the one plan into the other, and on a fresh table;
-   two records), K6/K7 (one churn's
-   delta sync) and K12 (the probe's scalar and 1 MB buffer) against
+   two records), the fused K6/K7 sync (`fanout_sync`: one churn's
+   delta, both sides, rows only, edges only and with ids past both
+   tables, on copies of the stale mirror; 1 and 1,025 entries a side
+   and the full pool on scrambled copies of the host truth; each table
+   also against the host arrays; `scatter_segs`/`scatter_edges` at the
+   delta's padded [nb, K] batches; timed against four `index_copy_`
+   calls, with one launch's floor, K12 on a scalar, beside it) and
+   K12 (the probe's scalar and 1 MB buffer) against
    their plain versions, exactly (K12 also in int32 and float32 at the
    scalar, 1 MB, 64 MB, an odd length 2^18 + 3 and that length from a
    view one element in, the 64 MB buffer timed against torch.add, and
@@ -84,9 +90,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    re-subscribes at another QoS in one mfan group, one session closed
    and re-opened, and after every second pair phase 5's delete and
    re-add of 1,000 routes (the pairs between keep the match cache warm,
-   so they launch overlapped resolves). K5, K6, K7 and K12 must each
-   have launched and a plan must have been resolved on the card and
-   one overlapped. Printed: publishes/s and deliveries/s over the
+   so they launch overlapped resolves). K5, the fused K6/K7 sync and
+   K12 must each have launched and a plan must have been resolved on
+   the card and one overlapped. Printed: publishes/s and deliveries/s over the
    traffic wall, fanout_resolve_seconds p50/p99, the resolves by
    source, the host walk against K5 for one 150k-fan plan, launches.
 8. Retained reads and the MQTT server: a Broker on the card whose
@@ -163,8 +169,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1-K4
-   from phase 5, of the dense-only K2 from phase 6, of K5-K7 and K12
-   from phase 7 (K5's two records both show K5's), of K8 from phase
+   from phase 5, of the dense-only K2 from phase 6, of K5, the fused
+   K6/K7 sync and K12 from phase 7 (K5's two records both show K5's;
+   K6 and K7 are two entries of the one fused record), of K8 from phase
    8's server rounds, of K14, K16, K17
    and the fused K18 from phase 9's batches, of K13 apply_delta and the
    K18 slot delta from phase 9 (c)'s growth syncs; K9-K11, K13's counts
@@ -1138,8 +1145,8 @@ def resolve_fanout_edge_cases(F, state, rows_arr, nc, max_fan, dev):
 
 def check_broker_kernels(broker, skel, rng, deliveries):
     """K5 at the pfan (150k gathered) and an mfan (2k) plan's shapes on
-    persistent tables, K6/K7 on one churn's delta sync, K12 on the
-    probe's scalar and 1 MB buffer: each against its plain version on
+    persistent tables, the fused K6/K7 sync on one churn's delta, K12
+    on the probe's scalar and 1 MB buffer: each against its plain version on
     the same CUDA inputs.
     Also the host walk's and the device resolve's time for the pfan
     plan. Returns (records, host-vs-device line)."""
@@ -1149,7 +1156,7 @@ def check_broker_kernels(broker, skel, rng, deliveries):
     from emqx_tpu_torch.device import to_device
     from emqx_tpu_torch.ops import fanout as F
     from emqx_tpu_torch.ops import transfer as T
-    from emqx_tpu_torch.ops.table import next_pow2, pad_pow2_batches
+    from emqx_tpu_torch.ops.table import next_pow2
 
     router = broker.router
     store = router.dest_store
@@ -1226,31 +1233,13 @@ def check_broker_kernels(broker, skel, rng, deliveries):
               f"resolve begin+finish {statistics.median(dev_ms):.3f} ms, K5 "
               f"kernel {recs['resolve_fanout']['device_ms']:.6f} ms (device)")
 
-    # K6/K7: one churn's delta, on copies of the mirror. Its index is
-    # one no pair uses (its own late joiners and mfan group) and even
+    # K6/K7, fused: one churn's delta, on copies of the mirror. Its index
+    # is one no pair uses (its own late joiners and mfan group) and even
     # (no route churn: a re-added storm route may grow the edge pool)
     broker_churn(broker, skel, rng, SETUP_CHURN, deliveries)
     if store.grew:
         raise AssertionError("the churn grew the edge pool: no delta sync to check")
-    for name, fn, cols, n_dirty in (
-        ("scatter_segs", F.scatter_segs, (store.seg_off, store.seg_len), store.dirty_rows),
-        ("scatter_edges", F.scatter_edges, (store.edge_client, store.edge_opts), store.dirty_edges),
-    ):
-        idx = pad_pow2_batches(np.unique(np.asarray(n_dirty, np.int32)), F.SYNC_BATCH)
-        vals = [to_device(idx, dev)] + [to_device(c[idx], dev) for c in cols]
-        base = fan_dev.tensors()[:2] if name == "scatter_segs" else fan_dev.tensors()[2:]
-        a = [x.clone() for x in base]
-        b = [x.clone() for x in base]
-        fn(*a, *vals)
-        F.scatter_cols_ref(*b, *vals)
-        e = max(max_abs_err(a, b), max_abs_err(a, [to_device(c, dev) for c in cols]))
-        n = int(idx.size)
-        recs[name] = dict(
-            **timed(lambda: fn(*a, *vals), lambda: F.scatter_cols_ref(*b, *vals)),
-            bytes=n * 12 + 2 * len(set(n_dirty)) * 4, ops=0, err=e,
-            shape=f"dirty={len(set(n_dirty))} padded={idx.shape} "
-                  f"table={int(base[0].shape[0])}",
-        )
+    recs["fanout_sync"] = fanout_sync_checks(F, store, fan_dev, dev)
 
     # K12: the probe's float32 scalar and its 1 MB int32 fetch buffer,
     # timed against torch.add; its edge cases equal to the plain version
@@ -1267,6 +1256,141 @@ def check_broker_kernels(broker, skel, rng, deliveries):
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs, versus
+
+
+def fanout_sync_checks(F, store, fan_dev, dev):
+    """The fused K6/K7 sync against its plain version, exactly, and every
+    table against the host arrays: phase 7's churn delta (both sides,
+    rows only, edges only, with ids past both tables) on copies of the
+    stale mirror; 1 and 1,025 entries a side and the full pool (every
+    row and edge) on copies of the host truth with those entries
+    scrambled. Then the reference-shaped wrappers on the churn delta's
+    [nb, K] padded batches. The churn delta is timed against four
+    `index_copy_` calls on the same staged views (ids widened to int64
+    once, outside the timing) and the bound counts its distinct entries:
+    12 bytes read and 8 written each. Returns the record."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.device import to_device
+    from emqx_tpu_torch.ops import transfer as T
+    from emqx_tpu_torch.ops.table import pad_pow2_batches
+
+    host = (store.seg_off, store.seg_len, store.edge_client, store.edge_opts)
+    truth = [to_device(a, dev) for a in host]
+    rows = np.unique(np.asarray(store.dirty_rows, np.int32))
+    edges = np.unique(np.asarray(store.dirty_edges, np.int32))
+    n_cap, e_cap = len(store.seg_off), len(store.edge_client)
+    none = np.zeros(0, np.int32)
+
+    def run_case(base, r, e, extra=None):
+        """(tables after the kernel, staged, n_r, n_e): kernel and plain
+        version on clones of `base`; `extra` (ids, ids) appends ids past
+        the tables with arbitrary values."""
+        staged = F.stage_delta(r, e, *host, dev)
+        n_r, n_e = len(r), len(e)
+        if extra is not None:
+            rr, ee = (np.concatenate([r, extra[0]]), np.concatenate([e, extra[1]]))
+            v = staged.cpu().numpy()
+            cols = [np.concatenate([v[k * n_r:(k + 1) * n_r], x])
+                    for k, x in enumerate((extra[0], extra[0] + 5, extra[0] - 9))]
+            o = 3 * n_r
+            cols += [np.concatenate([v[o + k * n_e:o + (k + 1) * n_e], x])
+                     for k, x in enumerate((extra[1], extra[1] + 3, extra[1] - 2))]
+            n_r, n_e = len(rr), len(ee)
+            staged = to_device(np.concatenate(cols).astype(np.int32), dev)
+        a = [x.clone() for x in base]
+        b = [x.clone() for x in base]
+        F.fanout_sync(*a, staged, n_r, n_e)
+        F.fanout_sync_ref(*b, staged, n_r, n_e)
+        torch.cuda.synchronize()
+        max_abs_err(a, b)
+        return a, staged, n_r, n_e
+
+    def scrambled(r, e, full=False):
+        """The host truth with rows r and edges e set to -7."""
+        t = [x.clone() for x in truth]
+        for k, ids in ((0, r), (1, r), (2, e), (3, e)):
+            if full:
+                t[k].fill_(-7)
+            elif len(ids):
+                t[k][torch.from_numpy(ids.astype(np.int64)).to(dev)] = -7
+        return t
+
+    def held(tables, want, what):
+        max_abs_err(tables, want)
+        return what
+
+    stale = fan_dev.tensors()
+    lines = []
+    # phase 7's churn delta: both sides, one side, ids past both tables
+    a, staged, n_r, n_e = run_case(stale, rows, edges)
+    lines.append(held(a, truth, f"churn delta rows={n_r} edges={n_e}"))
+    a, *_ = run_case(stale, rows, none)
+    lines.append(held(a, truth[:2] + list(stale[2:]), "rows only"))
+    a, *_ = run_case(stale, none, edges)
+    lines.append(held(a, list(stale[:2]) + truth[2:], "edges only"))
+    a, *_ = run_case(stale, rows, edges, (np.int32([n_cap, n_cap + 7]),
+                                          np.int32([e_cap, e_cap + 1000])))
+    lines.append(held(a, truth, "ids past both tables dropped"))
+    # 1 and 1,025 entries a side, and the full pool
+    rng = np.random.default_rng(5)
+    for n in (1, 1025):
+        r = np.sort(rng.choice(n_cap, n, replace=False)).astype(np.int32)
+        e = np.sort(rng.choice(e_cap, n, replace=False)).astype(np.int32)
+        a, *_ = run_case(scrambled(r, e), r, e)
+        lines.append(held(a, truth, f"{n} a side"))
+    r_all = np.arange(n_cap, dtype=np.int32)
+    e_all = np.arange(e_cap, dtype=np.int32)
+    full_base = scrambled(r_all, e_all, full=True)
+    a, full_staged, *_ = run_case(full_base, r_all, e_all)
+    lines.append(held(a, truth, f"full pool rows={n_cap} edges={e_cap}"))
+    full_dev, _ = run_ms(lambda: F.fanout_sync(*a, full_staged, n_cap, e_cap))
+    lines.append(f"full pool device_ms={full_dev:.6f} bound_ms="
+                 f"{1e3 * 20 * (n_cap + e_cap) / H100_BYTES_PER_S:.6f}")
+    # the reference-shaped wrappers on the padded [nb, K] batches
+    for name, fn, ids, k in (("scatter_segs", F.scatter_segs, rows, 0),
+                             ("scatter_edges", F.scatter_edges, edges, 2)):
+        idx = pad_pow2_batches(ids, F.SYNC_BATCH)
+        vals = [to_device(idx, dev)] + [to_device(c[idx], dev) for c in host[k:k + 2]]
+        a = [x.clone() for x in stale[k:k + 2]]
+        b = [x.clone() for x in stale[k:k + 2]]
+        fn(*a, *vals)
+        F.scatter_cols_ref(*b, *vals)
+        max_abs_err(a, b)
+        max_abs_err(a, truth[k:k + 2])
+        d_ms, e_ms = run_ms(lambda fn=fn, a=a, vals=vals: fn(*a, *vals))
+        lines.append(f"{name} at [{idx.shape[0]}, {idx.shape[1]}] equal, "
+                     f"device_ms={d_ms:.6f} enqueue_ms={e_ms:.6f}")
+
+    # the churn delta timed: the kernel, its plain version, four index_copy_
+    a = [x.clone() for x in stale]
+    b = [x.clone() for x in stale]
+    c = [x.clone() for x in stale]
+    o = 3 * n_r
+    ridx = staged[:n_r].long()
+    eidx = staged[o:o + n_e].long()
+
+    def library():
+        c[0].index_copy_(0, ridx, staged[n_r:2 * n_r])
+        c[1].index_copy_(0, ridx, staged[2 * n_r:o])
+        c[2].index_copy_(0, eidx, staged[o + n_e:o + 2 * n_e])
+        c[3].index_copy_(0, eidx, staged[o + 2 * n_e:])
+
+    library()
+    max_abs_err(c, truth)
+    n = n_r + n_e
+    rec = dict(
+        **timed(lambda: F.fanout_sync(*a, staged, n_r, n_e),
+                lambda: F.fanout_sync_ref(*b, staged, n_r, n_e), library),
+        bytes=20 * n, ops=0, err=0,
+    )
+    floor, _ = run_ms(lambda x=torch.tensor(0.5, device=dev): T.add_one(x))
+    rec["shape"] = (f"rows={n_r} edges={n_e} (distinct, unpadded) of tables "
+                    f"{n_cap}, {e_cap}; one launch's floor (K12, scalar) "
+                    f"device_ms={floor:.6f}; library: four index_copy_ calls; "
+                    f"equal: " + "; ".join(lines))
+    return rec
 
 
 def times_line(r) -> str:
@@ -1331,6 +1455,15 @@ def broker_phase(rng, card):
     router.device_table.fanout.telemetry = router.telemetry
     eng = broker.enable_dispatch_engine(queue_depth=WINDOW, pipeline_depth=2,
                                         transfer_chunk_kb=0)
+    # the entries of every fanout mirror sync on the path (0: nothing dirty)
+    fan = router.device_table.fanout
+    synced = []
+
+    def counted_sync(real=fan.sync):
+        synced.append(real())
+        return synced[-1]
+
+    fan.sync = counted_sync
     _build.reset_launches()
     t0 = time.perf_counter()
     info = eng.warmup()
@@ -1339,6 +1472,12 @@ def broker_phase(rng, card):
     rec = serve_broker(broker, skel, exact, rng, deliveries)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    del fan.sync
+    dirty = sorted(n for n in synced if n)
+    log(f"broker fanout syncs: {len(synced)} calls, {len(dirty)} with entries "
+        f"(median {dirty[len(dirty) // 2] if dirty else 0}, max "
+        f"{dirty[-1] if dirty else 0}); fused K6/K7 launches "
+        f"{launches['fanout_sync']} [{card}]")
     tel = router.telemetry
     c = tel.counters
     h = tel.family_hist.get("fanout_resolve_seconds")
@@ -1380,8 +1519,8 @@ def broker_phase(rng, card):
     log(f"broker launches (warm-up included): {launches} [{card}]")
     if c.get("fanout_device_plans_total", 0) <= 0:
         raise AssertionError("no plan was resolved on the card")
-    missing = [n for n in ("resolve_fanout", "scatter_segs", "scatter_edges",
-                           "probe_add_one") if launches[n] <= 0]
+    missing = [n for n in ("resolve_fanout", "fanout_sync", "probe_add_one")
+               if launches[n] <= 0]
     if missing:
         raise AssertionError(f"broker phase never launched {missing}")
     if not c.get("fanout_resolves_overlapped_total", 0):
@@ -2952,10 +3091,11 @@ def main(argv=None) -> int:
                            "emqx_tpu/ops/fanout.py:137"),
         "resolve_fanout_small": ("emqx_tpu_torch/ops/csrc/fanout.cu",
                                  "emqx_tpu/ops/fanout.py:137"),
-        "scatter_segs": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                         "emqx_tpu/ops/fanout.py:95"),
-        "scatter_edges": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                          "emqx_tpu/ops/fanout.py:118"),
+        # K6 and K7 are one fused launch: both entries read its record
+        "fanout_sync (K6)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                             "emqx_tpu/ops/fanout.py:95"),
+        "fanout_sync (K7)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                             "emqx_tpu/ops/fanout.py:118"),
         "probe_add_one": ("emqx_tpu_torch/ops/csrc/probe.cu",
                           "emqx_tpu/ops/transfer.py:150"),
         "retained_probe": ("emqx_tpu_torch/ops/csrc/retained_probe.cu",
@@ -2987,10 +3127,11 @@ def main(argv=None) -> int:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        r = recs[name]
+        key = name.split(" ")[0]
+        r = recs[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": path_launches[name],
+            "replaces": replaces, "launches": path_launches[key],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

@@ -66,7 +66,7 @@ def fanout_state_from_numpy(
     seg_off, seg_len, edge_client, edge_opts, device: DeviceLike = None
 ) -> FanoutState:
     """A DestStore's host CSR arrays -> int32 device tensors (copies),
-    the inputs of resolve_fanout / scatter_segs / scatter_edges."""
+    the inputs of resolve_fanout and fanout_sync."""
     dev = resolve(device)
 
     def put(a):

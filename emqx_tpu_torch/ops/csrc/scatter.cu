@@ -6,24 +6,39 @@
 // (K4: cuckoo fp/bucket at slot ids, probe words at slot // 4), and
 // emqx_tpu/ops/fanout.py `_scatter_segs` (K6: seg_off/seg_len at row
 // ids) and `_scatter_edges` (K7: edge_client/edge_opts at edge ids).
-// K6 and K7 are one two-column kernel, `emqx_scatter_cols`, bound twice
-// so their launches count apart. The JAX programs donate their buffers
-// and scan over the nb batches; here the device tensors are updated in
-// place by one launch over all nb*K entries.
+// The JAX programs donate their buffers and scan over the nb batches;
+// here the device tensors are updated in place by one launch over all
+// entries.
 //
-// Write order: the host drains dirty ids with np.unique, so real ids are
-// distinct; the only repeats are the padding, which repeats the last id
-// with the same values (ops/table.py pad_pow2_batches), and probe words
-// of slots that share a bucket, which carry the same host-merged word.
-// Every writer of one address writes the same value, so whichever
-// writer lands last is correct. Ids outside the table are dropped, as
-// JAX drops out-of-range scatter updates.
+// K6 and K7 are one kernel, `emqx_fanout_sync`: a fanout mirror's whole
+// delta sync in one launch. Threads [0, n_r) write segment rows, threads
+// [n_r, n_r + n_e) write edges, as `mesh_sync_k` below fuses K18's two
+// streams. FanoutDeviceState.sync stages its delta as one int32 buffer
+// [ridx n_r | roff n_r | rlen n_r | eidx n_e | ecl n_e | eop n_e] in one
+// host->device copy, with no pow2 padding (CUDA has no recompile to
+// bound), and passes the six columns as pointers into it; the
+// reference-shaped wrappers scatter_segs/scatter_edges pass their own
+// [nb, K] batches with the other side empty. Nothing dirty launches
+// nothing. The sync's ids come from np.unique: sorted and distinct, so
+// neighbouring threads load neighbouring words and, along a run of
+// consecutive ids, store to neighbouring addresses.
 //
-// What bounds it on the H100: a sync of ~2,000 dirty rows moves ~150 KB
-// (a K6/K7 sync of a few thousand ids ~50 KB),
-// far below a microsecond of HBM time, so the launch itself dominates;
-// one thread per written word keeps the stores coalesced on the source
-// side.
+// Write order: real ids are distinct; the only repeats are the padding
+// of the [nb, K] batches, which repeats the last id with the same values
+// (ops/table.py pad_pow2_batches), and probe words of slots that share
+// a bucket, which carry the same host-merged word. Every writer of one
+// address writes the same value, so whichever writer lands last is
+// correct. Ids outside the table are dropped, as JAX drops out-of-range
+// scatter updates.
+//
+// What bounds it on the H100: a fanout sync moves 20 bytes an entry (an
+// id and two values read, two values written), so phase 7's delta of a
+// few hundred entries is a few KB, nanoseconds of HBM time, and only a
+// delta of ~300k entries or more (6 MB, 2 us at 3.35 TB/s) outweighs the
+// launch's own floor (~2 us, K12 on a scalar); a K3/K4 sync of ~2,000
+// dirty rows (~150 KB) is the same. So one launch a sync, from one
+// staged copy, is the lever; one thread per entry keeps the loads
+// coalesced.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,16 +84,35 @@ __global__ void scatter_slots_k(uint32_t* __restrict__ fp, int* __restrict__ buc
   probe[s / 4] = pw[e];
 }
 
-__global__ void scatter_cols_k(int* __restrict__ a, int* __restrict__ b, int n_dst,
-                               const int* __restrict__ idx,
-                               const int* __restrict__ va,
-                               const int* __restrict__ vb, long long n) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const int i = idx[e];
-  if (i < 0 || i >= n_dst) return;
-  a[i] = va[e];
-  b[i] = vb[e];
+// threads a block of the fused fanout sync: at phase 7's churn delta (34
+// entries, one CTA either way) 256 read 1.6-6% faster than 128 on an H100
+// 80GB HBM3 at 700 W (tools/wrapper_ab.py against a 128-thread variant,
+// two calls); 128 read 7-9% faster at 1,024-2,000 entries and 1% on a
+// full-pool delta. Phase 7's median sync is 64 entries.
+constexpr int kSyncThreads = 256;
+
+__global__ void fanout_sync_k(int* __restrict__ seg_off, int* __restrict__ seg_len,
+                              int n_rows_cap, int* __restrict__ edge_client,
+                              int* __restrict__ edge_opts, int n_edge_cap,
+                              const int* __restrict__ ridx,
+                              const int* __restrict__ roff,
+                              const int* __restrict__ rlen, long long n_r,
+                              const int* __restrict__ eidx,
+                              const int* __restrict__ ecl,
+                              const int* __restrict__ eop, long long n_e) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (q < n_r) {
+    const int i = ridx[q];
+    if (i < 0 || i >= n_rows_cap) return;
+    seg_off[i] = roff[q];
+    seg_len[i] = rlen[q];
+  } else if (q < n_r + n_e) {
+    const long long e = q - n_r;
+    const int i = eidx[e];
+    if (i < 0 || i >= n_edge_cap) return;
+    edge_client[i] = ecl[e];
+    edge_opts[i] = eop[e];
+  }
 }
 
 }  // namespace
@@ -112,13 +146,21 @@ extern "C" int emqx_scatter_slots(uint32_t* fp, int* bucket, uint32_t* probe,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a[idx[e]] = va[e], b[idx[e]] = vb[e] for the n = nb * K entries.
-extern "C" int emqx_scatter_cols(int* a, int* b, int n_dst, const int* idx,
-                                 const int* va, const int* vb, long long n,
-                                 cudaStream_t stream) {
+// The fanout mirror's delta sync: seg_off/seg_len[ridx[q]] = roff/rlen[q]
+// for q < n_r, edge_client/edge_opts[eidx[e]] = ecl/eop[e] for e < n_e,
+// in one launch (none when both sides are empty). Returns
+// cudaGetLastError().
+extern "C" int emqx_fanout_sync(int* seg_off, int* seg_len, int n_rows_cap,
+                                int* edge_client, int* edge_opts, int n_edge_cap,
+                                const int* ridx, const int* roff, const int* rlen,
+                                long long n_r, const int* eidx, const int* ecl,
+                                const int* eop, long long n_e, cudaStream_t stream) {
+  const long long n = n_r + n_e;
   if (n > 0) {
-    const int blocks = static_cast<int>((n + 255) / 256);
-    scatter_cols_k<<<blocks, 256, 0, stream>>>(a, b, n_dst, idx, va, vb, n);
+    const int blocks = static_cast<int>((n + kSyncThreads - 1) / kSyncThreads);
+    fanout_sync_k<<<blocks, kSyncThreads, 0, stream>>>(
+        seg_off, seg_len, n_rows_cap, edge_client, edge_opts, n_edge_cap, ridx, roff,
+        rlen, n_r, eidx, ecl, eop, n_e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,18 +24,21 @@ tensors take the plain version; CUDA tensors launch the kernel, with no
 fallback):
 
   K5 `resolve_fanout` (csrc/fanout.cu) — the dedup/max-QoS plan;
-  K6 `scatter_segs`, K7 `scatter_edges` (csrc/scatter.cu, one
-     two-column in-place scatter registered twice so their launches
-     count apart) — the delta sync of the segment and edge arrays.
+  K6 `_scatter_segs` and K7 `_scatter_edges`, fused: `fanout_sync`
+     (csrc/scatter.cu, one kernel registered once) — the delta sync of
+     the segment and edge arrays in one launch; `scatter_segs` and
+     `scatter_edges` launch it with one side empty at the reference's
+     [n_b, K] batches.
 
 Coherence follows ops/table.py discipline: host arrays are the source
 of truth, mutations append dirty row/edge ids, the device mirror drains
-them in pow2-padded scatter batches, and only pool growth re-uploads.
+them (sorted, distinct) into one staged buffer with no padding, moved
+in one copy and applied by one launch, and only pool growth
+re-uploads.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
@@ -47,7 +50,7 @@ from ..parallel.mesh import primary_device
 from . import transfer as transfer_ops
 from ._build import LL, I, P, CudaKernel, raw_stream
 from .match import check_tensor
-from .table import next_pow2, pad_pow2_batches
+from .table import next_pow2
 
 # packed subopts word layout
 QOS_MASK = 0x3
@@ -62,7 +65,9 @@ SKIP_BIT = 1 << 7  # dest without a known suboption (node ids, etc.)
 # refuses larger fans (host walk — they do not occur in practice)
 MAX_FAN = 1 << 22
 
-SYNC_BATCH = 1024  # edges/rows per scatter batch (router-syncer batch)
+# the reference's rows/edges per scatter batch (router-syncer batch): the
+# sync's telemetry shape buckets and scatter_segs/scatter_edges' [n_b, K]
+SYNC_BATCH = 1024
 
 _POS_MASK = (1 << 24) - 1
 
@@ -90,67 +95,129 @@ def pack_subopts(opts, shared: bool = False) -> int:
     return w
 
 
-# --- K6/K7: in-place two-column scatters -----------------------------------
+# --- K6/K7: the fused delta sync ---------------------------------------------
 
 
 def scatter_cols_ref(
     a: torch.Tensor,  # int32 [N], updated in place
     b: torch.Tensor,  # int32 [N], updated in place
-    idx: torch.Tensor,  # int32 [n_b, K] ids
-    va: torch.Tensor,  # int32 [n_b, K]
-    vb: torch.Tensor,  # int32 [n_b, K]
+    idx: torch.Tensor,  # int32 ids, any shape
+    va: torch.Tensor,  # int32, idx's shape
+    vb: torch.Tensor,  # int32, idx's shape
 ) -> None:
-    """Plain version of K6/K7: a[idx] = va, b[idx] = vb, batch by batch
-    (the reference's scan order); ids outside [0, N) are dropped, as
-    JAX drops out-of-range scatter updates."""
+    """One side of the sync's plain version: a[idx] = va, b[idx] = vb
+    in the reference's scan order (row-major over [n_b, K] batches); ids
+    outside [0, N) are dropped, as JAX drops out-of-range scatter
+    updates."""
+    i = idx.reshape(-1).to(torch.int64)
+    keep = (i >= 0) & (i < a.shape[0])
+    a[i[keep]] = va.reshape(-1)[keep]
+    b[i[keep]] = vb.reshape(-1)[keep]
+
+
+def fanout_sync_ref(seg_off, seg_len, edge_client, edge_opts, staged, n_r, n_e) -> None:
+    """Plain version of the fused K6/K7 sync: `staged` int32 [3 * (n_r +
+    n_e)] laid out [ridx | roff | rlen | eidx | ecl | eop]; the rows'
+    ids and values go to seg_off/seg_len, the edges' to edge_client/
+    edge_opts, in place."""
+    rows = staged[: 3 * n_r].view(3, n_r)
+    edges = staged[3 * n_r :].view(3, n_e)
+    scatter_cols_ref(seg_off, seg_len, *rows)
+    scatter_cols_ref(edge_client, edge_opts, *edges)
+
+
+_FANOUT_SYNC = CudaKernel(
+    "fanout_sync", "scatter.cu", "emqx_fanout_sync",
+    [P, P, I, P, P, I, P, P, P, LL, P, P, P, LL, P],
+)
+
+
+def _side(name, a, b, d):
+    """(a, b, len) of one side's tables for the launch, each checked."""
     n = a.shape[0]
-    for j in range(idx.shape[0]):
-        i = idx[j].to(torch.int64)
-        keep = (i >= 0) & (i < n)
-        a[i[keep]] = va[j][keep]
-        b[i[keep]] = vb[j][keep]
+    check_tensor(f"{name}[0]", a, torch.int32, (n,), d)
+    check_tensor(f"{name}[1]", b, torch.int32, (n,), d)
+    return a.data_ptr(), b.data_ptr(), n
 
 
-_SCATTER_SEGS = CudaKernel(
-    "scatter_segs", "scatter.cu", "emqx_scatter_cols",
-    [P, P, I, P, P, P, ctypes.c_longlong, P],
-)
-_SCATTER_EDGES = CudaKernel(
-    "scatter_edges", "scatter.cu", "emqx_scatter_cols",
-    [P, P, I, P, P, P, ctypes.c_longlong, P],
-)
+def stage_delta(rows, edges, seg_off, seg_len, edge_client, edge_opts, device):
+    """One int32 buffer [rows | seg_off[rows] | seg_len[rows] | edges |
+    edge_client[edges] | edge_opts[edges]] on `device`, packed on the
+    host and moved in one copy, with no padding: the `staged` argument
+    of fanout_sync."""
+    n_r, n_e = len(rows), len(edges)
+    buf = np.empty(3 * (n_r + n_e), np.int32)
+    r = buf[: 3 * n_r].reshape(3, n_r)
+    e = buf[3 * n_r :].reshape(3, n_e)
+    r[0] = rows
+    np.take(seg_off, rows, out=r[1])
+    np.take(seg_len, rows, out=r[2])
+    e[0] = edges
+    np.take(edge_client, edges, out=e[1])
+    np.take(edge_opts, edges, out=e[2])
+    return to_device(buf, device)
 
 
-def _scatter_cols(kernel: CudaKernel, a, b, idx, va, vb) -> None:
+def fanout_sync(seg_off, seg_len, edge_client, edge_opts, staged, n_r: int, n_e: int) -> None:
+    """A fanout mirror's delta sync in place (the reference's
+    `_scatter_segs` then `_scatter_edges`), from one staged buffer
+    (`stage_delta`'s layout, no padding). CUDA tensors launch the fused
+    K6/K7 kernel once, or not at all when both sides are empty; CPU
+    tensors take the plain version."""
+    if n_r < 0 or n_e < 0:
+        raise ValueError(f"fanout_sync: negative entry counts ({n_r}, {n_e})")
+    d = seg_off.device
+    if d.type == "cpu":
+        fanout_sync_ref(seg_off, seg_len, edge_client, edge_opts, staged, n_r, n_e)
+        return
+    rows = _side("segs", seg_off, seg_len, d)
+    edges = _side("edges", edge_client, edge_opts, d)
+    check_tensor("staged", staged, torch.int32, (3 * (n_r + n_e),), d)
+    if n_r + n_e == 0:
+        return
+    p = staged.data_ptr()
+    e = p + 12 * n_r
+    _FANOUT_SYNC(
+        *rows, *edges, p, p + 4 * n_r, p + 8 * n_r, n_r,
+        e, e + 4 * n_e, e + 8 * n_e, n_e, raw_stream(d),
+    )
+
+
+def _scatter_side(a, b, idx, va, vb, segs: bool) -> None:
+    """One side of the fused kernel at the reference's [n_b, K] batches,
+    the other side empty."""
     d = a.device
     if d.type == "cpu":
         scatter_cols_ref(a, b, idx, va, vb)
         return
-    n = a.shape[0]
-    check_tensor("a", a, torch.int32, (n,), d)
-    check_tensor("b", b, torch.int32, (n,), d)
+    side = _side("segs" if segs else "edges", a, b, d)
     shape = tuple(idx.shape)
     check_tensor("idx", idx, torch.int32, shape, d)
     check_tensor("va", va, torch.int32, shape, d)
     check_tensor("vb", vb, torch.int32, shape, d)
-    kernel(
-        a.data_ptr(), b.data_ptr(), n, idx.data_ptr(), va.data_ptr(),
-        vb.data_ptr(), idx.numel(), raw_stream(d),
-    )
+    n = idx.numel()
+    if n == 0:
+        return
+    cols = (idx.data_ptr(), va.data_ptr(), vb.data_ptr(), n)
+    none = (0, 0, 0, 0)
+    if segs:
+        _FANOUT_SYNC(*side, 0, 0, 0, *cols, *none, raw_stream(d))
+    else:
+        _FANOUT_SYNC(0, 0, 0, *side, *none, *cols, raw_stream(d))
 
 
 def scatter_segs(seg_off, seg_len, idx, off, ln) -> None:
-    """In-place batched write of the per-row segment arrays (replaces
-    the donated `_scatter_segs` of the reference). CUDA tensors launch
-    kernel K6; CPU tensors take the plain version."""
-    _scatter_cols(_SCATTER_SEGS, seg_off, seg_len, idx, off, ln)
+    """In-place batched write of the per-row segment arrays at the
+    reference `_scatter_segs`'s [n_b, K] batches: the fused K6/K7
+    kernel with no edges (CUDA), or its plain version (CPU)."""
+    _scatter_side(seg_off, seg_len, idx, off, ln, segs=True)
 
 
 def scatter_edges(edge_client, edge_opts, idx, cl, op) -> None:
-    """In-place batched write of the edge arrays (replaces the donated
-    `_scatter_edges` of the reference). CUDA tensors launch kernel K7;
-    CPU tensors take the plain version."""
-    _scatter_cols(_SCATTER_EDGES, edge_client, edge_opts, idx, cl, op)
+    """In-place batched write of the edge arrays at the reference
+    `_scatter_edges`'s [n_b, K] batches: the fused K6/K7 kernel with no
+    rows (CUDA), or its plain version (CPU)."""
+    _scatter_side(edge_client, edge_opts, idx, cl, op, segs=False)
 
 
 # --- K5: the dedup/max-QoS plan kernel ---------------------------------------
@@ -745,7 +812,8 @@ class DestStore:
 class FanoutDeviceState:
     """Device mirror of a DestStore, behind the same sync()/begin/
     finish discipline as the match tables: full upload on pool growth,
-    pow2-padded dirty scatter (K6/K7, in place) otherwise, and the plan
+    otherwise the dirty rows and edges staged in one unpadded buffer, one
+    copy, and applied in place by one launch (K6/K7 fused), and the plan
     kernel (K5) launched in begin() with its device->host copy started
     at once, so the pipelined dispatch overlaps the resolve with the
     match fetch; K5's winner keys (FanoutScratch) persist across
@@ -791,33 +859,23 @@ class FanoutDeviceState:
             self._edge_client = self._put(s.edge_client)
             self._edge_opts = self._put(s.edge_opts)
             return n
-        n = 0
-        put = self._put
-        if s.dirty_rows:
-            rows = np.unique(np.asarray(s.dirty_rows, np.int32))
-            s.dirty_rows.clear()
-            n += len(rows)
-            idx = pad_pow2_batches(rows, SYNC_BATCH)
-            self.telemetry.record_shape(
-                "scatter_segs", (idx.shape[0], s.row_capacity)
-            )
-            scatter_segs(
-                self._seg_off, self._seg_len, put(idx),
-                put(s.seg_off[idx]), put(s.seg_len[idx]),
-            )
-        if s.dirty_edges:
-            edges = np.unique(np.asarray(s.dirty_edges, np.int32))
-            s.dirty_edges.clear()
-            n += len(edges)
-            idx = pad_pow2_batches(edges, SYNC_BATCH)
-            self.telemetry.record_shape(
-                "scatter_edges", (idx.shape[0], s.edge_capacity)
-            )
-            scatter_edges(
-                self._edge_client, self._edge_opts, put(idx),
-                put(s.edge_client[idx]), put(s.edge_opts[idx]),
-            )
-        return n
+        # the dirty ids, sorted and distinct
+        rows = np.unique(np.asarray(s.dirty_rows, np.int32))
+        edges = np.unique(np.asarray(s.dirty_edges, np.int32))
+        s.dirty_rows.clear()
+        s.dirty_edges.clear()
+        n_r, n_e = len(rows), len(edges)
+        if n_r + n_e == 0:
+            return 0
+        # the reference's shape buckets, so the telemetry reads the same
+        for name, n, cap in (("scatter_segs", n_r, s.row_capacity),
+                             ("scatter_edges", n_e, s.edge_capacity)):
+            if n:
+                self.telemetry.record_shape(name, (next_pow2(-(-n // SYNC_BATCH)), cap))
+        staged = stage_delta(rows, edges, s.seg_off, s.seg_len, s.edge_client,
+                             s.edge_opts, self.device)
+        fanout_sync(*self.tensors(), staged, n_r, n_e)
+        return n_r + n_e
 
     def resolve_begin(self, rows, fan: int):
         """Sync + LAUNCH the plan kernel for one matched row set and

@@ -1,9 +1,10 @@
 """The port's CSR destination table and its kernels (emqx_tpu_torch.
 ops.fanout) held against emqx_tpu.ops.fanout on the same seeded inputs:
-the plain versions of K5 `resolve_fanout`, K6 `scatter_segs` and K7
-`scatter_edges` against the JAX programs, exactly; the DestStore's
-arrays after one operation sequence; the device mirror's sync; and the
-K12 probe plus the transfer-chunk cap it feeds.
+the plain versions of K5 `resolve_fanout` and of the fused K6/K7 sync
+(`fanout_sync`, and `scatter_segs`/`scatter_edges` at the reference's
+batches) against the JAX programs, exactly; the DestStore's arrays
+after one operation sequence; the device mirror's sync; and the K12
+probe plus the transfer-chunk cap it feeds.
 """
 
 import jax.numpy as jnp
@@ -206,6 +207,52 @@ def test_scatter_segs_and_edges_equal_reference(seed, n_ids):
         np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
 
 
+# (n_rows, n_edges, ids past the end): rows only, edges only, both; one
+# entry a side, one batch, one past a batch, three batches; ids past the
+# tables' ends, which the reference drops
+SYNC_CASES = [
+    (40, 0, 0), (0, 40, 0), (30, 50, 0), (1, 1, 0), (1024, 1024, 0),
+    (1025, 1025, 0), (3000, 3000, 0), (20, 30, 2),
+]
+
+
+@pytest.mark.parametrize("n_rows,n_edges,past", SYNC_CASES)
+def test_fanout_sync_ref_equals_reference(n_rows, n_edges, past):
+    """The fused sync's plain version, from one unpadded staged buffer,
+    against the reference's `_scatter_segs` + `_scatter_edges` on the
+    same ids padded by pad_pow2_batches, as the mirror sync stages them."""
+    rng = np.random.default_rng(n_rows * 7 + n_edges + past)
+    n_cap, e_cap = 4096, 8192
+    dev0 = [rng.integers(-5, 1000, n).astype(np.int32)
+            for n in (n_cap, n_cap, e_cap, e_cap)]
+    # host truth, with room past the device tables for the ids past them
+    host = [rng.integers(-1, 1 << 20, n + 16).astype(np.int32)
+            for n in (n_cap, n_cap, e_cap, e_cap)]
+
+    def ids(n, cap):
+        got = rng.choice(cap, n - past if n else 0, replace=False)
+        extra = cap + rng.choice(16, past if n else 0, replace=False)
+        return np.sort(np.concatenate([got, extra])).astype(np.int32)
+
+    rows, edges = ids(n_rows, n_cap), ids(n_edges, e_cap)
+    want = [jnp.asarray(a) for a in dev0]
+    for k, (sel, fn) in enumerate(((rows, JF._scatter_segs), (edges, JF._scatter_edges))):
+        if len(sel):
+            idx = pad_pow2_batches(sel, TF.SYNC_BATCH)
+            want[2 * k], want[2 * k + 1] = fn(
+                want[2 * k], want[2 * k + 1], jnp.asarray(idx),
+                jnp.asarray(host[2 * k][idx]), jnp.asarray(host[2 * k + 1][idx]))
+    staged = TF.stage_delta(rows, edges, *host, CPU)
+    assert staged.shape == (3 * (len(rows) + len(edges)),)  # no padding
+    got = [_t(a) for a in dev0]
+    TF.fanout_sync_ref(*got, staged, len(rows), len(edges))
+    via_wrapper = [_t(a) for a in dev0]
+    TF.fanout_sync(*via_wrapper, staged, len(rows), len(edges))
+    for g, v, w in zip(got, via_wrapper, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(w))
+
+
 # --- the DestStore and its device mirror ---------------------------------------
 
 
@@ -289,7 +336,7 @@ def test_dest_store_arrays_equal_reference():
 
 
 def test_device_mirror_syncs_to_host_truth():
-    """Full upload, then K6/K7 delta syncs after churn, then growth's
+    """Full upload, then fused K6/K7 delta syncs after churn, then growth's
     re-upload: the mirror equals the host arrays after every sync, and a
     begun resolve keeps the tensors it read."""
     ts = TF.DestStore(edge_capacity=64, row_capacity=16, client_capacity=16)
@@ -320,6 +367,50 @@ def test_device_mirror_syncs_to_host_truth():
     jwin, jfan = jdev.resolve_finish(jh)
     np.testing.assert_array_equal(win, jwin)
     assert fan == jfan
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_fanout_sync_refuses_negative_counts(device):
+    """A negative count would point the edge columns before the staged
+    buffer; the wrapper refuses it on either path."""
+    z = [torch.zeros(n, dtype=torch.int32, device=device) for n in (8, 8, 16, 16, 9)]
+    with pytest.raises(ValueError, match="negative"):
+        TF.fanout_sync(*z, -1, 4)
+
+
+def test_delta_syncs_launch_once_and_equal_reference(monkeypatch):
+    """Three churn rounds with no pool growth: each sync is one call of
+    the fused wrapper and leaves the mirror equal to the reference
+    mirror and to the host arrays; a sync with nothing dirty calls no
+    wrapper."""
+    calls = []
+    real = TF.fanout_sync
+
+    def counted(*a):
+        calls.append(a[-2:])
+        real(*a)
+
+    monkeypatch.setattr(TF, "fanout_sync", counted)
+    caps = dict(edge_capacity=1 << 14, row_capacity=64, client_capacity=2048)
+    ts, js = TF.DestStore(**caps), JF.DestStore(**caps)
+    tdev = TF.FanoutDeviceState(ts, device="cpu")
+    jdev = JF.FanoutDeviceState(js)
+    tdev.sync()  # the first sync is a full upload
+    jdev.sync()
+    assert calls == []
+    for seed in (1, 2, 3):
+        _drive(ts, seed, None)
+        _drive(js, seed, None)
+        assert not ts.grew and ts.dirty_rows and ts.dirty_edges
+        n_r, n_e = len(set(ts.dirty_rows)), len(set(ts.dirty_edges))
+        assert tdev.sync() == jdev.sync() == n_r + n_e
+        assert calls.pop() == (n_r, n_e) and calls == []
+        for t, j, h in zip(tdev.tensors(), (jdev._seg_off, jdev._seg_len,
+                                            jdev._edge_client, jdev._edge_opts),
+                           (ts.seg_off, ts.seg_len, ts.edge_client, ts.edge_opts)):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+            np.testing.assert_array_equal(t.numpy(), h)
+    assert tdev.sync() == 0 and calls == []
 
 
 # --- K12 and the transfer-chunk cap -----------------------------------------------
@@ -375,16 +466,18 @@ def _failing_nvcc(monkeypatch, tmp_path):
     )
 
 
-@pytest.mark.parametrize("which", ["resolve_fanout", "scatter_segs", "probe_add_one"])
+@pytest.mark.parametrize(
+    "which", ["resolve_fanout", "scatter_segs", "fanout_sync", "probe_add_one"])
 def test_failed_kernel_build_raises_without_plain_fallback(which, monkeypatch, tmp_path):
     _failing_nvcc(monkeypatch, tmp_path)
-    k = _build.KERNELS[which]
+    # scatter_segs is the fused sync's kernel with no edges
+    k = _build.KERNELS["fanout_sync" if which == "scatter_segs" else which]
     monkeypatch.setattr(k, "_fn", None)
 
     def _never(*_a, **_k):
         raise AssertionError("plain version ran in place of the kernel")
 
-    for name in ("resolve_fanout_ref", "scatter_cols_ref"):
+    for name in ("resolve_fanout_ref", "scatter_cols_ref", "fanout_sync_ref"):
         monkeypatch.setattr(TF, name, _never)
     monkeypatch.setattr(TT, "add_one_ref", _never)
     meta = torch.device("meta")
@@ -398,6 +491,8 @@ def test_failed_kernel_build_raises_without_plain_fallback(which, monkeypatch, t
                               n_clients=8, max_fan=64)
         elif which == "scatter_segs":
             TF.scatter_segs(z(8), z(8), z((1, 4)), z((1, 4)), z((1, 4)))
+        elif which == "fanout_sync":
+            TF.fanout_sync(z(8), z(8), z(16), z(16), z(9), 2, 1)
         else:
             TT.add_one(torch.zeros(4, dtype=torch.float32, device=meta))
     assert k.launches == 0

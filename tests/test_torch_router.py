@@ -504,12 +504,12 @@ def test_kernel_argtypes_match_the_c_entry_points():
     import emqx_tpu_torch.broker.pubsub  # noqa: F401  (every kernel module)
 
     assert sorted(_build.KERNELS) == [
-        "combine_pairs", "combine_probe", "match_counts", "match_dense",
-        "match_ids", "match_ids_hash", "match_packed", "mesh_apply_delta",
-        "mesh_match_counts", "mesh_match_ids", "mesh_match_ids_hash",
-        "mesh_match_packed", "mesh_slot_delta", "mesh_sync", "probe_add_one",
-        "resolve_fanout", "retained_probe", "scatter_edges", "scatter_rows",
-        "scatter_segs", "scatter_slots"]
+        "combine_pairs", "combine_probe", "fanout_sync", "match_counts",
+        "match_dense", "match_ids", "match_ids_hash", "match_packed",
+        "mesh_apply_delta", "mesh_match_counts", "mesh_match_ids",
+        "mesh_match_ids_hash", "mesh_match_packed", "mesh_slot_delta",
+        "mesh_sync", "probe_add_one", "resolve_fanout", "retained_probe",
+        "scatter_rows", "scatter_slots"]
     for k in _build.KERNELS.values():
         assert list(k.argtypes) == _c_params(k.source, k.symbol), k.name
 

@@ -11,13 +11,24 @@ builds its kernels into its own `build/`. Both trees then time the same
 calls on the same inputs, parent, this tree, this tree, parent, N
 rounds: K8 (`probe_retained`) at B=8 and B=4096 over a 2^19-bucket table
 about half full, K14 (`_combine_launch`) on phase 9's synthetic rows at
-max_hits 2,048 and 4,096, and as controls K12 (`add_one` on a scalar)
-and K6 (`scatter_segs`, one batch of 1,024 ids). Each reading is
+max_hits 2,048 and 4,096, K12 (`add_one` on a scalar, one launch's
+floor), K6 (`scatter_segs`, one batch of 1,024 ids), and the fanout
+mirror's delta sync on tables of phase 7's size (SYNC_TABLES): the
+kernels of one sync (the fused `fanout_sync` where a tree has it, else
+`scatter_segs` + `scatter_edges` on the pow2-padded batches its sync
+launched) at phase 7's churn and route-churn deltas and at a full-pool
+delta, and the whole `FanoutDeviceState.sync()` (staging, copies and
+launches) at the two churn deltas, the same ids dirtied again before
+every call. Each reading is
 `chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
 host's enqueue time a call (`enqueue_ms`). One process holds both
 trees, so the host's speed, which moves between processes, is the same
 for both. Prints one line a case with every reading and the medians,
 then the card's name and power limit.
+
+PARENT_ROOT may also be a variant of this tree (a constant changed in
+one of its sources): `git archive` the tree into `build/var/NAME`, edit
+it there, and pass that root.
 """
 
 from __future__ import annotations
@@ -29,6 +40,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# phase 7's fanout tables (rows, edges), and its delta syncs' sizes
+# (rows, edges): the set-up churn's, and a sync after route churn
+SYNC_TABLES = (1 << 21, 1 << 19)
+SYNC_DELTAS = {"churn": (2, 32), "route churn": (1000, 1000)}
 
 
 def load_tree(root: Path, name: str):
@@ -66,7 +81,8 @@ def main(argv=None) -> int:
             load_tree(root, name)
         mods = {m: importlib.import_module(f"{name}.{m}") for m in (
             "ops._build", "ops.retained", "ops.transfer", "ops.fanout",
-            "ops.hash_index", "parallel.sharded_match", "convert", "broker.pubsub")}
+            "ops.hash_index", "ops.table", "parallel.sharded_match", "convert",
+            "broker.pubsub")}
         mods["ops._build"].build_all()
         trees[tag] = mods
 
@@ -115,6 +131,8 @@ def main(argv=None) -> int:
         tag: (lambda m=m: m["ops.fanout"].scatter_segs(seg_off, seg_len, idx, val, val))
         for tag, m in trees.items()}
 
+    cases.update(sync_cases(trees, dev, rng, C))
+
     for name, fns in cases.items():
         got = {"parent": [], "this": []}
         for _ in range(args.rounds):
@@ -129,6 +147,71 @@ def main(argv=None) -> int:
               f"{[(round(d, 6), round(e, 6)) for d, e in got['this']]}", flush=True)
     print(C.card_line(), flush=True)
     return 0
+
+
+def sync_cases(trees, dev, rng, C):
+    """The fanout delta sync's cases (module docstring), each checked
+    against the host arrays in both trees first."""
+    import numpy as np
+    import torch
+
+    n_cap, e_cap = SYNC_TABLES
+    host = [rng.integers(0, 1 << 20, n).astype(np.int32)
+            for n in (n_cap, n_cap, e_cap, e_cap)]
+    truth = [torch.from_numpy(a).to(dev) for a in host]
+    deltas = {name: (np.sort(rng.choice(n_cap, r, replace=False)).astype(np.int32),
+                     np.sort(rng.choice(e_cap, e, replace=False)).astype(np.int32))
+              for name, (r, e) in SYNC_DELTAS.items()}
+    deltas["full pool"] = (np.arange(n_cap, dtype=np.int32), np.arange(e_cap, dtype=np.int32))
+    cases = {}
+    for name, (rows, edges) in deltas.items():
+        fns = {}
+        for tag, m in trees.items():
+            F = m["ops.fanout"]
+            tabs = [torch.zeros_like(t) for t in truth]
+            if hasattr(F, "fanout_sync"):
+                staged = F.stage_delta(rows, edges, *host, dev)
+                fn = (lambda F=F, tabs=tabs, staged=staged, n=(len(rows), len(edges)):
+                      F.fanout_sync(*tabs, staged, *n))
+            else:
+                cols = []
+                for ids, k in ((rows, 0), (edges, 2)):
+                    idx = m["ops.table"].pad_pow2_batches(ids, F.SYNC_BATCH)
+                    cols.append([torch.from_numpy(c).to(dev)
+                                 for c in (idx, host[k][idx], host[k + 1][idx])])
+
+                def fn(F=F, tabs=tabs, cols=cols):
+                    F.scatter_segs(*tabs[:2], *cols[0])
+                    F.scatter_edges(*tabs[2:], *cols[1])
+            fn()
+            for t, w, ids in zip(tabs, truth, (rows, rows, edges, edges)):
+                sel = torch.from_numpy(ids.astype(np.int64)).to(dev)
+                C.max_abs_err([t[sel]], [w[sel]])
+            fns[tag] = fn
+        cases[f"K6+K7 kernels, {name} delta ({len(rows)} rows, {len(edges)} edges)"] = fns
+        if name == "full pool":
+            continue
+        fns = {}
+        for tag, m in trees.items():
+            F = m["ops.fanout"]
+            store = F.DestStore(edge_capacity=e_cap, row_capacity=n_cap,
+                                client_capacity=1024)
+            store.seg_off[:], store.seg_len[:] = host[0], host[1]
+            store.edge_client[:], store.edge_opts[:] = host[2], host[3]
+            mirror = F.FanoutDeviceState(store, device=dev)
+            mirror.sync()  # the full upload
+            r_list, e_list = rows.tolist(), edges.tolist()
+
+            def fn(store=store, mirror=mirror, r_list=r_list, e_list=e_list):
+                store.dirty_rows.extend(r_list)
+                store.dirty_edges.extend(e_list)
+                mirror.sync()
+
+            fn()
+            C.max_abs_err(mirror.tensors(), truth)
+            fns[tag] = fn
+        cases[f"FanoutDeviceState.sync(), {name} delta"] = fns
+    return cases
 
 
 if __name__ == "__main__":
