@@ -24,7 +24,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    edited clones of the table (max_hits below the total; 4,096 extra
    live '#' rows in one chunk, past one block's hit record; an all-dead
    mask; live rows only in the last chunk; B = 1 and 2,048; N = chunk),
-   K3/K4 on one churn sync. Every output must equal the plain PyTorch
+   the fused K3/K4 table sync (`table_sync`) on one churn round's delta,
+   as each of phase 5's syncs sees it (both sides with the residual bytes, rows only, slots only, ids past
+   both tables), on 1 and 1,025 entries a side and on the full table,
+   each table also against the host arrays (rows, slots and residual
+   mask), and `scatter_rows`/`scatter_slots` at the delta's padded
+   [nb, K] batches; timed against nine `index_copy_` calls on the staged
+   views, with one launch's floor (K12 on a scalar) beside it. Every
+   output must equal the plain PyTorch
    version's on the same inputs exactly (integer outputs: the tolerance
    is 0). Times, for every kernel of every phase, its plain version and
    (where one exists) the one PyTorch call computing the same function:
@@ -41,7 +48,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    ~1,000 routes are deleted and re-added and 256 skeleton filters are
    swapped for a different filter of the same skeleton, which takes the
    freed row and bucket while the previous batch is in flight (every
-   sync runs K3/K4). Every topic's answer must hold each filter that the
+   sync stages its dirty rows, their residual bytes and its dirty slots
+   in one buffer: one copy, one `table_sync` launch). Every topic's
+   answer must hold each filter that the
    host path (Router.match_filters: exact dict + trie) gives at both its
    begin and its finish, and only filters it gives at one of them: equal
    to the host path wherever no route of the topic changed in flight.
@@ -49,13 +58,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    escalations, the hash leg's bound floor, amb batches and host
    fallbacks are printed; more than one escalation, or more than
    N_BATCHES + 1 K1 launches, fails (the bound sticks after the first
-   overflow). One line per kernel: its
+   overflow). Printed too: the generation-2 garbage collections that
+   started inside the begin+finish wall and elsewhere in the serve, with
+   their seconds, and the table syncs' launches and entries (rows and
+   slots a sync). One line per kernel: its
    times, its bound and its launches here, and the host legs of the run
    (encode, sync, hash, dense, unpack). Then 8 more batches run under
    torch.profiler for the device's busy share of the begin+finish wall.
 6. Dense-only mode: a second Router(use_hash_index=False) over the same
    routes; warm-up; counters set to 0; 8 batches served and checked as
-   in phase 5; counters read: K2 and K3 must have run, K1 and K4 not.
+   in phase 5; counters read: K2 and `table_sync` must have run, with no
+   slot entries in any sync, and K1 not.
 7. The broker publish path: a Broker(max_levels=16) on the card, its
    router given the same 1,048,576 routes through Router.add_routes;
    100,000 sessions on `pfan/+/x` at QoS i%3, half also on `pfan/#` at
@@ -168,8 +181,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 10. Summary: one line per kernel (times, bound, launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
-   `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1-K4
-   from phase 5, of the dense-only K2 from phase 6, of K5, the fused
+   `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
+   and the fused K3/K4 sync from phase 5 (K3 and K4 are two entries of
+   the one fused record), of the dense-only K2 from phase 6, of K5, the fused
    K6/K7 sync and K12 from phase 7 (K5's two records both show K5's;
    K6 and K7 are two entries of the one fused record), of K8 from phase
    8's server rounds, of K14, K16, K17
@@ -507,15 +521,11 @@ def churn(router, skel, rng) -> None:
 def check_kernels(router, skel, topics, rng):
     """Phase 4: each kernel against its plain version on the same CUDA
     inputs at the slice's shapes. Returns the per-kernel records."""
-    import numpy as np
     import torch
 
-    from emqx_tpu_torch.device import to_device
-    from emqx_tpu_torch.models import router as R
     from emqx_tpu_torch.ops import hash_index as H
     from emqx_tpu_torch.ops import match as M
-    from emqx_tpu_torch.ops.hash_index import BUCKET_W, SlotArrays
-    from emqx_tpu_torch.ops.table import EncodedFilters, next_pow2, pad_pow2_batches
+    from emqx_tpu_torch.ops.table import next_pow2
 
     dt = router.device_table
     dev = dt.device
@@ -587,49 +597,184 @@ def check_kernels(router, skel, topics, rng):
     cases = match_ids_edge_cases(dt.filters(), denc, int(got[2]))
     recs["match_ids_dense_only"]["shape"] += "; edge cases equal: " + "; ".join(cases)
 
-    # K3/K4: one churn sync, applied to copies of the device state
-    churn(router, skel, rng)
-    churn(router, skel, rng)
-    t = router.table
-    rows = pad_pow2_batches(np.unique(np.asarray(t.dirty, np.int32)), R.SYNC_BATCH_SIZE)
-    cols = [to_device(c, dev) for c in (
-        rows, t.words[rows], t.prefix_len[rows], t.has_hash[rows],
-        t.root_wild[rows], t.active[rows])]
-    base = dt.filters()
-    a = EncodedFilters(*(x.clone() for x in base))
-    b = EncodedFilters(*(x.clone() for x in base))
-    R.scatter_rows(a, *cols)
-    R.scatter_rows_ref(b, *cols)
-    err = max_abs_err(a, b)
-    host = EncodedFilters(*(to_device(x, dev) for x in t.snapshot()))
-    err = max(err, max_abs_err(a, host))
-    n3 = int(rows.size)
-    recs["scatter_rows"] = dict(
-        **timed(lambda: R.scatter_rows(a, *cols), lambda: R.scatter_rows_ref(b, *cols)),
-        bytes=2 * n3 * (4 * L + 7) + n3 * 4, ops=0, err=err,
-        shape=f"dirty_rows={len(set(t.dirty))} padded={rows.shape} L={L}",
-    )
-    ix = router.index
-    idx = pad_pow2_batches(np.unique(np.asarray(ix.dirty_slots, np.int32)), R.SYNC_BATCH_SIZE)
-    scols = [to_device(c, dev) for c in (
-        idx, ix.slots.fp[idx], ix.slots.bucket[idx], ix.slots.probe[idx // BUCKET_W])]
-    _meta, sbase = dt.hash_state()
-    a = SlotArrays(*(x.clone() for x in sbase))
-    b = SlotArrays(*(x.clone() for x in sbase))
-    R.scatter_slots(a, *scols)
-    R.scatter_slots_ref(b, *scols)
-    err = max(max_abs_err([x.view(torch.int32) for x in a], [x.view(torch.int32) for x in b]),
-              max_abs_err([x.view(torch.int32) for x in a],
-                          [to_device(x, dev).view(torch.int32) for x in ix.slots]))
-    n4 = int(idx.size)
-    recs["scatter_slots"] = dict(
-        **timed(lambda: R.scatter_slots(a, *scols), lambda: R.scatter_slots_ref(b, *scols)),
-        bytes=n4 * 16 + n4 * 12, ops=0, err=err,
-        shape=f"dirty_slots={len(set(ix.dirty_slots))} padded={idx.shape}",
-    )
+    # K3/K4: the fused table sync on phase 5's churn delta and its edges
+    recs["table_sync"] = table_sync_checks(router, skel, rng, dev)
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs
+
+
+def i32(tables):
+    """uint32 tables as their int32 bits (max_abs_err widens to int64)."""
+    import torch
+
+    return [x.view(torch.int32) if x.dtype == torch.uint32 else x for x in tables]
+
+
+def table_sync_checks(router, skel, rng, dev):
+    """The fused K3/K4 table sync against its plain version, exactly, and
+    every table (the five filter columns, the three slot arrays, the
+    residual mask) against the host arrays (`t.snapshot()`, `ix.slots`,
+    a mask from `ix.residual_rows`): phase 5's churn delta (one churn
+    round, as each of its syncs sees: both sides, with the residual
+    bytes), rows only, slots only,
+    and with ids past both tables, on copies of the stale device state;
+    1 and 1,025 entries a side and the full table (every row and slot)
+    on copies of the host truth with those entries scrambled. Then the
+    reference-shaped `scatter_rows`/`scatter_slots` on the delta's [nb,
+    K] padded batches. The churn delta is timed against nine
+    `index_copy_` calls on the same staged views (ids widened to int64
+    once, outside the timing); its bound counts each row entry's 12 +
+    4L bytes read and 8 + 4L written, each slot entry's 16 read and 12
+    written. The delta stays dirty for phase 5's first sync. Returns the
+    record."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.device import to_device
+    from emqx_tpu_torch.models import router as R
+    from emqx_tpu_torch.ops import transfer as T
+    from emqx_tpu_torch.ops.hash_index import BUCKET_W, SlotArrays
+    from emqx_tpu_torch.ops.table import EncodedFilters, pad_pow2_batches
+
+    dt = router.device_table
+    t, ix = router.table, router.index
+    dt.sync()
+    churn(router, skel, rng)
+    if t.grew or ix.rebuilt:
+        raise AssertionError("phase 5's churn grew the table or rebuilt the index")
+    rows = np.unique(np.asarray(t.dirty, np.int32))
+    sids = np.unique(np.asarray(ix.dirty_slots, np.int32))
+    host, hslots = t.snapshot(), ix.slots
+    N, L = host.words.shape
+    S = len(hslots.fp)
+    mask = np.zeros(N, bool)
+    mask[list(ix.residual_rows)] = True
+    truth = ([to_device(a, dev) for a in host] + [to_device(a, dev) for a in hslots]
+             + [to_device(mask, dev)])
+    stale = list(dt.filters()) + list(dt.hash_state()[1]) + [dt._dev_residual]
+    none = np.zeros(0, np.int32)
+
+    def split(tables):
+        return EncodedFilters(*tables[:5]), SlotArrays(*tables[5:8]), tables[8]
+
+    def run_case(base, r, s, host=host, hslots=hslots):
+        """(tables after the kernel, staged): kernel and plain version on
+        clones of `base`."""
+        staged = R.stage_table_delta(host, r, hslots, s, ix.residual_rows, dev)
+        a = [x.clone() for x in base]
+        b = [x.clone() for x in base]
+        R.table_sync(*split(a), staged, len(r), len(s))
+        R.table_sync_ref(*split(b), staged, len(r), len(s))
+        torch.cuda.synchronize()
+        max_abs_err(i32(a), i32(b))
+        return a, staged
+
+    def held(tables, want, what):
+        max_abs_err(i32(tables), i32(want))
+        return what
+
+    def scrambled(r, s, full=False):
+        """The host truth with rows r and slots s (and their probe words
+        and mask bytes) changed."""
+        x = [y.clone() for y in truth]
+        ri = torch.from_numpy(r.astype(np.int64)).to(dev)
+        si = torch.from_numpy(s.astype(np.int64)).to(dev)
+        for k, y in enumerate(i32(x)):
+            sel = ri if k in (0, 1, 2, 3, 4, 8) else si // BUCKET_W if k == 7 else si
+            if y.dtype == torch.bool:
+                y[sel] = ~y[sel]
+            elif full:
+                y.fill_(-7)
+            else:
+                y[sel] = -7
+        return x
+
+    lines = []
+    # phase 5's churn delta: both sides, one side, ids past both tables
+    a, staged = run_case(stale, rows, sids)
+    n_r, n_s = len(rows), len(sids)
+    n_res = len(ix.residual_rows.intersection(rows.tolist()))
+    lines.append(held(a, truth, f"churn delta rows={n_r} (residual {n_res}) slots={n_s}"))
+    a, _ = run_case(stale, rows, none)
+    lines.append(held(a, truth[:5] + stale[5:8] + truth[8:], "rows only"))
+    a, _ = run_case(stale, none, sids)
+    lines.append(held(a, stale[:5] + truth[5:8] + stale[8:], "slots only"))
+    past_host = EncodedFilters(*(np.concatenate([x, x[:16]]) for x in host))
+    past_slots = SlotArrays(*(np.concatenate([x, x[:16]]) for x in hslots))
+    a, _ = run_case(stale, np.concatenate([rows, np.int32([N, N + 7])]),
+                    np.concatenate([sids, np.int32([S, S + 5])]), past_host, past_slots)
+    lines.append(held(a, truth, "ids past both tables dropped"))
+    # 1 and 1,025 entries a side, and the full table
+    g = np.random.default_rng(9)
+    for n in (1, 1025):
+        r = np.sort(g.choice(N, n, replace=False)).astype(np.int32)
+        s = np.sort(g.choice(S, n, replace=False)).astype(np.int32)
+        a, _ = run_case(scrambled(r, s), r, s)
+        lines.append(held(a, truth, f"{n} a side"))
+    r_all = np.arange(N, dtype=np.int32)
+    s_all = np.arange(S, dtype=np.int32)
+    a, full_staged = run_case(scrambled(r_all, s_all, full=True), r_all, s_all)
+    lines.append(held(a, truth, f"full table rows={N} slots={S}"))
+    fa = split(a)
+    full_dev, full_enq = run_ms(lambda: R.table_sync(*fa, full_staged, N, S))
+    lines.append(f"full table device_ms={full_dev:.6f} enqueue_ms={full_enq:.6f} bound_ms="
+                 f"{1e3 * ((20 + 8 * L) * N + 28 * S) / H100_BYTES_PER_S:.6f}")
+    del a, fa, full_staged
+    # the reference-shaped wrappers on the padded [nb, K] batches
+    idx = pad_pow2_batches(rows, R.SYNC_BATCH_SIZE)
+    cols = [to_device(c, dev) for c in (idx, host.words[idx], host.prefix_len[idx],
+                                        host.has_hash[idx], host.root_wild[idx],
+                                        host.active[idx])]
+    sidx = pad_pow2_batches(sids, R.SYNC_BATCH_SIZE)
+    scols = [to_device(c, dev) for c in (sidx, hslots.fp[sidx], hslots.bucket[sidx],
+                                         hslots.probe[sidx // BUCKET_W])]
+    for name, fn, ref, c, k0, k1 in (
+            ("scatter_rows", R.scatter_rows, R.scatter_rows_ref, cols, 0, 5),
+            ("scatter_slots", R.scatter_slots, R.scatter_slots_ref, scols, 5, 8)):
+        a = [x.clone() for x in stale[k0:k1]]
+        b = [x.clone() for x in stale[k0:k1]]
+        tab = EncodedFilters if k0 == 0 else SlotArrays
+        fn(tab(*a), *c)
+        ref(tab(*b), *c)
+        max_abs_err(i32(a), i32(b))
+        max_abs_err(i32(a), i32(truth[k0:k1]))
+        d_ms, e_ms = run_ms(lambda fn=fn, a=a, tab=tab, c=c: fn(tab(*a), *c))
+        lines.append(f"{name} at [{c[0].shape[0]}, {c[0].shape[1]}] equal, "
+                     f"device_ms={d_ms:.6f} enqueue_ms={e_ms:.6f}")
+
+    # the churn delta timed: the kernel, its plain version, nine index_copy_
+    a = [x.clone() for x in stale]
+    b = [x.clone() for x in stale]
+    c = [x.clone() for x in stale]
+    (rid, words, plen, hh, rw, act, res), (sid, fp, bucket, probe) = \
+        R.staged_columns(staged, n_r, L, n_s)
+    ri, si = rid.long(), sid.long()
+    pi = si // BUCKET_W
+    ci = i32(c)
+
+    def library():
+        for k, v in enumerate((words, plen, hh, rw, act)):
+            ci[k].index_copy_(0, ri, v)
+        ci[5].index_copy_(0, si, fp.view(torch.int32))
+        ci[6].index_copy_(0, si, bucket)
+        ci[7].index_copy_(0, pi, probe.view(torch.int32))
+        ci[8].index_copy_(0, ri, res)
+
+    library()
+    max_abs_err(i32(c), i32(truth))
+    sa, sb = split(a), split(b)
+    rec = dict(
+        **timed(lambda: R.table_sync(*sa, staged, n_r, n_s),
+                lambda: R.table_sync_ref(*sb, staged, n_r, n_s), library),
+        bytes=(20 + 8 * L) * n_r + 28 * n_s, ops=0, err=0,
+    )
+    floor, _ = run_ms(lambda x=torch.tensor(0.5, device=dev): T.add_one(x))
+    rec["shape"] = (f"rows={n_r} slots={n_s} (distinct, unpadded; {n_res} rows residual) "
+                    f"of tables {N} x {L}, {S} slots; one launch's floor (K12, scalar) "
+                    f"device_ms={floor:.6f}; library: nine index_copy_ calls; "
+                    f"equal: " + "; ".join(lines))
+    return rec
 
 
 def match_ids_hash_edge_cases(meta, slots, denc, mh):
@@ -718,11 +863,79 @@ def match_ids_edge_cases(filters, denc, total):
 # --- the slice end to end ------------------------------------------------------
 
 
+class Gen2Collections:
+    """The generation-2 garbage collections while installed
+    (`gc.callbacks`), each one's seconds, split by whether it started
+    inside a timed section (the caller sets `timing` around them). One
+    full collection over the million-route object graph takes ~1.5 s,
+    so whether it lands in a timed window decides that window's rate."""
+
+    def __init__(self):
+        self.timing = False
+        self.timed, self.other = [], []
+        self._start = None
+
+    def __call__(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._start = (time.perf_counter(), self.timing)
+        elif self._start is not None:
+            t0, timed = self._start
+            (self.timed if timed else self.other).append(time.perf_counter() - t0)
+            self._start = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+    def line(self) -> str:
+        return (f"gen2 collections in the timed window {len(self.timed)} "
+                f"({sum(self.timed):.3f} s), elsewhere in the run {len(self.other)} "
+                f"({sum(self.other):.3f} s)")
+
+
+class TableSyncs:
+    """Each DeviceTable delta sync's (row, slot) entry counts while
+    active: DeviceTable.sync calls models.router.table_sync by name, and
+    this wraps it with a recorder; the kernel's launch count is its own."""
+
+    def __enter__(self):
+        from emqx_tpu_torch.models import router as R
+
+        self._mod, self._real = R, R.table_sync
+        self.entries = []
+
+        def recorded(*a):
+            self.entries.append(tuple(a[-2:]))
+            self._real(*a)
+
+        R.table_sync = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.table_sync = self._real
+
+    def line(self) -> str:
+        e = self.entries
+        if not e:
+            return "table syncs 0"
+        return (f"table syncs {len(e)}, row entries a sync median "
+                f"{statistics.median(r for r, _ in e)} max {max(r for r, _ in e)}, "
+                f"slot entries a sync median {statistics.median(s for _, s in e)} "
+                f"max {max(s for _, s in e)}")
+
+
 def serve(router, skel, exact, rng, n_batches: int = N_BATCHES):
     """Phase 5: the pipelined publish stream with churn, every batch
     checked against the host path at its begin and at its finish.
     Returns (topics/s over the begin+finish host wall, escalations,
-    topics served, that wall, topics whose routes changed in flight)."""
+    topics served, that wall, topics whose routes changed in flight,
+    the generation-2 collections of the run: `Gen2Collections`, timed
+    over the same begin+finish sections)."""
     from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
 
     # a fresh collector: the legs and counters read below are this run's
@@ -736,9 +949,11 @@ def serve(router, skel, exact, rng, n_batches: int = N_BATCHES):
     def finish_oldest():
         nonlocal served, busy, moved
         k, topics, p, before = pending.pop(0)
+        gcs.timing = True
         t0 = time.perf_counter()
         got = router.match_filters_finish(p)
         busy += time.perf_counter() - t0
+        gcs.timing = False
         bad = []
         for t, g, b in zip(topics, got, before):
             a = set(router.match_filters(t))
@@ -752,22 +967,25 @@ def serve(router, skel, exact, rng, n_batches: int = N_BATCHES):
                 f"at finish) {bad[:3]}")
         served += len(topics)
 
-    for k, topics in enumerate(batches):
-        t0 = time.perf_counter()
-        p = router.match_filters_begin(topics)
-        busy += time.perf_counter() - t0
-        # host truth as of this batch's launch
-        before = [set(router.match_filters(t)) for t in topics]
-        pending.append((k, topics, p, before))
-        if len(pending) == 2:
+    with Gen2Collections() as gcs:
+        for k, topics in enumerate(batches):
+            gcs.timing = True
+            t0 = time.perf_counter()
+            p = router.match_filters_begin(topics)
+            busy += time.perf_counter() - t0
+            gcs.timing = False
+            # host truth as of this batch's launch
+            before = [set(router.match_filters(t)) for t in topics]
+            pending.append((k, topics, p, before))
+            if len(pending) == 2:
+                finish_oldest()
+            if k + 1 < n_batches:
+                churn(router, skel, rng)
+        while pending:
             finish_oldest()
-        if k + 1 < n_batches:
-            churn(router, skel, rng)
-    while pending:
-        finish_oldest()
     c = router.telemetry.counters
     esc = c.get("hash_overflow_retries_total", 0) + c.get("escalations_total", 0)
-    return served / busy, esc, served, busy, moved
+    return served / busy, esc, served, busy, moved, gcs
 
 
 def device_busy_share(router, skel, exact, rng, n_batches: int = 8):
@@ -779,7 +997,7 @@ def device_busy_share(router, skel, exact, rng, n_batches: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _rate, _esc, served, busy, _moved = serve(router, skel, exact, rng, n_batches)
+        _rate, _esc, served, busy, _moved, _gc = serve(router, skel, exact, rng, n_batches)
         torch.cuda.synchronize()
     return device_seconds(prof), busy, served
 
@@ -2805,7 +3023,7 @@ def mesh_phase(rng, card):
     warmed = router.warmup_shapes(max_batch=BATCH)
     warm_s = time.perf_counter() - t0
     _build.reset_launches()
-    rate, esc, served, busy, moved = serve(router, skel, exact, rng, N_MESH_BATCHES)
+    rate, esc, served, busy, moved, _gc = serve(router, skel, exact, rng, N_MESH_BATCHES)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in _build.KERNELS.items()}
     stages["serve"] = time.perf_counter() - t0
@@ -2901,7 +3119,8 @@ def serve_rates(router, skel, exact, rng, seed: int, card: str) -> None:
 
     out = {"host_encode_ms": host_encode_ms(router, skel, exact, seed)}
     router.warmup_shapes(max_batch=BATCH)
-    out["topics_s"], out["escalations"] = serve(router, skel, exact, rng)[:2]
+    out["topics_s"], out["escalations"], *_, gcs = serve(router, skel, exact, rng)
+    out["gen2_timed"], out["gen2_timed_s"] = len(gcs.timed), round(sum(gcs.timed), 6)
     out["legs_p50_ms"] = {leg: round(h.percentile(50) * 1e3, 4)
                           for leg, h in sorted(router.telemetry.hist.items())}
     dev_s, wall_s, _n = device_busy_share(router, skel, exact, rng)
@@ -2985,14 +3204,17 @@ def main(argv=None) -> int:
     warmed = router.warmup_shapes(max_batch=BATCH)
     warm_s = time.perf_counter() - t0
     _build.reset_launches()
-    rate, esc, served, _busy, moved = serve(router, skel, exact, rng)
+    with TableSyncs() as syncs:
+        rate, esc, served, _busy, moved, gcs = serve(router, skel, exact, rng)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in _build.KERNELS.items()}
     log(f"slice: {served} topics in {N_BATCHES} batches, {rate:.1f} topics/s "
         f"(begin+finish wall, syncs included), overflow_escalations={esc}, "
         f"topics_with_routes_changed_in_flight={moved}, "
         f"warmup_shapes={warmed} in {warm_s:.3f} s, host_build_s={host_s:.3f}, "
-        f"launches={launches} [{card}]")
+        f"{gcs.line()}, launches={launches} [{card}]")
+    log(f"slice table syncs: table_sync launches {launches['table_sync']} over "
+        f"{N_BATCHES} batches; {syncs.line()} [{card}]")
     legs = {leg: {"n": h.total, "sum_s": round(h.sum, 6),
                   "p50_ms": round(h.percentile(50) * 1e3, 4),
                   "p99_ms": round(h.percentile(99) * 1e3, 4)}
@@ -3007,8 +3229,7 @@ def main(argv=None) -> int:
         f"{c.get('ambiguous_batches_total', 0)}, host fallbacks "
         f"{c.get('host_fallback_total', 0)}, host_encode_ms "
         f"{host_encode_ms(router, skel, exact, args.seed):.4f} [{card}]")
-    missing = [n for n in ("match_ids_hash", "match_ids", "scatter_rows",
-                           "scatter_slots") if launches[n] <= 0]
+    missing = [n for n in ("match_ids_hash", "match_ids", "table_sync") if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if floor is not None and (esc > 1 or launches["match_ids_hash"] > N_BATCHES + 1):
@@ -3030,18 +3251,21 @@ def main(argv=None) -> int:
         np.random.default_rng(args.seed), DEVICE, use_hash_index=False)
     dense.warmup_shapes(max_batch=BATCH)
     _build.reset_launches()
-    d_rate, d_esc, d_served, _busy, d_moved = serve(
-        dense, skel, exact, rng, N_DENSE_BATCHES)
+    with TableSyncs() as d_syncs:
+        d_rate, d_esc, d_served, _busy, d_moved, _gc = serve(
+            dense, skel, exact, rng, N_DENSE_BATCHES)
     torch.cuda.synchronize()
     d_launches = {name: k.launches for name, k in _build.KERNELS.items()}
     log(f"dense-only: {d_served} topics in {N_DENSE_BATCHES} batches, "
         f"{d_rate:.1f} topics/s (begin+finish wall, syncs included), "
         f"overflow_escalations={d_esc}, topics_with_routes_changed_in_flight="
-        f"{d_moved}, host_build_s={dense_host_s:.3f}, launches={d_launches} [{card}]")
-    if d_launches["match_ids"] <= 0 or d_launches["scatter_rows"] <= 0:
-        raise AssertionError(f"dense-only mode skipped K2 or K3: {d_launches}")
-    if d_launches["match_ids_hash"] or d_launches["scatter_slots"]:
-        raise AssertionError(f"dense-only mode launched the hash leg: {d_launches}")
+        f"{d_moved}, host_build_s={dense_host_s:.3f}, {d_syncs.line()}, "
+        f"launches={d_launches} [{card}]")
+    if d_launches["match_ids"] <= 0 or d_launches["table_sync"] <= 0:
+        raise AssertionError(f"dense-only mode skipped K2 or the table sync: {d_launches}")
+    if d_launches["match_ids_hash"] or any(n_s for _, n_s in d_syncs.entries):
+        raise AssertionError(f"dense-only mode launched the hash leg or synced slots: "
+                             f"{d_launches}, {d_syncs.line()}")
     del dense
     gc.collect()
     torch.cuda.empty_cache()
@@ -3083,10 +3307,11 @@ def main(argv=None) -> int:
                       "emqx_tpu/ops/match.py:159"),
         "match_ids_dense_only": ("emqx_tpu_torch/ops/csrc/dense_match.cu",
                                  "emqx_tpu/ops/match.py:159"),
-        "scatter_rows": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                         "emqx_tpu/models/router.py:67"),
-        "scatter_slots": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                          "emqx_tpu/models/router.py:100"),
+        # K3 and K4 are one fused launch: both entries read its record
+        "table_sync (K3)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                            "emqx_tpu/models/router.py:67"),
+        "table_sync (K4)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                            "emqx_tpu/models/router.py:100"),
         "resolve_fanout": ("emqx_tpu_torch/ops/csrc/fanout.cu",
                            "emqx_tpu/ops/fanout.py:137"),
         "resolve_fanout_small": ("emqx_tpu_torch/ops/csrc/fanout.cu",

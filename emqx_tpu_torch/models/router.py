@@ -12,9 +12,10 @@ Reproduces the reference v2 routing split (apps/emqx/src/emqx_router.erl):
     (bag semantics of mria route tables).
 
 Device coherence mirrors emqx_router_syncer (apps/emqx/src/
-emqx_router_syncer.erl:57 ?MAX_BATCH_SIZE 1000): dirty rows drain in
-fixed-size [n_batches, K] scatter batches through kernels K3/K4, which
-update the device tensors in place; only capacity growth re-uploads.
+emqx_router_syncer.erl:57 ?MAX_BATCH_SIZE 1000): dirty rows and cuckoo
+slots drain into one staged buffer, which one launch of the fused K3/K4
+kernel (`table_sync`) applies to the device tensors in place; only
+capacity growth re-uploads.
 
 Destinations live twice: in the host dest dicts (the oracle and the
 single-publish path) and in a CSR destination store fed by the same
@@ -60,7 +61,6 @@ from ..ops.table import (
     FilterTable,
     FilterTooDeep,
     next_pow2,
-    pad_pow2_batches,
 )
 from ..parallel.sharded_match import ShardedDeviceTable
 
@@ -74,108 +74,272 @@ SYNC_BATCH_SIZE = 1024  # rows per scatter batch (ref: ?MAX_BATCH_SIZE 1000)
 
 def scatter_rows_ref(
     dev: EncodedFilters,
-    rows: torch.Tensor,  # int32 [n_batches, K]
-    words: torch.Tensor,  # int32 [n_batches, K, L]
-    prefix_len: torch.Tensor,  # int32 [n_batches, K]
-    has_hash: torch.Tensor,  # bool [n_batches, K]
-    root_wild: torch.Tensor,  # bool [n_batches, K]
-    active: torch.Tensor,  # bool [n_batches, K]
+    rows: torch.Tensor,  # int32 row ids, any shape ([n_batches, K] or flat)
+    words: torch.Tensor,  # int32, rows' shape + [L]
+    prefix_len: torch.Tensor,  # int32, rows' shape
+    has_hash: torch.Tensor,  # bool, rows' shape
+    root_wild: torch.Tensor,  # bool, rows' shape
+    active: torch.Tensor,  # bool, rows' shape
+    residual: Optional[torch.Tensor] = None,  # bool [N], updated in place
+    res: Optional[torch.Tensor] = None,  # bool, rows' shape
 ) -> None:
-    """Plain version of K3: write every delta batch into `dev` in
-    place, batch by batch (the reference's scan order)."""
-    for j in range(rows.shape[0]):
-        r = rows[j].to(torch.int64)
-        dev.words[r] = words[j]
-        dev.prefix_len[r] = prefix_len[j]
-        dev.has_hash[r] = has_hash[j]
-        dev.root_wild[r] = root_wild[j]
-        dev.active[r] = active[j]
+    """Plain version of the table sync's row side (K3): write the five
+    filter columns, and the residual-mask bytes where `residual` is
+    given, into `dev` in place. Ids outside the table are dropped, as
+    JAX drops out-of-range scatter updates; a repeated id (the
+    reference's padding) carries the same values every time."""
+    n, levels = dev.words.shape
+    r = rows.reshape(-1).to(torch.int64)
+    keep = (r >= 0) & (r < n)
+    r = r[keep]
+    dev.words[r] = words.reshape(-1, levels)[keep]
+    dev.prefix_len[r] = prefix_len.reshape(-1)[keep]
+    dev.has_hash[r] = has_hash.reshape(-1)[keep]
+    dev.root_wild[r] = root_wild.reshape(-1)[keep]
+    dev.active[r] = active.reshape(-1)[keep]
+    if residual is not None:
+        residual[r] = res.reshape(-1)[keep]
 
 
 def scatter_slots_ref(
     slots: SlotArrays,
-    idx: torch.Tensor,  # int32 [n_batches, K] — flat slot indices
-    fp: torch.Tensor,  # uint32 [n_batches, K]
-    bucket: torch.Tensor,  # int32 [n_batches, K]
-    probe: torch.Tensor,  # uint32 [n_batches, K] — merged probe WORDS
+    idx: torch.Tensor,  # int32 flat slot ids, any shape
+    fp: torch.Tensor,  # uint32, idx's shape
+    bucket: torch.Tensor,  # int32, idx's shape
+    probe: torch.Tensor,  # uint32, idx's shape — merged probe WORDS
 ) -> None:
-    """Plain version of K4: write fp/bucket at the slot ids and the
-    merged probe words at slot // BUCKET_W, in place. uint32 columns
-    are written through their int32 view (same bits; the CPU has no
-    uint32 index_put)."""
-    fp_dev = slots.fp.view(torch.int32)
-    probe_dev = slots.probe.view(torch.int32)
-    for j in range(idx.shape[0]):
-        i = idx[j].to(torch.int64)
-        fp_dev[i] = fp[j].view(torch.int32)
-        slots.bucket[i] = bucket[j]
-        probe_dev[i // BUCKET_W] = probe[j].view(torch.int32)
+    """Plain version of the table sync's slot side (K4): write fp/bucket
+    at the slot ids and the merged probe words at slot // BUCKET_W, in
+    place; slot ids outside the table are dropped with their probe
+    word. uint32 columns are written through their int32 view (same
+    bits; the CPU has no uint32 index_put)."""
+    i = idx.reshape(-1).to(torch.int64)
+    keep = (i >= 0) & (i < slots.fp.shape[0])
+    i = i[keep]
+    slots.fp.view(torch.int32)[i] = fp.reshape(-1).view(torch.int32)[keep]
+    slots.bucket[i] = bucket.reshape(-1)[keep]
+    slots.probe.view(torch.int32)[i // BUCKET_W] = probe.reshape(-1).view(torch.int32)[keep]
 
 
-# --- K3/K4: the CUDA kernels -------------------------------------------------
+def table_delta_layout(n_r: int, levels: int, n_s: int) -> Tuple[int, int, int]:
+    """Byte offsets of a staged table delta: (words, slots, total). The
+    buffer is [rows i32 | prefix_len i32 | has_hash | root_wild | active
+    | residual (bytes) | pad to 16 B | words i32 (n_r x levels) | slots
+    i32 | fp u32 | bucket i32 | probe u32], n_r row entries and n_s slot
+    entries, no padding of either side."""
+    w_off = -(-12 * n_r // 16) * 16
+    s_off = w_off + 4 * n_r * levels
+    return w_off, s_off, s_off + 16 * n_s
 
-_SCATTER_ROWS = CudaKernel(
-    "scatter_rows", "scatter.cu", "emqx_scatter_rows",
-    [P, P, P, P, P, I, I, P, P, P, P, P, P, ctypes.c_longlong, P],
-)
-_SCATTER_SLOTS = CudaKernel(
-    "scatter_slots", "scatter.cu", "emqx_scatter_slots",
-    [P, P, P, I, P, P, P, P, ctypes.c_longlong, P],
-)
+
+def staged_columns(staged: torch.Tensor, n_r: int, levels: int, n_s: int):
+    """The row side's eight columns and the slot side's four, as views of
+    a staged delta (`table_delta_layout`)."""
+    w_off, s_off, total = table_delta_layout(n_r, levels, n_s)
+    i32 = staged[: 8 * n_r].view(torch.int32).view(2, n_r)
+    flags = staged[8 * n_r : 12 * n_r].view(torch.bool).view(4, n_r)
+    words = staged[w_off:s_off].view(torch.int32).view(n_r, levels)
+    sl = staged[s_off:total].view(torch.int32).view(4, n_s)
+    rows = (i32[0], words, i32[1], flags[0], flags[1], flags[2], flags[3])
+    return rows, (sl[0], sl[1].view(torch.uint32), sl[2], sl[3].view(torch.uint32))
 
 
-def scatter_rows(
-    dev: EncodedFilters, rows, words, prefix_len, has_hash, root_wild, active
+def table_sync_ref(
+    dev: EncodedFilters,
+    slots: Optional[SlotArrays],
+    residual: Optional[torch.Tensor],
+    staged: torch.Tensor,
+    n_r: int,
+    n_s: int,
 ) -> None:
-    """In-place batched write of the five filter columns at padded row
-    ids (replaces the donated `_scatter_rows` of the reference). CUDA
-    tensors launch kernel K3; CPU tensors take the plain version."""
-    d = dev.words.device
-    if d.type == "cpu":
-        scatter_rows_ref(dev, rows, words, prefix_len, has_hash, root_wild, active)
-        return
+    """Plain version of the fused K3/K4 table sync: apply a staged delta
+    (`stage_table_delta`) to the filter columns, the residual mask
+    (where given) and the slot arrays, in place."""
+    rows, sl = staged_columns(staged, n_r, dev.words.shape[1], n_s)
+    *cols, res = rows
+    scatter_rows_ref(dev, *cols, residual=residual, res=res)
+    if n_s:
+        scatter_slots_ref(slots, *sl)
+
+
+# --- K3/K4: the fused CUDA kernel --------------------------------------------
+
+_TABLE_SYNC = CudaKernel(
+    "table_sync", "scatter.cu", "emqx_table_sync",
+    [P, P, P, P, P, P, I, I, P, P, P, I,
+     P, P, P, P, P, P, P, ctypes.c_longlong,
+     P, P, P, P, ctypes.c_longlong, P],
+)
+# an empty side of a launch: the row tables (five columns, the mask, N,
+# L), the slot tables (three arrays, n_slots), or either side's columns
+# with their count
+_NO_ROWS = (0, 0, 0, 0, 0, 0, 0, 1)
+_NO_SLOTS = (0, 0, 0, 0)
+_NO_ROW_COLS = (0, 0, 0, 0, 0, 0, 0, 0)
+_NO_SLOT_COLS = (0, 0, 0, 0, 0)
+
+
+def _row_tables(dev: EncodedFilters, residual: Optional[torch.Tensor], d):
+    """The launch's row-table arguments, each table checked: the five
+    columns, the residual mask (0 = none), N and L."""
     n, levels = dev.words.shape
     check_tensor("dev.words", dev.words, torch.int32, (n, levels), d)
     check_tensor("dev.prefix_len", dev.prefix_len, torch.int32, (n,), d)
     for name in ("has_hash", "root_wild", "active"):
         check_tensor(f"dev.{name}", getattr(dev, name), torch.bool, (n,), d)
-    shape = tuple(rows.shape)
-    check_tensor("rows", rows, torch.int32, shape, d)
-    check_tensor("words", words, torch.int32, shape + (levels,), d)
-    check_tensor("prefix_len", prefix_len, torch.int32, shape, d)
-    for name, t in (("has_hash", has_hash), ("root_wild", root_wild), ("active", active)):
-        check_tensor(name, t, torch.bool, shape, d)
-    _SCATTER_ROWS(
-        dev.words.data_ptr(), dev.prefix_len.data_ptr(), dev.has_hash.data_ptr(),
-        dev.root_wild.data_ptr(), dev.active.data_ptr(), n, levels,
-        rows.data_ptr(), words.data_ptr(), prefix_len.data_ptr(),
-        has_hash.data_ptr(), root_wild.data_ptr(), active.data_ptr(),
-        rows.numel(), raw_stream(d),
-    )
+    if residual is not None:
+        check_tensor("residual", residual, torch.bool, (n,), d)
+    return (dev.words.data_ptr(), dev.prefix_len.data_ptr(), dev.has_hash.data_ptr(),
+            dev.root_wild.data_ptr(), dev.active.data_ptr(),
+            0 if residual is None else residual.data_ptr(), n, levels)
 
 
-def scatter_slots(slots: SlotArrays, idx, fp, bucket, probe) -> None:
-    """In-place batched write of the cuckoo slot arrays (replaces the
-    donated `_scatter_slots` of the reference). CUDA tensors launch
-    kernel K4; CPU tensors take the plain version."""
-    d = slots.fp.device
-    if d.type == "cpu":
-        scatter_slots_ref(slots, idx, fp, bucket, probe)
-        return
+def _slot_tables(slots: SlotArrays, d):
+    """The launch's slot-table arguments, each array checked."""
     n_slots = slots.fp.shape[0]
     check_tensor("slots.fp", slots.fp, torch.uint32, (n_slots,), d)
     check_tensor("slots.bucket", slots.bucket, torch.int32, (n_slots,), d)
     check_tensor("slots.probe", slots.probe, torch.uint32, (n_slots // BUCKET_W,), d)
+    return slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(), n_slots
+
+
+def stage_table_delta(
+    host: EncodedFilters,
+    rows: np.ndarray,
+    slots: Optional[SlotArrays],
+    sids: np.ndarray,
+    residual_rows: Optional[Set[int]],
+    device: torch.device,
+) -> torch.Tensor:
+    """One uint8 buffer on `device` (`table_delta_layout`), packed on the
+    host and moved in one copy: the host table's columns at `rows` and
+    the slot arrays at `sids` (both sorted and distinct, no padding),
+    and each row's residual byte, `row in residual_rows` (0 without an
+    index). The `staged` argument of table_sync."""
+    n_r, n_s = len(rows), len(sids)
+    levels = host.words.shape[1]
+    w_off, s_off, total = table_delta_layout(n_r, levels, n_s)
+    buf = np.empty(total, np.uint8)
+    i32 = buf[: 8 * n_r].view(np.int32).reshape(2, n_r)
+    i32[0] = rows
+    np.take(host.prefix_len, rows, out=i32[1])
+    flags = buf[8 * n_r : 12 * n_r].view(np.bool_).reshape(4, n_r)
+    np.take(host.has_hash, rows, out=flags[0])
+    np.take(host.root_wild, rows, out=flags[1])
+    np.take(host.active, rows, out=flags[2])
+    flags[3] = False
+    if residual_rows and n_r:
+        hit = residual_rows.intersection(rows.tolist())
+        if hit:
+            flags[3][np.searchsorted(rows, np.fromiter(hit, np.int64, len(hit)))] = True
+    buf[12 * n_r : w_off] = 0
+    np.take(host.words, rows, axis=0,
+            out=buf[w_off:s_off].view(np.int32).reshape(n_r, levels))
+    sl = buf[s_off:].view(np.int32).reshape(4, n_s)
+    if n_s:
+        sl[0] = sids
+        np.take(slots.fp, sids, out=sl[1].view(np.uint32))
+        np.take(slots.bucket, sids, out=sl[2])
+        np.take(slots.probe, sids >> 2, out=sl[3].view(np.uint32))
+    return to_device(buf, device)
+
+
+def table_sync(
+    dev: EncodedFilters,
+    slots: Optional[SlotArrays],
+    residual: Optional[torch.Tensor],
+    staged: torch.Tensor,
+    n_r: int,
+    n_s: int,
+) -> None:
+    """A DeviceTable's delta sync in place (the reference's
+    `_scatter_rows`, `_scatter_slots` and residual-mask upload), from one
+    staged buffer (`stage_table_delta`'s layout, no padding). `residual`
+    None leaves the mask alone; `slots` may be None when n_s is 0. CUDA
+    tensors launch the fused K3/K4 kernel once, or not at all when both
+    sides are empty; CPU tensors take the plain version."""
+    if n_r < 0 or n_s < 0:
+        raise ValueError(f"table_sync: negative entry counts ({n_r}, {n_s})")
+    if n_s and slots is None:
+        raise ValueError("table_sync: slot entries but no slot arrays")
+    d = dev.words.device
+    if d.type == "cpu":
+        table_sync_ref(dev, slots, residual, staged, n_r, n_s)
+        return
+    rt = _row_tables(dev, residual, d)
+    st = _NO_SLOTS if slots is None else _slot_tables(slots, d)
+    w_off, s_off, total = table_delta_layout(n_r, rt[-1], n_s)
+    check_tensor("staged", staged, torch.uint8, (total,), d)
+    if n_r + n_s == 0:
+        return
+    p = staged.data_ptr()
+    s = p + s_off
+    _TABLE_SYNC(
+        *rt, *st, p, p + w_off, p + 4 * n_r, p + 8 * n_r, p + 9 * n_r,
+        p + 10 * n_r, 0 if residual is None else p + 11 * n_r, n_r,
+        s, s + 4 * n_s, s + 8 * n_s, s + 12 * n_s, n_s, raw_stream(d),
+    )
+
+
+def scatter_rows(
+    dev: EncodedFilters, rows, words, prefix_len, has_hash, root_wild, active
+) -> None:
+    """In-place batched write of the five filter columns at the reference
+    `_scatter_rows`'s [n_batches, K] padded row ids: the fused K3/K4
+    kernel with no slots and no residual column (CUDA), or its plain
+    version (CPU)."""
+    d = dev.words.device
+    if d.type == "cpu":
+        scatter_rows_ref(dev, rows, words, prefix_len, has_hash, root_wild, active)
+        return
+    rt = _row_tables(dev, None, d)
+    shape = tuple(rows.shape)
+    check_tensor("rows", rows, torch.int32, shape, d)
+    check_tensor("words", words, torch.int32, shape + (rt[-1],), d)
+    check_tensor("prefix_len", prefix_len, torch.int32, shape, d)
+    for name, t in (("has_hash", has_hash), ("root_wild", root_wild), ("active", active)):
+        check_tensor(name, t, torch.bool, shape, d)
+    n = rows.numel()
+    if n == 0:
+        return
+    _TABLE_SYNC(
+        *rt, *_NO_SLOTS, rows.data_ptr(), words.data_ptr(), prefix_len.data_ptr(),
+        has_hash.data_ptr(), root_wild.data_ptr(), active.data_ptr(), 0, n,
+        *_NO_SLOT_COLS, raw_stream(d),
+    )
+
+
+def scatter_slots(slots: SlotArrays, idx, fp, bucket, probe) -> None:
+    """In-place batched write of the cuckoo slot arrays at the reference
+    `_scatter_slots`'s [n_batches, K] padded slot ids: the fused K3/K4
+    kernel with no rows (CUDA), or its plain version (CPU)."""
+    d = slots.fp.device
+    if d.type == "cpu":
+        scatter_slots_ref(slots, idx, fp, bucket, probe)
+        return
+    st = _slot_tables(slots, d)
     shape = tuple(idx.shape)
     check_tensor("idx", idx, torch.int32, shape, d)
     check_tensor("fp", fp, torch.uint32, shape, d)
     check_tensor("bucket", bucket, torch.int32, shape, d)
     check_tensor("probe", probe, torch.uint32, shape, d)
-    _SCATTER_SLOTS(
-        slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(),
-        n_slots, idx.data_ptr(), fp.data_ptr(), bucket.data_ptr(),
-        probe.data_ptr(), idx.numel(), raw_stream(d),
+    n = idx.numel()
+    if n == 0:
+        return
+    _TABLE_SYNC(
+        *_NO_ROWS, *st, *_NO_ROW_COLS,
+        idx.data_ptr(), fp.data_ptr(), bucket.data_ptr(), probe.data_ptr(), n,
+        raw_stream(d),
     )
+
+
+def _n_batches(n: int) -> int:
+    """The reference's pow2 batch count for n sync entries
+    (ops.table.pad_pow2_batches), its telemetry's shape bucket."""
+    return next_pow2(-(-n // SYNC_BATCH_SIZE))
+
+
+_NO_IDS = np.zeros(0, np.int32)
 
 
 class DeviceTable:
@@ -229,7 +393,11 @@ class DeviceTable:
         self._dev = EncodedFilters(*(self._put(a) for a in snap))
         self._synced_capacity = self.table.capacity
 
-    def _sync_index(self) -> None:
+    def _sync_index(self, full: bool) -> np.ndarray:
+        """The index's whole-array uploads: the class metadata when it
+        changed, the slot arrays after a rebuild, the residual mask on a
+        full sync. Returns the dirty slot ids (sorted, distinct) that the
+        delta's launch writes."""
         ix = self.index
         assert ix is not None
         if ix.meta_dirty or self._dev_meta is None:
@@ -237,33 +405,24 @@ class DeviceTable:
             # work is B x C probes, so C tracks the live class count
             self._dev_meta = ClassMeta(*(self._put(a) for a in ix.packed_meta()))
             ix.meta_dirty = False
+        sids = _NO_IDS
         if ix.rebuilt or self._dev_slots is None:
             ix.dirty_slots.clear()
             self._dev_slots = SlotArrays(*(self._put(a) for a in ix.slots))
             ix.rebuilt = False
         elif ix.dirty_slots:
-            dirty = np.unique(np.asarray(ix.dirty_slots, np.int32))
+            sids = np.unique(np.asarray(ix.dirty_slots, np.int32))
             ix.dirty_slots.clear()
-            idx = pad_pow2_batches(dirty, SYNC_BATCH_SIZE)
-            self.telemetry.record_shape(
-                "scatter_slots", (idx.shape[0], len(ix.slots.fp))
-            )
-            put = self._put
-            scatter_slots(
-                self._dev_slots,
-                put(idx),
-                put(ix.slots.fp[idx]),
-                put(ix.slots.bucket[idx]),
-                put(ix.slots.probe[idx // BUCKET_W]),
-            )
-        if ix.residual_dirty or self._dev_residual is None or (
-            self._dev_residual.shape[0] != self.table.capacity
-        ):
+        if full or self._dev_residual is None:
             mask = np.zeros(self.table.capacity, bool)
             if ix.residual_rows:
                 mask[list(ix.residual_rows)] = True
             self._dev_residual = self._put(mask)
-            ix.residual_dirty = False
+        # otherwise the delta's row side carries the mask's changes: a
+        # row's residual flag changes only when the row is added or
+        # removed, and such a row is always in the table's dirty list
+        ix.residual_dirty = False
+        return sids
 
     def hash_state(self) -> Tuple[ClassMeta, SlotArrays]:
         assert self._dev_meta is not None and self._dev_slots is not None
@@ -271,7 +430,10 @@ class DeviceTable:
 
     def residual_filters(self) -> EncodedFilters:
         """EncodedFilters view whose active mask covers only residual
-        (budget-overflow) rows — input to the dense kernel."""
+        (budget-overflow) rows — input to the dense kernel. A delta sync
+        rewrites the mask in place, as it does the rows: a begun batch's
+        K2 launch precedes the next sync's launch on the same stream, so
+        it reads the mask and rows it was launched against."""
         assert self._dev is not None and self._dev_residual is not None
         return self._dev._replace(active=self._dev_residual)
 
@@ -289,40 +451,39 @@ class DeviceTable:
         return n
 
     def _sync_impl(self) -> Tuple[int, bool]:
-        """(rows written, was a full re-upload)."""
+        """(rows written, was a full re-upload). A delta sync stages its
+        dirty rows (with their residual bytes) and dirty slots in one
+        buffer and applies it with one copy and one launch of the fused
+        K3/K4 kernel, or none when nothing is dirty; growth re-uploads
+        the rows and the mask whole, a rebuild the slots."""
         t = self.table
-        if self._dev is None or t.grew or t.capacity != self._synced_capacity:
+        ix = self.index
+        full = self._dev is None or t.grew or t.capacity != self._synced_capacity
+        if full:
             n = len(t.dirty)
             t.drain_dirty()
             self._upload_full()
-            if self.index is not None:
-                self._sync_index()
-            return n, True
-        dirty = t.drain_dirty()
-        total = len(dirty)
-        if total == 0:
-            if self.index is not None:
-                self._sync_index()
-            return 0, False
-        # pad to [n_batches, K] via the shared sync shape discipline
-        # (ops.table.pad_pow2_batches: idempotent padding)
-        rows = pad_pow2_batches(dirty, SYNC_BATCH_SIZE)
-        self.telemetry.record_shape(
-            "scatter_rows", (rows.shape[0], t.capacity, t.max_levels)
+            rows = _NO_IDS
+        else:
+            rows = t.drain_dirty()
+            n = len(rows)
+        sids = _NO_IDS if ix is None else self._sync_index(full)
+        n_r, n_s = len(rows), len(sids)
+        if n_r + n_s == 0:
+            return n, full
+        # the reference's shape buckets, so the telemetry reads the same
+        tel = self.telemetry
+        if n_r:
+            tel.record_shape("scatter_rows", (_n_batches(n_r), t.capacity, t.max_levels))
+        if n_s:
+            tel.record_shape("scatter_slots", (_n_batches(n_s), len(ix.slots.fp)))
+        staged = stage_table_delta(
+            t.snapshot(), rows, None if ix is None else ix.slots, sids,
+            None if ix is None else ix.residual_rows, self.device,
         )
-        put = self._put
-        scatter_rows(
-            self._dev,
-            put(rows),
-            put(t.words[rows]),
-            put(t.prefix_len[rows]),
-            put(t.has_hash[rows]),
-            put(t.root_wild[rows]),
-            put(t.active[rows]),
-        )
-        if self.index is not None:
-            self._sync_index()
-        return total, False
+        table_sync(self._dev, self._dev_slots if n_s else None, self._dev_residual,
+                   staged, n_r, n_s)
+        return n, full
 
     def filters(self) -> EncodedFilters:
         assert self._dev is not None, "sync() before matching"

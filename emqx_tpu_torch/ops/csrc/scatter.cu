@@ -10,79 +10,58 @@
 // here the device tensors are updated in place by one launch over all
 // entries.
 //
+// K3 and K4 are one kernel, `emqx_table_sync`: a DeviceTable's whole
+// delta sync in one launch. Threads [0, n_r * L) write filter rows, one
+// thread a (row, level) word; the word-0 thread of a row also writes its
+// prefix_len, has_hash, root_wild and active, and its residual-mask byte
+// where a residual column is given (a null pointer leaves the mask
+// alone). The next n_s threads write cuckoo slots: fp, bucket and the
+// slot's probe word. DeviceTable.sync stages its delta as one byte
+// buffer [rows | prefix_len | has_hash | root_wild | active | residual |
+// pad to 16 B | words (n_r x L) | slots | fp | bucket | probe] in one
+// host->device copy and passes each column as a pointer into it; the
+// residual column carries the mask's changes, since a row's residual
+// flag changes only when the row is added or removed, and such a row is
+// always in the delta. The reference-shaped wrappers scatter_rows /
+// scatter_slots pass their own [nb, K] batches with the other side
+// empty and no residual column.
+//
 // K6 and K7 are one kernel, `emqx_fanout_sync`: a fanout mirror's whole
 // delta sync in one launch. Threads [0, n_r) write segment rows, threads
 // [n_r, n_r + n_e) write edges, as `mesh_sync_k` below fuses K18's two
 // streams. FanoutDeviceState.sync stages its delta as one int32 buffer
 // [ridx n_r | roff n_r | rlen n_r | eidx n_e | ecl n_e | eop n_e] in one
-// host->device copy, with no pow2 padding (CUDA has no recompile to
-// bound), and passes the six columns as pointers into it; the
-// reference-shaped wrappers scatter_segs/scatter_edges pass their own
-// [nb, K] batches with the other side empty. Nothing dirty launches
-// nothing. The sync's ids come from np.unique: sorted and distinct, so
-// neighbouring threads load neighbouring words and, along a run of
-// consecutive ids, store to neighbouring addresses.
+// host->device copy, and passes the six columns as pointers into it;
+// the reference-shaped wrappers scatter_segs/scatter_edges pass their
+// own [nb, K] batches with the other side empty.
+//
+// Both syncs stage with no pow2 padding (CUDA has no recompile to
+// bound), and nothing dirty launches nothing. A sync's ids come from
+// np.unique: sorted and distinct, so neighbouring threads load
+// neighbouring words and, along a run of consecutive ids, store to
+// neighbouring addresses.
 //
 // Write order: real ids are distinct; the only repeats are the padding
 // of the [nb, K] batches, which repeats the last id with the same values
 // (ops/table.py pad_pow2_batches), and probe words of slots that share
 // a bucket, which carry the same host-merged word. Every writer of one
 // address writes the same value, so whichever writer lands last is
-// correct. Ids outside the table are dropped, as JAX drops out-of-range
-// scatter updates.
+// correct. Ids outside a table are dropped, as JAX drops out-of-range
+// scatter updates: a row id past N, a slot id past n_slots and with it
+// its probe word.
 //
 // What bounds it on the H100: a fanout sync moves 20 bytes an entry (an
 // id and two values read, two values written), so phase 7's delta of a
 // few hundred entries is a few KB, nanoseconds of HBM time, and only a
 // delta of ~300k entries or more (6 MB, 2 us at 3.35 TB/s) outweighs the
-// launch's own floor (~2 us, K12 on a scalar); a K3/K4 sync of ~2,000
-// dirty rows (~150 KB) is the same. So one launch a sync, from one
-// staged copy, is the lever; one thread per entry keeps the loads
-// coalesced.
+// launch's own floor (~2 us, K12 on a scalar); a table sync of ~1,250
+// dirty rows and ~1,300 slots (~150 KB) is the same. So one launch a
+// sync, from one staged copy, is the lever; one thread per entry keeps
+// the loads coalesced.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
-
-__global__ void scatter_rows_k(int* __restrict__ words, int* __restrict__ plen,
-                               uint8_t* __restrict__ has_hash,
-                               uint8_t* __restrict__ root_wild,
-                               uint8_t* __restrict__ active, int N, int L,
-                               const int* __restrict__ rows,
-                               const int* __restrict__ w,
-                               const int* __restrict__ p,
-                               const uint8_t* __restrict__ h,
-                               const uint8_t* __restrict__ rw,
-                               const uint8_t* __restrict__ act, long long n) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n * L) return;
-  const long long e = k / L;
-  const int i = static_cast<int>(k - e * L);
-  const int row = rows[e];
-  if (row < 0 || row >= N) return;
-  words[static_cast<size_t>(row) * L + i] = w[k];
-  if (i == 0) {
-    plen[row] = p[e];
-    has_hash[row] = h[e];
-    root_wild[row] = rw[e];
-    active[row] = act[e];
-  }
-}
-
-__global__ void scatter_slots_k(uint32_t* __restrict__ fp, int* __restrict__ bucket,
-                                uint32_t* __restrict__ probe, int n_slots,
-                                const int* __restrict__ idx,
-                                const uint32_t* __restrict__ f,
-                                const int* __restrict__ b,
-                                const uint32_t* __restrict__ pw, long long n) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const int s = idx[e];
-  if (s < 0 || s >= n_slots) return;
-  fp[s] = f[e];
-  bucket[s] = b[e];
-  probe[s / 4] = pw[e];
-}
 
 // threads a block of the fused fanout sync: at phase 7's churn delta (34
 // entries, one CTA either way) 256 read 1.6-6% faster than 128 on an H100
@@ -115,33 +94,76 @@ __global__ void fanout_sync_k(int* __restrict__ seg_off, int* __restrict__ seg_l
   }
 }
 
-}  // namespace
+// threads a block of the table sync: at phase 5's churn delta (1,247
+// rows of 16 levels and 1,284 slots, ~88 CTAs of 256) 256 read 2.4%
+// faster than 128 and 22% faster than 512 on an H100 80GB HBM3 at 700 W
+// (tools/wrapper_ab.py against variants, one call); 128 read 11% faster
+// at twice that delta.
+constexpr int kTableThreads = 256;
 
-// n = nb * K entries. Returns cudaGetLastError().
-extern "C" int emqx_scatter_rows(int* words, int* plen, uint8_t* has_hash,
-                                 uint8_t* root_wild, uint8_t* active, int N,
-                                 int L, const int* rows, const int* w,
-                                 const int* p, const uint8_t* h,
-                                 const uint8_t* rw, const uint8_t* act,
-                                 long long n, cudaStream_t stream) {
-  const long long total = n * L;
-  if (total > 0) {
-    const int blocks = static_cast<int>((total + 255) / 256);
-    scatter_rows_k<<<blocks, 256, 0, stream>>>(words, plen, has_hash, root_wild,
-                                               active, N, L, rows, w, p, h, rw,
-                                               act, n);
+__global__ void table_sync_k(int* __restrict__ words, int* __restrict__ plen,
+                             uint8_t* __restrict__ has_hash,
+                             uint8_t* __restrict__ root_wild,
+                             uint8_t* __restrict__ active,
+                             uint8_t* __restrict__ residual, int N, int L,
+                             uint32_t* __restrict__ fp, int* __restrict__ bucket,
+                             uint32_t* __restrict__ probe, int n_slots,
+                             const int* __restrict__ rows, const int* __restrict__ w,
+                             const int* __restrict__ p, const uint8_t* __restrict__ h,
+                             const uint8_t* __restrict__ rw,
+                             const uint8_t* __restrict__ act,
+                             const uint8_t* __restrict__ res, long long n_r,
+                             const int* __restrict__ sidx,
+                             const uint32_t* __restrict__ f,
+                             const int* __restrict__ b,
+                             const uint32_t* __restrict__ pw, long long n_s) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long nw = n_r * L;
+  if (q < nw) {
+    const long long e = q / L;
+    const int i = static_cast<int>(q - e * L);
+    const int row = rows[e];
+    if (row < 0 || row >= N) return;
+    words[static_cast<long long>(row) * L + i] = w[q];
+    if (i == 0) {
+      plen[row] = p[e];
+      has_hash[row] = h[e];
+      root_wild[row] = rw[e];
+      active[row] = act[e];
+      if (res != nullptr) residual[row] = res[e];
+    }
+  } else if (q < nw + n_s) {
+    const long long e = q - nw;
+    const int s = sidx[e];
+    if (s < 0 || s >= n_slots) return;
+    fp[s] = f[e];
+    bucket[s] = b[e];
+    probe[s / 4] = pw[e];
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int emqx_scatter_slots(uint32_t* fp, int* bucket, uint32_t* probe,
-                                  int n_slots, const int* idx, const uint32_t* f,
-                                  const int* b, const uint32_t* pw, long long n,
-                                  cudaStream_t stream) {
+}  // namespace
+
+// A DeviceTable's delta sync: for e < n_r, row rows[e] of the filter
+// table takes words w[e * L .. e * L + L), prefix_len p[e], the bools
+// h/rw/act[e] and, when res is not null, residual[row] = res[e]; for
+// e < n_s, slot sidx[e] takes fp f[e], bucket b[e] and its probe word
+// probe[sidx[e] / 4] = pw[e]. One launch, none when both sides are empty.
+// Returns cudaGetLastError().
+extern "C" int emqx_table_sync(int* words, int* plen, uint8_t* has_hash,
+                               uint8_t* root_wild, uint8_t* active, uint8_t* residual,
+                               int N, int L, uint32_t* fp, int* bucket, uint32_t* probe,
+                               int n_slots, const int* rows, const int* w, const int* p,
+                               const uint8_t* h, const uint8_t* rw, const uint8_t* act,
+                               const uint8_t* res, long long n_r, const int* sidx,
+                               const uint32_t* f, const int* b, const uint32_t* pw,
+                               long long n_s, cudaStream_t stream) {
+  const long long n = n_r * L + n_s;
   if (n > 0) {
-    const int blocks = static_cast<int>((n + 255) / 256);
-    scatter_slots_k<<<blocks, 256, 0, stream>>>(fp, bucket, probe, n_slots, idx,
-                                                f, b, pw, n);
+    const int blocks = static_cast<int>((n + kTableThreads - 1) / kTableThreads);
+    table_sync_k<<<blocks, kTableThreads, 0, stream>>>(
+        words, plen, has_hash, root_wild, active, residual, N, L, fp, bucket, probe,
+        n_slots, rows, w, p, h, rw, act, res, n_r, sidx, f, b, pw, n_s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -180,7 +202,7 @@ extern "C" int emqx_fanout_sync(int* seg_off, int* seg_len, int n_rows_cap,
 // them. Padding repeats the last dirty id with the same values, and a
 // probe word's writers (the slots of one bucket) carry the same
 // host-merged word, so the write order does not change the result.
-// Bounded like K3/K4: a sync moves a few hundred KB, so the launch
+// Bounded like the table sync: a sync moves a few hundred KB, so the launch
 // dominates.
 
 namespace {

@@ -1,8 +1,9 @@
 """The port's Router and DeviceTable (emqx_tpu_torch.models.router) held
 against emqx_tpu's on the same seeded routes, churn and topics; the
-delta scatters K3/K4 (plain versions) against `_scatter_rows` /
-`_scatter_slots`; device selection; and the port's gates: import
-hygiene, byte-compilation, the kernels' C ABI and the fetch discipline.
+fused K3/K4 table sync (plain version, from one staged buffer) and the
+reference-shaped wrappers against `_scatter_rows` / `_scatter_slots`;
+device selection; and the port's gates: import hygiene,
+byte-compilation, the kernels' C ABI and the fetch discipline.
 """
 
 import ast
@@ -47,7 +48,7 @@ def _t(a):
     return to_device(np.asarray(a), CPU)
 
 
-# --- (i) K3/K4 plain versions vs the JAX scatters ----------------------------
+# --- (i) the K3/K4 table sync's plain versions vs the JAX scatters ------------
 
 
 @pytest.mark.parametrize("seed,n_dirty", [(0, 5), (1, 1500)])
@@ -106,6 +107,255 @@ def test_scatter_slots_equals_reference(seed):
     for w, g, h in zip(want, slots, ix.slots):
         assert np.array_equal(np.asarray(w), g.numpy())
         assert np.array_equal(h, g.numpy())  # == host truth
+
+
+# (n_rows, n_slots, residual column, ids past the tables): rows only,
+# slots only, both sides with and without the residual column; one entry
+# a side, one batch, one past a batch, three batches; ids past both
+# tables, which the reference drops
+TABLE_SYNC_CASES = [
+    (40, 0, True, 0), (0, 40, False, 0), (30, 50, True, 0), (30, 50, False, 0),
+    (1, 1, True, 0), (1024, 1024, True, 0), (1025, 1025, False, 0),
+    (3000, 3000, True, 0), (20, 30, True, 2),
+]
+
+
+@pytest.mark.parametrize("n_rows,n_slots,with_residual,past", TABLE_SYNC_CASES)
+def test_table_sync_ref_equals_reference(n_rows, n_slots, with_residual, past):
+    """The fused sync's plain version, from one unpadded staged buffer,
+    against the reference's `_scatter_rows` then `_scatter_slots` on the
+    same ids padded by pad_pow2_batches, as DeviceTable.sync stages them;
+    the residual mask against the reference mask with the rows' bytes
+    written."""
+    rng = np.random.default_rng(n_rows * 7 + n_slots + past + with_residual)
+    n_cap, levels, s_cap = 4096, 6, 8192
+    # host truth, with room past the device tables for the ids past them
+    host = TR.EncodedFilters(
+        rng.integers(0, 1 << 20, (n_cap + 16, levels)).astype(np.int32),
+        rng.integers(0, levels + 1, n_cap + 16).astype(np.int32),
+        rng.random(n_cap + 16) < 0.5, rng.random(n_cap + 16) < 0.5,
+        rng.random(n_cap + 16) < 0.5)
+    hslots = SlotArrays(
+        rng.integers(0, 1 << 32, s_cap + 64, dtype=np.uint64).astype(np.uint32),
+        rng.integers(-1, 1 << 20, s_cap + 64).astype(np.int32),
+        rng.integers(0, 1 << 32, (s_cap + 64) // 4, dtype=np.uint64).astype(np.uint32))
+    host_res = rng.random(n_cap + 16) < 0.3
+    dev0 = [rng.integers(0, 1 << 20, (n_cap, levels)).astype(np.int32),
+            rng.integers(0, levels + 1, n_cap).astype(np.int32),
+            rng.random(n_cap) < 0.5, rng.random(n_cap) < 0.5, rng.random(n_cap) < 0.5]
+    slots0 = [rng.integers(0, 1 << 32, s_cap, dtype=np.uint64).astype(np.uint32),
+              rng.integers(-1, 1 << 20, s_cap).astype(np.int32),
+              rng.integers(0, 1 << 32, s_cap // 4, dtype=np.uint64).astype(np.uint32)]
+    res0 = rng.random(n_cap) < 0.3
+
+    def ids(n, cap, room):
+        got = rng.choice(cap, n - past if n else 0, replace=False)
+        extra = cap + rng.choice(room, past if n else 0, replace=False)
+        return np.sort(np.concatenate([got, extra])).astype(np.int32)
+
+    rows, sids = ids(n_rows, n_cap, 16), ids(n_slots, s_cap, 64)
+    want = JR.EncodedFilters(*(jnp.asarray(a) for a in dev0))
+    if len(rows):
+        idx = pad_pow2_batches(rows, TR.SYNC_BATCH_SIZE)
+        want = JR._scatter_rows(want, jnp.asarray(idx), *(jnp.asarray(c[idx]) for c in host))
+    want_slots = JH.SlotArrays(*(jnp.asarray(a) for a in slots0))
+    if len(sids):
+        idx = pad_pow2_batches(sids, TR.SYNC_BATCH_SIZE)
+        want_slots = JR._scatter_slots(
+            want_slots, jnp.asarray(idx), jnp.asarray(hslots.fp[idx]),
+            jnp.asarray(hslots.bucket[idx]), jnp.asarray(hslots.probe[idx // JH.BUCKET_W]))
+    want_res = res0.copy()
+    inside = rows[rows < n_cap]
+    want_res[inside] = host_res[inside]
+    residual_rows = {int(r) for r in np.flatnonzero(host_res)}
+    staged = TR.stage_table_delta(host, rows, hslots, sids, residual_rows, CPU)
+    assert staged.shape == (TR.table_delta_layout(len(rows), levels, len(sids))[2],)
+    for fn in (TR.table_sync_ref, TR.table_sync):
+        dev = EncodedFilters(*(_t(a) for a in dev0))
+        slots = SlotArrays(*(_t(a) for a in slots0))
+        res = _t(res0) if with_residual else None
+        fn(dev, slots, res, staged, len(rows), len(sids))
+        for g, w in zip(dev, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        for g, w in zip(slots, want_slots):
+            np.testing.assert_array_equal(g.view(torch.int32).numpy(),
+                                          np.asarray(w).view(np.int32))
+        if with_residual:
+            np.testing.assert_array_equal(res.numpy(), want_res)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_table_sync_refuses_negative_counts(device):
+    """A negative count would point the slot columns before the staged
+    buffer; the wrapper refuses it on either path."""
+    d = torch.device(device)
+    dev = EncodedFilters(torch.zeros((8, 4), dtype=torch.int32, device=d),
+                         torch.zeros(8, dtype=torch.int32, device=d),
+                         *(torch.zeros(8, dtype=torch.bool, device=d) for _ in range(3)))
+    slots = SlotArrays(torch.zeros(16, dtype=torch.uint32, device=d),
+                       torch.zeros(16, dtype=torch.int32, device=d),
+                       torch.zeros(4, dtype=torch.uint32, device=d))
+    staged = torch.zeros(64, dtype=torch.uint8, device=d)
+    with pytest.raises(ValueError, match="negative"):
+        TR.table_sync(dev, slots, None, staged, -1, 4)
+    with pytest.raises(ValueError, match="no slot arrays"):
+        TR.table_sync(dev, None, None, staged, 0, 4)
+
+
+@pytest.mark.parametrize("which", ["table_sync", "scatter_rows", "scatter_slots"])
+def test_failed_table_sync_build_raises_without_plain_fallback(which, monkeypatch, tmp_path):
+    """The table sync and both reference-shaped wrappers reach the one
+    fused kernel; when it fails to build they raise, and no plain
+    version runs in its place."""
+    from emqx_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    # meta tensors stand in for CUDA ones, with a stand-in stream
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda _d=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", None, raising=False)
+    k = _build.KERNELS["table_sync"]
+    monkeypatch.setattr(k, "_fn", None)
+
+    def _never(*_a, **_k):
+        raise AssertionError("plain version ran in place of the kernel")
+
+    for name in ("table_sync_ref", "scatter_rows_ref", "scatter_slots_ref"):
+        monkeypatch.setattr(TR, name, _never)
+    meta = torch.device("meta")
+
+    def z(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=meta)
+
+    dev = EncodedFilters(z((8, 4)), z(8), z(8, torch.bool), z(8, torch.bool), z(8, torch.bool))
+    slots = SlotArrays(z(16, torch.uint32), z(16), z(4, torch.uint32))
+    with pytest.raises(_build.KernelBuildError, match="no sm_90a"):
+        if which == "table_sync":
+            n_bytes = TR.table_delta_layout(2, 4, 3)[2]
+            TR.table_sync(dev, slots, z(8, torch.bool), z(n_bytes, torch.uint8), 2, 3)
+        elif which == "scatter_rows":
+            b = z((1, 4), torch.bool)
+            TR.scatter_rows(dev, z((1, 4)), z((1, 4, 4)), z((1, 4)), b, b, b)
+        else:
+            TR.scatter_slots(slots, z((1, 4)), z((1, 4), torch.uint32), z((1, 4)),
+                             z((1, 4), torch.uint32))
+    assert k.launches == 0
+
+
+def _churn_tables(jt, jix, tt, tix, rng, n_add, n_del, words):
+    """The same seeded churn on the reference's and the port's table and
+    class index: n_del live rows removed, n_add filters added (many past
+    the class budget, so residual rows come and go)."""
+    live = [r for r in range(tt.capacity) if tt.active[r]]
+    for r in sorted(rng.sample(live, min(n_del, len(live)))):
+        for t, ix in ((jt, jix), (tt, tix)):
+            ix.remove_row(r)
+            t.remove(r)
+    for _ in range(n_add):
+        f = random_filter(rng, vocab=words)
+        rows = [t.add(f) for t in (jt, tt)]
+        assert rows[0] == rows[1]
+        jix.add_row(rows[0], jt)
+        tix.add_row(rows[1], tt)
+
+
+def test_device_table_syncs_equal_reference(monkeypatch):
+    """A port DeviceTable on the CPU beside the reference DeviceTable over
+    seeded churn that adds and removes residual rows (a class budget of
+    6): after every sync the rows, the class metadata, the slot arrays
+    and the residual mask equal the reference's, and the shape buckets
+    of both telemetries are the same. A delta sync with no growth or
+    rebuild is one host->device copy and one table_sync call (plus the
+    metadata's five columns when they changed) and leaves the mask
+    tensor in place; a sync with only dirty slots is one of each too;
+    growth re-uploads; nothing dirty copies and calls nothing."""
+    from emqx_tpu.obs.kernel_telemetry import KernelTelemetry as JTel
+    from emqx_tpu.ops.hash_index import ClassIndex as JClassIndex
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry as TTel
+    from emqx_tpu_torch.ops.hash_index import ClassIndex as TClassIndex
+    from emqx_tpu_torch.ops.table import FilterTable as TFilterTable
+
+    copies, calls = [], []
+    real_put, real_sync = TR.to_device, TR.table_sync
+
+    def put(a, device):
+        copies.append(np.asarray(a).nbytes)
+        return real_put(a, device)
+
+    def sync(*a):
+        calls.append(a[-2:])
+        real_sync(*a)
+
+    monkeypatch.setattr(TR, "to_device", put)
+    monkeypatch.setattr(TR, "table_sync", sync)
+    rng = random.Random(3)
+    words = tuple(f"w{k}" for k in range(40)) + ("",)
+    jt, tt = JFilterTable(max_levels=6, capacity=256), TFilterTable(max_levels=6, capacity=256)
+    jix, tix = JClassIndex(6, class_budget=6, min_slots=512), TClassIndex(6, class_budget=6, min_slots=512)
+    jtel, ttel = JTel(), TTel()
+    jdt = JR.DeviceTable(jt, index=jix, telemetry=jtel)
+    tdt = TR.DeviceTable(tt, device="cpu", index=tix, telemetry=ttel)
+
+    def held():
+        for g, w, h in zip(tdt.filters(), jdt.filters(), tt.snapshot()):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(g.numpy(), h)
+        for tpart, jpart in zip(tdt.hash_state(), jdt.hash_state()):
+            for g, w in zip(tpart, jpart):
+                np.testing.assert_array_equal(g.numpy().view(np.int32) if g.dtype == torch.uint32
+                                              else g.numpy(),
+                                              np.asarray(w).view(np.int32)
+                                              if np.asarray(w).dtype == np.uint32 else np.asarray(w))
+        mask = np.zeros(tt.capacity, bool)
+        mask[list(tix.residual_rows)] = True
+        np.testing.assert_array_equal(tdt._dev_residual.numpy(), np.asarray(jdt._dev_residual))
+        np.testing.assert_array_equal(tdt._dev_residual.numpy(), mask)
+        j_keys = {k.lstrip("_"): v for k, v in jtel._shape_keys.items()}
+        assert ttel._shape_keys == j_keys
+        assert ttel.counters.get("recompiles_total") == jtel.counters.get("recompiles_total")
+
+    _churn_tables(jt, jix, tt, tix, rng, 150, 0, words)
+    assert tdt.sync() == jdt.sync()  # the first sync is a full upload
+    assert calls == [] and tix.residual_rows
+    held()
+    deltas = flips = 0
+    for k, (n_add, n_del) in enumerate([(40, 30), (30, 40), (1, 0), (60, 60), (200, 20),
+                                        (0, 50), (45, 45)]):
+        _churn_tables(jt, jix, tt, tix, rng, n_add, n_del, words)
+        grew, rebuilt, meta = tt.grew, tix.rebuilt, tix.meta_dirty
+        n_r, n_s = len(set(tt.dirty)), len(set(tix.dirty_slots))
+        mask_before = tdt._dev_residual
+        was = mask_before.clone()
+        del copies[:], calls[:]
+        assert tdt.sync() == jdt.sync()
+        held()
+        if grew:  # a growth sync: rows and mask whole, the slots' delta launched
+            assert tdt._dev_residual is not mask_before and 5 + 1 <= len(copies)
+            continue
+        deltas += not rebuilt
+        flips += not np.array_equal(was.numpy(), tdt._dev_residual.numpy())
+        assert tdt._dev_residual is mask_before  # updated in place
+        assert calls == [(n_r, 0 if rebuilt else n_s)]
+        assert len(copies) == 1 + 5 * meta + 3 * rebuilt, (k, copies)
+    assert deltas >= 4 and flips >= 3
+    # dirty slots and no dirty rows (a cuckoo kick alone): one of each
+    live = np.flatnonzero(tix.slots.bucket >= 0)[:7].tolist()
+    for ix in (jix, tix):
+        ix.dirty_slots.extend(live)
+    del copies[:], calls[:]
+    assert tdt.sync() == jdt.sync() == 0
+    assert calls == [(0, len(live))] and len(copies) == 1
+    held()
+    # nothing dirty: no copy, no launch
+    del copies[:], calls[:]
+    assert tdt.sync() == jdt.sync() == 0
+    assert calls == [] and copies == []
+    held()
 
 
 # --- (ii) port Router vs reference Router ------------------------------------
@@ -509,7 +759,7 @@ def test_kernel_argtypes_match_the_c_entry_points():
         "mesh_apply_delta", "mesh_match_counts", "mesh_match_ids",
         "mesh_match_ids_hash", "mesh_match_packed", "mesh_slot_delta",
         "mesh_sync", "probe_add_one", "resolve_fanout", "retained_probe",
-        "scatter_rows", "scatter_slots"]
+        "table_sync"]
     for k in _build.KERNELS.values():
         assert list(k.argtypes) == _c_params(k.source, k.symbol), k.name
 

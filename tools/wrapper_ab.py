@@ -12,16 +12,27 @@ calls on the same inputs, parent, this tree, this tree, parent, N
 rounds: K8 (`probe_retained`) at B=8 and B=4096 over a 2^19-bucket table
 about half full, K14 (`_combine_launch`) on phase 9's synthetic rows at
 max_hits 2,048 and 4,096, K12 (`add_one` on a scalar, one launch's
-floor), K6 (`scatter_segs`, one batch of 1,024 ids), and the fanout
+floor), K6 (`scatter_segs`, one batch of 1,024 ids), the fanout
 mirror's delta sync on tables of phase 7's size (SYNC_TABLES): the
 kernels of one sync (the fused `fanout_sync` where a tree has it, else
 `scatter_segs` + `scatter_edges` on the pow2-padded batches its sync
 launched) at phase 7's churn and route-churn deltas and at a full-pool
 delta, and the whole `FanoutDeviceState.sync()` (staging, copies and
 launches) at the two churn deltas, the same ids dirtied again before
-every call. Each reading is
-`chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
-host's enqueue time a call (`enqueue_ms`). One process holds both
+every call; and the router's table delta sync on each tree's own
+Router holding phase 5's route set (`chip_smoke.add_route_set`, the
+same seed in both): the kernels of one sync (the fused `table_sync`
+where a tree has it, else `scatter_rows` + `scatter_slots` on the
+pow2-padded batches its sync launched) at one and two rounds of phase
+5's churn (`chip_smoke.churn`), and the whole `DeviceTable.sync()`
+(staging, copies, the residual mask and launches) at one round's
+delta, the same rows and slots dirtied again (and the mask marked
+dirty, as every phase 5 sync finds it) before every call. Each reading
+is `chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
+host's enqueue time a call (`enqueue_ms`); a whole `sync()` takes
+longer than a run can hold the stream for, so its card time is also
+read by torch.profiler (`card_ms`: the union of its kernels' and
+copies' device intervals, over the calls). One process holds both
 trees, so the host's speed, which moves between processes, is the same
 for both. Prints one line a case with every reading and the medians,
 then the card's name and power limit.
@@ -44,6 +55,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # (rows, edges): the set-up churn's, and a sync after route churn
 SYNC_TABLES = (1 << 21, 1 << 19)
 SYNC_DELTAS = {"churn": (2, 32), "route churn": (1000, 1000)}
+# rounds of phase 5's churn in a table delta (one is what each of its
+# syncs applies)
+TABLE_ROUNDS = (1, 2)
 
 
 def load_tree(root: Path, name: str):
@@ -82,7 +96,7 @@ def main(argv=None) -> int:
         mods = {m: importlib.import_module(f"{name}.{m}") for m in (
             "ops._build", "ops.retained", "ops.transfer", "ops.fanout",
             "ops.hash_index", "ops.table", "parallel.sharded_match", "convert",
-            "broker.pubsub")}
+            "models.router", "broker.pubsub")}
         mods["ops._build"].build_all()
         trees[tag] = mods
 
@@ -132,21 +146,151 @@ def main(argv=None) -> int:
         for tag, m in trees.items()}
 
     cases.update(sync_cases(trees, dev, rng, C))
+    profiled = set()
+    for name, fns, whole in table_cases(trees, dev, C):
+        cases[name] = fns
+        if whole:
+            profiled.add(name)
 
     for name, fns in cases.items():
         got = {"parent": [], "this": []}
+        card = {"parent": [], "this": []}
         for _ in range(args.rounds):
             for tag in ("parent", "this", "this", "parent"):
                 got[tag].append(C.run_ms(fns[tag]))
+                if name in profiled:
+                    card[tag].append(card_ms(fns[tag], C))
         med = {tag: (statistics.median(d for d, _ in v), statistics.median(e for _, e in v))
                for tag, v in got.items()}
+        extra = ""
+        if name in profiled:
+            extra = (f"; card_ms parent {statistics.median(card['parent']):.6f} this "
+                     f"{statistics.median(card['this']):.6f}, readings parent "
+                     f"{[round(x, 6) for x in card['parent']]} this "
+                     f"{[round(x, 6) for x in card['this']]}")
         print(f"{name}: device_ms parent {med['parent'][0]:.6f} this {med['this'][0]:.6f}; "
               f"enqueue_ms parent {med['parent'][1]:.6f} this {med['this'][1]:.6f}; "
               f"readings (device_ms, enqueue_ms) parent "
               f"{[(round(d, 6), round(e, 6)) for d, e in got['parent']]} this "
-              f"{[(round(d, 6), round(e, 6)) for d, e in got['this']]}", flush=True)
+              f"{[(round(d, 6), round(e, 6)) for d, e in got['this']]}{extra}", flush=True)
     print(C.card_line(), flush=True)
     return 0
+
+
+def card_ms(fn, C, calls: int = 20) -> float:
+    """The card's time a call of `fn` by torch.profiler: the union of the
+    device intervals (kernels and copies) over `calls` calls, over
+    `calls`; 0.0 when the trace holds no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return 1e3 * C.device_seconds(prof) / calls
+
+
+def table_cases(trees, dev, C):
+    """The router's table delta sync (module docstring): yields (name,
+    {tag: fn}, whether the case is a whole sync()), each fn checked
+    against the host arrays in both trees first."""
+    import numpy as np
+    import torch
+
+    built = {}
+    for tag, m in trees.items():
+        R = m["models.router"]
+        rng = np.random.default_rng(0)
+        router = R.Router(max_levels=16, device=dev)
+        skel, _exact, _s = C.add_route_set(router, rng)
+        dt, t, ix = router.device_table, router.table, router.index
+        dt.sync()
+        kernels = {}
+        for k in range(max(TABLE_ROUNDS)):
+            C.churn(router, skel, rng)
+            if k + 1 in TABLE_ROUNDS:
+                kernels[k + 1] = table_kernels(R, m, dt, t, ix, dev, C)
+        first = kernels[1][1]
+        dt.sync()
+        r_list, s_list = first
+
+        def whole(dt=dt, t=t, ix=ix, r_list=r_list, s_list=s_list):
+            t.dirty.extend(r_list)
+            ix.dirty_slots.extend(s_list)
+            ix.residual_dirty = True
+            dt.sync()
+
+        whole()
+        torch.cuda.synchronize()
+        held_tables(dt, t, ix, C)
+        built[tag] = (kernels, whole, len(r_list), len(s_list))
+    for n in TABLE_ROUNDS:
+        n_r, n_s = (len(x) for x in built["this"][0][n][1])
+        yield (f"K3+K4 kernels, {n} churn round(s) ({n_r} rows, {n_s} slots)",
+               {tag: b[0][n][0] for tag, b in built.items()}, False)
+    _k, _w, n_r, n_s = built["this"]
+    yield (f"DeviceTable.sync(), one churn round ({n_r} rows, {n_s} slots)",
+           {tag: b[1] for tag, b in built.items()}, True)
+
+
+def table_kernels(R, m, dt, t, ix, dev, C):
+    """(fn, (row ids, slot ids)): the kernels of the pending delta's sync
+    on clones of the device tables, checked against the host arrays."""
+    import numpy as np
+    import torch
+
+    rows = np.unique(np.asarray(t.dirty, np.int32))
+    sids = np.unique(np.asarray(ix.dirty_slots, np.int32))
+    host, hslots = t.snapshot(), ix.slots
+    dev_t = type(dt.filters())(*(x.clone() for x in dt.filters()))
+    slots = type(dt.hash_state()[1])(*(x.clone() for x in dt.hash_state()[1]))
+    residual = dt._dev_residual.clone()
+    if hasattr(R, "table_sync"):
+        staged = R.stage_table_delta(host, rows, hslots, sids, ix.residual_rows, dev)
+
+        def fn():
+            R.table_sync(dev_t, slots, residual, staged, len(rows), len(sids))
+    else:
+        pad = m["ops.table"].pad_pow2_batches
+        idx, sidx = pad(rows, R.SYNC_BATCH_SIZE), pad(sids, R.SYNC_BATCH_SIZE)
+        cols = [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in (
+            idx, host.words[idx], host.prefix_len[idx], host.has_hash[idx],
+            host.root_wild[idx], host.active[idx])]
+        scols = [torch.from_numpy(np.ascontiguousarray(c).view(np.int32)).to(dev)
+                 for c in (sidx, hslots.fp[sidx], hslots.bucket[sidx],
+                           hslots.probe[sidx // 4])]
+        scols[1], scols[3] = scols[1].view(torch.uint32), scols[3].view(torch.uint32)
+
+        def fn():
+            R.scatter_rows(dev_t, *cols)
+            R.scatter_slots(slots, *scols)
+    fn()
+    torch.cuda.synchronize()
+    ri = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    si = torch.from_numpy(sids.astype(np.int64)).to(dev)
+    for g, h in zip(dev_t, host):
+        C.max_abs_err([g[ri]], [torch.from_numpy(np.ascontiguousarray(h[rows])).to(dev)])
+    for g, h, sel, ids in zip(slots, hslots, (si, si, si // 4), (sids, sids, sids // 4)):
+        C.max_abs_err([g.view(torch.int32)[sel]],
+                      [torch.from_numpy(np.ascontiguousarray(h[ids]).view(np.int32)).to(dev)])
+    return fn, (rows.tolist(), sids.tolist())
+
+
+def held_tables(dt, t, ix, C):
+    """The device table, slot arrays and residual mask equal the host's."""
+    import numpy as np
+    import torch
+
+    for g, h in zip(dt.filters(), t.snapshot()):
+        C.max_abs_err([g], [torch.from_numpy(h).to(g.device)])
+    for g, h in zip(dt.hash_state()[1], ix.slots):
+        C.max_abs_err([g.view(torch.int32)], [torch.from_numpy(h.view(np.int32)).to(g.device)])
+    mask = np.zeros(t.capacity, bool)
+    mask[list(ix.residual_rows)] = True
+    C.max_abs_err([dt._dev_residual], [torch.from_numpy(mask).to(dt._dev_residual.device)])
 
 
 def sync_cases(trees, dev, rng, C):
