@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--serve]
 
 `--serve` runs phases 1-3, then only the serve paths of phases 5, 6 and
-9 (no kernel checks) and prints their rates on one line: the quick way
+9 (no kernel checks) and prints their rates, and phases 5 and 9's leg
+medians and timed generation-2 collections, on one line: the quick way
 to compare two trees in many turns of one call.
 
 Phases (any failure exits non-zero; no phase swallows an exception):
@@ -151,15 +152,25 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    set to 0; 16 pipelined 1024-topic batches of phase 5's mix with
    phase 5's churn between them, every answer checked against the host
    path at begin and at finish as in phase 5; counters read: K14, K16,
-   K17 and the fused K18 sync must have run (steady churn touches rows
-   and slots together, so the standalone row and slot scatters run
-   there only at warm-up). Printed: topics/s, escalations, device
-   batches against host fallbacks, mesh_combine_seconds. Then each mesh
+   K17 and the fused K13/K18 mesh table sync (`mesh_table_sync`: every
+   sync stages its dirty rows, their residual bytes and its dirty slots
+   in one buffer, one copy and one launch a device group) must have
+   run. Printed: topics/s, escalations, device batches against host
+   fallbacks, mesh_combine_seconds, the generation-2 collections in and
+   out of the timed window, the mesh table syncs' launches and entries,
+   and the host legs (encode, sync, hash, dense, unpack). Then each mesh
    kernel against its plain version on the router's own state (K13
-   counts, packed and apply_delta, K14 over both legs' tiles, K15, K16,
-   K17, K18 on a churn's delta, also against host truth), timed as in
-   phase 4 (the plain versions, hundreds of ms a call, over 3 calls
-   both ways); K14 first at its edges on synthetic rows (valid entries
+   counts and packed, K14 over both legs' tiles, K15, K16, K17), timed
+   as in phase 4 (the plain versions, hundreds of ms a call, over 3
+   calls both ways), and `mesh_table_sync` as phase 4 holds
+   `table_sync`: one churn round's delta (both sides with the residual
+   bytes, rows only, slots only, ids past the tables and negative ids),
+   1 and 1,025 entries a side, the full table, the delta on the padded
+   (1, 3) layout and on a group holding sub shards 1 and 3 of four (the
+   owner map), each table against the host arrays too, and the
+   reference-shaped apply_delta, slot delta and fused sync on the
+   delta's padded [nb, K] batches; timed against nine `index_copy_`
+   calls; K14 first at its edges on synthetic rows (valid entries
    scattered, a block cut at max_hits, every valid entry in the last
    shard, counts above the valid entries, nothing valid, max_hits 1,
    the padded (1, 3) layout), each equal to its plain version and
@@ -172,10 +183,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    one 1024-topic batch with the block capacity forced to
    ESCALATION_MH, which both legs must escalate past, against the host
    path, every K14 call of it equal to its plain version. (c) The padded (1, 3) layout with churn, with and without the
-   class index; on the hashed one, counters set to 0 and two route
-   adds that grow the class index (row-only sync: K13 apply_delta) and
-   then the table (full row upload, slot-only sync: K18 slot delta),
-   each answer against the host path; the dry run's Broker(mesh=...)
+   class index; on the hashed one, counters set to 0 and route adds
+   that grow the class index (a row-only sync: K13 apply_delta's work)
+   and then the table (full row upload, a slot-only sync: the K18 slot
+   delta's), each one `mesh_table_sync` launch, each answer against the
+   host path; the dry run's Broker(mesh=...)
    publish of 24 rooms with exact delivery counts;
    DispatchEngine.warmup() reporting 4 shards.
 10. Summary: one line per kernel (times, bound, launches, equal), the
@@ -187,8 +199,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    K6/K7 sync and K12 from phase 7 (K5's two records both show K5's;
    K6 and K7 are two entries of the one fused record), of K8 from phase
    8's server rounds, of K14, K16, K17
-   and the fused K18 from phase 9's batches, of K13 apply_delta and the
-   K18 slot delta from phase 9 (c)'s growth syncs; K9-K11, K13's counts
+   and the fused K13/K18 mesh table sync from phase 9's batches (its
+   K13 apply_delta and K18 slot delta entries, three entries of the one
+   record, count phase 9 (c)'s row-only and slot-only growth launches);
+   K9-K11, K13's counts
    and packed and K15 are on no serve path and show 0), then, as the last line,
    `{"ok": true, "device": {...}}`.
 """
@@ -899,25 +913,33 @@ class Gen2Collections:
 
 
 class TableSyncs:
-    """Each DeviceTable delta sync's (row, slot) entry counts while
-    active: DeviceTable.sync calls models.router.table_sync by name, and
-    this wraps it with a recorder; the kernel's launch count is its own."""
+    """Each delta sync's (row, slot) entry counts while active:
+    DeviceTable.sync calls models.router.table_sync by name, and
+    ShardedDeviceTable.sync parallel.sharded_match.mesh_table_sync (with
+    `mesh=True`); this wraps the one called with a recorder. The kernel's
+    launch count is its own."""
+
+    def __init__(self, mesh: bool = False):
+        self._where = ("parallel.sharded_match", "mesh_table_sync") if mesh else (
+            "models.router", "table_sync")
 
     def __enter__(self):
-        from emqx_tpu_torch.models import router as R
+        import importlib
 
-        self._mod, self._real = R, R.table_sync
+        mod_name, fn_name = self._where
+        self._mod = importlib.import_module(f"emqx_tpu_torch.{mod_name}")
+        self._real = getattr(self._mod, fn_name)
         self.entries = []
 
         def recorded(*a):
             self.entries.append(tuple(a[-2:]))
             self._real(*a)
 
-        R.table_sync = recorded
+        setattr(self._mod, fn_name, recorded)
         return self
 
     def __exit__(self, *exc):
-        self._mod.table_sync = self._real
+        setattr(self._mod, self._where[1], self._real)
 
     def line(self) -> str:
         e = self.entries
@@ -2603,12 +2625,9 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     against its plain version on the card, on the mesh router's own
     state at the slice's shapes (BATCH topics, the table's block
     capacity), then timed."""
-    import numpy as np
     import torch
 
     from emqx_tpu_torch.ops import match as M
-    from emqx_tpu_torch.ops.hash_index import BUCKET_W
-    from emqx_tpu_torch.ops.table import pad_pow2_batches
     from emqx_tpu_torch.parallel import mesh as MS
     from emqx_tpu_torch.parallel import sharded_match as S
 
@@ -2752,7 +2771,7 @@ def check_mesh_kernels(router, skel, exact, rng, card):
         shape=f"dp={n_dp} sub={n_sub} max_hits={mh} salt={salt}")
 
     # K13 counts and packed over the full table's tiles
-    counts_k, packed_k, apply_delta = S.make_sharded_kernels(mesh)
+    counts_k, packed_k, _apply = S.make_sharded_kernels(mesh)
     (f_all,) = dt._dev
     n_loc = int(f_all.words.shape[0]) // n_sub
     cnt = counts_k(dt._dev, (t_dev,))
@@ -2783,66 +2802,251 @@ def check_mesh_kernels(router, skel, exact, rng, card):
         shape=shape)
     del pk, pk_ref
 
-    # K13 apply_delta, K18 slot delta and fused sync: two churns' deltas
-    # on copies of the mesh state; the router syncs them for real later
-    churn(router, skel, rng)
-    churn(router, skel, rng)
-    t = router.table
-    ix = router.index
-    rows = pad_pow2_batches(np.unique(np.asarray(t.dirty, np.int32)), dt.DELTA_BATCH)
-    sidx = pad_pow2_batches(np.unique(np.asarray(ix.dirty_slots, np.int32)), dt.DELTA_BATCH)
-    stage = dt._stage
-    rcols = [stage(c) for c in (rows, t.words[rows], t.prefix_len[rows], t.has_hash[rows],
-                                t.root_wild[rows], t.active[rows])]
-    scols = [stage(c) for c in (sidx, ix.slots.fp[sidx], ix.slots.bucket[sidx],
-                                ix.slots.probe[sidx // BUCKET_W])]
-    base_f, base_s = dt._dev, S._slot_cols(dt._dev_slots)
-    host_f = MS.put_filters(t.snapshot(), mesh)
-    sfp, sbkt = MS.pad_slots(np.array(ix.slots.fp), np.array(ix.slots.bucket), n_sub)
-    host_s = (MS.put_sub(sfp, mesh), MS.put_sub(sbkt, mesh),
-              MS.put_sub(np.array(ix.slots.probe), mesh))
-    out = {}
-    for name, run, ref in (
-        ("mesh_apply_delta",
-         lambda f, s: apply_delta(f, *rcols),
-         lambda f, s: S.scatter_owned_rows_ref(f[0], mesh.groups[0].subs, *(c[0] for c in rcols))),
-        ("mesh_slot_delta",
-         lambda f, s: S.make_slot_delta_kernel(mesh)(*s, *scols),
-         lambda f, s: S.scatter_owned_slots_ref(
-             S.SlotArrays(*(x[0] for x in s)), mesh.groups[0].subs, *(c[0] for c in scols))),
-        ("mesh_sync",
-         lambda f, s: S.make_mesh_sync_kernel(mesh)(f, *s, *rcols, *scols),
-         lambda f, s: (S.scatter_owned_rows_ref(f[0], mesh.groups[0].subs, *(c[0] for c in rcols)),
-                       S.scatter_owned_slots_ref(S.SlotArrays(*(x[0] for x in s)),
-                                                 mesh.groups[0].subs, *(c[0] for c in scols)))),
-    ):
-        fa, sa = clone_tree(base_f), clone_tree(base_s)
-        fb, sb = clone_tree(base_f), clone_tree(base_s)
-        run(fa, sa)
-        ref(fb, sb)
-        e = max_abs_err(flat(fa) + flat(sa), flat(fb) + flat(sb))
-        truth_f = flat(host_f) if name != "mesh_slot_delta" else flat(base_f)
-        truth_s = flat(host_s) if name != "mesh_apply_delta" else flat(base_s)
-        e = max(e, max_abs_err(flat(fa) + flat(sa), truth_f + truth_s))
-        out[name] = (e, fa, sa, fb, sb, run, ref)
-    n3, n4 = int(rows.size), int(sidx.size)
-    row_bytes = 2 * n3 * (4 * L + 7) + n3 * 4
-    slot_bytes = n4 * 16 + n4 * 12
-    for name, nbytes, shape in (
-        ("mesh_apply_delta", row_bytes, f"dirty_rows={len(set(t.dirty))} padded={rows.shape}"),
-        ("mesh_slot_delta", slot_bytes,
-         f"dirty_slots={len(set(ix.dirty_slots))} padded={sidx.shape}"),
-        ("mesh_sync", row_bytes + slot_bytes, f"rows {rows.shape} + slots {sidx.shape}"),
-    ):
-        e, fa, sa, fb, sb, run, ref = out[name]
-        recs[name] = dict(
-            **timed(lambda: run(fa, sa), lambda: ref(fb, sb), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
-            bytes=nbytes, ops=0, err=e,
-            shape=f"shards={n_sub} {shape}")
-    del out, host_f, host_s
+    # K13 apply_delta and K18: the fused mesh table sync on phase 9's
+    # churn delta and its edges; the router syncs the delta for real later
+    recs["mesh_table_sync"] = mesh_table_sync_checks(router, skel, rng, card)
     torch.cuda.synchronize()
     set_bounds(recs)
     return recs
+
+
+def mesh_table_sync_checks(router, skel, rng, card):
+    """The fused K13/K18 mesh table sync (`mesh_table_sync`) against its
+    plain version, exactly, and every table (the five filter columns,
+    the three slot arrays, the residual mask, in the mesh's layout)
+    against the host arrays (`put_filters(t.snapshot())`, the padded
+    slots, a mask from `ix.residual_rows`): phase 9's churn delta (one
+    churn round, as each of its syncs sees: both sides, with the residual
+    bytes), rows only, slots only, and with ids past the tables and
+    negative ids, on copies of the stale mesh state; 1 and 1,025 entries
+    a side and the full table on copies of the host truth with those
+    entries scrambled; the churn delta on the padded (1, 3) layout and on
+    a group that holds sub shards 1 and 3 of four (the owner map, which
+    only a second card reaches otherwise). Then the three
+    reference-shaped wrappers (K13 apply_delta, the K18 slot delta and
+    fused sync) on the delta's [nb, K] padded batches. The churn delta is
+    timed against nine `index_copy_` calls on the same staged views (ids
+    widened to int64 once, outside the timing); its bound counts what
+    table_sync's does. The delta stays dirty for the router's next sync.
+    Returns the record."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.device import to_device
+    from emqx_tpu_torch.ops import delta as D
+    from emqx_tpu_torch.ops import transfer as T
+    from emqx_tpu_torch.ops.hash_index import BUCKET_W, SlotArrays
+    from emqx_tpu_torch.ops.table import EncodedFilters, pad_pow2_batches
+    from emqx_tpu_torch.parallel import mesh as MS
+    from emqx_tpu_torch.parallel import sharded_match as S
+
+    dt = router.device_table
+    mesh = dt.mesh
+    t, ix = router.table, router.index
+    dt.sync()
+    churn(router, skel, rng)
+    if t.grew or ix.rebuilt:
+        raise AssertionError("phase 9's churn grew the table or rebuilt the index")
+    rows = np.unique(np.asarray(t.dirty, np.int32))
+    sids = np.unique(np.asarray(ix.dirty_slots, np.int32))
+    host, hslots = t.snapshot(), ix.slots
+    N, L = host.words.shape
+    n_slots = len(hslots.fp)
+    n_sub = mesh.shape["sub"]
+    subs = mesh.groups[0].subs
+    dev = mesh.groups[0].device
+    mask = np.zeros(N, bool)
+    mask[list(ix.residual_rows)] = True
+    none = np.zeros(0, np.int32)
+
+    def tables(n, held):
+        """The host truth as a group holding sub shards `held` of n
+        keeps it (nine tensors)."""
+        fp, bkt = MS.pad_slots(np.array(hslots.fp), np.array(hslots.bucket), n)
+        out = []
+        for a in (*host, fp, bkt, np.array(hslots.probe), mask):
+            a = MS.pad_rows(a, n)
+            loc = a.shape[0] // n
+            out.append(to_device(np.concatenate([a[k * loc:(k + 1) * loc] for k in held]),
+                                 dev))
+        return out
+
+    truth = tables(n_sub, subs)
+    stale = list(dt._dev[0]) + list(dt._dev_slots[0]) + [dt._dev_residual[0]]
+
+    def split(x):
+        return EncodedFilters(*x[:5]), SlotArrays(*x[5:8]), x[8]
+
+    def run_case(m, gi, base, r, s, host=host, hslots=hslots):
+        """(tables after the kernel, staged): the kernel on group gi of
+        mesh m and the plain version, on clones of `base`."""
+        staged = to_device(D.pack_table_delta(host, r, hslots, s, ix.residual_rows), dev)
+        a = [x.clone() for x in base]
+        b = [x.clone() for x in base]
+        if m is mesh:
+            S.mesh_table_sync(m, *((x,) for x in split(a)), (staged,), len(r), len(s))
+        else:
+            S.group_table_sync(m, gi, *split(a), staged, len(r), len(s))
+        S.mesh_table_sync_ref(m.groups[gi].subs, m.shape["sub"], *split(b), staged,
+                              len(r), len(s))
+        torch.cuda.synchronize()
+        max_abs_err(i32(a), i32(b))
+        return a, staged
+
+    def held(tables, want, what):
+        max_abs_err(i32(tables), i32(want))
+        return what
+
+    def scrambled(base, r, s, full=False):
+        """`base` (a layout where each id is its own position) with rows
+        r and slots s (and their probe words and mask bytes) changed."""
+        x = [y.clone() for y in base]
+        ri = torch.from_numpy(r.astype(np.int64)).to(dev)
+        si = torch.from_numpy(s.astype(np.int64)).to(dev)
+        for k, y in enumerate(i32(x)):
+            sel = ri if k in (0, 1, 2, 3, 4, 8) else si // BUCKET_W if k == 7 else si
+            if y.dtype == torch.bool:
+                y[sel] = ~y[sel]
+            elif full:
+                y.fill_(-7)
+            else:
+                y[sel] = -7
+        return x
+
+    lines = []
+    # phase 9's churn delta: both sides, one side, ids past the tables
+    a, staged = run_case(mesh, 0, stale, rows, sids)
+    n_r, n_s = len(rows), len(sids)
+    n_res = len(ix.residual_rows.intersection(rows.tolist()))
+    lines.append(held(a, truth, f"churn delta rows={n_r} (residual {n_res}) slots={n_s}"))
+    a, _ = run_case(mesh, 0, stale, rows, none)
+    lines.append(held(a, truth[:5] + stale[5:8] + truth[8:], "rows only"))
+    a, _ = run_case(mesh, 0, stale, none, sids)
+    lines.append(held(a, stale[:5] + truth[5:8] + stale[8:], "slots only"))
+    past_host = EncodedFilters(*(np.concatenate([x, x[:16]]) for x in host))
+    past_slots = SlotArrays(*(np.concatenate([x, x[:16]]) for x in hslots))
+    a, _ = run_case(mesh, 0, stale, np.sort(np.concatenate([rows, np.int32([N, N + 7, -1, -3])])),
+                    np.sort(np.concatenate([sids, np.int32([n_slots, n_slots + 5, -1, -2])])),
+                    past_host, past_slots)
+    lines.append(held(a, truth, "ids past the tables and negative ids dropped"))
+    # 1 and 1,025 entries a side, and the full table
+    g = np.random.default_rng(9)
+    for n in (1, 1025):
+        r = np.sort(g.choice(N, n, replace=False)).astype(np.int32)
+        s = np.sort(g.choice(n_slots, n, replace=False)).astype(np.int32)
+        a, _ = run_case(mesh, 0, scrambled(truth, r, s), r, s)
+        lines.append(held(a, truth, f"{n} a side"))
+    r_all = np.arange(N, dtype=np.int32)
+    s_all = np.arange(n_slots, dtype=np.int32)
+    a, full_staged = run_case(mesh, 0, scrambled(truth, r_all, s_all, full=True), r_all, s_all)
+    lines.append(held(a, truth, f"full table rows={N} slots={n_slots}"))
+    fa = tuple((x,) for x in split(a))
+    full_dev, full_enq = run_ms(lambda: S.mesh_table_sync(mesh, *fa, (full_staged,), N, n_slots))
+    lines.append(f"full table device_ms={full_dev:.6f} enqueue_ms={full_enq:.6f} bound_ms="
+                 f"{1e3 * ((20 + 8 * L) * N + 28 * n_slots) / H100_BYTES_PER_S:.6f}")
+    del a, fa, full_staged
+    # the churn delta on the padded (1, 3) layout, timed
+    m3 = mesh_of((1, 3))
+    truth3 = tables(3, (0, 1, 2))
+    a, staged3 = run_case(m3, 0, scrambled(truth3, rows, sids), rows, sids)
+    lines.append(held(a, truth3, f"(1, 3) padded layout, {truth3[0].shape[0]} rows"))
+    f3 = tuple((x,) for x in split(a))
+    d3, e3 = run_ms(lambda: S.mesh_table_sync(m3, *f3, (staged3,), n_r, n_s))
+    lines.append(f"(1, 3) device_ms={d3:.6f} enqueue_ms={e3:.6f}")
+    del a, f3, truth3
+    # the owner map: a group holding sub shards 1 and 3 of four (the other
+    # two on a stand-in device that is never touched)
+    devs = np.empty(4, dtype=object)
+    devs[:] = [torch.device("meta"), dev, torch.device("meta"), dev]
+    m13 = MS.Mesh(devs.reshape(1, 4))
+    gi = [grp.device for grp in m13.groups].index(dev)
+
+    def halves(x):
+        loc = x.shape[0] // 4
+        return torch.cat([x[loc:2 * loc], x[3 * loc:]])
+
+    a, staged13 = run_case(m13, gi, [halves(x) for x in stale], rows, sids)
+    lines.append(held(a, [halves(x) for x in truth],
+                      f"a group holding sub shards {m13.groups[gi].subs} of 4"))
+    a13 = split(a)
+    d13, e13 = run_ms(lambda: S.group_table_sync(m13, gi, *a13, staged13, n_r, n_s))
+    lines.append(f"owner map device_ms={d13:.6f} enqueue_ms={e13:.6f}")
+    del a, a13
+    # the reference-shaped wrappers on the padded [nb, K] batches
+    idx = pad_pow2_batches(rows, dt.DELTA_BATCH)
+    sidx = pad_pow2_batches(sids, dt.DELTA_BATCH)
+    rcols = [(to_device(c, dev),) for c in (idx, host.words[idx], host.prefix_len[idx],
+                                           host.has_hash[idx], host.root_wild[idx],
+                                           host.active[idx])]
+    scols = [(to_device(c, dev),) for c in (sidx, hslots.fp[sidx], hslots.bucket[sidx],
+                                           hslots.probe[sidx // BUCKET_W])]
+    apply_delta = S.make_sharded_kernels(mesh)[2]
+    slot_delta = S.make_slot_delta_kernel(mesh)
+    fused = S.make_mesh_sync_kernel(mesh)
+
+    def one(x):
+        return [c[0] for c in x]
+
+    for name, fn, ref, k0, k1 in (
+            ("apply_delta (K13)", lambda x: apply_delta((EncodedFilters(*x),), *rcols),
+             lambda x: S.scatter_owned_rows_ref(EncodedFilters(*x), subs, n_sub, *one(rcols)),
+             0, 5),
+            ("slot delta (K18)", lambda x: slot_delta(*((y,) for y in x), *scols),
+             lambda x: S.scatter_owned_slots_ref(SlotArrays(*x), subs, n_sub, *one(scols)),
+             5, 8),
+            ("fused sync (K18)",
+             lambda x: fused((EncodedFilters(*x[:5]),), *((y,) for y in x[5:]), *rcols,
+                             *scols),
+             lambda x: (S.scatter_owned_rows_ref(EncodedFilters(*x[:5]), subs, n_sub,
+                                                 *one(rcols)),
+                        S.scatter_owned_slots_ref(SlotArrays(*x[5:]), subs, n_sub,
+                                                  *one(scols))),
+             0, 8)):
+        a = [x.clone() for x in stale[k0:k1]]
+        b = [x.clone() for x in stale[k0:k1]]
+        fn(a)
+        ref(b)
+        max_abs_err(i32(a), i32(b))
+        max_abs_err(i32(a), i32(truth[k0:k1]))
+        d_ms, e_ms = run_ms(lambda fn=fn, a=a: fn(a))
+        lines.append(f"{name} at [{idx.shape[0]}, {idx.shape[1]}] + [{sidx.shape[0]}, "
+                     f"{sidx.shape[1]}] equal, device_ms={d_ms:.6f} enqueue_ms={e_ms:.6f}")
+
+    # the churn delta timed: the kernel, its plain version, nine index_copy_
+    a = [x.clone() for x in stale]
+    b = [x.clone() for x in stale]
+    c = [x.clone() for x in stale]
+    (rid, words, plen, hh, rw, act, res), (sid, fp, bucket, probe) = \
+        D.staged_columns(staged, n_r, L, n_s)
+    ri, si = rid.long(), sid.long()
+    pi = si // BUCKET_W
+    ci = i32(c)
+
+    def library():
+        for k, v in enumerate((words, plen, hh, rw, act)):
+            ci[k].index_copy_(0, ri, v)
+        ci[5].index_copy_(0, si, fp.view(torch.int32))
+        ci[6].index_copy_(0, si, bucket)
+        ci[7].index_copy_(0, pi, probe.view(torch.int32))
+        ci[8].index_copy_(0, ri, res)
+
+    library()
+    max_abs_err(i32(c), i32(truth))
+    sa = tuple((x,) for x in split(a))
+    sb = split(b)
+    rec = dict(
+        **timed(lambda: S.mesh_table_sync(mesh, *sa, (staged,), n_r, n_s),
+                lambda: S.mesh_table_sync_ref(subs, n_sub, *sb, staged, n_r, n_s), library,
+                plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        bytes=(20 + 8 * L) * n_r + 28 * n_s, ops=0, err=0,
+    )
+    floor, _ = run_ms(lambda x=torch.tensor(0.5, device=dev): T.add_one(x))
+    rec["shape"] = (f"shards={n_sub} rows={n_r} slots={n_s} (distinct, unpadded; {n_res} "
+                    f"rows residual) of tables {N} x {L}, {n_slots} slots; one launch's "
+                    f"floor (K12, scalar) device_ms={floor:.6f}; library: nine index_copy_ "
+                    f"calls; equal: " + "; ".join(lines))
+    log(f"mesh table sync: {rec['shape']} [{card}]")
+    return rec
 
 
 K14_CASES = ("scattered", "cut", "last_shard", "counts_above", "all_invalid", "mh1",
@@ -2904,7 +3108,9 @@ def oracle_check(router, topics, tag):
                                  f"{sorted(router.match_filters(t))}")
 
 
-GROWTH_PATH = ("mesh_apply_delta", "mesh_slot_delta")
+# the growth window's launch kinds: row-only (K13 apply_delta's work) and
+# slot-only (the K18 slot delta's), read from sharded_match.SYNC_LAUNCH_KINDS
+GROWTH_PATH = ("mesh_table_sync (K13 apply_delta)", "mesh_table_sync (K18 slot delta)")
 GROWTH_STEP, GROWTH_STEPS = 50, 40  # routes a growth step adds, steps at most
 
 
@@ -2922,6 +3128,7 @@ def small_mesh_checks(card):
     from emqx_tpu_torch.broker.pubsub import Broker
     from emqx_tpu_torch.models.router import Router
     from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.parallel import sharded_match as S
     from emqx_tpu_torch.parallel.mesh import shard_rows
 
     t0 = time.perf_counter()
@@ -2948,20 +3155,28 @@ def small_mesh_checks(card):
         # the row-only scatter) and the table its rows alone (rows
         # re-uploaded, slots by the slot-only scatter)
         _build.reset_launches()
+        kinds = S.SYNC_LAUNCH_KINDS
+        kinds.update(dict.fromkeys(kinds, 0))
         sizes = [(r.table.capacity, r.index.n_buckets)]
-        for step in range(GROWTH_STEPS):
-            r.add_routes([(f"g{step}/{i}/+", f"g{i}") for i in range(GROWTH_STEP)])
-            oracle_check(r, [f"g{step}/{i}/z" for i in range(0, GROWTH_STEP, 5)] + topics,
-                         f"mesh(1,3) growth {step}")
-            if (r.table.capacity, r.index.n_buckets) != sizes[-1]:
-                sizes.append((r.table.capacity, r.index.n_buckets))
-            torch.cuda.synchronize()
-            growth = {n: _build.KERNELS[n].launches for n in GROWTH_PATH}
-            if min(growth.values()) > 0:
-                break
+        with TableSyncs(mesh=True) as syncs:
+            for step in range(GROWTH_STEPS):
+                r.add_routes([(f"g{step}/{i}/+", f"g{i}") for i in range(GROWTH_STEP)])
+                oracle_check(r, [f"g{step}/{i}/z" for i in range(0, GROWTH_STEP, 5)]
+                             + topics, f"mesh(1,3) growth {step}")
+                if (r.table.capacity, r.index.n_buckets) != sizes[-1]:
+                    sizes.append((r.table.capacity, r.index.n_buckets))
+                growth = dict(zip(GROWTH_PATH, (kinds["rows"], kinds["slots"])))
+                if min(growth.values()) > 0:
+                    break
+        torch.cuda.synchronize()
         if min(growth.values()) <= 0:
-            raise AssertionError(f"the growth syncs skipped a scatter: {growth}, "
+            raise AssertionError(f"the growth syncs skipped a kind: {growth}, "
                                  f"(capacity, buckets) {sizes}")
+        n_synced = sum(1 for e in syncs.entries if sum(e))
+        n_launched = _build.KERNELS["mesh_table_sync"].launches
+        if n_launched != n_synced or sum(kinds.values()) != n_launched:
+            raise AssertionError(f"{n_synced} growth syncs with entries launched "
+                                 f"mesh_table_sync {n_launched} times, by kind {kinds}")
 
     b = Broker(max_levels=6, mesh=mesh_of(MESH))
     delivered = {}
@@ -2989,7 +3204,7 @@ def small_mesh_checks(card):
     return time.perf_counter() - t0, growth
 
 
-MESH_PATH = ("mesh_match_ids_hash", "mesh_match_ids", "combine_pairs", "mesh_sync")
+MESH_PATH = ("mesh_match_ids_hash", "mesh_match_ids", "combine_pairs", "mesh_table_sync")
 
 
 def mesh_phase(rng, card):
@@ -3023,7 +3238,8 @@ def mesh_phase(rng, card):
     warmed = router.warmup_shapes(max_batch=BATCH)
     warm_s = time.perf_counter() - t0
     _build.reset_launches()
-    rate, esc, served, busy, moved, _gc = serve(router, skel, exact, rng, N_MESH_BATCHES)
+    with TableSyncs(mesh=True) as syncs:
+        rate, esc, served, busy, moved, gcs = serve(router, skel, exact, rng, N_MESH_BATCHES)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in _build.KERNELS.items()}
     stages["serve"] = time.perf_counter() - t0
@@ -3036,7 +3252,15 @@ def mesh_phase(rng, card):
         f"(amb fallbacks) {c.get('host_fallback_total', 0)}, "
         f"topics_with_routes_changed_in_flight={moved}, warmup_shapes={warmed} in "
         f"{warm_s:.3f} s, mesh_combine_seconds p50="
-        f"{1e3 * h.percentile(50) if h else 0:.4f} ms, launches={launches} [{card}]")
+        f"{1e3 * h.percentile(50) if h else 0:.4f} ms, {gcs.line()}, "
+        f"launches={launches} [{card}]")
+    log(f"mesh table syncs: mesh_table_sync launches {launches['mesh_table_sync']} over "
+        f"{N_MESH_BATCHES} batches; {syncs.line()} [{card}]")
+    legs = {leg: {"n": hh.total, "sum_s": round(hh.sum, 6),
+                  "p50_ms": round(hh.percentile(50) * 1e3, 4),
+                  "p99_ms": round(hh.percentile(99) * 1e3, 4)}
+            for leg, hh in sorted(router.telemetry.hist.items())}
+    log(f"mesh slice legs (host clock, telemetry histograms): {json.dumps(legs)}")
     missing = [n for n in MESH_PATH if launches[n] <= 0]
     if missing:
         raise AssertionError(f"mesh kernels never launched on the main path: {missing}")
@@ -3104,8 +3328,9 @@ def host_encode_ms(router, skel, exact, seed: int) -> float:
 def serve_rates(router, skel, exact, rng, seed: int, card: str) -> None:
     """`--serve`: phases 5, 6 and 9's serve paths as the full run drives
     them (warm-up, then the timed batches with churn, every answer
-    checked against the host path), phase 5's busy share and leg
-    medians, without the kernel checks; one line of their rates. Two
+    checked against the host path), phase 5's busy share, phases 5 and
+    9's leg medians and timed generation-2 collections, without the
+    kernel checks; one line of their rates. Two
     trees compare in many turns of one call with it. `host_encode_ms`
     (the median of 20 host encodes of one batch, no device work) reads
     the host's own speed in that process, against which a host-bound
@@ -3140,7 +3365,10 @@ def serve_rates(router, skel, exact, rng, seed: int, card: str) -> None:
     skel, exact, _ = add_route_set(mesh, rng9)
     mesh.device_table.sync()
     mesh.warmup_shapes(max_batch=BATCH)
-    out["mesh_topics_s"] = serve(mesh, skel, exact, rng9, N_MESH_BATCHES)[0]
+    out["mesh_topics_s"], *_, gcs = serve(mesh, skel, exact, rng9, N_MESH_BATCHES)
+    out["mesh_gen2_timed"], out["mesh_gen2_timed_s"] = len(gcs.timed), round(sum(gcs.timed), 6)
+    out["mesh_legs_p50_ms"] = {leg: round(h.percentile(50) * 1e3, 4)
+                               for leg, h in sorted(mesh.telemetry.hist.items())}
     log(f"serve: {json.dumps(out)} [{card}]")
 
 
@@ -3292,7 +3520,7 @@ def main(argv=None) -> int:
                          retained_probe=k8_launches)
     for name in b_recs:
         path_launches[name] = b_launches[name.replace("resolve_fanout_small", "resolve_fanout")]
-    for name in m_recs:
+    for name in list(m_recs) + list(GROWTH_PATH):
         path_launches[name] = m_launches[name]
     for name, r in recs.items():
         log(f"kernel {name}: {times_line(r)} "
@@ -3335,8 +3563,12 @@ def main(argv=None) -> int:
                               "emqx_tpu/parallel/sharded_match.py:58"),
         "mesh_match_packed": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
                               "emqx_tpu/parallel/sharded_match.py:58"),
-        "mesh_apply_delta": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                             "emqx_tpu/parallel/sharded_match.py:58"),
+        # K13 apply_delta and K18 are one fused launch: the three entries
+        # read its record; apply_delta and the slot delta count the
+        # growth window's row-only and slot-only launches (the wrapper's
+        # tally by kind, sharded_match.SYNC_LAUNCH_KINDS)
+        "mesh_table_sync (K13 apply_delta)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                                              "emqx_tpu/parallel/sharded_match.py:58"),
         "combine_pairs": ("emqx_tpu_torch/ops/csrc/combine.cu",
                           "emqx_tpu/parallel/sharded_match.py:146"),
         "combine_probe": ("emqx_tpu_torch/ops/csrc/combine.cu",
@@ -3345,10 +3577,10 @@ def main(argv=None) -> int:
                            "emqx_tpu/parallel/sharded_match.py:202"),
         "mesh_match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                                 "emqx_tpu/parallel/sharded_match.py:260"),
-        "mesh_slot_delta": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                            "emqx_tpu/parallel/sharded_match.py:439"),
-        "mesh_sync": ("emqx_tpu_torch/ops/csrc/scatter.cu",
-                      "emqx_tpu/parallel/sharded_match.py:493"),
+        "mesh_table_sync (K18 slot delta)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                                             "emqx_tpu/parallel/sharded_match.py:439"),
+        "mesh_table_sync (K18)": ("emqx_tpu_torch/ops/csrc/scatter.cu",
+                                  "emqx_tpu/parallel/sharded_match.py:493"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -3356,7 +3588,7 @@ def main(argv=None) -> int:
         r = recs[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": path_launches[key],
+            "replaces": replaces, "launches": path_launches.get(name, path_launches[key]),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

@@ -55,6 +55,7 @@ from ..ops import transfer as transfer_ops
 from ..ops._build import I, P, CudaKernel, raw_stream
 from ..ops.hash_index import BUCKET_W, ClassIndex, ClassMeta, SlotArrays
 from ..ops.host_index import TopicTrie
+from ..ops.delta import pack_table_delta, staged_columns, table_delta_layout
 from ..ops.match import check_tensor
 from ..ops.table import (
     EncodedFilters,
@@ -119,29 +120,6 @@ def scatter_slots_ref(
     slots.fp.view(torch.int32)[i] = fp.reshape(-1).view(torch.int32)[keep]
     slots.bucket[i] = bucket.reshape(-1)[keep]
     slots.probe.view(torch.int32)[i // BUCKET_W] = probe.reshape(-1).view(torch.int32)[keep]
-
-
-def table_delta_layout(n_r: int, levels: int, n_s: int) -> Tuple[int, int, int]:
-    """Byte offsets of a staged table delta: (words, slots, total). The
-    buffer is [rows i32 | prefix_len i32 | has_hash | root_wild | active
-    | residual (bytes) | pad to 16 B | words i32 (n_r x levels) | slots
-    i32 | fp u32 | bucket i32 | probe u32], n_r row entries and n_s slot
-    entries, no padding of either side."""
-    w_off = -(-12 * n_r // 16) * 16
-    s_off = w_off + 4 * n_r * levels
-    return w_off, s_off, s_off + 16 * n_s
-
-
-def staged_columns(staged: torch.Tensor, n_r: int, levels: int, n_s: int):
-    """The row side's eight columns and the slot side's four, as views of
-    a staged delta (`table_delta_layout`)."""
-    w_off, s_off, total = table_delta_layout(n_r, levels, n_s)
-    i32 = staged[: 8 * n_r].view(torch.int32).view(2, n_r)
-    flags = staged[8 * n_r : 12 * n_r].view(torch.bool).view(4, n_r)
-    words = staged[w_off:s_off].view(torch.int32).view(n_r, levels)
-    sl = staged[s_off:total].view(torch.int32).view(4, n_s)
-    rows = (i32[0], words, i32[1], flags[0], flags[1], flags[2], flags[3])
-    return rows, (sl[0], sl[1].view(torch.uint32), sl[2], sl[3].view(torch.uint32))
 
 
 def table_sync_ref(
@@ -211,37 +189,9 @@ def stage_table_delta(
     residual_rows: Optional[Set[int]],
     device: torch.device,
 ) -> torch.Tensor:
-    """One uint8 buffer on `device` (`table_delta_layout`), packed on the
-    host and moved in one copy: the host table's columns at `rows` and
-    the slot arrays at `sids` (both sorted and distinct, no padding),
-    and each row's residual byte, `row in residual_rows` (0 without an
-    index). The `staged` argument of table_sync."""
-    n_r, n_s = len(rows), len(sids)
-    levels = host.words.shape[1]
-    w_off, s_off, total = table_delta_layout(n_r, levels, n_s)
-    buf = np.empty(total, np.uint8)
-    i32 = buf[: 8 * n_r].view(np.int32).reshape(2, n_r)
-    i32[0] = rows
-    np.take(host.prefix_len, rows, out=i32[1])
-    flags = buf[8 * n_r : 12 * n_r].view(np.bool_).reshape(4, n_r)
-    np.take(host.has_hash, rows, out=flags[0])
-    np.take(host.root_wild, rows, out=flags[1])
-    np.take(host.active, rows, out=flags[2])
-    flags[3] = False
-    if residual_rows and n_r:
-        hit = residual_rows.intersection(rows.tolist())
-        if hit:
-            flags[3][np.searchsorted(rows, np.fromiter(hit, np.int64, len(hit)))] = True
-    buf[12 * n_r : w_off] = 0
-    np.take(host.words, rows, axis=0,
-            out=buf[w_off:s_off].view(np.int32).reshape(n_r, levels))
-    sl = buf[s_off:].view(np.int32).reshape(4, n_s)
-    if n_s:
-        sl[0] = sids
-        np.take(slots.fp, sids, out=sl[1].view(np.uint32))
-        np.take(slots.bucket, sids, out=sl[2])
-        np.take(slots.probe, sids >> 2, out=sl[3].view(np.uint32))
-    return to_device(buf, device)
+    """`pack_table_delta`'s buffer moved to `device` in one copy: the
+    `staged` argument of table_sync."""
+    return to_device(pack_table_delta(host, rows, slots, sids, residual_rows), device)
 
 
 def table_sync(

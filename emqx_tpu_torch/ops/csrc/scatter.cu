@@ -1,5 +1,5 @@
-// K3/K4/K6/K7: in-place delta scatters that keep the device tables in
-// step with route and subscription churn.
+// K3/K4/K6/K7 and the mesh's K13 apply_delta/K18: in-place delta scatters
+// that keep the device tables in step with route and subscription churn.
 //
 // Replace emqx_tpu/models/router.py `_scatter_rows` (K3: the five
 // filter-table columns at [nb, K] padded row ids) and `_scatter_slots`
@@ -28,10 +28,11 @@
 //
 // K6 and K7 are one kernel, `emqx_fanout_sync`: a fanout mirror's whole
 // delta sync in one launch. Threads [0, n_r) write segment rows, threads
-// [n_r, n_r + n_e) write edges, as `mesh_sync_k` below fuses K18's two
-// streams. FanoutDeviceState.sync stages its delta as one int32 buffer
-// [ridx n_r | roff n_r | rlen n_r | eidx n_e | ecl n_e | eop n_e] in one
-// host->device copy, and passes the six columns as pointers into it;
+// [n_r, n_r + n_e) write edges, as `mesh_table_sync_k` below fuses the
+// mesh's two streams. FanoutDeviceState.sync stages its delta as one
+// int32 buffer [ridx n_r | roff n_r | rlen n_r | eidx n_e | ecl n_e | eop
+// n_e] in one host->device copy, and passes the six columns as pointers
+// into it;
 // the reference-shaped wrappers scatter_segs/scatter_edges pass their
 // own [nb, K] batches with the other side empty.
 //
@@ -187,155 +188,132 @@ extern "C" int emqx_fanout_sync(int* seg_off, int* seg_len, int n_rows_cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- the mesh's owned scatters ------------------------------------------------
+// --- the mesh's owned table sync ----------------------------------------------
 //
 // K13's `apply_delta` (emqx_tpu/parallel/sharded_match.py
 // `make_sharded_kernels`), K18's `make_slot_delta_kernel` and
-// `make_mesh_sync_kernel`: every shard receives the same [nb, K] batch of
-// GLOBAL ids and writes only what it owns -- filter row r at r - s *
-// local_n, cuckoo slot i at i - s * n_loc, probe word i / 4 at i / 4 - s *
-// nb_loc, for shard s -- and skips every other id (the reference's
-// mode='drop' with its clamp of negative indices; here an index below 0
-// or past the shard is simply never written). A device holds the shards
-// subs[0..n_subs) back to back, so shard subs[k] starts at k * local_n
-// (rows), k * n_loc (slots) and k * nb_loc (probe words); grid.y walks
-// them. Padding repeats the last dirty id with the same values, and a
-// probe word's writers (the slots of one bucket) carry the same
-// host-merged word, so the write order does not change the result.
-// Bounded like the table sync: a sync moves a few hundred KB, so the launch
-// dominates.
+// `make_mesh_sync_kernel` are one kernel, `emqx_mesh_table_sync`: a
+// ShardedDeviceTable's whole delta sync on one device group in one launch.
+// The reference sends every shard the same batch of GLOBAL ids and lets
+// each drop what it does not own; here each entry's owner is computed,
+// one thread an owned word. Filter row r belongs to sub shard s = r /
+// local_n, cuckoo slot i and its probe word i / 4 both to s = i / n_loc
+// (n_loc = nb_loc * 4: shards are bucket-aligned). A group keeps the
+// shards it holds back to back, shard s at position k = sub_pos[s]: row r
+// lands at k * local_n + (r - s * local_n), slot i at k * n_loc + (i - s
+// * n_loc), its probe word at k * nb_loc + (i / 4 - s * nb_loc); a group
+// that holds every shard in order (the only layout on one card) has the
+// identity map, and every id lands at itself. An id below 0, past the n_sub
+// shards, or owned by a shard the group does not hold is dropped, as the
+// reference's mode='drop' (with its clamp of negative indices) drops it
+// on every shard.
+//
+// Threads [0, n_r * L) write filter rows, one thread a (row, level) word;
+// the word-0 thread of a row also writes its prefix_len, has_hash,
+// root_wild and active, and its residual-mask byte where a residual
+// column is given (a null pointer leaves the mask alone). The next n_s
+// threads write slots: fp, bucket and the probe word. ShardedDeviceTable
+// stages its delta as DeviceTable does (ops/delta.py, one buffer, one
+// copy a group) and passes each column as a pointer into it; the
+// reference-shaped wrappers pass their own [nb, K] batches with the other
+// side empty and no residual column.
+//
+// Write order: staged ids are distinct; the [nb, K] batches' padding
+// repeats the last id with the same values, and the probe words of slots
+// that share a bucket carry the same host-merged word. Every writer of
+// one address writes the same value, so the order does not change the
+// result. Bounded like the table sync: a churn delta moves ~150 KB, so
+// one launch a sync is the lever, and one thread an owned entry (not one
+// a held shard, each walking the whole delta) keeps the grid to the
+// delta's size.
 
 namespace {
 
-__device__ __forceinline__ void owned_row(int* __restrict__ words, int* __restrict__ plen,
-                                          uint8_t* __restrict__ has_hash,
-                                          uint8_t* __restrict__ root_wild,
-                                          uint8_t* __restrict__ active, int local_n, int L,
-                                          int s, int k, const int* __restrict__ rows,
-                                          const int* __restrict__ w,
-                                          const int* __restrict__ p,
-                                          const uint8_t* __restrict__ h,
-                                          const uint8_t* __restrict__ rw,
-                                          const uint8_t* __restrict__ act, long long q) {
-  const long long e = q / L;
-  const int i = static_cast<int>(q - e * L);
-  const long long local = static_cast<long long>(rows[e]) - static_cast<long long>(s) * local_n;
-  if (local < 0 || local >= local_n) return;
-  const long long dst = static_cast<long long>(k) * local_n + local;
-  words[dst * L + i] = w[q];
-  if (i == 0) {
-    plen[dst] = p[e];
-    has_hash[dst] = h[e];
-    root_wild[dst] = rw[e];
-    active[dst] = act[e];
-  }
-}
+// threads a block of the mesh table sync (the table sync's choice)
+constexpr int kMeshThreads = 256;
 
-__device__ __forceinline__ void owned_slot(uint32_t* __restrict__ fp,
-                                           int* __restrict__ bucket,
-                                           uint32_t* __restrict__ probe, int n_loc,
-                                           int nb_loc, int s, int k,
-                                           const int* __restrict__ idx,
-                                           const uint32_t* __restrict__ f,
-                                           const int* __restrict__ b,
-                                           const uint32_t* __restrict__ pw, long long e) {
-  const int i = idx[e];
-  if (i < 0) return;
-  const long long ls = static_cast<long long>(i) - static_cast<long long>(s) * n_loc;
-  if (ls >= 0 && ls < n_loc) {
-    fp[static_cast<long long>(k) * n_loc + ls] = f[e];
-    bucket[static_cast<long long>(k) * n_loc + ls] = b[e];
-  }
-  const long long lb = static_cast<long long>(i / 4) - static_cast<long long>(s) * nb_loc;
-  if (lb >= 0 && lb < nb_loc) probe[static_cast<long long>(k) * nb_loc + lb] = pw[e];
-}
-
-__global__ void mesh_rows_k(int* words, int* plen, uint8_t* has_hash, uint8_t* root_wild,
-                            uint8_t* active, int local_n, int L, const int* subs,
-                            const int* rows, const int* w, const int* p, const uint8_t* h,
-                            const uint8_t* rw, const uint8_t* act, long long n) {
+__global__ void mesh_table_sync_k(int* __restrict__ words, int* __restrict__ plen,
+                                  uint8_t* __restrict__ has_hash,
+                                  uint8_t* __restrict__ root_wild,
+                                  uint8_t* __restrict__ active,
+                                  uint8_t* __restrict__ residual, int local_n, int L,
+                                  uint32_t* __restrict__ fp, int* __restrict__ bucket,
+                                  uint32_t* __restrict__ probe, int nb_loc,
+                                  const int* __restrict__ sub_pos, int n_sub,
+                                  const int* __restrict__ rows, const int* __restrict__ w,
+                                  const int* __restrict__ p,
+                                  const uint8_t* __restrict__ h,
+                                  const uint8_t* __restrict__ rw,
+                                  const uint8_t* __restrict__ act,
+                                  const uint8_t* __restrict__ res, long long n_r,
+                                  const int* __restrict__ sidx,
+                                  const uint32_t* __restrict__ f,
+                                  const int* __restrict__ b,
+                                  const uint32_t* __restrict__ pw, long long n_s) {
   const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= n * L) return;
-  owned_row(words, plen, has_hash, root_wild, active, local_n, L, subs[blockIdx.y],
-            blockIdx.y, rows, w, p, h, rw, act, q);
-}
-
-__global__ void mesh_slots_k(uint32_t* fp, int* bucket, uint32_t* probe, int n_loc,
-                             int nb_loc, const int* subs, const int* idx,
-                             const uint32_t* f, const int* b, const uint32_t* pw,
-                             long long n) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  owned_slot(fp, bucket, probe, n_loc, nb_loc, subs[blockIdx.y], blockIdx.y, idx, f, b,
-             pw, e);
-}
-
-// one launch for both streams: threads [0, n_rows * L) write rows, the
-// next n_slots threads write slots
-__global__ void mesh_sync_k(int* words, int* plen, uint8_t* has_hash, uint8_t* root_wild,
-                            uint8_t* active, int local_n, int L, uint32_t* fp,
-                            int* bucket, uint32_t* probe, int n_loc, int nb_loc,
-                            const int* subs, const int* rows, const int* w, const int* p,
-                            const uint8_t* h, const uint8_t* rw, const uint8_t* act,
-                            long long n_rows, const int* idx, const uint32_t* f,
-                            const int* b, const uint32_t* pw, long long n_slots) {
-  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int s = subs[blockIdx.y], k = blockIdx.y;
-  const long long nr = n_rows * L;
-  if (q < nr) {
-    owned_row(words, plen, has_hash, root_wild, active, local_n, L, s, k, rows, w, p, h,
-              rw, act, q);
-  } else if (q < nr + n_slots) {
-    owned_slot(fp, bucket, probe, n_loc, nb_loc, s, k, idx, f, b, pw, q - nr);
+  const long long nw = n_r * L;
+  if (q < nw) {
+    const long long e = q / L;
+    const int i = static_cast<int>(q - e * L);
+    const int row = rows[e];
+    if (row < 0) return;
+    const int s = row / local_n;
+    if (s >= n_sub) return;
+    const int k = sub_pos[s];
+    if (k < 0) return;
+    const long long dst = static_cast<long long>(k) * local_n + (row - s * local_n);
+    words[dst * L + i] = w[q];
+    if (i == 0) {
+      plen[dst] = p[e];
+      has_hash[dst] = h[e];
+      root_wild[dst] = rw[e];
+      active[dst] = act[e];
+      if (res != nullptr) residual[dst] = res[e];
+    }
+  } else if (q < nw + n_s) {
+    const long long e = q - nw;
+    const int slot = sidx[e];
+    if (slot < 0) return;
+    const int n_loc = nb_loc * 4;
+    const int s = slot / n_loc;
+    if (s >= n_sub) return;
+    const int k = sub_pos[s];
+    if (k < 0) return;
+    const long long ds = static_cast<long long>(k) * n_loc + (slot - s * n_loc);
+    const long long db = static_cast<long long>(k) * nb_loc + (slot / 4 - s * nb_loc);
+    fp[ds] = f[e];
+    bucket[ds] = b[e];
+    probe[db] = pw[e];
   }
 }
-
-inline int blocks_of(long long n) { return static_cast<int>((n + 255) / 256); }
 
 }  // namespace
 
-// K13 apply_delta: n = nb * K row entries. Returns cudaGetLastError().
-extern "C" int emqx_mesh_scatter_rows(int* words, int* plen, uint8_t* has_hash,
-                                      uint8_t* root_wild, uint8_t* active, int local_n,
-                                      int L, const int* subs, int n_subs,
-                                      const int* rows, const int* w, const int* p,
-                                      const uint8_t* h, const uint8_t* rw,
-                                      const uint8_t* act, long long n,
-                                      cudaStream_t stream) {
-  if (n > 0)
-    mesh_rows_k<<<dim3(blocks_of(n * L), n_subs), 256, 0, stream>>>(
-        words, plen, has_hash, root_wild, active, local_n, L, subs, rows, w, p, h, rw,
-        act, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K18 slot delta: n = nb * K slot entries. Returns cudaGetLastError().
-extern "C" int emqx_mesh_scatter_slots(uint32_t* fp, int* bucket, uint32_t* probe,
-                                       int n_loc, int nb_loc, const int* subs,
-                                       int n_subs, const int* idx, const uint32_t* f,
-                                       const int* b, const uint32_t* pw, long long n,
-                                       cudaStream_t stream) {
-  if (n > 0)
-    mesh_slots_k<<<dim3(blocks_of(n), n_subs), 256, 0, stream>>>(
-        fp, bucket, probe, n_loc, nb_loc, subs, idx, f, b, pw, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K18 fused sync: a row batch and a slot batch in one launch. Returns
-// cudaGetLastError().
-extern "C" int emqx_mesh_sync(int* words, int* plen, uint8_t* has_hash,
-                              uint8_t* root_wild, uint8_t* active, int local_n, int L,
-                              uint32_t* fp, int* bucket, uint32_t* probe, int n_loc,
-                              int nb_loc, const int* subs, int n_subs, const int* rows,
-                              const int* w, const int* p, const uint8_t* h,
-                              const uint8_t* rw, const uint8_t* act, long long n_rows,
-                              const int* idx, const uint32_t* f, const int* b,
-                              const uint32_t* pw, long long n_slots,
-                              cudaStream_t stream) {
-  const long long n = n_rows * L + n_slots;
-  if (n > 0)
-    mesh_sync_k<<<dim3(blocks_of(n), n_subs), 256, 0, stream>>>(
-        words, plen, has_hash, root_wild, active, local_n, L, fp, bucket, probe, n_loc,
-        nb_loc, subs, rows, w, p, h, rw, act, n_rows, idx, f, b, pw, n_slots);
+// A mesh device group's delta sync: for e < n_r, global row rows[e] takes
+// words w[e * L .. e * L + L), prefix_len p[e], the bools h/rw/act[e] and,
+// when res is not null, its residual byte res[e]; for e < n_s, global slot
+// sidx[e] takes fp f[e], bucket b[e] and its probe word pw[e]; each at its
+// owner shard's position in the group (sub_pos[s], -1 for a shard it
+// does not hold), ids the group does not own dropped. local_n is rows a shard,
+// nb_loc probe words a shard (pass 1 for an empty side). One launch, none
+// when both sides are empty. Returns cudaGetLastError().
+extern "C" int emqx_mesh_table_sync(int* words, int* plen, uint8_t* has_hash,
+                                    uint8_t* root_wild, uint8_t* active,
+                                    uint8_t* residual, int local_n, int L, uint32_t* fp,
+                                    int* bucket, uint32_t* probe, int nb_loc,
+                                    const int* sub_pos, int n_sub, const int* rows,
+                                    const int* w, const int* p, const uint8_t* h,
+                                    const uint8_t* rw, const uint8_t* act,
+                                    const uint8_t* res, long long n_r, const int* sidx,
+                                    const uint32_t* f, const int* b, const uint32_t* pw,
+                                    long long n_s, cudaStream_t stream) {
+  const long long n = n_r * L + n_s;
+  if (n > 0) {
+    const int blocks = static_cast<int>((n + kMeshThreads - 1) / kMeshThreads);
+    mesh_table_sync_k<<<blocks, kMeshThreads, 0, stream>>>(
+        words, plen, has_hash, root_wild, active, residual, local_n, L, fp, bucket,
+        probe, nb_loc, sub_pos, n_sub, rows, w, p, h, rw, act, res, n_r, sidx, f, b, pw,
+        n_s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -82,7 +82,7 @@ class Mesh:
             ))
         self.groups: Tuple[Group, ...] = tuple(groups)
         self._tile_tables: Dict[int, torch.Tensor] = {}
-        self._sub_tables: Dict[int, torch.Tensor] = {}
+        self._sub_pos: Dict[int, torch.Tensor] = {}
 
     @property
     def size(self) -> int:
@@ -102,14 +102,19 @@ class Mesh:
             self._tile_tables[gi] = t
         return t
 
-    def sub_table(self, gi: int) -> torch.Tensor:
-        """int32 [n_subs] on group gi's device: the sub shards it holds,
-        in the order its tensors hold them (the owned scatters' map)."""
-        t = self._sub_tables.get(gi)
+    def sub_pos(self, gi: int) -> torch.Tensor:
+        """int32 [n_sub] on group gi's device: each sub shard's position
+        in the group's tensors, -1 for a shard it does not hold (the
+        owner map of the delta sync; the identity for a group that holds
+        every shard in order). Built once."""
+        t = self._sub_pos.get(gi)
         if t is None:
             g = self.groups[gi]
-            t = to_device(np.array(g.subs, np.int32), g.device)
-            self._sub_tables[gi] = t
+            n_sub = self.shape[SUB_AXIS]
+            pos = np.full(n_sub, -1, np.int32)
+            pos[list(g.subs)] = np.arange(len(g.subs), dtype=np.int32)
+            t = to_device(pos, g.device)
+            self._sub_pos[gi] = t
         return t
 
     def locate(self, dp_i: int, sub_i: int) -> Tuple[int, int]:

@@ -6,15 +6,16 @@ batches over dp (parallel/mesh.py). Per (dp, sub) tile the per-shard
 programs run on the tile's own slices and emit global ids; their
 compacted results are then combined across the sub axis on the device
 (K14), so a dispatch fetches one [n_dp, mh] buffer whatever the shard
-count. Route churn reaches every shard as one batch of global ids, and
-each shard writes only the rows, slots and probe words it owns.
+count. Route churn reaches each device group as one staged buffer of
+global ids (ops/delta.py), and one thread an entry writes it at its
+owner shard's position: the rows, slots and probe words each shard owns.
 
 Kernels (each a hand-written CUDA kernel beside its plain PyTorch
 version, which CPU tensors take):
 
   K13  `make_sharded_kernels`: per-tile counts and packed bitmap (the
        dense forms kernel, csrc/dense_forms.cu) and `apply_delta`, the
-       owned-row scatter (csrc/scatter.cu)
+       owned-row scatter (`mesh_table_sync` with no slots)
   K14  `_combine_pairs`: the order-preserving recompaction over sub plus
        the summed counts (csrc/combine.cu)
   K15  `make_combine_probe_kernel`: K14 on salted one-entry buffers
@@ -24,6 +25,10 @@ version, which CPU tensors take):
        buckets (csrc/hash_match.cu) + K14
   K18  `make_slot_delta_kernel`, `make_mesh_sync_kernel`: the owned
        slot scatter, alone and fused with the row scatter
+  K13 `apply_delta` and K18 are one kernel, `mesh_table_sync`
+       (csrc/scatter.cu): a group's whole delta sync in one launch, from
+       ShardedDeviceTable.sync's staged buffer or from the reference's
+       [n_b, K] batches, the residual mask carried in the row side
 
 One launch per distinct device covers the tiles it holds. The
 all_gather over sub is a view where a device holds a dp block's every
@@ -49,6 +54,7 @@ from ..obs.profiler import STAGE_MARK
 from ..ops import match as match_ops
 from ..ops import transfer as transfer_ops
 from ..ops._build import I, LL, P, CudaKernel, raw_stream
+from ..ops.delta import pack_table_delta, staged_columns, table_delta_layout
 from ..ops.fanout import FanoutDeviceState
 from ..ops.hash_index import (
     _ALT_MUL,
@@ -63,7 +69,7 @@ from ..ops.hash_index import (
     verify_lanes_ref,
 )
 from ..ops.match import EncodedTopics, _match_block_ref, check_tensor
-from ..ops.table import EncodedFilters, pad_pow2_batches
+from ..ops.table import EncodedFilters, next_pow2
 from . import mesh as mesh_mod
 from .mesh import DP_AXIS, SUB_AXIS, Mesh
 
@@ -75,9 +81,10 @@ _MESH_COUNTS = CudaKernel(
 _MESH_PACKED = CudaKernel(
     "mesh_match_packed", "dense_forms.cu", "emqx_dense_forms", match_ops._FORMS_ARGTYPES
 )
-_MESH_ROWS = CudaKernel(
-    "mesh_apply_delta", "scatter.cu", "emqx_mesh_scatter_rows",
-    [P, P, P, P, P, I, I, P, I, P, P, P, P, P, P, LL, P],
+_MESH_TABLE_SYNC = CudaKernel(
+    "mesh_table_sync", "scatter.cu", "emqx_mesh_table_sync",
+    [P, P, P, P, P, P, I, I, P, P, P, I, P, I,
+     P, P, P, P, P, P, P, LL, P, P, P, P, LL, P],
 )
 _COMBINE = CudaKernel(
     "combine_pairs", "combine.cu", "emqx_combine_pairs",
@@ -94,14 +101,8 @@ _MESH_HASH = CudaKernel(
     "mesh_match_ids_hash", "hash_match.cu", "emqx_mesh_match_ids_hash",
     [P, P, P, P, P, I, P, P, P, I, I, P, P, P, I, I, P, I, I, P, P, P, P, LL, P],
 )
-_MESH_SLOTS = CudaKernel(
-    "mesh_slot_delta", "scatter.cu", "emqx_mesh_scatter_slots",
-    [P, P, P, I, I, P, I, P, P, P, P, LL, P],
-)
-_MESH_SYNC = CudaKernel(
-    "mesh_sync", "scatter.cu", "emqx_mesh_sync",
-    [P, P, P, P, P, I, I, P, P, P, I, I, P, I, P, P, P, P, P, P, LL, P, P, P, P, LL, P],
-)
+
+_NO_IDS = np.zeros(0, np.int32)
 
 DENSE_CHUNK = 65536  # rows of a chunk of K16's segments (ops/match.py's chunk)
 
@@ -252,44 +253,74 @@ def dense_tiles_ref(mode: int, f: EncodedFilters, t: EncodedTopics, tiles,
             out[to, sub_i * w:(sub_i + 1) * w] = match_ops._pack_bits_ref(ok).view(torch.int32)
 
 
-def scatter_owned_rows_ref(dev: EncodedFilters, subs: Sequence[int], rows, words,
-                           plen, hh, rw, act) -> None:
-    """Plain version of K13's `apply_delta` on one group's tensors (in
-    place): batch by batch (the reference's scan order), each held
-    shard s writes the global rows in [s * local_n, (s + 1) * local_n)."""
-    local_n = dev.words.shape[0] // len(subs)
-    for k, s in enumerate(subs):
-        for j in range(rows.shape[0]):
-            local = rows[j].to(torch.int64) - s * local_n
-            keep = (local >= 0) & (local < local_n)
-            dst = local[keep] + k * local_n
-            dev.words[dst] = words[j][keep]
-            dev.prefix_len[dst] = plen[j][keep]
-            dev.has_hash[dst] = hh[j][keep]
-            dev.root_wild[dst] = rw[j][keep]
-            dev.active[dst] = act[j][keep]
+def _owned(ids: torch.Tensor, local: int, n_sub: int, subs: Sequence[int]):
+    """Global ids -> (keep, dst): which ids a group owns under the owner
+    map (id // local is the owner shard, held at position k of `subs`)
+    and where they land in its tensors, k * local + id % local. Ids below
+    0, past the n_sub shards or of shards not held are not kept."""
+    i = ids.reshape(-1).to(torch.int64)
+    pos = torch.full((n_sub,), -1, dtype=torch.int64, device=i.device)
+    pos[list(subs)] = torch.arange(len(subs), dtype=torch.int64, device=i.device)
+    s = torch.div(i, local, rounding_mode="floor")
+    k = pos[s.clamp(0, n_sub - 1)]
+    keep = (i >= 0) & (s < n_sub) & (k >= 0)
+    return keep, (k * local + i - s * local)[keep]
 
 
-def scatter_owned_slots_ref(slots: SlotArrays, subs: Sequence[int], idx, fp, bucket,
-                            probe) -> None:
-    """Plain version of K18's slot scatter on one group's tensors (in
-    place): each held shard s writes the slots in [s * n_loc, (s + 1) *
-    n_loc) and the probe words of buckets [s * nb_loc, (s + 1) * nb_loc).
-    uint32 columns go through their int32 view (same bits)."""
-    n_loc = slots.fp.shape[0] // len(subs)
-    nb_loc = slots.probe.shape[0] // len(subs)
-    fp_dev = slots.fp.view(torch.int32)
-    probe_dev = slots.probe.view(torch.int32)
-    for k, s in enumerate(subs):
-        for j in range(idx.shape[0]):
-            i = idx[j].to(torch.int64)
-            ls = i - s * n_loc
-            keep = (i >= 0) & (ls >= 0) & (ls < n_loc)
-            fp_dev[ls[keep] + k * n_loc] = fp[j].view(torch.int32)[keep]
-            slots.bucket[ls[keep] + k * n_loc] = bucket[j][keep]
-            lb = torch.div(i, BUCKET_W, rounding_mode="floor") - s * nb_loc
-            keep = (i >= 0) & (lb >= 0) & (lb < nb_loc)
-            probe_dev[lb[keep] + k * nb_loc] = probe[j].view(torch.int32)[keep]
+def scatter_owned_rows_ref(dev: EncodedFilters, subs: Sequence[int], n_sub: int, rows,
+                           words, plen, hh, rw, act, residual=None, res=None) -> None:
+    """Plain version of the mesh sync's row side (K13's `apply_delta`) on
+    one group's tensors, in place: each global row id (any shape; the
+    reference's [n_b, K] batches or a staged column) its owner shard
+    holds writes the five filter columns, and its residual-mask byte
+    where `residual` is given."""
+    levels = dev.words.shape[1]
+    keep, dst = _owned(rows, dev.words.shape[0] // len(subs), n_sub, subs)
+    dev.words[dst] = words.reshape(-1, levels)[keep]
+    dev.prefix_len[dst] = plen.reshape(-1)[keep]
+    dev.has_hash[dst] = hh.reshape(-1)[keep]
+    dev.root_wild[dst] = rw.reshape(-1)[keep]
+    dev.active[dst] = act.reshape(-1)[keep]
+    if residual is not None:
+        residual[dst] = res.reshape(-1)[keep]
+
+
+def _slot_shard(slots: SlotArrays, n_held: int) -> int:
+    """Slots a shard of a group's slot arrays; raises unless the shards
+    are bucket-aligned (a slot's probe word lies in the slot's shard)."""
+    n_loc = slots.fp.shape[0] // n_held
+    nb_loc = slots.probe.shape[0] // n_held
+    if n_loc != nb_loc * BUCKET_W:
+        raise ValueError(f"slot shards ({n_loc}) are not bucket-aligned ({nb_loc})")
+    return n_loc
+
+
+def scatter_owned_slots_ref(slots: SlotArrays, subs: Sequence[int], n_sub: int, idx, fp,
+                            bucket, probe) -> None:
+    """Plain version of the mesh sync's slot side (K18's slot scatter) on
+    one group's tensors, in place: each global slot id its owner shard
+    holds writes fp, bucket and its probe word (the word of the slot's
+    bucket, in the same shard). uint32 columns go through their int32
+    view (same bits)."""
+    keep, dst = _owned(idx, _slot_shard(slots, len(subs)), n_sub, subs)
+    slots.fp.view(torch.int32)[dst] = fp.reshape(-1).view(torch.int32)[keep]
+    slots.bucket[dst] = bucket.reshape(-1)[keep]
+    slots.probe.view(torch.int32)[dst // BUCKET_W] = probe.reshape(-1).view(torch.int32)[keep]
+
+
+def mesh_table_sync_ref(subs: Sequence[int], n_sub: int, dev: EncodedFilters,
+                        slots: Optional[SlotArrays], residual: Optional[torch.Tensor],
+                        staged: torch.Tensor, n_r: int, n_s: int) -> None:
+    """Plain version of the fused K13/K18 mesh sync on one group's
+    tensors (the shards `subs` of n_sub), in place: a staged delta
+    (ops/delta.py) applied through the owner map, the residual mask
+    where given."""
+    rows, sl = staged_columns(staged, n_r, dev.words.shape[1], n_s)
+    *cols, res = rows
+    if n_r:
+        scatter_owned_rows_ref(dev, subs, n_sub, *cols, residual=residual, res=res)
+    if n_s:
+        scatter_owned_slots_ref(slots, subs, n_sub, *sl)
 
 
 # --- per-group launches: kernel on CUDA tensors, plain version on the CPU ---------
@@ -459,22 +490,117 @@ def _repl(mesh: Mesh, a) -> Tuple[torch.Tensor, ...]:
 # --- the programs ---------------------------------------------------------------------
 
 
-def _owned_rows_args(d: EncodedFilters, n_subs: int, dev, r, w, p, h, rw, a):
-    """The checked C arguments of an owned-row scatter on one device:
-    (the table's five columns, its rows a shard, its levels) and (the
-    delta's row ids and five columns, its entry count)."""
+# an empty side of a launch: the row tables (five columns, the mask,
+# rows a shard, L), the slot tables (three arrays, probe words a shard),
+# or either side's delta columns with their count
+_NO_ROWS = (0, 0, 0, 0, 0, 0, 1, 1)
+_NO_SLOTS = (0, 0, 0, 1)
+_NO_ROW_COLS = (0, 0, 0, 0, 0, 0, 0, 0)
+_NO_SLOT_COLS = (0, 0, 0, 0, 0)
+
+
+def _row_tables(d: EncodedFilters, residual: Optional[torch.Tensor], n_held: int, dev):
+    """The launch's row-table arguments on one group, each table checked:
+    the five columns, the residual mask (0 = none), rows a shard, L."""
     n, levels = match_ops.check_filters(d, dev)
+    if residual is not None:
+        check_tensor("residual", residual, torch.bool, (n,), dev)
+    return (d.words.data_ptr(), d.prefix_len.data_ptr(), d.has_hash.data_ptr(),
+            d.root_wild.data_ptr(), d.active.data_ptr(),
+            0 if residual is None else residual.data_ptr(), n // n_held, levels)
+
+
+def _slot_tables(slots: SlotArrays, n_held: int, dev):
+    """The launch's slot-table arguments on one group, each array
+    checked: fp, bucket, probe and probe words a shard."""
+    n_loc = _slot_shard(slots, n_held)
+    check_tensor("slots.fp", slots.fp, torch.uint32, (n_loc * n_held,), dev)
+    check_tensor("slots.bucket", slots.bucket, torch.int32, (n_loc * n_held,), dev)
+    check_tensor("slots.probe", slots.probe, torch.uint32, (n_loc // BUCKET_W * n_held,), dev)
+    return slots.fp.data_ptr(), slots.bucket.data_ptr(), slots.probe.data_ptr(), n_loc // BUCKET_W
+
+
+def _row_batch(levels: int, dev, r, w, p, h, rw, a):
+    """The checked delta columns of a reference-shaped row batch (no
+    residual column) and its entry count."""
     shape = tuple(r.shape)
     check_tensor("rows", r, torch.int32, shape, dev)
     check_tensor("words", w, torch.int32, shape + (levels,), dev)
     check_tensor("prefix_len", p, torch.int32, shape, dev)
     for name, x in (("has_hash", h), ("root_wild", rw), ("active", a)):
         check_tensor(name, x, torch.bool, shape, dev)
-    table = (d.words.data_ptr(), d.prefix_len.data_ptr(), d.has_hash.data_ptr(),
-             d.root_wild.data_ptr(), d.active.data_ptr(), n // n_subs, levels)
-    delta = (r.data_ptr(), w.data_ptr(), p.data_ptr(), h.data_ptr(), rw.data_ptr(),
-             a.data_ptr(), r.numel())
-    return table, delta
+    return (r.data_ptr(), w.data_ptr(), p.data_ptr(), h.data_ptr(), rw.data_ptr(),
+            a.data_ptr(), 0, r.numel())
+
+
+def _slot_batch(dev, idx, fpv, bktv, pwv):
+    """The checked delta columns of a reference-shaped slot batch and its
+    entry count."""
+    shape = tuple(idx.shape)
+    check_tensor("idx", idx, torch.int32, shape, dev)
+    check_tensor("fp", fpv, torch.uint32, shape, dev)
+    check_tensor("bucket", bktv, torch.int32, shape, dev)
+    check_tensor("probe", pwv, torch.uint32, shape, dev)
+    return idx.data_ptr(), fpv.data_ptr(), bktv.data_ptr(), pwv.data_ptr(), idx.numel()
+
+
+# the mesh table sync's launches by the sides they carry, kept where the
+# kernel is launched: "rows" (K13 apply_delta's work), "slots" (the K18
+# slot delta's), "both" (the fused K18's); their sum is the kernel's count
+SYNC_LAUNCH_KINDS = {"rows": 0, "slots": 0, "both": 0}
+
+
+def _sync_launch(mesh: Mesh, gi: int, rows, slots, row_cols, slot_cols) -> None:
+    """One launch of the mesh table sync on group gi (none when both
+    sides are empty)."""
+    n_r, n_s = row_cols[-1], slot_cols[-1]
+    if n_r + n_s == 0:
+        return
+    _launch(_MESH_TABLE_SYNC, mesh.groups[gi].device, *rows, *slots,
+            mesh.sub_pos(gi).data_ptr(), mesh.shape[SUB_AXIS], *row_cols, *slot_cols)
+    SYNC_LAUNCH_KINDS["both" if n_r and n_s else "rows" if n_r else "slots"] += 1
+
+
+def mesh_table_sync(mesh: Mesh, dev, slots, residual, staged, n_r: int, n_s: int) -> None:
+    """A ShardedDeviceTable's delta sync in place (the reference's
+    `apply_delta`, slot delta or fused sync, and its residual-mask
+    upload), from one staged buffer per group (ops/delta.py's layout, no
+    padding): dev, slots, residual and staged are per-group tuples;
+    `residual` None leaves the mask alone, `slots` may be None when n_s
+    is 0. Each CUDA group's tables are checked and the fused K13/K18
+    kernel launched once (not at all when both sides are empty); CPU
+    groups take the plain version."""
+    if n_r < 0 or n_s < 0:
+        raise ValueError(f"mesh_table_sync: negative entry counts ({n_r}, {n_s})")
+    if n_s and slots is None:
+        raise ValueError("mesh_table_sync: slot entries but no slot arrays")
+    for gi in range(len(mesh.groups)):
+        group_table_sync(mesh, gi, dev[gi], None if slots is None else slots[gi],
+                         None if residual is None else residual[gi], staged[gi], n_r, n_s)
+
+
+def group_table_sync(mesh: Mesh, gi: int, dev: EncodedFilters, slots: Optional[SlotArrays],
+                     residual: Optional[torch.Tensor], staged: torch.Tensor, n_r: int,
+                     n_s: int) -> None:
+    """mesh_table_sync on group gi's own tensors (counts checked by the
+    caller)."""
+    g = mesh.groups[gi]
+    if g.device.type == "cpu":
+        mesh_table_sync_ref(g.subs, mesh.shape[SUB_AXIS], dev, slots, residual, staged,
+                            n_r, n_s)
+        return
+    rt = _row_tables(dev, residual, len(g.subs), g.device)
+    st = _NO_SLOTS if slots is None else _slot_tables(slots, len(g.subs), g.device)
+    w_off, s_off, total = table_delta_layout(n_r, rt[-1], n_s)
+    check_tensor("staged", staged, torch.uint8, (total,), g.device)
+    p = staged.data_ptr()
+    s = p + s_off
+    _sync_launch(
+        mesh, gi, rt, st,
+        (p, p + w_off, p + 4 * n_r, p + 8 * n_r, p + 9 * n_r, p + 10 * n_r,
+         0 if residual is None else p + 11 * n_r, n_r),
+        (s, s + 4 * n_s, s + 8 * n_s, s + 12 * n_s, n_s),
+    )
 
 
 def make_sharded_kernels(mesh: Mesh):
@@ -541,13 +667,13 @@ def make_sharded_kernels(mesh: Mesh):
         cols = [_repl(mesh, a) for a in (rows, words, plen, hh, rw, act)]
         for gi, g in enumerate(mesh.groups):
             d = dev[gi]
-            r, w_, p, h, rw_, a = (c[gi] for c in cols)
+            batch = [c[gi] for c in cols]
             if g.device.type == "cpu":
-                scatter_owned_rows_ref(d, g.subs, r, w_, p, h, rw_, a)
+                scatter_owned_rows_ref(d, g.subs, n_sub, *batch)
                 continue
-            table, delta = _owned_rows_args(d, len(g.subs), g.device, r, w_, p, h, rw_, a)
-            _launch(_MESH_ROWS, g.device, *table, mesh.sub_table(gi).data_ptr(),
-                    len(g.subs), *delta)
+            rt = _row_tables(d, None, len(g.subs), g.device)
+            _sync_launch(mesh, gi, rt, _NO_SLOTS, _row_batch(rt[-1], g.device, *batch),
+                         _NO_SLOT_COLS)
         return dev
 
     return match_counts, match_packed, apply_delta
@@ -621,53 +747,25 @@ def make_sharded_hash_kernel(mesh: Mesh, max_hits_per_block: int,
     return kernel
 
 
-def _slot_launch(mesh: Mesh, gi: int, sfp, sbkt, probe, idx, fpv, bktv, pwv,
-                 rows_args=None) -> None:
-    """One group's owned slot scatter (K18), fused with the owned row
-    scatter when rows_args = (dev, rows, words, plen, hh, rw, act)."""
-    g = mesh.groups[gi]
-    n_subs = len(g.subs)
-    n_loc = sfp.shape[0] // n_subs
-    nb_loc = probe.shape[0] // n_subs
-    if g.device.type == "cpu":
-        if rows_args is not None:
-            scatter_owned_rows_ref(rows_args[0], g.subs, *rows_args[1:])
-        scatter_owned_slots_ref(SlotArrays(sfp, sbkt, probe), g.subs, idx, fpv, bktv, pwv)
-        return
-    dev = g.device
-    check_tensor("slots.fp", sfp, torch.uint32, (n_loc * n_subs,), dev)
-    check_tensor("slots.bucket", sbkt, torch.int32, (n_loc * n_subs,), dev)
-    check_tensor("slots.probe", probe, torch.uint32, (nb_loc * n_subs,), dev)
-    if n_loc != nb_loc * BUCKET_W:
-        raise ValueError(f"slot shards ({n_loc}) are not bucket-aligned ({nb_loc})")
-    shape = tuple(idx.shape)
-    check_tensor("idx", idx, torch.int32, shape, dev)
-    check_tensor("fp", fpv, torch.uint32, shape, dev)
-    check_tensor("bucket", bktv, torch.int32, shape, dev)
-    check_tensor("probe", pwv, torch.uint32, shape, dev)
-    slot_ptrs = (sfp.data_ptr(), sbkt.data_ptr(), probe.data_ptr(), n_loc, nb_loc)
-    delta_ptrs = (idx.data_ptr(), fpv.data_ptr(), bktv.data_ptr(), pwv.data_ptr(),
-                  idx.numel())
-    if rows_args is None:
-        _launch(_MESH_SLOTS, dev, *slot_ptrs, mesh.sub_table(gi).data_ptr(), n_subs,
-                *delta_ptrs)
-        return
-    table, delta = _owned_rows_args(rows_args[0], n_subs, dev, *rows_args[1:])
-    _launch(_MESH_SYNC, dev, *table, *slot_ptrs, mesh.sub_table(gi).data_ptr(), n_subs,
-            *delta, *delta_ptrs)
-
-
 def make_slot_delta_kernel(mesh: Mesh):
     """K18's incremental cuckoo-slot sync: apply(sfp, sbkt, probe, idx,
     fpv, bktv, pwv) writes, in place, the slots and probe words each
     shard owns from [n_b, K] global slot ids; returns (sfp, sbkt,
     probe). The device arrays are per-group tuples (put_sub), the delta
-    numpy arrays or placed per-group tuples."""
+    numpy arrays or placed per-group tuples. The fused mesh sync kernel
+    with no rows."""
+    n_sub = mesh.shape[SUB_AXIS]
 
     def apply(sfp, sbkt, probe, idx, fpv, bktv, pwv):
         cols = [_repl(mesh, a) for a in (idx, fpv, bktv, pwv)]
-        for gi in range(len(mesh.groups)):
-            _slot_launch(mesh, gi, sfp[gi], sbkt[gi], probe[gi], *(c[gi] for c in cols))
+        for gi, g in enumerate(mesh.groups):
+            sl = SlotArrays(sfp[gi], sbkt[gi], probe[gi])
+            batch = [c[gi] for c in cols]
+            if g.device.type == "cpu":
+                scatter_owned_slots_ref(sl, g.subs, n_sub, *batch)
+                continue
+            _sync_launch(mesh, gi, _NO_ROWS, _slot_tables(sl, len(g.subs), g.device),
+                         _NO_ROW_COLS, _slot_batch(g.device, *batch))
         return sfp, sbkt, probe
 
     return apply
@@ -678,16 +776,22 @@ def make_mesh_sync_kernel(mesh: Mesh):
     delta batch in ONE launch per device, each shard writing what it
     owns, in place. apply(dev, sfp, sbkt, probe, rows, words, plen, hh,
     rw, act, sidx, sfpv, sbktv, spwv) -> (dev, sfp, sbkt, probe)."""
+    n_sub = mesh.shape[SUB_AXIS]
 
     def apply(dev, sfp, sbkt, probe, rows, words, plen, hh, rw, act,
               sidx, sfpv, sbktv, spwv):
         rcols = [_repl(mesh, a) for a in (rows, words, plen, hh, rw, act)]
         scols = [_repl(mesh, a) for a in (sidx, sfpv, sbktv, spwv)]
-        for gi in range(len(mesh.groups)):
-            _slot_launch(
-                mesh, gi, sfp[gi], sbkt[gi], probe[gi], *(c[gi] for c in scols),
-                rows_args=(dev[gi],) + tuple(c[gi] for c in rcols),
-            )
+        for gi, g in enumerate(mesh.groups):
+            sl = SlotArrays(sfp[gi], sbkt[gi], probe[gi])
+            rb, sb = [c[gi] for c in rcols], [c[gi] for c in scols]
+            if g.device.type == "cpu":
+                scatter_owned_rows_ref(dev[gi], g.subs, n_sub, *rb)
+                scatter_owned_slots_ref(sl, g.subs, n_sub, *sb)
+                continue
+            rt = _row_tables(dev[gi], None, len(g.subs), g.device)
+            _sync_launch(mesh, gi, rt, _slot_tables(sl, len(g.subs), g.device),
+                         _row_batch(rt[-1], g.device, *rb), _slot_batch(g.device, *sb))
         return dev, sfp, sbkt, probe
 
     return apply
@@ -703,8 +807,9 @@ def _slot_cols(sa) -> Tuple[tuple, tuple, tuple]:
 
 class ShardedDeviceTable:
     """Mesh-resident mirror of a FilterTable: rows sub-sharded across
-    the mesh, topics dp-sharded, batched delta sync through the owned
-    scatters — DeviceTable's sync()/match surface over a mesh. With
+    the mesh, topics dp-sharded, each delta sync one staged copy and one
+    launch of the owned table sync a device group — DeviceTable's
+    sync()/match surface over a mesh. With
     `index`, the pattern-class cuckoo table is ALSO mesh-resident
     (buckets sub-sharded) and match_hash runs K17; the dense kernel
     (K16) then serves only residual (unclassed) rows."""
@@ -802,7 +907,11 @@ class ShardedDeviceTable:
     def _stage(self, a: np.ndarray) -> Tuple[torch.Tensor, ...]:
         return mesh_mod.put_repl(a, self.mesh)
 
-    def _sync_index(self) -> None:
+    def _sync_index(self, full: bool) -> np.ndarray:
+        """The index's whole-array uploads: the class metadata when it
+        changed, the slot arrays after a rebuild, the residual mask on a
+        full sync. Returns the dirty slot ids (sorted, distinct) that the
+        delta's launch writes."""
         ix = self.index
         n_sub = self.n_shards
         # buckets per shard: ceil(n_buckets / n_sub); the trailing pad
@@ -812,6 +921,7 @@ class ShardedDeviceTable:
             cols = [mesh_mod.put_repl(np.array(a), self.mesh) for a in ix.packed_meta()]
             self._dev_meta = tuple(ClassMeta(*c) for c in zip(*cols))
             ix.meta_dirty = False
+        sids = _NO_IDS
         if ix.rebuilt or self._dev_slots is None:
             ix.dirty_slots.clear()
             fp, bkt = mesh_mod.pad_slots(np.array(ix.slots.fp), np.array(ix.slots.bucket), n_sub)
@@ -819,26 +929,18 @@ class ShardedDeviceTable:
             self._dev_slots = tuple(SlotArrays(*c) for c in zip(*cols))
             ix.rebuilt = False
         elif ix.dirty_slots:
-            dirty = np.unique(np.asarray(ix.dirty_slots, np.int32))
+            sids = np.unique(np.asarray(ix.dirty_slots, np.int32))
             ix.dirty_slots.clear()
-            idx = pad_pow2_batches(dirty, self.DELTA_BATCH)
-            self.telemetry.record_shape("mesh_slot_delta", (idx.shape[0], len(ix.slots.fp)))
-            self._apply_slot_delta(
-                *_slot_cols(self._dev_slots),
-                self._stage(idx), self._stage(ix.slots.fp[idx]),
-                self._stage(ix.slots.bucket[idx]),
-                self._stage(ix.slots.probe[idx // BUCKET_W]),
-            )
-        cap_padded = self.table.capacity + (-self.table.capacity) % n_sub
-        held = len(self.mesh.groups[0].subs) * cap_padded // n_sub
-        if ix.residual_dirty or self._dev_residual is None or (
-            self._dev_residual[0].shape[0] != held
-        ):
+        if full or self._dev_residual is None:
             mask = np.zeros(self.table.capacity, bool)
             if ix.residual_rows:
                 mask[list(ix.residual_rows)] = True
             self._dev_residual = self._put_sub(mask)
-            ix.residual_dirty = False
+        # otherwise the delta's row side carries the mask's changes: a
+        # row's residual flag changes only when the row is added or
+        # removed, and such a row is always in the table's dirty list
+        ix.residual_dirty = False
+        return sids
 
     def sync(self) -> int:
         """Bring the mesh up to date; returns rows written."""
@@ -852,60 +954,55 @@ class ShardedDeviceTable:
         return n
 
     def _sync_impl(self) -> Tuple[int, bool]:
+        """(rows written, was a full re-upload). A delta sync stages its
+        dirty rows (with their residual bytes) and dirty slots in one
+        buffer and applies it with one copy and one launch of the fused
+        K13/K18 kernel per device group, or none when nothing is dirty;
+        growth re-uploads the rows and the mask whole, a rebuild the
+        slots."""
         t = self.table
-        if self._dev is None or t.grew or t.capacity != self._synced_capacity:
+        ix = self.index
+        full = self._dev is None or t.grew or t.capacity != self._synced_capacity
+        if full:
             n = len(t.dirty)
             t.drain_dirty()
             self._dev = mesh_mod.put_filters(t.snapshot(), self.mesh)
             self._synced_capacity = t.capacity
-            if self.index is not None:
-                self._sync_index()
-            return n, True
-        dirty = t.drain_dirty()  # ndarray: row 0 alone is falsy — test the length
-        if len(dirty) == 0:
-            if self.index is not None:
-                self._sync_index()
-            return 0, False
-        total = len(dirty)
-        rows = pad_pow2_batches(dirty, self.DELTA_BATCH)
-        n_b = rows.shape[0]
+            rows = _NO_IDS
+        else:
+            rows = t.drain_dirty()
+            n = len(rows)
+        sids = _NO_IDS if ix is None else self._sync_index(full)
+        n_r, n_s = len(rows), len(sids)
+        if n_r + n_s == 0:
+            return n, full
+        # the reference's kernels and shape buckets (its pow2 batch
+        # counts), so the telemetry reads the same
         tel = self.telemetry
-        if tel.enabled:
+        if n_r and n_s:
+            tel.record_shape("mesh_sync", (self._n_batches(n_r), self._n_batches(n_s),
+                                           t.capacity, t.max_levels, len(ix.slots.fp)))
+        elif n_r:
+            tel.record_shape("apply_delta", (self._n_batches(n_r), t.capacity, t.max_levels))
+        else:
+            tel.record_shape("mesh_slot_delta", (self._n_batches(n_s), len(ix.slots.fp)))
+        if tel.enabled and n_r:
+            tel.set_gauge("mesh_sync_batch_rows", n_r + n_s)
             n_sub = self.n_shards
             rs = mesh_mod.shard_rows(t.capacity, self.mesh)
             self._count_shard_rows(
-                np.bincount(np.clip(np.asarray(dirty) // rs, 0, n_sub - 1), minlength=n_sub))
-        stage = self._stage
-        row_args = (
-            stage(rows), stage(t.words[rows]), stage(t.prefix_len[rows]),
-            stage(t.has_hash[rows]), stage(t.root_wild[rows]), stage(t.active[rows]),
-        )
-        ix = self.index
-        if ix is not None and ix.dirty_slots and not ix.rebuilt and self._dev_slots is not None:
-            # steady-state churn touches rows AND cuckoo slots: both
-            # delta streams in ONE launch per device
-            sdirty = np.unique(np.asarray(ix.dirty_slots, np.int32))
-            ix.dirty_slots.clear()
-            sidx = pad_pow2_batches(sdirty, self.DELTA_BATCH)
-            tel.record_shape(
-                "mesh_sync", (n_b, sidx.shape[0], t.capacity, t.max_levels, len(ix.slots.fp))
-            )
-            if tel.enabled:
-                tel.set_gauge("mesh_sync_batch_rows", total + len(sdirty))
-            self._mesh_sync(
-                self._dev, *_slot_cols(self._dev_slots), *row_args,
-                stage(sidx), stage(ix.slots.fp[sidx]), stage(ix.slots.bucket[sidx]),
-                stage(ix.slots.probe[sidx // BUCKET_W]),
-            )
-            self._sync_index()  # meta/residual legs only — slots done
-            return total, False
-        tel.record_shape("apply_delta", (n_b, t.capacity, t.max_levels))
-        if tel.enabled:
-            tel.set_gauge("mesh_sync_batch_rows", total)
-        self._apply_delta(self._dev, *row_args)
-        if ix is not None:
-            self._sync_index()
-        return total, False
+                np.bincount(np.clip(rows // rs, 0, n_sub - 1), minlength=n_sub))
+        staged = self._stage(pack_table_delta(
+            t.snapshot(), rows, None if ix is None else ix.slots, sids,
+            None if ix is None else ix.residual_rows,
+        ))
+        mesh_table_sync(self.mesh, self._dev, self._dev_slots if n_s else None,
+                        self._dev_residual, staged, n_r, n_s)
+        return n, full
+
+    def _n_batches(self, n: int) -> int:
+        """The reference's pow2 batch count for n sync entries."""
+        return next_pow2(-(-n // self.DELTA_BATCH))
 
     # --- batched match: begin launches and starts the fetch, finish waits ----------
 
@@ -929,6 +1026,11 @@ class ShardedDeviceTable:
         return t_dev[0].ids.shape[0] // len(g.dps) * self.mesh.shape[DP_AXIS]
 
     def _filters(self, residual: bool) -> Tuple[EncodedFilters, ...]:
+        """The filter tables, or views whose active mask covers only the
+        residual (budget-overflow) rows. A delta sync rewrites the mask in
+        place, as it does the rows: a begun batch's K16 launch precedes
+        the next sync's launch on the group device's stream, so it reads
+        the mask and rows it was launched against."""
         if not residual:
             return self._dev
         return tuple(d._replace(active=r) for d, r in zip(self._dev, self._dev_residual))
@@ -1017,9 +1119,11 @@ class ShardedDeviceTable:
     # --- warm-up -------------------------------------------------------------------
 
     def warmup_deltas(self) -> int:
-        """Run the churn sync kernels (row delta, slot delta, fused) at
+        """Run the reference-shaped churn sync wrappers (row delta, slot
+        delta, fused: each a launch of the one mesh table sync kernel) at
         their small batch shapes (1 and 2 batches) once, so the first
-        serve-time churn finds them built and their shape keys recorded.
+        serve-time churn finds the kernel built and the reference's shape
+        keys recorded.
         Re-applies row/slot 0's current host truth: every launch is a
         no-op on the data. Needs a completed full sync; returns the
         launches made."""

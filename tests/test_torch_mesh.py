@@ -37,6 +37,7 @@ from emqx_tpu_torch.broker import message as TMsg
 from emqx_tpu_torch.broker import packet as TPkt
 from emqx_tpu_torch.broker import pubsub as TB
 from emqx_tpu_torch.models.router import Router as TRouter
+from emqx_tpu_torch.ops import delta as TD
 from emqx_tpu_torch.ops import hash_index as TH
 from emqx_tpu_torch.ops import topic as TT
 from emqx_tpu_torch.ops.table import FilterTable, pad_pow2_batches
@@ -503,6 +504,307 @@ def test_slot_delta_and_mesh_sync_equal_reference(which, devs):
             assert np.array_equal(a, _port_shard(tparts, tmesh, i, j))
 
 
+# --- K13 apply_delta + K18: the one mesh table sync --------------------------------
+
+
+# (n_rows, n_slots, residual column, ids past the tables): rows only,
+# slots only, both sides with and without the residual column; one entry
+# a side, one batch, one past a batch, three batches; `past` ids past the
+# shards' padded tables and as many negative ids a side, which the
+# reference drops
+MESH_SYNC_CASES = [
+    (40, 0, True, 0), (0, 40, False, 0), (30, 50, True, 0), (30, 50, False, 0),
+    (1, 1, True, 0), (1024, 1024, True, 0), (1025, 1025, False, 0),
+    (3000, 3000, True, 0), (20, 30, True, 2),
+]
+_JAX_SYNC_KERNELS: dict = {}
+
+
+def _jax_sync_kernels(jmesh):
+    """The reference's K13 apply_delta, K18 slot delta and fused sync on
+    a JAX mesh, built once a layout (so each batch shape compiles once)."""
+    key = tuple(np.asarray(jmesh.devices).shape)
+    if key not in _JAX_SYNC_KERNELS:
+        _JAX_SYNC_KERNELS[key] = (JS.make_sharded_kernels(jmesh)[2],
+                                  JS.make_slot_delta_kernel(jmesh),
+                                  JS.make_mesh_sync_kernel(jmesh))
+    return _JAX_SYNC_KERNELS[key]
+
+
+@pytest.mark.parametrize("devs", sorted(DEVICE_SETS))
+@pytest.mark.parametrize("which", ["mesh8", "mesh3"])
+@pytest.mark.parametrize("n_rows,n_slots,with_residual,past", MESH_SYNC_CASES)
+def test_mesh_table_sync_equals_reference(n_rows, n_slots, with_residual, past, which, devs):
+    """The fused mesh sync's plain version and its wrapper, from one
+    unpadded staged buffer a group, against the reference's apply_delta
+    (rows only), slot delta (slots only) or fused sync (both) on the same
+    ids padded by pad_pow2_batches, as its ShardedDeviceTable pads them,
+    shard by shard; the residual mask against the stale mask with the
+    rows' bytes written."""
+    jmesh, tmesh = _meshes(SHAPES[which], devs)
+    n_sub = tmesh.shape["sub"]
+    rng = np.random.default_rng(n_rows * 7 + n_slots + past + with_residual + 100 * n_sub)
+    levels, room = 6, 64
+    n_pad = TMesh.shard_rows(4096, tmesh) * n_sub  # mesh3 pads 4,096 rows
+    s_pad = -(-2048 // n_sub) * n_sub * TH.BUCKET_W  # and 2,048 buckets
+    local = n_pad // n_sub
+
+    def ints(n, hi, shape=()):
+        return rng.integers(0, hi, (n,) + shape).astype(np.int32)
+
+    def u32s(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    # host truth, with room past the tables for the ids past them
+    host = TS.EncodedFilters(ints(n_pad + room, 1 << 20, (levels,)),
+                             ints(n_pad + room, levels + 1), rng.random(n_pad + room) < 0.5,
+                             rng.random(n_pad + room) < 0.5, rng.random(n_pad + room) < 0.5)
+    hslots = TH.SlotArrays(u32s(s_pad + room), ints(s_pad + room, 1 << 20) - 1,
+                           u32s((s_pad + room) // 4))
+    host_res = rng.random(n_pad + room) < 0.3
+    dev0 = TS.EncodedFilters(ints(n_pad, 1 << 20, (levels,)), ints(n_pad, levels + 1),
+                             rng.random(n_pad) < 0.5, rng.random(n_pad) < 0.5,
+                             rng.random(n_pad) < 0.5)
+    slots0 = [u32s(s_pad), ints(s_pad, 1 << 20) - 1, u32s(s_pad // 4)]
+    res0 = rng.random(n_pad) < 0.3
+
+    def ids(n, cap):
+        if not n:
+            return np.zeros(0, np.int32)
+        got = rng.choice(cap, n - 2 * past, replace=False)
+        extra = cap + rng.choice(room, past, replace=False)
+        neg = -1 - rng.choice(16, past, replace=False)
+        return np.sort(np.concatenate([got, extra, neg])).astype(np.int32)
+
+    rows, sids = ids(n_rows, n_pad), ids(n_slots, s_pad)
+    if past:
+        assert rows[0] < 0 and rows[-1] >= n_pad and sids[0] < 0 and sids[-1] >= s_pad
+    japply, jslots, jsync = _jax_sync_kernels(jmesh)
+    jf = JMesh.put_filters(dev0, jmesh)
+    js = [jax.device_put(a, jax.sharding.NamedSharding(jmesh, JP("sub"))) for a in slots0]
+    ridx = pad_pow2_batches(rows, TS.ShardedDeviceTable.DELTA_BATCH) if len(rows) else None
+    sidx = pad_pow2_batches(sids, TS.ShardedDeviceTable.DELTA_BATCH) if len(sids) else None
+    rcols = None if ridx is None else [jnp.asarray(c) for c in (
+        ridx, *(a[ridx] for a in host))]
+    scols = None if sidx is None else [jnp.asarray(c) for c in (
+        sidx, hslots.fp[sidx], hslots.bucket[sidx], hslots.probe[sidx // TH.BUCKET_W])]
+    if rcols and scols:
+        out = jsync(jf, *js, *rcols, *scols)
+        jf, js = out[0], list(out[1:])
+    elif rcols:
+        jf = japply(jf, *rcols)
+    else:
+        js = list(jslots(*js, *scols))
+    want_res = res0.copy()
+    inside = rows[(rows >= 0) & (rows < n_pad)]
+    want_res[inside] = host_res[inside]
+    residual_rows = {int(r) for r in np.flatnonzero(host_res)}
+    buf = TD.pack_table_delta(host, rows, hslots, sids, residual_rows)
+    assert buf.shape == (TD.table_delta_layout(len(rows), levels, len(sids))[2],)
+    staged = TMesh.put_repl(buf, tmesh)
+    for use_wrapper in (False, True):
+        tdev = TMesh.put_filters(dev0, tmesh)
+        tsl = tuple(TH.SlotArrays(*c) for c in zip(*(TMesh.put_sub(a, tmesh) for a in slots0)))
+        tres = TMesh.put_sub(res0, tmesh) if with_residual else None
+        if use_wrapper:
+            TS.mesh_table_sync(tmesh, tdev, tsl, tres, staged, len(rows), len(sids))
+        else:
+            for gi, g in enumerate(tmesh.groups):
+                TS.mesh_table_sync_ref(g.subs, n_sub, tdev[gi], tsl[gi],
+                                       None if tres is None else tres[gi], staged[gi],
+                                       len(rows), len(sids))
+        for jarr, tparts in zip(list(jf) + list(js), list(zip(*tdev)) + list(zip(*tsl))):
+            for (i, j), a in _jshards(jarr, jmesh).items():
+                assert np.array_equal(a, _port_shard(tparts, tmesh, i, j)), (i, j)
+        if with_residual:
+            for i in range(tmesh.shape["dp"]):
+                for j in range(n_sub):
+                    assert np.array_equal(_port_shard(tres, tmesh, i, j),
+                                          want_res[j * local:(j + 1) * local])
+
+
+def test_mesh_table_sync_refuses_negative_counts(mesh8):
+    """A negative count would point the slot columns before the staged
+    buffer; the wrapper refuses it, and slot entries with no slot
+    arrays."""
+    _jmesh, tmesh = mesh8
+    dev = TMesh.put_filters(TS.EncodedFilters(
+        np.zeros((64, 4), np.int32), np.zeros(64, np.int32),
+        *(np.zeros(64, bool) for _ in range(3))), tmesh)
+    staged = TMesh.put_repl(np.zeros(64, np.uint8), tmesh)
+    with pytest.raises(ValueError, match="negative"):
+        TS.mesh_table_sync(tmesh, dev, None, None, staged, -1, 0)
+    with pytest.raises(ValueError, match="no slot arrays"):
+        TS.mesh_table_sync(tmesh, dev, None, None, staged, 0, 4)
+
+
+@pytest.mark.parametrize("which", ["mesh_table_sync", "apply_delta", "slot_delta",
+                                   "mesh_sync"])
+def test_failed_mesh_sync_build_raises_without_plain_fallback(which, monkeypatch, tmp_path):
+    """The staged sync and the three reference-shaped wrappers reach the
+    one fused kernel; when it fails to build they raise, and no plain
+    version runs in its place."""
+    from emqx_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    # meta tensors stand in for CUDA ones, with a stand-in stream
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda _d=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", None, raising=False)
+    k = _build.KERNELS["mesh_table_sync"]
+    monkeypatch.setattr(k, "_fn", None)
+
+    def _never(*_a, **_k):
+        raise AssertionError("plain version ran in place of the kernel")
+
+    for name in ("mesh_table_sync_ref", "scatter_owned_rows_ref", "scatter_owned_slots_ref"):
+        monkeypatch.setattr(TS, name, _never)
+    meta = torch.device("meta")
+    arr = np.empty(8, dtype=object)
+    arr[:] = [meta] * 8
+    mesh = TMesh.Mesh(arr.reshape(2, 4))
+
+    def z(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=meta)
+
+    dev = (TS.EncodedFilters(z((8, 4)), z(8), z(8, torch.bool), z(8, torch.bool),
+                             z(8, torch.bool)),)
+    sfp, sbkt, probe = (z(16, torch.uint32),), (z(16),), (z(4, torch.uint32),)
+    b = (z((1, 4), torch.bool),)
+    rcols = [(z((1, 4)),), (z((1, 4, 4)),), (z((1, 4)),), b, b, b]
+    scols = [(z((1, 4)),), (z((1, 4), torch.uint32),), (z((1, 4)),),
+             (z((1, 4), torch.uint32),)]
+    with pytest.raises(_build.KernelBuildError, match="no sm_90a"):
+        if which == "mesh_table_sync":
+            n_bytes = TD.table_delta_layout(2, 4, 3)[2]
+            TS.mesh_table_sync(mesh, dev, (TS.SlotArrays(sfp[0], sbkt[0], probe[0]),),
+                               (z(8, torch.bool),), (z(n_bytes, torch.uint8),), 2, 3)
+        elif which == "apply_delta":
+            TS.make_sharded_kernels(mesh)[2](dev, *rcols)
+        elif which == "slot_delta":
+            TS.make_slot_delta_kernel(mesh)(sfp, sbkt, probe, *scols)
+        else:
+            TS.make_mesh_sync_kernel(mesh)(dev, sfp, sbkt, probe, *rcols, *scols)
+    assert k.launches == 0
+
+
+def _churn_indexed(jt, jix, tt, tix, rng, n_add, n_del, words):
+    """The same seeded churn on the reference's and the port's table and
+    class index: n_del live rows removed, n_add filters added (many past
+    the class budget, so residual rows come and go)."""
+    live = [r for r in range(tt.capacity) if tt.active[r]]
+    for r in sorted(rng.sample(live, min(n_del, len(live)))):
+        for t, ix in ((jt, jix), (tt, tix)):
+            ix.remove_row(r)
+            t.remove(r)
+    for _ in range(n_add):
+        f = random_filter(rng, vocab=words)
+        rows = [t.add(f) for t in (jt, tt)]
+        assert rows[0] == rows[1]
+        jix.add_row(rows[0], jt)
+        tix.add_row(rows[1], tt)
+
+
+@pytest.mark.parametrize("devs", sorted(DEVICE_SETS))
+@pytest.mark.parametrize("which", ["mesh8", "mesh3"])
+def test_sharded_device_table_syncs_equal_reference(which, devs, monkeypatch):
+    """A port ShardedDeviceTable on a CPU mesh beside the reference's over
+    seeded churn that adds and removes residual rows (a class budget of
+    6): after every sync the rows, slots, residual mask (shard by shard)
+    and class metadata equal the reference's, the mask equals the host's
+    residual set, and both telemetries hold the same shape buckets. A
+    delta sync with no growth or rebuild is one host->device copy a
+    device group and one mesh_table_sync call (plus the metadata's five
+    columns a group when they changed), and writes the mask in place; a
+    sync with only dirty slots is one of each too; growth re-uploads;
+    nothing dirty copies and calls nothing."""
+    from emqx_tpu.obs.kernel_telemetry import KernelTelemetry as JTel
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry as TTel
+
+    jmesh, tmesh = _meshes(SHAPES[which], devs)
+    n_groups, n_sub = len(tmesh.groups), tmesh.shape["sub"]
+    copies, calls = [], []
+    real_put, real_sync = TMesh.to_device, TS.mesh_table_sync
+
+    def put(a, device):
+        copies.append(np.asarray(a).nbytes)
+        return real_put(a, device)
+
+    def sync(*a):
+        calls.append(a[-2:])
+        real_sync(*a)
+
+    monkeypatch.setattr(TMesh, "to_device", put)
+    monkeypatch.setattr(TS, "mesh_table_sync", sync)
+    rng = random.Random(5)
+    words = tuple(f"w{k}" for k in range(40)) + ("",)
+    jt, tt = JFilterTable(max_levels=6, capacity=256), FilterTable(max_levels=6, capacity=256)
+    jix = JH.ClassIndex(6, class_budget=6, min_slots=512)
+    tix = TH.ClassIndex(6, class_budget=6, min_slots=512)
+    jtel, ttel = JTel(), TTel()
+    jdt = JS.ShardedDeviceTable(jt, jmesh, index=jix, telemetry=jtel)
+    tdt = TS.ShardedDeviceTable(tt, tmesh, index=tix, telemetry=ttel)
+
+    def held():
+        _assert_layout(jdt, tdt, jmesh, tmesh)
+        mask = TMesh.pad_rows(np.zeros(tt.capacity, bool), n_sub)
+        mask[list(tix.residual_rows)] = True
+        local = mask.shape[0] // n_sub
+        for i in range(tmesh.shape["dp"]):
+            for j in range(n_sub):
+                assert np.array_equal(_port_shard(tdt._dev_residual, tmesh, i, j),
+                                      mask[j * local:(j + 1) * local])
+        j_keys = {k.lstrip("_"): v for k, v in jtel._shape_keys.items()}
+        assert ttel._shape_keys == j_keys
+        assert ttel.counters.get("recompiles_total") == jtel.counters.get("recompiles_total")
+
+    _churn_indexed(jt, jix, tt, tix, rng, 150, 0, words)
+    assert tdt.sync() == jdt.sync()  # the first sync is a full upload
+    assert calls == [] and tix.residual_rows
+    held()
+    deltas = flips = grown = 0
+    for k, (n_add, n_del) in enumerate([(40, 30), (30, 40), (1, 0), (60, 60), (200, 20),
+                                        (0, 50), (45, 45)]):
+        _churn_indexed(jt, jix, tt, tix, rng, n_add, n_del, words)
+        grew, rebuilt, meta = tt.grew, tix.rebuilt, tix.meta_dirty
+        n_r, n_s = len(set(tt.dirty)), len(set(tix.dirty_slots))
+        mask_before = tdt._dev_residual
+        was = [m.clone() for m in mask_before]
+        del copies[:], calls[:]
+        assert tdt.sync() == jdt.sync()
+        held()
+        if grew:  # a growth sync: rows and mask whole, the slots' delta launched
+            grown += 1
+            assert tdt._dev_residual is not mask_before
+            assert n_groups * (5 + 1) <= len(copies)
+            continue
+        deltas += not rebuilt
+        flips += any(not torch.equal(w, m) for w, m in zip(was, tdt._dev_residual))
+        assert tdt._dev_residual is mask_before  # written in place
+        assert calls == [(n_r, 0 if rebuilt else n_s)]
+        assert len(copies) == n_groups * (1 + 5 * meta + 3 * rebuilt), (k, copies)
+    assert grown and deltas >= 4 and flips >= 3
+    # dirty slots and no dirty rows (a cuckoo kick alone): one of each
+    live = np.flatnonzero(tix.slots.bucket >= 0)[:7].tolist()
+    for ix in (jix, tix):
+        ix.dirty_slots.extend(live)
+    del copies[:], calls[:]
+    assert tdt.sync() == jdt.sync() == 0
+    assert calls == [(0, len(live))] and len(copies) == n_groups
+    held()
+    # nothing dirty: no copy, no launch
+    del copies[:], calls[:]
+    assert tdt.sync() == jdt.sync() == 0
+    assert calls == [] and copies == []
+    held()
+
+
 # --- the layout ---------------------------------------------------------------------
 
 
@@ -769,10 +1071,9 @@ def test_dispatch_engine_warmup_reports_the_mesh(mesh8):
 # --- no fallback ------------------------------------------------------------------------
 
 
-MESH_KERNELS = ["mesh_match_counts", "mesh_match_packed", "mesh_apply_delta",
+MESH_KERNELS = ["mesh_match_counts", "mesh_match_packed", "mesh_table_sync",
                 "combine_pairs", "combine_probe", "mesh_match_ids",
-                "mesh_match_ids_hash", "mesh_slot_delta", "mesh_sync",
-                "match_dense", "match_packed", "match_counts"]
+                "mesh_match_ids_hash", "match_dense", "match_packed", "match_counts"]
 
 
 @pytest.mark.parametrize("name", MESH_KERNELS)

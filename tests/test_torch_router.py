@@ -756,10 +756,9 @@ def test_kernel_argtypes_match_the_c_entry_points():
     assert sorted(_build.KERNELS) == [
         "combine_pairs", "combine_probe", "fanout_sync", "match_counts",
         "match_dense", "match_ids", "match_ids_hash", "match_packed",
-        "mesh_apply_delta", "mesh_match_counts", "mesh_match_ids",
-        "mesh_match_ids_hash", "mesh_match_packed", "mesh_slot_delta",
-        "mesh_sync", "probe_add_one", "resolve_fanout", "retained_probe",
-        "table_sync"]
+        "mesh_match_counts", "mesh_match_ids", "mesh_match_ids_hash",
+        "mesh_match_packed", "mesh_table_sync", "probe_add_one",
+        "resolve_fanout", "retained_probe", "table_sync"]
     for k in _build.KERNELS.values():
         assert list(k.argtypes) == _c_params(k.source, k.symbol), k.name
 

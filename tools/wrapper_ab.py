@@ -27,12 +27,24 @@ pow2-padded batches its sync launched) at one and two rounds of phase
 5's churn (`chip_smoke.churn`), and the whole `DeviceTable.sync()`
 (staging, copies, the residual mask and launches) at one round's
 delta, the same rows and slots dirtied again (and the mask marked
-dirty, as every phase 5 sync finds it) before every call. Each reading
+dirty, as every phase 5 sync finds it) before every call; and the
+mesh's table delta sync on each tree's own Router(mesh=(2, 4)), all
+eight shards on the card, holding phase 9's route set (the same seed in
+both): the kernels of one sync (the fused `mesh_table_sync` on one
+staged buffer where a tree has it, else the fused K18 `mesh_sync` on the
+pow2-padded batches its sync launched) at one round of phase 5's churn,
+and the whole `ShardedDeviceTable.sync()` at that delta, the same rows
+and slots dirtied again (and the mask marked dirty) before every call.
+Each reading
 is `chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
-host's enqueue time a call (`enqueue_ms`); a whole `sync()` takes
-longer than a run can hold the stream for, so its card time is also
-read by torch.profiler (`card_ms`: the union of its kernels' and
-copies' device intervals, over the calls). One process holds both
+host's enqueue time a call (`enqueue_ms`). A whole `sync()` copies
+from pageable host memory, and such a copy can wait for the stream, so
+under run_ms's hold its enqueue time takes in the held spin and its
+device time misses it (both wrong); its host time is read with the
+stream idle instead (`host_ms`: the host clock over calls back to
+back, no hold), and its card time by torch.profiler (`card_ms`: the
+union of its kernels' and copies' device intervals, over the calls).
+One process holds both
 trees, so the host's speed, which moves between processes, is the same
 for both. Prints one line a case with every reading and the medians,
 then the card's name and power limit.
@@ -96,7 +108,7 @@ def main(argv=None) -> int:
         mods = {m: importlib.import_module(f"{name}.{m}") for m in (
             "ops._build", "ops.retained", "ops.transfer", "ops.fanout",
             "ops.hash_index", "ops.table", "parallel.sharded_match", "convert",
-            "models.router", "broker.pubsub")}
+            "models.router", "broker.pubsub", "parallel.mesh")}
         mods["ops._build"].build_all()
         trees[tag] = mods
 
@@ -147,27 +159,31 @@ def main(argv=None) -> int:
 
     cases.update(sync_cases(trees, dev, rng, C))
     profiled = set()
-    for name, fns, whole in table_cases(trees, dev, C):
-        cases[name] = fns
-        if whole:
-            profiled.add(name)
+    for gen in (table_cases, mesh_cases):
+        for name, fns, whole in gen(trees, dev, C):
+            cases[name] = fns
+            if whole:
+                profiled.add(name)
 
     for name, fns in cases.items():
         got = {"parent": [], "this": []}
         card = {"parent": [], "this": []}
+        host = {"parent": [], "this": []}
         for _ in range(args.rounds):
             for tag in ("parent", "this", "this", "parent"):
                 got[tag].append(C.run_ms(fns[tag]))
                 if name in profiled:
                     card[tag].append(card_ms(fns[tag], C))
+                    host[tag].append(host_ms(fns[tag]))
         med = {tag: (statistics.median(d for d, _ in v), statistics.median(e for _, e in v))
                for tag, v in got.items()}
         extra = ""
         if name in profiled:
-            extra = (f"; card_ms parent {statistics.median(card['parent']):.6f} this "
-                     f"{statistics.median(card['this']):.6f}, readings parent "
-                     f"{[round(x, 6) for x in card['parent']]} this "
-                     f"{[round(x, 6) for x in card['this']]}")
+            extra = "".join(
+                f"; {key} parent {statistics.median(v['parent']):.6f} this "
+                f"{statistics.median(v['this']):.6f}, readings parent "
+                f"{[round(x, 6) for x in v['parent']]} this {[round(x, 6) for x in v['this']]}"
+                for key, v in (("host_ms", host), ("card_ms", card)))
         print(f"{name}: device_ms parent {med['parent'][0]:.6f} this {med['this'][0]:.6f}; "
               f"enqueue_ms parent {med['parent'][1]:.6f} this {med['this'][1]:.6f}; "
               f"readings (device_ms, enqueue_ms) parent "
@@ -175,6 +191,24 @@ def main(argv=None) -> int:
               f"{[(round(d, 6), round(e, 6)) for d, e in got['this']]}{extra}", flush=True)
     print(C.card_line(), flush=True)
     return 0
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """The host's time a call of `fn` with the stream idle at the start:
+    the host clock over `calls` calls back to back, over `calls` (a
+    warm-up call and a synchronize first)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return out
 
 
 def card_ms(fn, C, calls: int = 20) -> float:
@@ -291,6 +325,107 @@ def held_tables(dt, t, ix, C):
     mask = np.zeros(t.capacity, bool)
     mask[list(ix.residual_rows)] = True
     C.max_abs_err([dt._dev_residual], [torch.from_numpy(mask).to(dt._dev_residual.device)])
+
+
+def mesh_cases(trees, dev, C):
+    """The mesh's table delta sync (module docstring): yields (name,
+    {tag: fn}, whether the case is a whole sync()), each fn checked
+    against the host arrays in both trees first."""
+    import numpy as np
+    import torch
+
+    built = {}
+    for tag, m in trees.items():
+        rng = np.random.default_rng(3)
+        mesh = m["parallel.mesh"].make_mesh(2, 4, devices=[dev] * 8)
+        router = m["models.router"].Router(max_levels=16, mesh=mesh)
+        skel, _exact, _s = C.add_route_set(router, rng)
+        dt, t, ix = router.device_table, router.table, router.index
+        dt.sync()
+        C.churn(router, skel, rng)
+        rows = np.unique(np.asarray(t.dirty, np.int32))
+        sids = np.unique(np.asarray(ix.dirty_slots, np.int32))
+        kernels = mesh_kernels(m, dt, t, ix, rows, sids, C)
+        dt.sync()
+        r_list, s_list = rows.tolist(), sids.tolist()
+
+        def whole(dt=dt, t=t, ix=ix, r_list=r_list, s_list=s_list):
+            t.dirty.extend(r_list)
+            ix.dirty_slots.extend(s_list)
+            ix.residual_dirty = True
+            dt.sync()
+
+        whole()
+        torch.cuda.synchronize()
+        held_mesh(dt, t, ix, C)
+        built[tag] = (kernels, whole, len(rows), len(sids))
+    _k, _w, n_r, n_s = built["this"]
+    yield (f"K13+K18 mesh kernels, one churn round ({n_r} rows, {n_s} slots)",
+           {tag: b[0] for tag, b in built.items()}, False)
+    yield (f"ShardedDeviceTable.sync(), one churn round ({n_r} rows, {n_s} slots)",
+           {tag: b[1] for tag, b in built.items()}, True)
+
+
+def mesh_kernels(m, dt, t, ix, rows, sids, C):
+    """The kernels of the pending delta's mesh sync on clones of the one
+    group's tables, checked against the host arrays."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    S = m["parallel.sharded_match"]
+    mesh = dt.mesh
+    host, hslots = t.snapshot(), ix.slots
+    dev_t = tuple(type(d)(*(x.clone() for x in d)) for d in dt._dev)
+    slots = tuple(type(s)(*(x.clone() for x in s)) for s in dt._dev_slots)
+    residual = tuple(x.clone() for x in dt._dev_residual)
+    if hasattr(S, "mesh_table_sync"):
+        pkg = S.__name__.rsplit(".", 2)[0]
+        D = importlib.import_module(f"{pkg}.ops.delta")
+        staged = dt._stage(D.pack_table_delta(host, rows, hslots, sids, ix.residual_rows))
+
+        def fn():
+            S.mesh_table_sync(mesh, dev_t, slots, residual, staged, len(rows), len(sids))
+    else:
+        pad = m["ops.table"].pad_pow2_batches
+        idx, sidx = pad(rows, dt.DELTA_BATCH), pad(sids, dt.DELTA_BATCH)
+        cols = [dt._stage(c) for c in (idx, host.words[idx], host.prefix_len[idx],
+                                       host.has_hash[idx], host.root_wild[idx],
+                                       host.active[idx], sidx, hslots.fp[sidx],
+                                       hslots.bucket[sidx], hslots.probe[sidx // 4])]
+        fused = S.make_mesh_sync_kernel(mesh)
+        cs = tuple(tuple(s[k] for s in slots) for k in range(3))
+
+        def fn():
+            fused(dev_t, *cs, *cols)
+    fn()
+    torch.cuda.synchronize()
+    dev = dev_t[0].words.device
+    ri = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    si = torch.from_numpy(sids.astype(np.int64)).to(dev)
+    for g, h in zip(dev_t[0], host):
+        C.max_abs_err([g[ri]], [torch.from_numpy(np.ascontiguousarray(h[rows])).to(dev)])
+    for g, h, sel, ids in zip(slots[0], hslots, (si, si, si // 4), (sids, sids, sids // 4)):
+        C.max_abs_err([g.view(torch.int32)[sel]],
+                      [torch.from_numpy(np.ascontiguousarray(h[ids]).view(np.int32)).to(dev)])
+    return fn
+
+
+def held_mesh(dt, t, ix, C):
+    """The mesh's one group holds the host table, slots and residual mask
+    (a (2, 4) layout of a pow2 table on one card: no padding)."""
+    import numpy as np
+    import torch
+
+    (f,), (sl,), (res,) = dt._dev, dt._dev_slots, dt._dev_residual
+    for g, h in zip(f, t.snapshot()):
+        C.max_abs_err([g], [torch.from_numpy(h).to(g.device)])
+    for g, h in zip(sl, ix.slots):
+        C.max_abs_err([g.view(torch.int32)], [torch.from_numpy(h.view(np.int32)).to(g.device)])
+    mask = np.zeros(t.capacity, bool)
+    mask[list(ix.residual_rows)] = True
+    C.max_abs_err([res], [torch.from_numpy(mask).to(res.device)])
 
 
 def sync_cases(trees, dev, rng, C):
