@@ -189,8 +189,40 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    delta's), each one `mesh_table_sync` launch, each answer against the
    host path; the dry run's Broker(mesh=...)
    publish of 24 rooms with exact delivery counts;
-   DispatchEngine.warmup() reporting 4 shards.
-10. Summary: one line per kernel (times, bound, launches, equal), the
+   DispatchEngine.warmup() reporting 4 shards. The mesh router of (a)
+   and (b) is a Broker(mesh=...)'s, kept for phase 10.
+10. The device failure domain, on phase 7's broker (kept from phase 7)
+   and phase 9's mesh broker, launch counters set to 0 at its start: a
+   DispatchEngine (queue_depth 1024, breaker_threshold 3, the probe
+   loop parked so that the phase drives `probe_once()`) with the
+   `xla_device_breaker` alarm and a seeded DeviceFaultInjector; windows
+   of 1,024 publishes (1 on `pfan/{k}/x`, 4 on `mfan/{g}/{v}`, the rest
+   phase 5's mix), each held against the host oracle as phase 7's
+   pairs are (counts, matched filters, every delivery). (a) One window
+   in five batches, one transient fault at each leg (sync, match_begin,
+   fanout_begin, fanout_finish, match_finish; every plan staled before
+   each batch): no publisher sees it, the breaker stays closed,
+   breaker_fallback_total and fanout_host_fallback_total move. (b)
+   Sticky loss: trips within 3 windows with its alarm; then a new
+   filter, a residual filter swapped for its same-skeleton twin (both
+   subscribed) and another residual filter deleted; 8 windows with
+   phase 7's churn served from the host, during which K1, K2, K5 and
+   the two fused syncs launch nothing; a probe fails. (c) heal() and
+   probe_once(): canary, device_resync (the fanout mirror re-uploaded),
+   the full table sync, the verified canary, the close (each timed);
+   the device residual mask equals the host's; 8 windows on the card
+   with churn, the outage's mutations in each, every path kernel
+   launched. (d) One match fetch stalled 5x past breaker_deadline_ms:
+   counted once, served, breaker closed. (e) The mesh: one window, a
+   sticky loss tripping within 3 windows, 2 degraded windows launching
+   no mesh kernel, heal and probe_once (timed), a 256-topic canary equal
+   to the host, 2 windows on the card launching K14, K16, K17 and the
+   mesh sync; phase 5's churn between windows. Printed: each step's
+   line, heal() to closed and device_resync + first full sync (single
+   and mesh), degraded against on-card publishes/s (no claim), the
+   phase's seconds and launches.
+11. Summary: one line per kernel (times, bound, launches, phase 10's
+   launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
@@ -203,8 +235,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    K13 apply_delta and K18 slot delta entries, three entries of the one
    record, count phase 9 (c)'s row-only and slot-only growth launches);
    K9-K11, K13's counts
-   and packed and K15 are on no serve path and show 0), then, as the last line,
-   `{"ok": true, "device": {...}}`.
+   and packed and K15 are on no serve path and show 0; `launches_phase10`
+   beside it), then, as the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -269,6 +301,17 @@ DENSE_B = 64
 MESH_ORACLE_TOPICS = 32
 PLAIN_REPEATS = 3  # the plain versions of phase 9 are timed over 3 calls, both ways
 ESCALATION_MH = 2  # phase 9's forced block capacity, below both legs' block totals
+# phase 10: the device failure domain on phase 7's broker and phase 9's mesh
+P10_THRESHOLD = 3  # the engine's breaker_threshold
+P10_WINDOWS = 8  # degraded windows, then as many on the card after the close
+P10_MESH_WINDOWS = 2
+# a phase-10 window's pfan and mfan topics: it delivers ~110k times, a
+# phase-7 window (4 and 20) ~440k, and the host's delivery walk bounds both
+P10_PFAN_PUBS = 1
+P10_MFAN_PUBS = 4
+P10_CHURN_K = 1000  # broker_churn's index base, past phase 7's
+PROBE_PARKED_MS = 3_600_000.0  # the probe loop never wakes: the phase drives probe_once()
+SINGLE_PATH = ("match_ids_hash", "match_ids", "table_sync", "resolve_fanout", "fanout_sync")
 # filter classes (see ret_filter) and their shares: a wave's, a client's
 WAVE_MIX = (("A", 70), ("B", 10), ("C", 10), ("D", 8), ("E", 1), ("F", 1))
 CLIENT_MIX = (("A", 30), ("B", 15), ("C", 15), ("D", 15), ("F", 10), ("X", 15))
@@ -1099,17 +1142,17 @@ def build_broker(rng, device, deliveries):
     return broker, skel, exact, routes_s, time.perf_counter() - t0
 
 
-def broker_window(rng, skel, exact, w):
+def broker_window(rng, skel, exact, w, n_pfan=N_PFAN_PUBS, n_mfan=N_MFAN_PUBS):
     """One window of WINDOW QoS-0 publishes with 64-byte payloads:
-    N_PFAN_PUBS on `pfan/{k}/x`, N_MFAN_PUBS on `mfan/{g}/{v}` (each
-    topic once per window pair, the same topics every pair), the rest
-    the slice's publish mix."""
+    n_pfan on `pfan/{k}/x`, n_mfan on `mfan/{g}/{v}` (each topic once
+    per window pair, the same topics every pair), the rest the slice's
+    publish mix."""
     from emqx_tpu_torch.broker.message import Message
 
     half = w % 2
-    topics = [f"pfan/{half * N_PFAN_PUBS + j}/x" for j in range(N_PFAN_PUBS)]
-    topics += [f"mfan/{j % N_MFAN_GROUPS}/v{half * N_MFAN_PUBS + j}"
-               for j in range(N_MFAN_PUBS)]
+    topics = [f"pfan/{half * n_pfan + j}/x" for j in range(n_pfan)]
+    topics += [f"mfan/{j % N_MFAN_GROUPS}/v{half * n_mfan + j}"
+               for j in range(n_mfan)]
     topics += publish_batch(rng, skel, exact)[: WINDOW - len(topics)]
     order = rng.permutation(len(topics)).tolist()
     return [Message(topic=topics[i], payload=bytes(64), from_client="pub")
@@ -1221,6 +1264,43 @@ def check_pair(broker, served, installed, deliveries, pair):
     return total
 
 
+def record_serving(broker, served, installed):
+    """Wrap the broker's window dispatch and the router's plan resolves
+    (instance attributes shadow the class's): every served publish lands
+    in `served` as (topic, count, matched filters), every plan resolved
+    on the card in `installed` as (filters, plan). Returns the (object,
+    name) pairs to delete when done."""
+    router = broker.router
+    keys = {}
+    orig_window = broker.dispatch_window
+    orig_begin = router.resolve_fanout_begin
+    orig_finish = router.resolve_fanout_finish
+
+    def dispatch_window(lives, filter_lists, capture_errors=False):
+        results, meta = orig_window(lives, filter_lists, capture_errors)
+        for live, n, m in zip(lives, results, meta):
+            if live is not None:
+                served.append((live.topic, n, m[0]))
+        return results, meta
+
+    def resolve_begin(filters, min_fan=0):
+        h = orig_begin(filters, min_fan)
+        if h is not None:
+            keys[id(h)] = tuple(filters)
+        return h
+
+    def resolve_finish(h):
+        plan = orig_finish(h)
+        installed.append((keys.pop(id(h)), plan))
+        return plan
+
+    broker.dispatch_window = dispatch_window
+    router.resolve_fanout_begin = resolve_begin
+    router.resolve_fanout_finish = resolve_finish
+    return [(broker, "dispatch_window"), (router, "resolve_fanout_begin"),
+            (router, "resolve_fanout_finish")]
+
+
 def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
     """Phase 7's traffic: windows of WINDOW publishes through the
     DispatchEngine, two at a time (the pipeline's depth), each pair
@@ -1231,7 +1311,6 @@ def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
     router = broker.router
     served = []
     installed = []
-    keys = {}
     # host seconds per stage of the traffic, by wrapping the methods the
     # engine reaches (instance attributes shadow the class's; the
     # deferred fanout shards are scheduled through the wrapped walks)
@@ -1258,33 +1337,7 @@ def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
     wrap(broker, "_resolve_plan", "plan")
     wrap(broker, "_deliver_plan_window", "walk")
     wrap(broker, "_deliver_plan", "walk")
-    orig_window = broker.dispatch_window
-    orig_begin = router.resolve_fanout_begin
-    orig_finish = router.resolve_fanout_finish
-
-    def dispatch_window(lives, filter_lists, capture_errors=False):
-        results, meta = orig_window(lives, filter_lists, capture_errors)
-        for live, n, m in zip(lives, results, meta):
-            if live is not None:
-                served.append((live.topic, n, m[0]))
-        return results, meta
-
-    def resolve_begin(filters, min_fan=0):
-        h = orig_begin(filters, min_fan)
-        if h is not None:
-            keys[id(h)] = tuple(filters)
-        return h
-
-    def resolve_finish(h):
-        plan = orig_finish(h)
-        installed.append((keys.pop(id(h)), plan))
-        return plan
-
-    broker.dispatch_window = dispatch_window
-    router.resolve_fanout_begin = resolve_begin
-    router.resolve_fanout_finish = resolve_finish
-    wrapped += [(broker, "dispatch_window"), (router, "resolve_fanout_begin"),
-                (router, "resolve_fanout_finish")]
+    wrapped += record_serving(broker, served, installed)
     rec = {"publishes": 0, "deliveries": 0, "traffic_s": 0.0, "check_s": 0.0,
            "churn_s": 0.0, "stages": dict.fromkeys(stages, 0.0)}
 
@@ -1670,8 +1723,25 @@ def add_one_edge_cases(dev):
     return err, out
 
 
+# the failure domain's counters that move only on a device fault or a
+# trip; outside phase 10 no fault is injected, so each must stay at 0
+FAULT_COUNTERS = ("breaker_device_failures_total", "breaker_begin_failures_total",
+                  "breaker_fallback_total", "breaker_trips_total",
+                  "warmup_failures_total", "warmup_probe_failures_total")
+
+
+def require_no_device_fault(counters, where: str) -> None:
+    """Fail the run when a phase with no injected fault re-served from
+    the host, counted a device failure or tripped the breaker: its
+    answers and rates would not all be the card's."""
+    moved = {k: counters[k] for k in FAULT_COUNTERS if counters.get(k, 0)}
+    if moved:
+        raise AssertionError(f"{where}: device faults with none injected: {moved}")
+
+
 def broker_phase(rng, card):
-    """Phase 7. Returns (kernel records, launches in the phase)."""
+    """Phase 7. Returns (kernel records, launches in the phase, and
+    (broker, skeleton filters, exact topics, deliveries) for phase 10)."""
     import torch
 
     from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
@@ -1720,6 +1790,7 @@ def broker_phase(rng, card):
         f"{launches['fanout_sync']} [{card}]")
     tel = router.telemetry
     c = tel.counters
+    require_no_device_fault(c, "phase 7's engine")
     h = tel.family_hist.get("fanout_resolve_seconds")
     log(f"broker warm-up: {info} in {warm_s:.3f} s, launches={warm} [{card}]")
     log(f"broker: {rec['publishes']} publishes in {N_WINDOWS} windows of {WINDOW}, "
@@ -1732,7 +1803,8 @@ def broker_phase(rng, card):
         f"overlapped at begin {c.get('fanout_resolves_overlapped_total', 0)}, "
         f"synchronous in dispatch {c.get('fanout_resolves_dispatch_total', 0)}, "
         f"host (small fan) {c.get('fanout_small_fan_total', 0)}, host (host-resident "
-        f"filter) {c.get('fanout_host_fallback_total', 0)}; fanout_resolve_seconds "
+        f"filter; no device fault and no open breaker, checked) "
+        f"{c.get('fanout_host_fallback_total', 0)}; fanout_resolve_seconds "
         f"n={h.total if h else 0} p50={1e3 * h.percentile(50) if h else 0:.4f} ms "
         f"p99={1e3 * h.percentile(99) if h else 0:.4f} ms; plan hits "
         f"{c.get('fanout_plan_hits', 0)} misses {c.get('fanout_plan_misses', 0)} "
@@ -1765,7 +1837,7 @@ def broker_phase(rng, card):
         raise AssertionError(f"broker phase never launched {missing}")
     if not c.get("fanout_resolves_overlapped_total", 0):
         raise AssertionError("no overlapped resolve ran")
-    return recs, launches
+    return recs, launches, (broker, skel, exact, deliveries)
 
 
 # --- retained reads and the server (phase 8) ---------------------------------------
@@ -3197,6 +3269,7 @@ def small_mesh_checks(card):
     info = b.enable_dispatch_engine(queue_depth=64).warmup()
     if info.get("mesh_shards") != MESH[1]:
         raise AssertionError(f"engine warm-up on the mesh: {info}")
+    require_no_device_fault(b.router.telemetry.counters, "phase 9's Broker(mesh)")
 
     log(f"mesh small checks: (1,3) padded layout with churn (hash and dense-only), "
         f"growth syncs (capacity, buckets) {sizes} launches {growth}, "
@@ -3208,18 +3281,21 @@ MESH_PATH = ("mesh_match_ids_hash", "mesh_match_ids", "combine_pairs", "mesh_tab
 
 
 def mesh_phase(rng, card):
-    """Phase 9. Returns (kernel records, launches in the main path's run)."""
+    """Phase 9. Returns (kernel records, launches in the main path's run,
+    and (broker, skeleton filters, exact topics) for phase 10)."""
     import gc
 
     import torch
 
-    from emqx_tpu_torch.models.router import Router
+    from emqx_tpu_torch.broker.pubsub import Broker
     from emqx_tpu_torch.ops import _build
 
     stages = {}
     t_phase = time.perf_counter()
     mesh = mesh_of(MESH)
-    router = Router(max_levels=16, mesh=mesh)
+    # a Broker's Router(mesh=...): phase 10 drives its dispatch engine
+    m_broker = Broker(max_levels=16, mesh=mesh)
+    router = m_broker.router
     skel, exact, host_s = add_route_set(router, rng)
     stages["set-up"] = time.perf_counter() - t_phase
     log(f"mesh: {mesh} routes={router.stats()} residual_rows="
@@ -3276,6 +3352,7 @@ def mesh_phase(rng, card):
     from emqx_tpu_torch.parallel import sharded_match as S
 
     dt = router.device_table
+    default_mh = dt.default_mh
     dt.default_mh, dt._mh_floor = ESCALATION_MH, 0
     c = router.telemetry.counters
     before = {k: c.get(k, 0) for k in ("escalations_total", "hash_overflow_retries_total")}
@@ -3292,6 +3369,7 @@ def mesh_phase(rng, card):
         oracle_check(router, publish_batch(rng, skel, exact), "mesh escalation")
     finally:
         S._combine_launch = real_combine
+        dt.default_mh = default_mh
     esc = {k: c.get(k, 0) - v for k, v in before.items()}
     if min(esc.values()) < 1:
         raise AssertionError(f"a leg did not escalate past max_hits={ESCALATION_MH}: {esc}")
@@ -3300,13 +3378,403 @@ def mesh_phase(rng, card):
         f"{esc['hash_overflow_retries_total']}, every answer equal to the host path, "
         f"K14 equal to its plain version at max_hits {widths} [{card}]")
     stages["kernel checks"] = time.perf_counter() - t0
-    del router
     gc.collect()
     torch.cuda.empty_cache()
     stages["small checks"], growth = small_mesh_checks(card)
     log(f"phase 9: {time.perf_counter() - t_phase:.3f} s ("
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + f") [{card}]")
-    return recs, dict(launches, **growth)
+    return recs, dict(launches, **growth), (m_broker, skel, exact)
+
+
+# --- the device failure domain (phase 10) -----------------------------------------
+
+
+def resync_timer(router, times):
+    """Time the breaker's full re-upload inside the next probe: the
+    router's device_resync (which re-uploads the fanout mirror) and the
+    device table's first sync after it (the full upload of rows, slots
+    and the residual mask), each up to a device synchronise, into
+    `times` (ms). Returns the (object, name) pairs to delete."""
+    import torch
+
+    dt = router.device_table
+    real_resync, real_sync = router.device_resync, dt.sync
+
+    def first_sync():
+        t0 = time.perf_counter()
+        n = real_sync()
+        torch.cuda.synchronize()
+        times["full_sync_ms"] = 1e3 * (time.perf_counter() - t0)
+        del dt.sync
+        return n
+
+    def resync():
+        t0 = time.perf_counter()
+        real_resync()
+        torch.cuda.synchronize()
+        times["resync_ms"] = 1e3 * (time.perf_counter() - t0)
+        dt.sync = first_sync
+
+    router.device_resync = resync
+    return [(router, "device_resync"), (dt, "sync")]
+
+
+def residual_pair(router):
+    """Two skeleton filters (dest "s") whose rows are residual: the
+    first is swapped for its `swap_of` twin during the outage, the
+    second deleted."""
+    out = []
+    for row in sorted(router.index.residual_rows):
+        f = router._row_filter[row]
+        if f is not None and router._filter_row.get(f) == row and router.has_route(f, "s"):
+            out.append(f)
+            if len(out) == 2:
+                return out
+    raise AssertionError("the broker's table holds fewer than two residual skeleton filters")
+
+
+def mask_matches_host(router, tag):
+    """The device residual mask equals the host index's residual rows."""
+    import torch
+
+    mask = router.device_table._dev_residual
+    rows = torch.nonzero(mask).flatten().cpu().tolist()
+    if rows != sorted(router.index.residual_rows):
+        raise AssertionError(f"{tag}: device residual mask holds {len(rows)} rows, "
+                             f"host {len(router.index.residual_rows)}")
+
+
+def failure_domain_phase(b_ctx, m_ctx, rng, seed, card):
+    """Phase 10: the device failure domain on phase 7's broker (a-d) and
+    on phase 9's mesh broker (e). Returns the launches of the phase,
+    counted from 0 at its start."""
+    import asyncio
+
+    import torch
+
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.chaos import LEGS, DeviceFaultInjector
+    from emqx_tpu_torch.obs.alarm import Alarms
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
+    from emqx_tpu_torch.ops import _build
+
+    broker, skel, exact, deliveries = b_ctx
+    m_broker, m_skel, m_exact = m_ctx
+    router = broker.router
+    t_phase = time.perf_counter()
+    stages = {}
+    # counters from zero for this phase, as phase 7 does
+    router.telemetry = router.device_table.telemetry = KernelTelemetry()
+    router.device_table.fanout.telemetry = router.telemetry
+    c = router.telemetry.counters
+    alarms = Alarms(broker)
+    eng = broker.enable_dispatch_engine(
+        queue_depth=WINDOW, pipeline_depth=2, transfer_chunk_kb=0,
+        breaker_threshold=P10_THRESHOLD, probe_backoff_ms=PROBE_PARKED_MS,
+        probe_backoff_max_ms=PROBE_PARKED_MS, alarms=alarms)
+    inj = DeviceFaultInjector(seed=seed).install(router)
+    served, installed = [], []
+    wrapped = record_serving(broker, served, installed)
+    rec = {}
+    _build.reset_launches()
+
+    def launches():
+        return {name: k.launches for name, k in _build.KERNELS.items()}
+
+    def msg(topic):
+        return Message(topic=topic, payload=bytes(64), from_client="pub")
+
+    def window(w, extra=()):
+        """A phase-10 window: WINDOW publishes, the last len(extra) of
+        them on the given topics."""
+        msgs = broker_window(rng, skel, exact, w, P10_PFAN_PUBS, P10_MFAN_PUBS)
+        if extra:
+            msgs[-len(extra):] = [msg(t) for t in extra]
+        return msgs
+
+    def stale_plans():
+        """Every pfan and mfan plan re-resolves at its next use."""
+        for f in ["pfan/+/x", "pfan/#"] + [f"mfan/{g}/+" for g in range(N_MFAN_GROUPS)]:
+            broker._mark_fanout(f)
+
+    async def serve(b, e, chunks, tag, before=None, dl=deliveries, sv=served, ins=installed):
+        """Submit each chunk and land it; then hold every publish of the
+        window against the host oracle (check_pair). Returns (publishes,
+        traffic seconds)."""
+        wall = 0.0
+        total = 0
+        for i, chunk in enumerate(chunks):
+            if before is not None:
+                before(i)
+            t0 = time.perf_counter()
+            total += await e.submit_many(chunk)
+            await e.drain()
+            for _ in range(4):  # deferred fanout shards run on the loop
+                await asyncio.sleep(0)
+            wall += time.perf_counter() - t0
+        n_pubs = len(sv)
+        n = check_pair(b, sv, ins, dl, tag)
+        if n != total:
+            raise AssertionError(f"{tag}: futures summed {total}, publishes {n}")
+        sv.clear()
+        ins.clear()
+        return n_pubs, wall
+
+    async def single():
+        t0 = time.perf_counter()
+        rec["warmup"] = eng.warmup()
+        stages["warm-up"] = time.perf_counter() - t0
+        # (a) one window in five batches, one transient fault at each leg
+        t0 = time.perf_counter()
+        # a fresh topic a batch: each batch has an uncached topic, so
+        # each reaches the device legs
+        msgs = window(0, [f"p10fresh/{i}" for i in range(5)])
+        fan = [m for m in msgs if m.topic.startswith(("pfan/", "mfan/"))]
+        rest = [m for m in msgs if not m.topic.startswith(("pfan/", "mfan/"))]
+        order = ("sync", "fanout_begin", "match_begin", "fanout_finish", "match_finish")
+        chunks = [fan[i::len(order)] + rest[i::len(order)] for i in range(len(order))]
+
+        def arm(i):
+            stale_plans()
+            inj.fail_transient(1, legs=(order[i],))
+
+        await serve(broker, eng, chunks, "transient", before=arm)
+        want = {(leg, "all"): 1 for leg in LEGS}
+        if inj.injected != want:
+            raise AssertionError(f"transient faults injected {inj.injected}, want {want}")
+        if eng.breaker_state != "closed":
+            raise AssertionError(f"one transient a leg tripped the breaker ({eng.status()['breaker']})")
+        if not (c.get("breaker_fallback_total", 0) and c.get("fanout_host_fallback_total", 0)):
+            raise AssertionError(f"the re-serve counters did not move: {c}")
+        log(f"failure domain (a) transient: one window of {len(msgs)} publishes in "
+            f"{len(order)} batches, one fault at each leg {sorted(inj.injected)}, every count "
+            f"equal to the host oracle; breaker {eng.breaker_state}, breaker_fallback_total "
+            f"{c['breaker_fallback_total']}, fanout_host_fallback_total "
+            f"{c['fanout_host_fallback_total']}, device failures "
+            f"{c.get('breaker_device_failures_total', 0)} [{card}]")
+        broker_churn(broker, skel, rng, P10_CHURN_K, deliveries)
+        stages["(a) transient"] = time.perf_counter() - t0
+
+        # (b) sticky loss: trip, then degraded windows with churn
+        t0 = time.perf_counter()
+        inj.fail_sticky()
+        trip = 0
+        for w in range(1, P10_THRESHOLD + 1):
+            await serve(broker, eng, [window(w)], f"sticky {w}")
+            if eng.breaker_state == "open":
+                trip = w
+                break
+        if not trip or not router.device_suspended:
+            raise AssertionError(f"sticky loss did not trip within {P10_THRESHOLD} windows")
+        if not alarms.is_active("xla_device_breaker"):
+            raise AssertionError("the breaker tripped without its alarm")
+        # the mid-outage mutations: a new filter with a subscriber, a
+        # residual filter swapped for its twin (with a subscriber), and
+        # another residual filter deleted
+        res_a, res_b = residual_pair(router)
+        twin = swap_of(res_a)
+        row_a = router._filter_row[res_a]
+        for cid, flt in (("p10new", "p10new/+/x"), ("p10res", twin)):
+            s, _ = broker.open_session(cid, True)
+            s.outgoing_sink = deliveries.sink_for(cid)
+            broker.subscribe(s, flt, SubOpts(qos=1))
+        router.delete_route(res_a, "s")
+        router.add_route(twin, "s")
+        router.delete_route(res_b, "s")
+        if router._filter_row[twin] not in router.index.residual_rows:
+            raise AssertionError(f"{twin} is not a residual filter")
+
+        def extras(k):
+            return (f"p10new/{k}/x", instantiate(twin, rng), instantiate(res_a, rng),
+                    instantiate(res_b, rng))
+
+        before = launches()
+        pubs = wall = 0
+        for k in range(P10_WINDOWS):
+            n, t = await serve(broker, eng, [window(10 + k, extras(k))], f"degraded {k}")
+            pubs += n
+            wall += t
+            broker_churn(broker, skel, rng, P10_CHURN_K + 1 + k, deliveries)
+        moved = {n: v - before[n] for n, v in launches().items() if v != before[n]}
+        if moved:
+            raise AssertionError(f"kernels launched while the breaker was open: {moved}")
+        rec["degraded"] = (pubs, wall)
+        # a probe fails while the card is lost; the breaker stays open
+        if eng.probe_once() or eng.breaker_state != "open":
+            raise AssertionError("a probe closed the breaker on a lost card")
+        log(f"failure domain (b) sticky loss: tripped after {trip} windows "
+            f"(threshold {P10_THRESHOLD}), alarm xla_device_breaker active; "
+            f"{P10_WINDOWS} degraded windows with churn, the residual filter at row "
+            f"{row_a} swapped for its twin (now row {router._filter_row[twin]}) and another "
+            f"deleted, a new filter subscribed: {pubs} publishes in {wall:.3f} s, every "
+            f"count and match equal to the host oracle; no kernel launched while open "
+            f"({', '.join(SINGLE_PATH)}); a probe on the lost card failed; "
+            f"breaker_degraded_batches_total {c.get('breaker_degraded_batches_total', 0)} [{card}]")
+        stages["(b) sticky"] = time.perf_counter() - t0
+
+        # (c) heal and recover: full re-upload, verified canary, close
+        t0 = time.perf_counter()
+        times = {}
+        timers = resync_timer(router, times)
+        try:
+            t_heal = time.perf_counter()
+            inj.heal()
+            closed = eng.probe_once()
+            heal_s = time.perf_counter() - t_heal
+        finally:
+            for obj, name in timers:
+                if name in vars(obj):
+                    delattr(obj, name)
+        if not closed or eng.breaker_state != "closed" or router.device_suspended:
+            raise AssertionError(f"the breaker did not close after heal(): {eng.status()['breaker']}")
+        if alarms.is_active("xla_device_breaker"):
+            raise AssertionError("the breaker closed with its alarm still active")
+        mask_matches_host(router, "after the resync")
+        rec["recovery"] = (heal_s, times)
+        before = launches()
+        plans0 = c.get("fanout_device_plans_total", 0)
+        pubs = wall = 0
+        for k in range(P10_WINDOWS):
+            n, t = await serve(broker, eng, [window(20 + k, extras(100 + k))], f"recovered {k}")
+            pubs += n
+            wall += t
+            broker_churn(broker, skel, rng, P10_CHURN_K + 20 + k, deliveries)
+            if eng.breaker_state != "closed":
+                raise AssertionError(f"the breaker left closed in window {k}: {eng.status()['breaker']}")
+        after = launches()
+        still = [n for n in SINGLE_PATH if after[n] == before[n]]
+        if still or c.get("fanout_device_plans_total", 0) == plans0:
+            raise AssertionError(f"the card did not serve again after the close: {still}")
+        rec["device"] = (pubs, wall)
+        log(f"failure domain (c) recovery: heal() to closed {heal_s:.3f} s through "
+            f"probe_once (canary, device_resync {times['resync_ms']:.3f} ms + first full "
+            f"sync {times['full_sync_ms']:.3f} ms, verified canary); device residual mask "
+            f"equal to the host's; {P10_WINDOWS} windows on the card with churn: {pubs} "
+            f"publishes in {wall:.3f} s, every count and match equal to the host oracle, the "
+            f"mid-outage mutations included; launches over them "
+            f"{ {n: after[n] - before[n] for n in SINGLE_PATH} } [{card}]")
+        stages["(c) recovery"] = time.perf_counter() - t0
+
+        # (d) a stall past breaker_deadline_ms: counted, results served
+        t0 = time.perf_counter()
+        late0 = c.get("breaker_deadline_exceeded_total", 0)
+        stall_s = 5 * eng.breaker_deadline_s
+        inj.stall(stall_s, n=1, legs=("match_finish",))
+        await serve(broker, eng, [window(40)], "stall")
+        inj.heal()
+        late = c.get("breaker_deadline_exceeded_total", 0) - late0
+        if inj.stalls_injected != 1 or late != 1 or eng.breaker_state != "closed":
+            raise AssertionError(f"stall: injected {inj.stalls_injected}, deadline expiries "
+                                 f"{late}, breaker {eng.breaker_state}")
+        log(f"failure domain (d) stall: one match fetch held {1e3 * stall_s:.1f} ms past "
+            f"breaker_deadline_ms {1e3 * eng.breaker_deadline_s:.1f}: "
+            f"breaker_deadline_exceeded_total +{late}, its window served and equal to the "
+            f"host oracle, breaker {eng.breaker_state} [{card}]")
+        stages["(d) stall"] = time.perf_counter() - t0
+        await eng.stop()
+
+    # (e) the mesh: phase 9's Router(mesh=(2, 4)) behind its broker
+    m_router = m_broker.router
+    m_alarms = Alarms(m_broker)
+    m_eng = m_broker.enable_dispatch_engine(
+        queue_depth=BATCH, pipeline_depth=2, breaker_threshold=P10_THRESHOLD,
+        probe_backoff_ms=PROBE_PARKED_MS, probe_backoff_max_ms=PROBE_PARKED_MS,
+        alarms=m_alarms)
+    m_inj = DeviceFaultInjector(seed=seed).install(m_router)
+    m_served, m_installed = [], []
+    m_deliveries = Deliveries()
+    m_wrapped = record_serving(m_broker, m_served, m_installed)
+
+    async def mesh():
+        t0 = time.perf_counter()
+
+        async def m_window(tag):
+            topics = publish_batch(rng, m_skel, m_exact)
+            await serve(m_broker, m_eng, [[msg(t) for t in topics]], tag,
+                        dl=m_deliveries, sv=m_served, ins=m_installed)
+            churn(m_router, m_skel, rng)
+
+        await m_window("mesh healthy")
+        m_inj.fail_sticky()
+        trip = 0
+        for w in range(1, P10_THRESHOLD + 1):
+            await m_window(f"mesh sticky {w}")
+            if m_eng.breaker_state == "open":
+                trip = w
+                break
+        if not trip or not m_alarms.is_active("xla_device_breaker"):
+            raise AssertionError(f"mesh: sticky loss did not trip within {P10_THRESHOLD} windows")
+        before = launches()
+        for k in range(P10_MESH_WINDOWS):
+            await m_window(f"mesh degraded {k}")
+        moved = {n: v - before[n] for n, v in launches().items() if v != before[n]}
+        if moved:
+            raise AssertionError(f"mesh: kernels launched while the breaker was open: {moved}")
+        times = {}
+        timers = resync_timer(m_router, times)
+        try:
+            t_heal = time.perf_counter()
+            m_inj.heal()
+            closed = m_eng.probe_once()
+            heal_s = time.perf_counter() - t_heal
+        finally:
+            for obj, name in timers:
+                if name in vars(obj):
+                    delattr(obj, name)
+        if not closed or m_eng.breaker_state != "closed" or m_alarms.is_active("xla_device_breaker"):
+            raise AssertionError(f"mesh: the breaker did not close: {m_eng.status()['breaker']}")
+        canary = publish_batch(rng, m_skel, m_exact)[:256]
+        got = m_router.canary_match(canary)
+        for t, g in zip(canary, got):
+            if sorted(g) != sorted(m_router.match_filters(t)):
+                raise AssertionError(f"mesh canary: {t!r} -> {sorted(g)}")
+        before = launches()
+        for k in range(P10_MESH_WINDOWS):
+            await m_window(f"mesh recovered {k}")
+        after = launches()
+        still = [n for n in MESH_PATH if after[n] == before[n]]
+        if still or m_eng.breaker_state != "closed":
+            raise AssertionError(f"mesh: the card did not serve again after the close: {still}")
+        rec["mesh"] = (heal_s, times)
+        log(f"failure domain (e) mesh {MESH}: tripped after {trip} windows, "
+            f"{P10_MESH_WINDOWS} degraded windows launched no kernel; heal() to closed "
+            f"{heal_s:.3f} s (device_resync {times['resync_ms']:.3f} ms + first full sync "
+            f"{times['full_sync_ms']:.3f} ms); canary of {len(canary)} topics equal to the "
+            f"host; {P10_MESH_WINDOWS} windows on the card after, every match equal to the "
+            f"host oracle; launches over them {({n: after[n] - before[n] for n in MESH_PATH})} "
+            f"[{card}]")
+        stages["(e) mesh"] = time.perf_counter() - t0
+        await m_eng.stop()
+
+    try:
+        asyncio.run(single())
+        asyncio.run(mesh())
+    finally:
+        for obj, name in wrapped + m_wrapped:
+            if name in vars(obj):
+                delattr(obj, name)
+        inj.uninstall()
+        m_inj.uninstall()
+    torch.cuda.synchronize()
+    phase = launches()
+    missing = [n for n in SINGLE_PATH + MESH_PATH if phase[n] <= 0]
+    if missing:
+        raise AssertionError(f"phase 10 never launched {missing}")
+    (d_pubs, d_wall), (c_pubs, c_wall) = rec["degraded"], rec["device"]
+    log(f"failure domain rates (information, no claim): degraded {d_pubs / d_wall:.1f} "
+        f"publishes/s against {c_pubs / c_wall:.1f} on the card over {P10_WINDOWS} windows "
+        f"each of the same mix, the reduced fan mix of {P10_PFAN_PUBS} pfan and "
+        f"{P10_MFAN_PUBS} mfan publishes a window (phase 7's: {N_PFAN_PUBS} and "
+        f"{N_MFAN_PUBS}); single-device heal() to closed {rec['recovery'][0]:.3f} s, "
+        f"device_resync + first full sync "
+        f"{rec['recovery'][1]['resync_ms'] + rec['recovery'][1]['full_sync_ms']:.3f} ms; "
+        f"mesh {rec['mesh'][0]:.3f} s, "
+        f"{rec['mesh'][1]['resync_ms'] + rec['mesh'][1]['full_sync_ms']:.3f} ms [{card}]")
+    log(f"phase 10: {time.perf_counter() - t_phase:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"), launches {phase} [{card}]")
+    return phase
 
 
 def host_encode_ms(router, skel, exact, seed: int) -> float:
@@ -3500,9 +3968,12 @@ def main(argv=None) -> int:
 
     lap(6)
     # phase 7: the broker publish path
-    b_recs, b_launches = broker_phase(np.random.default_rng(args.seed + 1), card)
+    b_recs, b_launches, b_ctx = broker_phase(np.random.default_rng(args.seed + 1), card)
     recs.update(b_recs)
     gc.collect()
+    # phase 7's broker lives on for phase 10: keep its objects out of the
+    # collector's scans in phases 8 and 9 (phase 10's engine unfreezes)
+    gc.freeze()
     torch.cuda.empty_cache()
     lap(7)
 
@@ -3512,9 +3983,24 @@ def main(argv=None) -> int:
     lap(8)
 
     # phase 9: the sub-sharded mesh routing path
-    m_recs, m_launches = mesh_phase(np.random.default_rng(args.seed + 3), card)
+    m_recs, m_launches, m_ctx = mesh_phase(np.random.default_rng(args.seed + 3), card)
     recs.update(m_recs)
     lap(9)
+
+    # phase 10: the device failure domain, on phase 7's broker and phase
+    # 9's mesh; launch counters from zero at its start
+    f_launches = failure_domain_phase(b_ctx, m_ctx, np.random.default_rng(args.seed + 4),
+                                      args.seed, card)
+    lap(10)
+
+    def phase10_launches(name):
+        # a fused kernel's total on each of its entries; the dense-only
+        # record's launches are phase 6's, none of them phase 10's
+        if name == "match_ids_dense_only":
+            return 0
+        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
+        return f_launches.get(key, 0)
+
 
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
@@ -3525,9 +4011,10 @@ def main(argv=None) -> int:
     for name, r in recs.items():
         log(f"kernel {name}: {times_line(r)} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
-            f"launches={path_launches[name]} equal=True [{r['shape']}] [{card}]")
+            f"launches={path_launches[name]} phase10_launches="
+            f"{phase10_launches(name)} equal=True [{r['shape']}] [{card}]")
 
-    # phase 10: summary
+    # phase 11: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -3589,6 +4076,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches.get(name, path_launches[key]),
+            "launches_phase10": phase10_launches(name),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

@@ -43,35 +43,79 @@ Exactness contract: every result comes from the same begin/finish code
 path `Broker.publish_batch` composes, and delivery runs through the
 same `Broker._pre_publish`/`Broker.dispatch_window`.
 
-Left out of the port for now: the device circuit breaker, its canary
-probe and the shard breaker (they need the host re-serve legs the port
-does not have yet), the publish sentinel and the rule batcher. A device
-fault fails the futures of the publishes it touched with the fault
-itself; nothing is served from the host in its place.
+**Device failure domain** (the emqx_olp analog for the card):
+
+  * **Failover** — a device batch whose leg raises (a CUDA error,
+    injected or real, at launch, at the fetch, at a plan resolve, or
+    when its transfer's readiness is polled) or that blows the
+    per-batch `breaker_deadline_ms` is re-served through the host
+    match walk (`Router.match_filters_host`, identical answers by the
+    oracle contract), so publishers never see a transient device
+    fault. Only a device fault (`chaos.faults.is_device_fault`: the
+    injected DeviceLinkError family or a CUDA runtime error) is
+    re-served. A kernel that fails to build or launch, or any other
+    exception of the port's own code, fails the publishes it touched
+    with itself, and raises out of `warmup`. Nothing else is served
+    from the host: a batch whose device legs succeed is the card's
+    answer.
+
+  * **Circuit breaker** — `breaker_threshold` CONSECUTIVE device
+    failures trip the breaker: `Router.suspend_device()` routes ALL
+    match and fanout traffic host-side (degraded but correct), and the
+    `xla_device_breaker` alarm raises (the reference's name, kept).
+
+  * **Recovery** — a background canary probe with bounded exponential
+    backoff (`probe_once`, also callable directly) re-dispatches recent
+    topics through the real kernels; on success it re-uploads FULL
+    device state from host truth (`Router.device_resync`) and verifies
+    a second canary against the host oracle before closing the breaker
+    and clearing the alarm. A sticky CUDA context error (an illegal
+    address, an ECC fault) poisons the process's context: every probe
+    then fails, the breaker stays open and the host serves until the
+    process restarts.
+
+One deliberate divergence from the reference: it has no shard breaker
+yet, so a failure that carries a `shard` (a ShardedDeviceTable chip
+fault) counts toward the whole-device breaker — a coarser failure
+domain, with answers still exact. Left out too: the flight recorder's
+trip bundles, the publish sentinel and the rule batcher.
 
 Telemetry: queue-wait histogram family `pipeline_queue_wait_seconds`,
-gauges `pipeline_depth` / `pipeline_coalesce` / `queue_depth`, counters
+gauges `pipeline_depth` / `pipeline_coalesce` / `queue_depth` /
+`breaker_state` / `breaker_consecutive_failures`, counters
 `fanout_resolves_overlapped_total`, `publish_failures_total`,
 `queue_shed_total`, `queue_blocked_total`,
-`queue_deadline_expired_total`, and the ring's launch->land spans
-(`ring_slot_span_seconds`, `ring_gap_seconds`,
-`ring_occupancy_ratio`).
+`queue_deadline_expired_total`, the breaker's `breaker_*` family
+(device failures, begin failures, fallbacks, deadline expiries, trips,
+probes, probe failures, recoveries), `fanout_host_fallback_total`, and
+the ring's launch->land spans (`ring_slot_span_seconds`,
+`ring_gap_seconds`, `ring_occupancy_ratio`).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
+import logging
 from collections import deque
 from typing import Deque, Dict, List, Optional
 
+from ..chaos.faults import DeviceLinkError, is_device_fault
 from ..obs.profiler import STAGE_MARK
 from .message import Message
+
+log = logging.getLogger("emqx_tpu_torch.broker.dispatch_engine")
 
 # a batch below queue_depth flushes once its oldest publish waited this
 DEADLINE_S = 0.0005
 # entries of the router's generation-stamped topic -> filters cache
 MATCH_CACHE_SIZE = 8192
+
+ALARM_BREAKER = "xla_device_breaker"
+
+# breaker_state gauge encoding
+_STATE_GAUGE = {"closed": 0, "open": 1, "half_open": 2}
 
 class EngineStopped(RuntimeError):
     """The dispatch engine stopped; a publish submitted after stop()
@@ -137,6 +181,11 @@ class DispatchEngine:
         queue_policy: str = "shed",
         queue_deadline_ms: float = 1000.0,
         transfer_chunk_kb: float = 0.0,
+        breaker_threshold: int = 4,
+        breaker_deadline_ms: float = 250.0,
+        probe_backoff_ms: float = 100.0,
+        probe_backoff_max_ms: float = 5000.0,
+        alarms=None,
     ) -> None:
         self.broker = broker
         self.router = broker.router
@@ -144,6 +193,15 @@ class DispatchEngine:
         self.telemetry = self.router.telemetry
         self.queue_depth = max(1, queue_depth)
         self.pipeline_depth = max(1, pipeline_depth)
+        # --- device failure domain (breaker) knobs
+        self.breaker_threshold = max(1, breaker_threshold)
+        self.breaker_deadline_s = max(0.0, breaker_deadline_ms) / 1e3
+        self.probe_backoff_s = max(0.001, probe_backoff_ms) / 1e3
+        self.probe_backoff_max_s = max(
+            self.probe_backoff_s, probe_backoff_max_ms / 1e3
+        )
+        # obs/alarm.Alarms the breaker raises and clears (None: none)
+        self.alarms = alarms
         # --- admission control knobs
         self.queue_max_depth = max(1, queue_max_depth)
         if queue_policy not in ("shed", "block"):
@@ -171,6 +229,18 @@ class DispatchEngine:
         self.batches_total = 0
         self.publishes_total = 0
         self.closed = False
+        # --- breaker state machine: closed -> open -> half_open -> closed
+        self.breaker_state = "closed"
+        self._consecutive_failures = 0
+        self._probe_task: Optional[asyncio.Task] = None
+        self.last_device_error: Optional[str] = None
+        # canary topics: the most recent distinct batch heads, so the
+        # recovery probe dispatches realistic traffic, not synthetics
+        self._recent_topics: Deque[str] = deque(maxlen=8)
+        # a readiness poll of the ring head that raised (a CUDA error
+        # surfaces at the first synchronising call, here an event
+        # query): the next collect re-serves that head from the host
+        self._head_fault: Optional[BaseException] = None
         # device-occupancy timeline: launch->land spans per ring slot,
         # the busy-time integral over empty->nonempty transitions of
         # _inflight, and the idle gaps between lands
@@ -181,6 +251,8 @@ class DispatchEngine:
         self._ring_slots_total = 0
         tel = self.telemetry
         if tel.enabled:
+            tel.set_gauge("breaker_state", 0)
+            tel.set_gauge("breaker_consecutive_failures", 0)
             tel.set_gauge("queue_depth", 0)
             tel.set_gauge("queue_waiters", 0)
             tel.set_gauge("queue_overloaded", 0)
@@ -200,21 +272,43 @@ class DispatchEngine:
              collector (gc.freeze) so gen-2 passes never scan the
              table/session bulk from inside a launch.
 
-        A device fault in any step raises. Returns a summary dict."""
+        A device that fails the link probe leaves the chunk unbounded
+        (counted); one that fails the shape warm-up counts toward the
+        breaker — the broker comes up degraded, never dead. Any other
+        exception (a kernel that fails to build) raises. Returns a
+        summary dict."""
         from ..ops import transfer as transfer_ops
 
         router = self.router
+        tel = self.telemetry
         info: dict = {}
         chunk_kb = self.transfer_chunk_kb
         if not chunk_kb:
-            rtt_s, bw = transfer_ops.probe_link(router.device)
-            chunk_kb = transfer_ops.auto_chunk_kb(rtt_s, bw)
-            info["link_rtt_ms"] = round(rtt_s * 1e3, 3)
-            info["link_mb_per_s"] = round(bw / 1e6, 1)
-        router.set_transfer_chunk(chunk_kb)
+            try:
+                rtt_s, bw = transfer_ops.probe_link(router.device)
+                chunk_kb = transfer_ops.auto_chunk_kb(rtt_s, bw)
+                info["link_rtt_ms"] = round(rtt_s * 1e3, 3)
+                info["link_mb_per_s"] = round(bw / 1e6, 1)
+            except Exception as e:
+                if not is_device_fault(e):
+                    raise
+                # a dead link at boot is the breaker's business, not
+                # warmup's — leave the chunk unbounded, note it
+                tel.count("warmup_probe_failures_total")
+                log.warning("link probe failed during warmup: %r", e)
+                chunk_kb = 0
+        if chunk_kb:
+            router.set_transfer_chunk(chunk_kb)
         self.transfer_chunk_kb = chunk_kb
         info["transfer_chunk_kb"] = chunk_kb
-        info["aot_shapes"] = router.warmup_shapes(self.queue_depth)
+        try:
+            info["aot_shapes"] = router.warmup_shapes(self.queue_depth)
+        except Exception as e:
+            if not is_device_fault(e):
+                raise
+            tel.count("warmup_failures_total")
+            log.warning("shape warm-up failed: %r", e)
+            self.note_device_failure(e)
         if router.mesh is not None:
             # the mesh's serve state at readiness: its shard count
             info["mesh_shards"] = router.device_table.n_shards
@@ -410,21 +504,15 @@ class DispatchEngine:
 
     # --- batch close + pipeline ------------------------------------------
 
-    def _fail_batch(self, entries, exc: BaseException) -> None:
-        """A device fault on this batch's path: every publisher in it
-        sees the fault itself (counted); nothing is served in its
-        place."""
-        self.telemetry.count("publish_failures_total", len(entries))
-        for _live, fut in entries:
-            if not fut.done():
-                fut.set_exception(exc)
-
     def _flush(self) -> None:
         """Close the current batch: run the publish hooks, LAUNCH the
         match kernels (no device->host fetch) and the overlapped plan
         resolves, and push the pending batch onto the in-flight window.
         Collection happens on a later loop turn (_drain) or immediately
-        for whatever exceeds the pipeline depth."""
+        for whatever exceeds the pipeline depth. A device fault at
+        launch fails over to a host-mode batch — publishers never see
+        it; any other exception fails the batch's publishers with
+        itself."""
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
@@ -450,20 +538,37 @@ class DispatchEngine:
             STAGE_MARK.stage = ""
             self.batches_total += 1
             self.publishes_total += len(batch)
+            if topics:
+                self._recent_topics.append(topics[0])
             STAGE_MARK.stage = "match_launch"
             try:
-                pending = router.match_filters_begin(topics)
+                try:
+                    pending = router.match_filters_begin(topics)
+                except Exception as e:
+                    if not is_device_fault(e):
+                        raise
+                    # launch-side device fault (encode/sync/kernel
+                    # launch): re-begin in host mode — the cache probe
+                    # re-runs (cheap, correct) and finish serves from
+                    # host truth
+                    tel.count("breaker_begin_failures_total")
+                    self.note_device_failure(e)
+                    pending = self._host_begin(topics)
                 # device-resolved fanout overlap: topics the match cache
                 # answered at begin time have known filter sets NOW —
                 # launch their plan resolves immediately so the deduped
                 # plan materializes on the card while the match fetch
                 # for the uncached remainder is still in flight
                 STAGE_MARK.stage = "plan_resolve"
-                fanout_pending = self._begin_overlapped(pending)
+                fanout_pending = (
+                    None if router.device_suspended
+                    else self._begin_overlapped(pending)
+                )
             except Exception as e:
+                # not the card's fault: the publishers see it
                 STAGE_MARK.stage = ""
                 self._fail_batch(entries, e)
-                self._batch_failed()
+                self._batch_done(len(entries))
                 return
             STAGE_MARK.stage = ""
             t_launch = tel.clock()
@@ -490,10 +595,23 @@ class DispatchEngine:
             self._drain_scheduled = True
             asyncio.get_running_loop().call_soon(self._drain)
 
+    def _host_begin(self, topics):
+        """Begin a batch with the device forced out of the loop (the
+        failover path when match_filters_begin itself raised)."""
+        router = self.router
+        prev = router.device_suspended
+        router.device_suspended = True
+        try:
+            return router.match_filters_begin(topics)
+        finally:
+            router.device_suspended = prev
+
     def _begin_overlapped(self, pending):
         """Launch K5 for every distinct cached filter set of a begun
         batch whose plan is missing or stale; [(key, clock, handle)]
-        or None."""
+        or None. A device fault at launch stops the overlap (the
+        dispatch path rebuilds those plans) and counts toward the
+        breaker; any other exception raises."""
         if pending.full_out is None:
             return None
         broker = self.broker
@@ -510,9 +628,16 @@ class DispatchEngine:
             seen.add(fkey)
             if broker._plan_fresh(fkey):
                 continue
-            h = router.resolve_fanout_begin(
-                fkey, min_fan=broker._fanout_min_fan
-            )
+            try:
+                h = router.resolve_fanout_begin(
+                    fkey, min_fan=broker._fanout_min_fan
+                )
+            except Exception as e:
+                if not is_device_fault(e):
+                    raise
+                tel.count("fanout_host_fallback_total")
+                self.note_device_failure(e)
+                break
             if h is not None:
                 if tel.enabled:
                     tel.count("fanout_resolves_overlapped_total")
@@ -528,14 +653,21 @@ class DispatchEngine:
     def _head_ready(self) -> bool:
         """True when collecting the ring head will not block: the
         match legs' AND any overlapped fanout resolves' transfer
-        tickets have all landed host-side."""
+        tickets have all landed host-side. A poll that raises (the
+        first synchronising call after a faulting kernel) marks the
+        head for re-serve and reports it ready, so the fault takes the
+        failed-fetch path instead of escaping the loop callback and
+        stranding the batch's publishers."""
         pending, _entries, fanout_pending, _t = self._inflight[0]
-        if not self.router.match_finish_ready(pending):
-            return False
-        if fanout_pending is not None:
-            for _fkey, _clock, h in fanout_pending:
-                if not h[0].ready():
-                    return False
+        try:
+            if not self.router.match_finish_ready(pending):
+                return False
+            if fanout_pending is not None:
+                for _fkey, _clock, h in fanout_pending:
+                    if not h[0].ready():
+                        return False
+        except Exception as e:
+            self._head_fault = e
         return True
 
     def _drain(self) -> None:
@@ -560,34 +692,78 @@ class DispatchEngine:
         self.telemetry.set_gauge("pipeline_depth", 0)
 
     def _collect_one(self) -> None:
-        """Fetch + deliver the OLDEST in-flight batch (begin order)."""
+        """Fetch + deliver the OLDEST in-flight batch (begin order).
+        A device fault here re-serves the whole batch through the host
+        walk; a slow-but-successful device batch past the breaker
+        deadline counts toward the breaker without being re-served
+        (its results are already correct). Any other exception fails
+        the batch's publishers with itself. A dropped batch's transfer
+        tickets free their pinned host buffers through PyTorch's
+        caching host allocator, which holds a buffer until the copy
+        recorded on it has completed."""
         pending, entries, fanout_pending, t_launch = self._inflight.popleft()
+        head_fault, self._head_fault = self._head_fault, None
         broker = self.broker
         router = self.router
         tel = self.telemetry
         tclock = tel.clock
+        device_batch = pending.mode not in ("cached", "host")
         gc_tok = self._gc_pause()
         try:
             STAGE_MARK.stage = "match_fetch"
+            t0 = tclock()
             try:
+                if head_fault is not None:
+                    raise head_fault
                 filter_lists = router.match_filters_finish(pending)
-                if fanout_pending is not None:
-                    # install the overlapped plans before delivering:
-                    # stamped with the clock captured at begin, so a
-                    # mutation that landed mid-flight leaves them
-                    # stale-on-arrival and the dispatch below rebuilds
-                    STAGE_MARK.stage = "plan_resolve"
-                    for fkey, clock, h in fanout_pending:
-                        broker._store_plan(
-                            fkey, clock, router.resolve_fanout_finish(h)
-                        )
             except Exception as e:
-                STAGE_MARK.stage = ""
-                self._ring_land(tclock(), t_launch, "failed", len(entries))
-                self._fail_batch(entries, e)
-                self._batch_done(len(entries))
-                return
+                if not is_device_fault(e):
+                    self._drop_batch(entries, t_launch, e)
+                    return
+                # device fault: re-serve the WHOLE batch from host truth
+                # (identical by the oracle contract, so publishers never
+                # see it); the failure still counts toward the breaker
+                tel.count("breaker_fallback_total", len(entries))
+                self.note_device_failure(e)
+                fanout_pending = None  # overlapped resolves died with it
+                try:
+                    filter_lists = router.match_filters_host(pending)
+                except Exception as e2:  # host truth failed: nothing left
+                    self._drop_batch(entries, t_launch, e2)
+                    return
+            else:
+                if device_batch:
+                    if (
+                        self.breaker_deadline_s
+                        and tclock() - t0 > self.breaker_deadline_s
+                    ):
+                        # slow is a fault even when it is not wrong: the
+                        # results serve, the breaker still hears about it
+                        tel.count("breaker_deadline_exceeded_total")
+                        self.note_device_failure(None)
+                    else:
+                        self.note_device_success()
             STAGE_MARK.stage = ""
+            if fanout_pending is not None:
+                # install the overlapped plans before delivering:
+                # stamped with the clock captured at begin, so a
+                # mutation that landed mid-flight leaves them
+                # stale-on-arrival and the dispatch below rebuilds
+                STAGE_MARK.stage = "plan_resolve"
+                for fkey, clock, h in fanout_pending:
+                    try:
+                        plan = router.resolve_fanout_finish(h)
+                    except Exception as e:
+                        if not is_device_fault(e):
+                            self._drop_batch(entries, t_launch, e)
+                            return
+                        # the dispatch path rebuilds this plan; counted
+                        # so a dying link can't fail resolves silently
+                        tel.count("fanout_host_fallback_total")
+                        self.note_device_failure(e)
+                        continue
+                    broker._store_plan(fkey, clock, plan)
+                STAGE_MARK.stage = ""
             self._ring_land(tclock(), t_launch, pending.mode, len(entries))
             # the vectorized delivery half: ONE window dispatch for the
             # whole collected batch (plan resolution per unique filter
@@ -616,7 +792,8 @@ class DispatchEngine:
             for idx, (_live, fut) in enumerate(entries):
                 n = results[idx]
                 if isinstance(n, BaseException):
-                    # the publisher sees its failure (counted)
+                    # a delivery-side failure is the publisher's to see
+                    # (a host bug, not a device fault): counted
                     _flush_agg()
                     tel.count("publish_failures_total")
                     if not fut.done():
@@ -635,15 +812,29 @@ class DispatchEngine:
         finally:
             self._gc_resume(gc_tok)
 
-    def _batch_failed(self) -> None:
+    def _drop_batch(self, entries, t_launch: float, exc: BaseException) -> None:
+        """Land a collected batch that cannot be served: every
+        publisher in it sees `exc`."""
+        STAGE_MARK.stage = ""
+        self._ring_land(self.telemetry.clock(), t_launch, "failed", len(entries))
+        self._fail_batch(entries, exc)
+        self._batch_done(len(entries))
+
+    def _fail_batch(self, entries, exc: BaseException) -> None:
+        """The batch cannot be served (a fault that is not the card's,
+        or host truth itself failed): every publisher in it sees that
+        failure (counted)."""
+        self.telemetry.count("publish_failures_total", len(entries))
+        for _live, fut in entries:
+            if not fut.done():
+                fut.set_exception(exc)
+
+    def _batch_done(self, n_pubs: int) -> None:
+        self._inflight_pubs -= n_pubs
         if self._waiters:
             self._pump_waiters()
         else:
             self._maybe_clear_overload()
-
-    def _batch_done(self, n_pubs: int) -> None:
-        self._inflight_pubs -= n_pubs
-        self._batch_failed()
 
     # --- device-occupancy timeline ---------------------------------------
 
@@ -681,6 +872,142 @@ class DispatchEngine:
             "busy_seconds": round(self._ring_busy_accum, 6),
         }
 
+    # --- circuit breaker (trip -> degrade -> probe -> resync -> close) ----
+
+    def note_device_failure(self, exc: Optional[BaseException]) -> None:
+        """One device failure (None: a batch past the deadline), from
+        the engine's own batches or the broker's synchronous match and
+        plan legs. A failure that carries a `shard` counts here too:
+        the port has no shard breaker, so its failure domain is the
+        whole device."""
+        tel = self.telemetry
+        tel.count("breaker_device_failures_total")
+        if exc is not None:
+            self.last_device_error = repr(exc)
+        self._consecutive_failures += 1
+        tel.set_gauge("breaker_consecutive_failures", self._consecutive_failures)
+        if (
+            self.breaker_state == "closed"
+            and self._consecutive_failures >= self.breaker_threshold
+        ):
+            self._trip_breaker()
+
+    def note_device_success(self) -> None:
+        """A successful device leg resets the consecutive-failure
+        count, so sparse transient faults spread over hours never
+        accumulate into a spurious trip."""
+        if self._consecutive_failures:
+            self._consecutive_failures = 0
+            self.telemetry.set_gauge("breaker_consecutive_failures", 0)
+
+    def _set_state(self, state: str) -> None:
+        self.breaker_state = state
+        self.telemetry.set_gauge("breaker_state", _STATE_GAUGE[state])
+
+    def _trip_breaker(self) -> None:
+        """closed -> open: all traffic host-side (degraded but
+        correct), alarm raised, probe armed."""
+        tel = self.telemetry
+        self._set_state("open")
+        self.router.suspend_device()
+        tel.count("breaker_trips_total")
+        log.error(
+            "device breaker TRIPPED after %d consecutive failures "
+            "(last: %s) — all publish traffic degraded to the host "
+            "walk; canary probe armed",
+            self._consecutive_failures, self.last_device_error,
+        )
+        alarms = self.alarms
+        if alarms is not None:
+            try:
+                alarms.ensure(
+                    ALARM_BREAKER,
+                    details={
+                        "consecutive_failures": self._consecutive_failures,
+                        "threshold": self.breaker_threshold,
+                        "last_error": self.last_device_error,
+                    },
+                    message="XLA device breaker open: publish path "
+                            "degraded to host walk",
+                )
+            except Exception:
+                tel.count("breaker_alarm_failures_total")
+                log.exception("breaker alarm failed")
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            # no loop (a synchronous caller): recovery happens on the
+            # next probe_once() the caller drives
+            return
+        t = loop.create_task(self._probe_loop())
+        self._probe_task = t
+        t.add_done_callback(self._probe_done)
+
+    def _probe_done(self, task: "asyncio.Task") -> None:
+        if self._probe_task is task:
+            self._probe_task = None
+        if not task.cancelled() and task.exception() is not None:
+            self.telemetry.count("breaker_probe_crashes_total")
+            log.error("breaker probe loop died", exc_info=task.exception())
+
+    async def _probe_loop(self) -> None:
+        """Bounded-exponential-backoff canary: probe_once until the
+        breaker closes (or the engine stops)."""
+        backoff = self.probe_backoff_s
+        while not self.closed and self.breaker_state == "open":
+            await asyncio.sleep(backoff)
+            backoff = min(backoff * 2.0, self.probe_backoff_max_s)
+            if self.closed or self.breaker_state != "open":
+                return
+            if self.probe_once():
+                return
+
+    def probe_once(self) -> bool:
+        """One canary attempt: link canary -> full state re-upload ->
+        oracle-verified canary -> close. Returns True when the breaker
+        closed; a fault that is not the card's raises, the breaker left
+        open."""
+        tel = self.telemetry
+        router = self.router
+        tel.count("breaker_probe_total")
+        self._set_state("half_open")
+        topics = list(self._recent_topics) or ["$breaker/canary"]
+        try:
+            # step 1: does the link dispatch at all? (stale state OK)
+            router.canary_match(topics)
+            # step 2: the outage dropped the delta stream — re-upload
+            # FULL device state from host truth, then verify that the
+            # card answers as the host oracle does
+            router.device_resync()
+            served = router.canary_match(topics)
+            oracle = [sorted(router.match_filters(t)) for t in topics]
+            if [sorted(x) for x in served] != oracle:
+                raise DeviceLinkError("post-resync canary diverged from host oracle")
+        except Exception as e:
+            tel.count("breaker_probe_failures_total")
+            self.last_device_error = repr(e)
+            self._set_state("open")
+            if not is_device_fault(e):
+                raise
+            return False
+        self._close_breaker(topics)
+        return True
+
+    def _close_breaker(self, canary_topics) -> None:
+        tel = self.telemetry
+        self._consecutive_failures = 0
+        tel.set_gauge("breaker_consecutive_failures", 0)
+        self._set_state("closed")
+        self.router.resume_device()
+        tel.count("breaker_recoveries_total")
+        log.warning(
+            "device breaker CLOSED: full state re-uploaded, canary "
+            "verified against host oracle on %d topics",
+            len(canary_topics),
+        )
+        if self.alarms is not None:
+            self.alarms.ensure_deactivated(ALARM_BREAKER)
+
     # --- lifecycle --------------------------------------------------------
 
     async def drain(self) -> None:
@@ -699,7 +1026,8 @@ class DispatchEngine:
 
     async def stop(self) -> None:
         """Stop the engine: complete everything queued and in flight,
-        then refuse new publishes (EngineStopped)."""
+        cancel the breaker's probe, then refuse new publishes
+        (EngineStopped)."""
         if self.closed:
             return
         await self.drain()
@@ -710,8 +1038,40 @@ class DispatchEngine:
         if self._waiter_timer is not None:
             self._waiter_timer.cancel()
             self._waiter_timer = None
+        if self._probe_task is not None:
+            self._probe_task.cancel()
+            with contextlib.suppress(Exception, asyncio.CancelledError):
+                await self._probe_task
+            self._probe_task = None
         if self.warmed:
             # hand the frozen steady state back to the collector — a
             # stopped engine's broker graph must stay reclaimable
             gc.unfreeze()
         await asyncio.sleep(0)
+
+    def status(self) -> dict:
+        counters = self.telemetry.counters
+        return {
+            "queue_depth": self.queue_depth,
+            "pipeline_depth": self.pipeline_depth,
+            "queued": len(self._queue),
+            "inflight": len(self._inflight),
+            "batches_total": self.batches_total,
+            "publishes_total": self.publishes_total,
+            "breaker": {
+                "state": self.breaker_state,
+                "threshold": self.breaker_threshold,
+                "consecutive_failures": self._consecutive_failures,
+                "deadline_ms": self.breaker_deadline_s * 1e3,
+                "trips": counters.get("breaker_trips_total", 0),
+                "recoveries": counters.get("breaker_recoveries_total", 0),
+                "fallback_publishes": counters.get("breaker_fallback_total", 0),
+                "degraded_batches": counters.get(
+                    "breaker_degraded_batches_total", 0
+                ),
+                "probes": counters.get("breaker_probe_total", 0),
+                "probe_failures": counters.get("breaker_probe_failures_total", 0),
+                "last_device_error": self.last_device_error,
+            },
+            "ring": self.ring_status(),
+        }

@@ -30,6 +30,7 @@ from __future__ import annotations
 import asyncio
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from ..chaos.faults import is_device_fault
 from ..device import DeviceLike
 from ..models.retainer import Retainer
 from ..models.router import Router
@@ -303,11 +304,30 @@ class Broker:
     def publish_batch(self, msgs: Sequence[Message]) -> List[int]:
         """The device hot path: one batched match launch for the whole
         inbound publish batch, then the window dispatch. A device fault
-        raises to the caller (the failure domain comes with the
-        breaker)."""
+        mid-batch fails over to the host walk (identical answers)
+        instead of failing every coalesced publisher, and the attached
+        engine's breaker hears about it — the same failure-domain
+        contract as the pipelined engine, for the synchronous
+        surface. Any other exception (a kernel that fails to build,
+        a bug) raises to the caller."""
         live = [self._pre_publish(m) for m in msgs]
         topics = [m.topic for m in live if m is not None]
-        filter_lists = self.router.match_filters_batch(topics)
+        router = self.router
+        eng = self.engine
+        try:
+            filter_lists = router.match_filters_batch(topics)
+        except Exception as e:
+            if not is_device_fault(e):
+                raise
+            tel = router.telemetry
+            if tel.enabled:
+                tel.count("breaker_fallback_total", len(topics))
+            if eng is not None:
+                eng.note_device_failure(e)
+            filter_lists = [router.match_filters(t) for t in topics]
+        else:
+            if eng is not None:
+                eng.note_device_success()
         results, _meta = self.dispatch_window(live, filter_lists)
         return results
 
@@ -619,15 +639,31 @@ class Broker:
         """Build the (mem, other) plan for a matched filter set — the
         device kernel when eligible, else the host oracle walk. The two
         are identical by contract (tests/test_torch_broker.py). A
-        device fault raises to the caller."""
+        device fault on either half serves the host walk, counted, and
+        the attached engine's breaker hears about the link; any other
+        exception raises to the caller."""
         router = self.router
-        handle = router.resolve_fanout_begin(key, min_fan=self._fanout_min_fan)
+        tel = router.telemetry
+        eng = self.engine
+        try:
+            handle = router.resolve_fanout_begin(key, min_fan=self._fanout_min_fan)
+            if handle is not None:
+                plan = router.resolve_fanout_finish(handle)
+        except Exception as e:
+            if not is_device_fault(e):
+                raise
+            if tel.enabled:
+                tel.count("fanout_host_fallback_total")
+            if eng is not None:
+                eng.note_device_failure(e)
+            return self._build_fanout_plan(pairs)
         if handle is None:
             return self._build_fanout_plan(pairs)
-        tel = router.telemetry
         if tel.enabled:
             tel.count("fanout_resolves_dispatch_total")
-        return router.resolve_fanout_finish(handle)
+        if eng is not None:
+            eng.note_device_success()
+        return plan
 
     def _build_fanout_plan(self, pairs: Pairs) -> tuple:
         """(mem_entries, other_entries): mem = live in-memory sessions

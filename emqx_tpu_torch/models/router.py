@@ -24,8 +24,13 @@ matched filter set resolves to its deduped delivery plan through kernel
 K5 (`resolve_fanout_begin/finish`). With a mesh
 (`Router(mesh=...)`, parallel/mesh.py) the table is sub-sharded across
 it (parallel/sharded_match.py ShardedDeviceTable) behind the same
-surface. The shard failure domain, quarantine, chaos seams and the
-native churn core of the reference are not part of this port.
+surface. The device failure domain's router half is here: the
+`fault_injector` seam at every leg (chaos/faults.py), the open-breaker
+host mode (`suspend_device`), the host re-serve of a failed batch
+(`match_filters_host`), the breaker's canary (`canary_match`) and its
+full re-upload (`device_resync`). The shard failure domain, quarantine,
+the chaos corrupters and the native churn core of the reference are
+not part of this port.
 """
 
 from __future__ import annotations
@@ -313,6 +318,9 @@ class DeviceTable:
         self._dev_slots: Optional[SlotArrays] = None
         self._dev_residual: Optional[torch.Tensor] = None
         self.fanout: Optional[fanout_ops.FanoutDeviceState] = None
+        # chaos fault seam (chaos/faults.py): one attribute read per
+        # sync when absent
+        self.fault_injector = None
         # transfer chunk cap (ops/transfer.chunk_hits): bounds the
         # compacted-pair result buffers to what the link streams in
         # one RTT; None = unbounded (the exact-size escalation retry
@@ -389,6 +397,9 @@ class DeviceTable:
 
     def sync(self) -> int:
         """Bring device state up to date; returns rows written."""
+        fi = self.fault_injector
+        if fi is not None:
+            fi.check("sync")
         tel = self.telemetry
         t0 = tel.clock()
         pending = len(self.table.dirty)
@@ -667,8 +678,13 @@ class Router:
         # (standalone routers) stores every client edge as SKIP, which
         # matches the oracle (no suboption -> not in the plan)
         self.fanout_opts_lookup = None
-        # open-breaker mode: every batched match answers from host
-        # truth (degraded capacity, identical answers)
+        # device failure domain (broker/dispatch_engine.py breaker +
+        # chaos/faults.py): `fault_injector` is the chaos seam at the
+        # card (None costs one attribute read per leg);
+        # `device_suspended` routes every batched match and fanout
+        # resolve through the host walk — degraded-but-correct service
+        # while the circuit breaker is open.
+        self.fault_injector = None
         self.device_suspended = False
 
     @property
@@ -707,6 +723,9 @@ class Router:
         return True
 
     def resume_device(self) -> None:
+        """Close-breaker transition. Callers resume only after
+        device_resync() and a verified canary: stale device state would
+        serve what the suspension existed to avoid."""
         if not self.device_suspended:
             return
         self.device_suspended = False
@@ -714,6 +733,63 @@ class Router:
         if tel.enabled:
             tel.count("device_resumes_total")
             tel.set_gauge("device_suspended", 0)
+
+    def device_resync(self) -> None:
+        """Re-upload FULL device state from host truth, for breaker
+        recovery, where an outage dropped the delta stream and no delta
+        replay can be trusted: the next table sync takes its full
+        branch (rows, the index's meta and slots, the residual mask
+        whole — on DeviceTable and ShardedDeviceTable alike), and the
+        fanout CSR mirror is re-uploaded here, so its copy lands in the
+        recovery probe's time and not in the first served resolve's.
+        The match cache is staled: entries filled host-side during the
+        outage re-earn their place through the device."""
+        dt = self.device_table
+        dt._dev = None  # _sync_impl's full-upload branch (both tables)
+        ix = self.index
+        if ix is not None:
+            ix.meta_dirty = True
+            ix.rebuilt = True
+        fan = dt.fanout
+        if fan is not None:
+            fan._seg_off = None  # FanoutDeviceState's full-upload branch
+            fan.sync()
+        self._aux_gen += 1
+        if self.telemetry.enabled:
+            self.telemetry.count("device_resyncs_total")
+
+    def canary_match(self, topics: Sequence[str]) -> List[List[str]]:
+        """Device-path probe for the breaker's recovery: run the
+        batched kernels for `topics` IGNORING suspension and the match
+        cache (the probe must exercise the link and the kernels, not a
+        dict). Raises on any device fault; returns per-topic filter
+        lists for the caller to compare against match_filters."""
+        prev = self.device_suspended
+        cache = self.match_cache
+        self.device_suspended = False
+        self.match_cache = None
+        try:
+            return self.match_filters_finish(self.match_filters_begin(topics))
+        finally:
+            self.device_suspended = prev
+            self.match_cache = cache
+
+    def match_filters_host(self, p: "_PendingMatch") -> List[List[str]]:
+        """Host re-serve of a begun batch whose device leg failed:
+        answer every sub-topic from host truth (the oracle the device
+        path equals by contract) and merge into the cached prefix, so
+        the dispatch engine's failover hands publishers exactly what a
+        healthy card would have. The match cache is not filled."""
+        out = [self.match_filters(t) for t in p.topics]
+        tel = self.telemetry
+        if tel.enabled and p.topics:
+            tel.count("host_fallback_total")
+        if p.full_out is None:
+            return out
+        full = p.full_out
+        for j, i in enumerate(p.sub_idx):
+            full[i] = out[j]
+        return full
 
     # --- CSR dest-store feed (the device ?SUBSCRIBER mirror) ------------
 
@@ -791,10 +867,16 @@ class Router:
         a host-resident filter in the set, a fan below `min_fan` (the
         host walk is cheaper), an empty fan, or a fan beyond the
         kernel's packing cap. Each refusal is an answer, not a fault,
-        and is counted."""
+        and is counted. While the breaker is open (`device_suspended`)
+        every set resolves host-side until the recovery canary has
+        verified the re-uploaded state."""
         if not filters:
             return None
         tel = self.telemetry
+        if self.device_suspended:
+            if tel.enabled:
+                tel.count("fanout_host_fallback_total")
+            return None
         rows = []
         for f in filters:
             row = self._fanout_row(f)
@@ -814,6 +896,9 @@ class Router:
             if tel.enabled:
                 tel.count("fanout_over_cap_total")
             return None
+        fi = self.fault_injector
+        if fi is not None:
+            fi.check("fanout_begin")
         return self.device_table.fanout.resolve_begin(rows, fan)
 
     def resolve_fanout_finish(self, handle):
@@ -821,6 +906,9 @@ class Router:
         dedup ratio, and materialize the oracle-ordered (mem, other)
         plan — identical to Broker._build_fanout_plan over the same
         host state."""
+        fi = self.fault_injector
+        if fi is not None:
+            fi.check("fanout_finish")
         win, fan = self.device_table.fanout.resolve_finish(handle)
         tel = self.telemetry
         if tel.enabled:
@@ -1177,6 +1265,9 @@ class Router:
             if tel.enabled:
                 tel.count("breaker_degraded_batches_total")
             return p
+        fi = self.fault_injector
+        if fi is not None:
+            fi.check("match_begin")
         tel.count("dispatch_batches_total")
         root = tel.span("device.match_batch")
         if root is not None:
@@ -1283,6 +1374,10 @@ class Router:
             t0 = clock()
             out = p.out = [self.match_filters(t) for t in topics]
             tel.record_dispatch(LEG_FALLBACK, clock() - t0)
+        elif p.mode != "cached":
+            fi = self.fault_injector
+            if fi is not None:
+                fi.check("match_finish")
         if p.mode == "hash":
             root = p.root
             ix = self.index

@@ -845,6 +845,8 @@ class ShardedDeviceTable:
         self._apply_slot_delta = make_slot_delta_kernel(mesh) if index is not None else None
         self._mesh_sync = make_mesh_sync_kernel(mesh) if index is not None else None
         self.fanout = None
+        # chaos fault seam (chaos/faults.py), as DeviceTable's
+        self.fault_injector = None
         # transfer chunk cap (ops/transfer.chunk_hits), as DeviceTable's
         self.transfer_chunk_hits: Optional[int] = None
         if self.telemetry.enabled:
@@ -944,6 +946,9 @@ class ShardedDeviceTable:
 
     def sync(self) -> int:
         """Bring the mesh up to date; returns rows written."""
+        fi = self.fault_injector
+        if fi is not None:
+            fi.check("sync")
         tel = self.telemetry
         t0 = tel.clock()
         pending = len(self.table.dirty)

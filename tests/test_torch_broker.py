@@ -465,9 +465,11 @@ def test_cuda_default_broker_raises_without_a_card(monkeypatch):
 
 
 def test_device_fault_reaches_the_publisher(monkeypatch):
-    """A fault in the device resolve raises to the caller; the engine
-    fails the futures it touched with the fault itself — nothing is
-    served from the host in its place."""
+    """A fault in the device resolve that is not the card's (here an
+    exception of the resolve's own code) raises to the caller; the
+    engine fails the futures it touched with the fault itself — nothing
+    is served from the host in its place. A device fault is re-served
+    from the host instead (tests/test_torch_breaker.py)."""
     x = Side(port=True)
     for i in range(8):
         x.sub(f"c{i}", "f/+")
