@@ -147,7 +147,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    given phase 3's route set. (a) K10 and K11 at 1,024 topics and K9 at
    64 over the table's full capacity (2,097,152 rows), each equal to its
    plain version, 32 topics' rows equal to the host oracle's
-   (Router.match_filters). (b) The mesh sync and warm_up shapes (each
+   (Router.match_filters), K10's launches by torch.profiler; then K10
+   on FORM_EDGES' small tables built by the port (a dead block, dead
+   words and lone live rows in a partial last block, rows of 17-24
+   levels, max_levels 7, '#' and '+/#' rows against $SYS topics, 37
+   and 1,000 topics, unpadded and padded), each equal to its plain
+   version and every topic's rows to the table's host oracle. (b) The mesh sync and warm_up shapes (each
    batch shape's first escalation step, the churn scatters); counters
    set to 0; 16 pipelined 1024-topic batches of phase 5's mix with
    phase 5's churn between them, every answer checked against the host
@@ -160,7 +165,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    out of the timed window, the mesh table syncs' launches and entries,
    and the host legs (encode, sync, hash, dense, unpack). Then each mesh
    kernel against its plain version on the router's own state (K13
-   counts and packed, K14 over both legs' tiles, K15, K16, K17), timed
+   counts and packed, K14 over both legs' tiles, K15, K16, K17; K13
+   packed also on FORM_EDGES' tables on the (2, 4) mesh and the padded
+   (1, 3) layout, and its launches by torch.profiler), timed
    as in phase 4 (the plain versions, hundreds of ms a call, over 3
    calls both ways), and `mesh_table_sync` as phase 4 holds
    `table_sync`: one churn round's delta (both sides with the residual
@@ -2619,10 +2626,204 @@ def dense_work(filters, b):
     return n + n_act * (4 * L + 6) + b * (4 * L + 5), b * (plen_sum + 3 * n_act), n_act
 
 
-def check_dense_forms(router, topics):
+# K10's and K13 packed's edge tables (phase 9 (a) and (d); the CPU tests
+# build the same ones through `form_edge_case`): name -> (max_levels,
+# topics, pad_to). Each case's snapshot keeps FORM_EDGE_ROWS rows (4.5 of
+# the packed kernel's 256-row blocks on one device, 1.125 a sub shard of
+# the (2, 4) mesh); the padded (1, 3) layout keeps one row fewer (three
+# shards of 384 rows, one of them a pad row).
+FORM_EDGE_ROWS = 1152
+FORM_EDGES = {
+    "dead_words": (6, 48, 0),   # a dead block, dead words, lone live rows
+    "deep": (24, 48, 0),        # rows of 17-24 levels, decided past level 16
+    "levels7": (7, 48, 0),      # max_levels not a multiple of 4
+    "sys": (6, 48, 0),          # '#' and '+/#' rows against $SYS topics
+    "topics37": (6, 37, 0),     # B not a multiple of a topic group or tile
+    "topics37_pad64": (6, 37, 64),
+    "topics1000": (6, 1000, 0),
+    "topics1000_pad1024": (6, 1000, 1024),
+}
+EDGE_WORDS = ("a", "b", "c", "dev", "")  # filter levels; topics add "zz", in no filter
+
+
+def edge_filter(rng, levels):
+    n = int(rng.integers(1, levels + 1))
+    ws = [str(rng.choice(EDGE_WORDS + ("+",))) for _ in range(n)]
+    if rng.random() < 0.35:
+        ws[-1] = "#"
+    if rng.random() < 0.1:
+        ws[0] = "$SYS"
+    return "/".join(ws)
+
+
+def edge_topic(rng, levels):
+    n = int(rng.integers(1, levels + 2))
+    ws = [str(rng.choice(EDGE_WORDS + ("zz",))) for _ in range(n)]
+    if rng.random() < 0.15:
+        ws[0] = str(rng.choice(["$SYS", "$x"]))
+    return "/".join(ws)
+
+
+def deep_family(rng, n):
+    """n filters of 17-24 levels sharing a 16-level base, so that the
+    levels past 16 decide which of them a topic matches."""
+    base = [str(rng.choice(EDGE_WORDS + ("+",), p=[0.17] * 5 + [0.15])) for _ in range(16)]
+    out = []
+    for _ in range(n):
+        ws = base + [str(rng.choice(EDGE_WORDS + ("+",))) for _ in range(int(rng.integers(1, 9)))]
+        if rng.random() < 0.35:
+            ws.append("#")
+        out.append("/".join(ws))
+    return out
+
+
+def instantiate_edge(rng, flt, mutate=False):
+    """A topic `flt` matches ('+' a word, '#' 0-2 words); with `mutate`,
+    one level past 16 becomes "zz", which no filter holds."""
+    ws = []
+    for w in flt.split("/"):
+        if w == "+":
+            ws.append(str(rng.choice(EDGE_WORDS)))
+        elif w == "#":
+            ws += [str(rng.choice(EDGE_WORDS)) for _ in range(int(rng.integers(0, 3)))]
+        else:
+            ws.append(w)
+    if mutate:
+        ws[int(rng.integers(16, len(ws)))] = "zz"
+    return "/".join(ws)
+
+
+def form_edge_case(case, *table_types):
+    """Edge case `case` of FORM_EDGES: one table of each of table_types
+    (the port's FilterTable; in the tests also the reference's),
+    capacity 2,048, fed the same adds and removes from numpy's generator
+    seeded with the case's index. Returns (tables, topics, pad_to); every
+    live row lies below FORM_EDGE_ROWS - 1."""
+    import numpy as np
+
+    levels, n_topics, pad_to = FORM_EDGES[case]
+    rng = np.random.default_rng(list(FORM_EDGES).index(case))
+    n = FORM_EDGE_ROWS - 1
+    if case == "deep":
+        deep = [f for _ in range(12) for f in deep_family(rng, 40)]
+        flts = deep + [edge_filter(rng, 6) for _ in range(n - len(deep))]
+        flts = [flts[i] for i in rng.permutation(n)]
+        picks = rng.choice(len(deep), n_topics // 2, replace=False)
+        topics = [instantiate_edge(rng, deep[i], mutate=k % 3 == 2) for k, i in enumerate(picks)]
+        topics += [edge_topic(rng, 26) for _ in range(n_topics - len(topics))]
+    elif case == "sys":
+        special = ["#", "+/#", "$SYS/#", "+/+", "$SYS/+"] * 32
+        flts = special + [edge_filter(rng, levels) for _ in range(n - len(special))]
+        flts = [flts[i] for i in rng.permutation(n)]
+        topics = ["$SYS/" + edge_topic(rng, 4) for _ in range(n_topics // 2)]
+        topics += [edge_topic(rng, levels) for _ in range(n_topics - len(topics))]
+    else:
+        flts = [edge_filter(rng, levels) for _ in range(n)]
+        topics = [edge_topic(rng, levels) for _ in range(n_topics)]
+    tables = [T(max_levels=levels, capacity=2048) for T in table_types]
+    for f in flts:
+        rows = {t.add(f) for t in tables}
+        if len(rows) != 1:
+            raise AssertionError(f"the tables put {f!r} at rows {rows}")
+    if case == "dead_words":
+        # rows 512-767 (a whole block), words 1, 2 and 5, words 3, 7 and 30
+        # but one row each, then one row in three of the rest
+        lone = {113, 255, 960}
+        dead = set(range(512, 768)) | set(range(32, 96)) | set(range(160, 192))
+        dead |= (set(range(96, 128)) | set(range(224, 256)) | set(range(960, 992))) - lone
+        rest = np.array(sorted(set(range(n)) - dead - lone))
+        dead |= set(rest[rng.random(len(rest)) < 1 / 3].tolist())
+    else:
+        dead = set(np.flatnonzero(rng.random(n) < 0.25).tolist())
+    for r in sorted(dead):
+        for t in tables:
+            t.remove(r)
+    return tables, topics, pad_to
+
+
+def forms_inputs(mods, dev, seed=3):
+    """Phase 9's dense forms at full width, as tools/wrapper_ab.py and
+    tools/packed_variants.py time them: add_route_set's route set in a
+    Router(max_levels=16) table (2,097,152 rows) and 1,024 of
+    publish_batch's topics, from numpy's generator seeded with `seed`.
+    `mods` maps "models.router", "ops.match", "parallel.mesh" and
+    "parallel.sharded_match" to one tree's modules. Returns (snap, enc,
+    f, t, (mesh, fm, tm), (want_k10, want_k13)): the host arrays, the
+    table and topics on `dev`, the (2, 4) mesh of `dev` with its placed
+    table and topics, and the plain versions' bitmaps (int32 views)."""
+    import numpy as np
+    import torch
+
+    M, MS, S = mods["ops.match"], mods["parallel.mesh"], mods["parallel.sharded_match"]
+    rng = np.random.default_rng(seed)
+    router = mods["models.router"].Router(max_levels=16, device=dev)
+    skel, exact, _s = add_route_set(router, rng)
+    snap = router.table.snapshot()
+    enc = M.encode_topics(router.table.vocab, publish_batch(rng, skel, exact), 16)
+    del router
+    f = M.EncodedFilters(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in snap))
+    t = M.EncodedTopics(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in enc))
+    b, n = int(t.ids.shape[0]), int(f.words.shape[0])
+    mesh = MS.make_mesh(2, 4, devices=[dev] * 8)
+    (fm,), (tm,) = MS.put_filters(snap, mesh), MS.put_topics(enc, mesh)
+    want13 = torch.zeros((b, n // 32), dtype=torch.int32, device=dev)
+    S.dense_tiles_ref(M.FORM_PACKED, fm, tm, S._tiles(mesh, 0), n // 4, b // 2, want13)
+    return snap, enc, f, t, (mesh, fm, tm), (u32(M.match_packed_ref(f, t)), want13)
+
+
+def form_edge_checks(layout, card):
+    """K10 (layout "single") or K13 packed (layout (2, 4), or (1, 3): the
+    padded layout, FORM_EDGE_ROWS - 1 rows) on the card on every
+    FORM_EDGES table, held against its plain version exactly, and on one
+    device every topic's rows against the table's host oracle. Returns
+    one line a case."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.device import resolve, to_device
+    from emqx_tpu_torch.ops import match as M
+    from emqx_tpu_torch.ops.table import EncodedFilters, FilterTable
+    from emqx_tpu_torch.parallel import mesh as MS
+    from emqx_tpu_torch.parallel import sharded_match as S
+
+    dev = resolve(DEVICE)
+    n_rows = FORM_EDGE_ROWS - (layout == (1, 3))
+    out = []
+    for case in FORM_EDGES:
+        (t,), topics, pad_to = form_edge_case(case, FilterTable)
+        snap = EncodedFilters(*(a[:n_rows] for a in t.snapshot()))
+        enc = M.encode_topics(t.vocab, topics, t.max_levels, pad_to=pad_to)
+        if layout == "single":
+            f = EncodedFilters(*(to_device(a, dev) for a in snap))
+            d = M.EncodedTopics(*(to_device(a, dev) for a in enc))
+            got = M.match_packed(f, d, chunk=n_rows)
+            max_abs_err([u32(got)], [u32(M.match_packed_ref(f, d, chunk=n_rows))])
+            host = u32(got).cpu().numpy().view(np.uint32)
+            for i, rows in enumerate(M.oracle_match_rows(t, topics)):
+                if not np.array_equal(M.unpack_indices(host[i]), rows):
+                    raise AssertionError(f"K10 {case} topic {topics[i]!r}: rows differ "
+                                         f"from the host oracle")
+        else:
+            mesh = mesh_of(layout)
+            (f,), (d,) = MS.put_filters(snap, mesh), MS.put_topics(enc, mesh)
+            got = S.make_sharded_kernels(mesh)[1]((f,), (d,))
+            want = torch.zeros(got.shape, dtype=torch.int32, device=got.device)
+            S.dense_tiles_ref(M.FORM_PACKED, f, d, S._tiles(mesh, 0),
+                              f.words.shape[0] // layout[1], d.ids.shape[0] // layout[0], want)
+            max_abs_err([u32(got)], [want])
+            host = u32(got).cpu().numpy().view(np.uint32)
+        out.append(f"{case} (B={host.shape[0]} N={host.shape[1] * 32} L={t.max_levels} "
+                   f"live={int(snap.active.sum())}): equal, set_bits="
+                   f"{int(np.unpackbits(host.view(np.uint8)).sum())}")
+    torch.cuda.synchronize()
+    return out
+
+
+def check_dense_forms(router, topics, card):
     """Phase 9 (a): K9-K11 on the card over the route table (its full
     capacity) against their plain versions; K10/K11 at BATCH topics, K9
-    at DENSE_B; MESH_ORACLE_TOPICS topics against the host oracle."""
+    at DENSE_B; MESH_ORACLE_TOPICS topics against the host oracle; K10
+    on FORM_EDGES' tables."""
     import numpy as np
     import torch
 
@@ -2657,11 +2858,14 @@ def check_dense_forms(router, topics):
     nbytes, ops, n_act = dense_work(filters, B)
     nb_small, ops_small, _ = dense_work(filters, DENSE_B)
     shape = f"N={N} L={L} active={n_act}"
+    live_words = int(filters.active.view(-1, 32).any(dim=1).sum())
     recs["match_packed"] = dict(
         **timed(lambda: M.match_packed(filters, denc),
                 lambda: M.match_packed_ref(filters, denc), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         bytes=nbytes + B * N // 8, ops=ops, err=err,
-        shape=f"B={B} {shape} set_bits={int(counts.sum())}")
+        shape=f"B={B} {shape} live_words={live_words} of {N // 32} "
+              f"set_bits={int(counts.sum())}; its launches, device us a call: "
+              + launch_breakdown(lambda: M.match_packed(filters, denc)))
     recs["match_counts"] = dict(
         **timed(lambda: M.match_counts(filters, denc),
                 lambda: M.match_counts_ref(filters, denc), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
@@ -2673,6 +2877,7 @@ def check_dense_forms(router, topics):
         shape=f"B={DENSE_B} {shape} output_bytes={DENSE_B * N}")
     del filters, packed, dense
     torch.cuda.synchronize()
+    log("K10 edge cases: " + "; ".join(form_edge_checks("single", card)) + f" [{card}]")
     set_bounds(recs)
     return recs
 
@@ -2871,8 +3076,12 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     recs["mesh_match_packed"] = dict(
         **timed(lambda: packed_k(dt._dev, (t_dev,)), packed_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         bytes=nbytes + B * n_loc * n_sub // 8, ops=ops, err=err_p,
-        shape=shape)
+        shape=f"{shape}; its launches, device us a call: "
+              + launch_breakdown(lambda: packed_k(dt._dev, (t_dev,))))
     del pk, pk_ref
+    for layout in (MESH, (1, 3)):
+        log(f"K13 packed edge cases on {layout}: "
+            + "; ".join(form_edge_checks(layout, card)) + f" [{card}]")
 
     # K13 apply_delta and K18: the fused mesh table sync on phase 9's
     # churn delta and its edges; the router syncs the delta for real later
@@ -3302,7 +3511,7 @@ def mesh_phase(rng, card):
         f"{len(router.index.residual_rows)} host_build_s={host_s:.3f} [{card}]")
 
     t0 = time.perf_counter()
-    recs = check_dense_forms(router, publish_batch(rng, skel, exact))
+    recs = check_dense_forms(router, publish_batch(rng, skel, exact), card)
     gc.collect()
     torch.cuda.empty_cache()
     stages["dense forms"] = time.perf_counter() - t0
@@ -4042,14 +4251,14 @@ def main(argv=None) -> int:
                            "emqx_tpu/ops/retained.py:81"),
         "match_dense": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
                         "emqx_tpu/ops/match.py:120"),
-        "match_packed": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+        "match_packed": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                          "emqx_tpu/ops/match.py:129"),
         "match_counts": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
                          "emqx_tpu/ops/match.py:214"),
         "mesh_match_counts": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
-                              "emqx_tpu/parallel/sharded_match.py:58"),
-        "mesh_match_packed": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
-                              "emqx_tpu/parallel/sharded_match.py:58"),
+                              "emqx_tpu/parallel/sharded_match.py:73"),
+        "mesh_match_packed": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
+                              "emqx_tpu/parallel/sharded_match.py:82"),
         # K13 apply_delta and K18 are one fused launch: the three entries
         # read its record; apply_delta and the slot delta count the
         # growth window's row-only and slot-only launches (the wrapper's

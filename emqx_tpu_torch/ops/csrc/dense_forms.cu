@@ -1,33 +1,31 @@
-// K9-K11: the dense match in its three uncompacted forms, and K13's
-// counts and packed bitmap, which are the same per (dp, sub) tile.
+// K9 and K11: the dense match in two of its uncompacted forms, and
+// K13's counts, which are K11 per (dp, sub) tile. (K10 and K13's packed
+// form, the bitmap, are packed_match.cu.)
 //
-// Replace emqx_tpu/ops/match.py `match_dense` (K9: bool [B, N]),
-// `match_packed` with `_pack_bits` (K10: uint32 [B, N/32], bit k of word
-// j = row 32j + k) and `match_counts` (K11: int32 [B] matches per topic),
-// and the `match_counts` / `match_packed` of emqx_tpu/parallel/
-// sharded_match.py `make_sharded_kernels` (K13): the same functions with
-// rows split over the mesh's sub axis and topics over its dp axis -- each
-// tile writes its block of the global [B, N] plane, and counts add over
+// Replace emqx_tpu/ops/match.py `match_dense` (K9: bool [B, N]) and
+// `match_counts` (K11: int32 [B] matches per topic), and the
+// `match_counts` of emqx_tpu/parallel/sharded_match.py
+// `make_sharded_kernels` (K13): the same function with rows split over
+// the mesh's sub axis and topics over its dp axis -- counts add over
 // sub.
 //
-// The predicate is dense_pred.cuh's, shared with K2 and K16.
+// The predicate is dense_pred.cuh's, shared with K2, K16 and K10.
 //
 // What bounds it on the H100: the operations. Every (topic, row) pair is
 // evaluated (no compaction, no early exit across rows): B*N predicate
 // evaluations of a few integer operations each, against reading the
-// table once (N * (4L + 7) bytes) and writing B*N bytes (K9), B*N/8
-// (K10) or 4B (K11).
+// table once (N * (4L + 7) bytes) and writing B*N bytes (K9) or 4B
+// (K11).
 //
 // Design: a block owns RT rows of one tile, stages each warp's 32 rows
 // in shared memory once (transposed, at a padded stride: see
 // dense_pred.cuh), and walks every topic of the tile's block TB at
 // a time (topics staged in shared memory, read from L2 by each block).
-// Per topic the warp's 32 verdicts are one ballot: K10 writes it as the
-// packed word (the 32 rows of a warp are one word, since a tile's row
-// count is a multiple of 32 for K10), K11 adds its popcount to a per-topic
-// shared count that one atomic per (block, topic) adds to the output --
-// the only cross-block step, a reduction -- and K9 writes each thread's
-// verdict as a byte, 256 consecutive bytes per topic and block.
+// Per topic, K11 adds the popcount of the warp's ballot of its 32
+// verdicts to a per-topic shared count that one atomic per (block,
+// topic) adds to the output -- the only cross-block step, a reduction --
+// and K9 writes each thread's verdict as a byte, 256 consecutive bytes
+// per topic and block.
 #include "scan.cuh"
 #include "dense_pred.cuh"
 
@@ -37,7 +35,7 @@ constexpr int RT = 256;  // rows per block: one per thread
 constexpr int TB = 32;   // topics staged at a time
 constexpr int WARPS = RT / 32;
 
-enum Mode { DENSE = 0, PACKED = 1, COUNTS = 2 };
+enum Mode { DENSE = 0, COUNTS = 2 };  // mode 1, the bitmap, is packed_match.cu
 
 struct FormsArgs {
   const int* words;         // [n_sub_here * n_loc, L]
@@ -52,7 +50,7 @@ struct FormsArgs {
   int b_loc;
   const int* tiles;         // [n_tiles, 4] or null for one tile
   void* out;
-  long long out_w;          // row width of the [B, *] output (K9 N, K10 N/32)
+  long long out_w;          // row width of K9's [B, N] output
 };
 
 size_t smem_bytes(int L) {
@@ -110,12 +108,7 @@ __global__ void __launch_bounds__(RT) forms_pass(FormsArgs a) {
         if (row < a.n_loc) static_cast<uint8_t*>(a.out)[out_row + g_row] = ok;
       } else {
         const unsigned m = __ballot_sync(EMQX_FULL_MASK, ok);
-        if (MODE == PACKED) {
-          if (lane == 0 && base + warp * 32 < a.n_loc)
-            static_cast<uint32_t*>(a.out)[out_row + (g_row >> 5)] = m;
-        } else if (lane == 0 && m) {
-          atomicAdd(&s_cnt[t], __popc(m));
-        }
+        if (lane == 0 && m) atomicAdd(&s_cnt[t], __popc(m));
       }
     }
     if (MODE == COUNTS) {
@@ -138,12 +131,11 @@ void launch(const FormsArgs& a, int n_tiles, cudaStream_t stream) {
 
 }  // namespace
 
-// mode 0 (K9): out is bool [B, out_w = N]; mode 1 (K10): uint32
-// [B, out_w = N/32], n_loc a multiple of 32; mode 2 (K11): int32 [B],
+// mode 0 (K9): out is bool [B, out_w = N]; mode 2 (K11): int32 [B],
 // zeroed here first (out_len ints) and added to by every tile. The
 // n_tiles tiles of this device (tiles [n_tiles, 4], or null for the one
 // tile (0, 0, 0, 0)) each cover n_loc rows and b_loc topics. Returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue for another mode.
 extern "C" int emqx_dense_forms(int mode, const int* words, const int* plen,
                                 const uint8_t* has_hash, const uint8_t* root_wild,
                                 const uint8_t* active, int n_loc, int L,
@@ -156,8 +148,8 @@ extern "C" int emqx_dense_forms(int mode, const int* words, const int* plen,
               t_ids, t_len, t_dollar, b_loc, tiles, out, out_w};
   if (mode == DENSE) {
     launch<DENSE>(a, n_tiles, stream);
-  } else if (mode == PACKED) {
-    launch<PACKED>(a, n_tiles, stream);
+  } else if (mode != COUNTS) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     cudaMemsetAsync(out, 0, sizeof(int) * out_len, stream);
     launch<COUNTS>(a, n_tiles, stream);

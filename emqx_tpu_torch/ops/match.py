@@ -5,8 +5,9 @@ inert pow2 padding), `GenMatchCache` (generation-stamped topic →
 filters cache) and `oracle_match_rows` (the pure-Python ground truth).
 
 Device half: kernel K2 `match_ids` (ops/csrc/dense_match.cu) and the
-dense forms K9 `match_dense`, K10 `match_packed` and K11 `match_counts`
-(ops/csrc/dense_forms.cu), each beside its plain PyTorch version
+dense forms K9 `match_dense` and K11 `match_counts`
+(ops/csrc/dense_forms.cu) and K10 `match_packed`
+(ops/csrc/packed_match.cu), each beside its plain PyTorch version
 (`*_ref`). All evaluate one predicate (csrc/dense_pred.cuh)
 
     match[b, n] = active[n]
@@ -34,7 +35,7 @@ from ._build import I, LL, P, CudaKernel, raw_stream
 from .table import EncodedFilters
 from .vocab import PLUS, Vocab
 
-# the CUDA kernels hold a tile of topics' words (and K9-K11 their rows'
+# the CUDA kernels hold a tile of topics' words (and K9, K11 their rows'
 # words) in shared memory; deeper tables are refused on the CUDA path
 MAX_KERNEL_LEVELS = 128
 
@@ -291,12 +292,16 @@ def match_counts_ref(filters: EncodedFilters, topics: EncodedTopics) -> torch.Te
     return match_dense_ref(filters, topics).sum(dim=1, dtype=torch.int32)
 
 
-# --- K9-K11: the CUDA kernel (one entry point, three modes) ---------------
+# --- K9-K11: the CUDA kernels ---------------------------------------------
+# K9 and K11 are two modes of one entry point (dense_forms.cu); K10, the
+# bitmap, is its own kernel (packed_match.cu). FORM_* name the three forms.
 
 FORM_DENSE, FORM_PACKED, FORM_COUNTS = 0, 1, 2
 _FORMS_ARGTYPES = [I, P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, LL, P]
+_PACKED_ARGTYPES = [P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, P]
 _MATCH_DENSE = CudaKernel("match_dense", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
-_MATCH_PACKED = CudaKernel("match_packed", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
+_MATCH_PACKED = CudaKernel("match_packed", "packed_match.cu", "emqx_match_packed",
+                           _PACKED_ARGTYPES)
 _MATCH_COUNTS = CudaKernel("match_counts", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
 
 
@@ -312,27 +317,48 @@ def check_filters(filters: EncodedFilters, device) -> tuple:
     return n, levels
 
 
+def _forms_args(
+    filters: EncodedFilters, topics: EncodedTopics, n_loc: int, b_loc: int,
+    tiles: Optional[torch.Tensor], n_tiles: int, out: torch.Tensor, out_w: int,
+) -> tuple:
+    """The arguments the dense forms entries share, checked."""
+    dev = filters.words.device
+    check_filters(filters, dev)
+    check_topics(topics, filters.words.shape[1], dev)
+    return (
+        filters.words.data_ptr(), filters.prefix_len.data_ptr(),
+        filters.has_hash.data_ptr(), filters.root_wild.data_ptr(),
+        filters.active.data_ptr(), n_loc, filters.words.shape[1],
+        topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
+        b_loc, None if tiles is None else tiles.data_ptr(), n_tiles,
+        out.data_ptr(), out_w,
+    )
+
+
 def launch_dense_forms(
     kernel: CudaKernel, mode: int, filters: EncodedFilters, topics: EncodedTopics,
     n_loc: int, b_loc: int, tiles: Optional[torch.Tensor], n_tiles: int,
     out: torch.Tensor, out_w: int,
 ) -> None:
-    """Launch the dense forms kernel over `n_tiles` tiles of n_loc rows
-    and b_loc topics (tiles None: the one tile (0, 0, 0, 0)), writing
-    `out` ([B, out_w] for K9/K10, [B] for K11). Used by K9-K11 and by
-    the mesh's K13 (parallel/sharded_match.py)."""
-    dev = filters.words.device
-    check_filters(filters, dev)
-    check_topics(topics, filters.words.shape[1], dev)
-    kernel(
-        mode, filters.words.data_ptr(), filters.prefix_len.data_ptr(),
-        filters.has_hash.data_ptr(), filters.root_wild.data_ptr(),
-        filters.active.data_ptr(), n_loc, filters.words.shape[1],
-        topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
-        b_loc, None if tiles is None else tiles.data_ptr(), n_tiles,
-        out.data_ptr(), out_w, out.numel(),
-        raw_stream(dev),
-    )
+    """Launch dense_forms.cu in `mode` (FORM_DENSE or FORM_COUNTS) over
+    `n_tiles` tiles of n_loc rows and b_loc topics (tiles None: the one
+    tile (0, 0, 0, 0)), writing `out` ([B, out_w] for K9, [B] for K11).
+    Used by K9, K11 and by the mesh's K13 counts
+    (parallel/sharded_match.py)."""
+    args = _forms_args(filters, topics, n_loc, b_loc, tiles, n_tiles, out, out_w)
+    kernel(mode, *args, out.numel(), raw_stream(filters.words.device))
+
+
+def launch_packed(
+    kernel: CudaKernel, filters: EncodedFilters, topics: EncodedTopics,
+    n_loc: int, b_loc: int, tiles: Optional[torch.Tensor], n_tiles: int,
+    out: torch.Tensor, out_w: int,
+) -> None:
+    """Launch packed_match.cu over `n_tiles` tiles as launch_dense_forms
+    does, writing the uint32 bitmap `out` [B, out_w]. Used by K10 and by
+    the mesh's K13 packed."""
+    args = _forms_args(filters, topics, n_loc, b_loc, tiles, n_tiles, out, out_w)
+    kernel(*args, raw_stream(filters.words.device))
 
 
 def match_dense(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
@@ -362,9 +388,7 @@ def match_packed(
     _check_chunk(n, chunk)
     b = topics.ids.shape[0]
     out = torch.empty((b, n // 32), dtype=torch.uint32, device=dev)
-    launch_dense_forms(
-        _MATCH_PACKED, FORM_PACKED, filters, topics, n, b, None, 1, out, n // 32
-    )
+    launch_packed(_MATCH_PACKED, filters, topics, n, b, None, 1, out, n // 32)
     return out
 
 

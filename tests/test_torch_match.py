@@ -18,6 +18,8 @@ from emqx_tpu_torch.ops import match as TM
 from emqx_tpu_torch.ops import topic as TT
 from emqx_tpu_torch.ops.table import EncodedFilters, FilterTable, pad_pow2_batches
 
+import chip_smoke
+
 from test_match import random_filter, random_topic
 
 CPU = torch.device("cpu")
@@ -258,28 +260,64 @@ def test_gen_match_cache_is_generation_stamped():
 # --- K9-K11: the dense forms ---------------------------------------------------
 
 # (seed, n_filters, capacity, pad_to, chunk)
+# (seed, n_filters, capacity, pad_to, chunk, edge): edge None takes
+# `_twin_tables`' table and 48 topics; a name takes chip_smoke.FORM_EDGES'
+# table of that name (the cases the packed kernel treats apart, which
+# phase 9 of chip_smoke.py also runs on the card), its topics and pad_to,
+# the snapshot cut to FORM_EDGE_ROWS rows (4.5 of the kernel's 256-row
+# blocks)
 FORM_CASES = [
-    (10, 300, 1024, 0, 65536),   # one chunk covers the table
-    (11, 500, 1024, 64, 256),    # chunked, pow2-padded topics
-    (12, 900, 2048, 0, 512),     # a larger table, chunked
-]
+    pytest.param(10, 300, 1024, 0, 65536, None, id="10-300-1024-0-65536"),  # one chunk
+    pytest.param(11, 500, 1024, 64, 256, None, id="11-500-1024-64-256"),  # chunked, padded
+    pytest.param(12, 900, 2048, 0, 512, None, id="12-900-2048-0-512"),  # a larger table
+] + [pytest.param(0, 0, 2048, 0, 128, edge, id=edge) for edge in chip_smoke.FORM_EDGES]
 
 
-@pytest.mark.parametrize("seed,n_filters,capacity,pad_to,chunk", FORM_CASES)
-def test_dense_forms_equal_reference(seed, n_filters, capacity, pad_to, chunk):
-    jt, tt, topics = _twin_tables(seed, n_filters, capacity=capacity)
+def _form_tables(seed, n_filters, capacity, pad_to, edge):
+    """(reference table, port table, topics, reference snapshot, pad_to)."""
+    if edge is None:
+        jt, tt, topics = _twin_tables(seed, n_filters, capacity=capacity)
+        return jt, tt, topics, jt.snapshot(), pad_to
+    (jt, tt), topics, pad_to = chip_smoke.form_edge_case(edge, JFilterTable, FilterTable)
+    snap = jt.snapshot()
+    snap = type(snap)(*(a[:chip_smoke.FORM_EDGE_ROWS] for a in snap))
+    _assert_edge(edge, snap, topics)
+    return jt, tt, topics, snap, pad_to
+
+
+def _assert_edge(edge, snap, topics):
+    """The edge case holds what it is named for."""
+    live = snap.active.reshape(-1, 32).sum(axis=1)
+    if edge == "dead_words":
+        assert not snap.active[512:768].any()  # a whole dead block
+        assert (live == 0).sum() > 8 and (live == 1).sum() >= 3  # dead words, lone rows
+        assert len(snap.active) % 256 and snap.active[1024:].any()  # a live partial block
+    elif edge == "deep":
+        assert snap.prefix_len.max() > 16 and snap.prefix_len[snap.active].min() <= 16
+    elif edge == "sys":
+        assert (snap.active & snap.has_hash & (snap.prefix_len == 0)).sum() >= 16  # '#' rows
+        assert sum(t.startswith("$SYS/") for t in topics) >= 24
+    elif edge == "levels7":
+        assert snap.words.shape[1] % 4  # no 16-byte row loads
+    else:
+        assert len(topics) % 16  # a partial topic group and tile
+
+
+@pytest.mark.parametrize("seed,n_filters,capacity,pad_to,chunk,edge", FORM_CASES)
+def test_dense_forms_equal_reference(seed, n_filters, capacity, pad_to, chunk, edge):
+    jt, tt, topics, snap, pad_to = _form_tables(seed, n_filters, capacity, pad_to, edge)
     enc = JM.encode_topics(jt.vocab, topics, jt.max_levels, pad_to=pad_to)
-    f = _torch(jt.snapshot(), EncodedFilters)
+    f = _torch(snap, EncodedFilters)
     t = _torch(enc, TM.EncodedTopics)
     dense = TM.match_dense(f, t)
     assert dense.dtype == torch.bool
-    assert np.array_equal(np.asarray(JM.match_dense(jt.snapshot(), enc)), dense.numpy())
+    assert np.array_equal(np.asarray(JM.match_dense(snap, enc)), dense.numpy())
     packed = TM.match_packed(f, t, chunk=chunk)
-    want = np.asarray(JM.match_packed(jt.snapshot(), enc, chunk=chunk))
+    want = np.asarray(JM.match_packed(snap, enc, chunk=chunk))
     assert packed.dtype == torch.uint32
     assert np.array_equal(want, packed.view(torch.int32).numpy().view(np.uint32))
     counts = TM.match_counts(f, t)
-    assert np.array_equal(np.asarray(JM.match_counts(jt.snapshot(), enc)), counts.numpy())
+    assert np.array_equal(np.asarray(JM.match_counts(snap, enc)), counts.numpy())
     # the host unpack of the port's bitmap is the oracle's row set
     oracle = TM.oracle_match_rows(tt, topics)
     host = packed.view(torch.int32).numpy().view(np.uint32)
@@ -287,6 +325,10 @@ def test_dense_forms_equal_reference(seed, n_filters, capacity, pad_to, chunk):
         assert np.array_equal(TM.unpack_indices(host[i]), JM.unpack_indices(want[i]))
         assert np.array_equal(TM.unpack_all(host)[i], rows)
         assert int(counts[i]) == len(rows)
+    if pad_to:
+        assert not host[len(topics):].any()  # the pad topics match nothing
+    if edge == "deep":  # rows past 16 levels match
+        assert any((snap.prefix_len[rows] > 16).any() for rows in oracle)
 
 
 def test_match_packed_refuses_what_the_reference_refuses():

@@ -44,6 +44,8 @@ from emqx_tpu_torch.ops.table import FilterTable, pad_pow2_batches
 from emqx_tpu_torch.parallel import mesh as TMesh
 from emqx_tpu_torch.parallel import sharded_match as TS
 
+import chip_smoke
+
 from test_match import random_filter, random_topic
 
 CPU = torch.device("cpu")
@@ -216,21 +218,44 @@ def test_topic_padding(mesh8):
 # --- K13: counts, packed, apply_delta -----------------------------------------------
 
 
-@pytest.mark.parametrize("seed", [1, 2])
-def test_sharded_counts_and_packed_equal_reference(mesh8, seed):
-    jmesh, tmesh = mesh8
-    jt, tt, topics = _twin_tables(seed, 300)
-    enc = JM.encode_topics(jt.vocab, topics, jt.max_levels)
+# (seed, edge, mesh): edge None takes `_twin_tables`' table; a name takes
+# chip_smoke.FORM_EDGES' table of that name (the cases the packed kernel
+# treats apart), cut to FORM_EDGE_ROWS rows on mesh8 (288 a shard: a
+# whole 256-row block and a partial one) and to one row fewer on mesh3,
+# which pads it to 3 x 384 rows (shard rows a multiple of 32, as the
+# packed form needs). One device holds every tile; two devices hold half
+# each, and each tile's block is read from the group that computed it.
+FORMS_MESH_CASES = [pytest.param(1, None, "mesh8", id="1"), pytest.param(2, None, "mesh8", id="2")]
+FORMS_MESH_CASES += [pytest.param(0, e, "mesh8", id=e) for e in chip_smoke.FORM_EDGES
+                     if e not in ("topics37_pad64", "topics1000")]
+FORMS_MESH_CASES += [pytest.param(0, e, "mesh3", id=f"{e}-mesh3") for e in ("dead_words", "sys")]
+
+
+@pytest.mark.parametrize("seed,edge,which", FORMS_MESH_CASES)
+@pytest.mark.parametrize("devs", sorted(DEVICE_SETS))
+def test_sharded_counts_and_packed_equal_reference(devs, seed, edge, which):
+    jmesh, tmesh = _meshes(SHAPES[which], devs)
+    if edge is None:
+        jt, tt, topics = _twin_tables(seed, 300)
+        snap, pad_to = jt.snapshot(), 0
+    else:
+        (jt, tt), topics, pad_to = chip_smoke.form_edge_case(edge, JFilterTable, FilterTable)
+        snap = jt.snapshot()
+        n_rows = chip_smoke.FORM_EDGE_ROWS - (which == "mesh3")
+        snap = type(snap)(*(a[:n_rows] for a in snap))
+    enc = JM.encode_topics(jt.vocab, topics, jt.max_levels, pad_to=pad_to)
     jc, jp, _ = JS.make_sharded_kernels(jmesh)
     tc, tp, _ = TS.make_sharded_kernels(tmesh)
-    fj, tj = JMesh.put_filters(jt.snapshot(), jmesh), JMesh.put_topics(enc, jmesh)
-    ft, t_t = TMesh.put_filters(tt.snapshot(), tmesh), TMesh.put_topics(enc, tmesh)
+    fj, tj = JMesh.put_filters(snap, jmesh), JMesh.put_topics(enc, jmesh)
+    ft, t_t = TMesh.put_filters(snap, tmesh), TMesh.put_topics(enc, tmesh)
+    assert ft[0].words.shape[0] // len(tmesh.groups[0].subs) % 32 == 0
     _eq([jc(fj, tj), jp(fj, tj)], [tc(ft, t_t), tp(ft, t_t)])
     counts = tc(ft, t_t).numpy()[: len(topics)]
-    packed = _np(tp(ft, t_t))[: len(topics)]
+    packed = _np(tp(ft, t_t))
     for i, rows in enumerate(JM.oracle_match_rows(jt, topics)):
         assert counts[i] == len(rows)
         assert np.array_equal(JM.unpack_indices(packed[i]), rows)
+    assert not packed[len(topics):].any()  # pad topics match nothing
 
 
 @pytest.mark.parametrize("n_churn", [2, 1500])

@@ -34,7 +34,13 @@ both): the kernels of one sync (the fused `mesh_table_sync` on one
 staged buffer where a tree has it, else the fused K18 `mesh_sync` on the
 pow2-padded batches its sync launched) at one round of phase 5's churn,
 and the whole `ShardedDeviceTable.sync()` at that delta, the same rows
-and slots dirtied again (and the mask marked dirty) before every call.
+and slots dirtied again (and the mask marked dirty) before every call;
+and the dense forms at phase 9's full width (FORMS_CASES: one table of
+2,097,152 rows holding phase 9's route set, built once, and 1,024 of
+its topics, both trees fed the same tensors): K10 `match_packed` and
+K13's packed form on each tree's own (2, 4) mesh of the card (a parent
+wrapper allocates its own zero fill), and as controls K9 at 64 topics,
+K11 and K13's counts. `--only forms` times the dense forms alone.
 Each reading
 is `chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
 host's enqueue time a call (`enqueue_ms`). A whole `sync()` copies
@@ -87,6 +93,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent_root", type=Path)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", choices=("forms",), help="time only these cases")
     args = ap.parse_args(argv)
 
     import importlib
@@ -108,11 +115,16 @@ def main(argv=None) -> int:
         mods = {m: importlib.import_module(f"{name}.{m}") for m in (
             "ops._build", "ops.retained", "ops.transfer", "ops.fanout",
             "ops.hash_index", "ops.table", "parallel.sharded_match", "convert",
-            "models.router", "broker.pubsub", "parallel.mesh")}
+            "models.router", "broker.pubsub", "parallel.mesh", "ops.match")}
         mods["ops._build"].build_all()
         trees[tag] = mods
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    cases = {}
+    if args.only == "forms":
+        cases.update(forms_cases(trees, dev, C))
+        time_cases(cases, set(), args.rounds, C)
+        return 0
     rng = np.random.default_rng(0)
     nb = 1 << 19
     live = rng.random(nb * 4) < 0.49
@@ -124,7 +136,6 @@ def main(argv=None) -> int:
     tabs = trees["this"]["convert"].retained_state_from_numpy(slots.probe, fp, bucket, dev)
     lv = np.flatnonzero(live)
 
-    cases = {}
     for b in (8, 4096):
         s = rng.choice(lv, b)
         f = fp[s].copy()
@@ -164,12 +175,19 @@ def main(argv=None) -> int:
             cases[name] = fns
             if whole:
                 profiled.add(name)
+    cases.update(forms_cases(trees, dev, C))
+    time_cases(cases, profiled, args.rounds, C)
+    return 0
 
+
+def time_cases(cases, profiled, rounds, C):
+    """Time every case's two trees in turns (module docstring) and print
+    one line a case, then the card's name and power limit."""
     for name, fns in cases.items():
         got = {"parent": [], "this": []}
         card = {"parent": [], "this": []}
         host = {"parent": [], "this": []}
-        for _ in range(args.rounds):
+        for _ in range(rounds):
             for tag in ("parent", "this", "this", "parent"):
                 got[tag].append(C.run_ms(fns[tag]))
                 if name in profiled:
@@ -190,7 +208,6 @@ def main(argv=None) -> int:
               f"{[(round(d, 6), round(e, 6)) for d, e in got['parent']]} this "
               f"{[(round(d, 6), round(e, 6)) for d, e in got['this']]}{extra}", flush=True)
     print(C.card_line(), flush=True)
-    return 0
 
 
 def host_ms(fn, calls: int = 50) -> float:
@@ -426,6 +443,49 @@ def held_mesh(dt, t, ix, C):
     mask = np.zeros(t.capacity, bool)
     mask[list(ix.residual_rows)] = True
     C.max_abs_err([res], [torch.from_numpy(mask).to(res.device)])
+
+
+def forms_cases(trees, dev, C):
+    """The dense forms at phase 9's width (module docstring): {name: {tag:
+    fn}}, each fn held against the plain version first."""
+    import torch
+
+    M = trees["this"]["ops.match"]
+    S = trees["this"]["parallel.sharded_match"]
+    snap, enc, f, t, (mesh, fa, ta), (want10, want13) = C.forms_inputs(trees["this"], dev)
+    small = M.EncodedTopics(*(x[:C.DENSE_B] for x in t))
+    b, n = int(t.ids.shape[0]), int(f.words.shape[0])
+    want = {"K10": want10, "K11": M.match_counts_ref(f, t), "K9": M.match_dense_ref(f, small)}
+    cases = {
+        f"K10 match_packed, B={b} over {n} rows": {
+            tag: (lambda m=m: m["ops.match"].match_packed(f, t)) for tag, m in trees.items()},
+        f"K11 match_counts, B={b}": {
+            tag: (lambda m=m: m["ops.match"].match_counts(f, t)) for tag, m in trees.items()},
+        f"K9 match_dense, B={C.DENSE_B}": {
+            tag: (lambda m=m: m["ops.match"].match_dense(f, small)) for tag, m in trees.items()},
+    }
+    for (name, fns), key in zip(cases.items(), ("K10", "K11", "K9")):
+        for fn in fns.values():
+            C.max_abs_err([C.u32(fn())], [want[key]])
+    del want, want10
+    mesh_fns = {}
+    for tag, m in trees.items():
+        tmesh = m["parallel.mesh"].make_mesh(2, 4, devices=[dev] * 8)
+        fm = m["parallel.mesh"].put_filters(snap, tmesh)
+        tm = m["parallel.mesh"].put_topics(enc, tmesh)
+        counts, packed, _ = m["parallel.sharded_match"].make_sharded_kernels(tmesh)
+        mesh_fns[tag] = (lambda c=counts, fm=fm, tm=tm: c(fm, tm),
+                         lambda p=packed, fm=fm, tm=tm: p(fm, tm))
+    cnt = torch.zeros(b, dtype=torch.int32, device=dev)
+    S.dense_tiles_ref(M.FORM_COUNTS, fa, ta, S._tiles(mesh, 0), n // 4, b // 2, cnt)
+    for fc, fp in mesh_fns.values():
+        C.max_abs_err([fc()], [cnt])
+        C.max_abs_err([C.u32(fp())], [want13])
+    del cnt, want13, mesh, fa, ta
+    cases[f"K13 packed, (2, 4) on one card, B={b} over {n} rows"] = {
+        tag: v[1] for tag, v in mesh_fns.items()}
+    cases[f"K13 counts, (2, 4) on one card, B={b}"] = {tag: v[0] for tag, v in mesh_fns.items()}
+    return cases
 
 
 def sync_cases(trees, dev, rng, C):
