@@ -147,12 +147,15 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    given phase 3's route set. (a) K10 and K11 at 1,024 topics and K9 at
    64 over the table's full capacity (2,097,152 rows), each equal to its
    plain version, 32 topics' rows equal to the host oracle's
-   (Router.match_filters), K10's launches by torch.profiler; then K10
-   on FORM_EDGES' small tables built by the port (a dead block, dead
+   (Router.match_filters), K10's and K11's launches by torch.profiler
+   and K11's global atomics (at most, nonzero); then K10 and K11 on
+   FORM_EDGES' small tables built by the port (a dead block, dead
    words and lone live rows in a partial last block, rows of 17-24
    levels, max_levels 7, '#' and '+/#' rows against $SYS topics, 37
-   and 1,000 topics, unpadded and padded), each equal to its plain
-   version and every topic's rows to the table's host oracle. (b) The mesh sync and warm_up shapes (each
+   and 1,000 topics, unpadded and padded) and K11 on the counts' own
+   edge (COUNTS_EDGE_ROWS rows, not a multiple of 32), each equal to
+   its plain version and every topic's rows and count to the table's
+   host oracle. (b) The mesh sync and warm_up shapes (each
    batch shape's first escalation step, the churn scatters); counters
    set to 0; 16 pipelined 1024-topic batches of phase 5's mix with
    phase 5's churn between them, every answer checked against the host
@@ -166,8 +169,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    and the host legs (encode, sync, hash, dense, unpack). Then each mesh
    kernel against its plain version on the router's own state (K13
    counts and packed, K14 over both legs' tiles, K15, K16, K17; K13
-   packed also on FORM_EDGES' tables on the (2, 4) mesh and the padded
-   (1, 3) layout, and its launches by torch.profiler), timed
+   packed and counts also on FORM_EDGES' tables on the (2, 4) mesh and
+   the padded (1, 3) layout, K13 counts on the counts' own edge there
+   (shards of 286 and 381 rows), and both forms' launches by
+   torch.profiler), timed
    as in phase 4 (the plain versions, hundreds of ms a call, over 3
    calls both ways), and `mesh_table_sync` as phase 4 holds
    `table_sync`: one churn round's delta (both sides with the residual
@@ -2643,6 +2648,11 @@ FORM_EDGES = {
     "topics1000": (6, 1000, 0),
     "topics1000_pad1024": (6, 1000, 1024),
 }
+# The counts' own edge (K11 and K13 counts only: the bitmap refuses it):
+# FORM_EDGES' COUNTS_EDGE table cut to COUNTS_EDGE_ROWS rows, a multiple
+# neither of 32 nor of a block's 256 rows (shards of 286 rows on the
+# (2, 4) mesh, 381 on the (1, 3) layout); live rows lie past the cut.
+COUNTS_EDGE, COUNTS_EDGE_ROWS = "dead_words", FORM_EDGE_ROWS - 11
 EDGE_WORDS = ("a", "b", "c", "dev", "")  # filter levels; topics add "zz", in no filter
 
 
@@ -2772,11 +2782,13 @@ def forms_inputs(mods, dev, seed=3):
 
 
 def form_edge_checks(layout, card):
-    """K10 (layout "single") or K13 packed (layout (2, 4), or (1, 3): the
-    padded layout, FORM_EDGE_ROWS - 1 rows) on the card on every
-    FORM_EDGES table, held against its plain version exactly, and on one
-    device every topic's rows against the table's host oracle. Returns
-    one line a case."""
+    """K10 and K11 (layout "single") or K13 packed and counts (layout
+    (2, 4), or (1, 3): the padded layout, FORM_EDGE_ROWS - 1 rows) on the
+    card on every FORM_EDGES table, and the counts alone on the counts'
+    own edge (COUNTS_EDGE's table cut to COUNTS_EDGE_ROWS rows), each held
+    against its plain version exactly; on one device every topic's rows
+    and count also against the table's host oracle. Returns one line a
+    case."""
     import numpy as np
     import torch
 
@@ -2787,43 +2799,84 @@ def form_edge_checks(layout, card):
     from emqx_tpu_torch.parallel import sharded_match as S
 
     dev = resolve(DEVICE)
-    n_rows = FORM_EDGE_ROWS - (layout == (1, 3))
+    cases = [(case, FORM_EDGE_ROWS - (layout == (1, 3)), True) for case in FORM_EDGES]
+    cases.append((COUNTS_EDGE, COUNTS_EDGE_ROWS, False))
     out = []
-    for case in FORM_EDGES:
+    for case, n_rows, packed in cases:
         (t,), topics, pad_to = form_edge_case(case, FilterTable)
+        name = case if packed else f"{case} rows={n_rows} (counts only)"
         snap = EncodedFilters(*(a[:n_rows] for a in t.snapshot()))
         enc = M.encode_topics(t.vocab, topics, t.max_levels, pad_to=pad_to)
+        host = None
         if layout == "single":
             f = EncodedFilters(*(to_device(a, dev) for a in snap))
             d = M.EncodedTopics(*(to_device(a, dev) for a in enc))
-            got = M.match_packed(f, d, chunk=n_rows)
-            max_abs_err([u32(got)], [u32(M.match_packed_ref(f, d, chunk=n_rows))])
-            host = u32(got).cpu().numpy().view(np.uint32)
+            counts = M.match_counts(f, d)
+            max_abs_err([counts], [M.match_counts_ref(f, d)])
+            if packed:
+                got = M.match_packed(f, d, chunk=n_rows)
+                max_abs_err([u32(got)], [u32(M.match_packed_ref(f, d, chunk=n_rows))])
+                host = u32(got).cpu().numpy().view(np.uint32)
+            hc = counts.cpu().numpy()
             for i, rows in enumerate(M.oracle_match_rows(t, topics)):
-                if not np.array_equal(M.unpack_indices(host[i]), rows):
+                rows = rows[rows < n_rows]
+                if hc[i] != len(rows):
+                    raise AssertionError(f"K11 {name} topic {topics[i]!r}: count {hc[i]} "
+                                         f"differs from the host oracle's {len(rows)}")
+                if host is not None and not np.array_equal(M.unpack_indices(host[i]), rows):
                     raise AssertionError(f"K10 {case} topic {topics[i]!r}: rows differ "
                                          f"from the host oracle")
+            if hc[len(topics):].any():
+                raise AssertionError(f"K11 {name}: a pad topic counts a match")
         else:
             mesh = mesh_of(layout)
             (f,), (d,) = MS.put_filters(snap, mesh), MS.put_topics(enc, mesh)
-            got = S.make_sharded_kernels(mesh)[1]((f,), (d,))
-            want = torch.zeros(got.shape, dtype=torch.int32, device=got.device)
-            S.dense_tiles_ref(M.FORM_PACKED, f, d, S._tiles(mesh, 0),
-                              f.words.shape[0] // layout[1], d.ids.shape[0] // layout[0], want)
-            max_abs_err([u32(got)], [want])
-            host = u32(got).cpu().numpy().view(np.uint32)
-        out.append(f"{case} (B={host.shape[0]} N={host.shape[1] * 32} L={t.max_levels} "
-                   f"live={int(snap.active.sum())}): equal, set_bits="
-                   f"{int(np.unpackbits(host.view(np.uint8)).sum())}")
+            counts_k, packed_k, _apply = S.make_sharded_kernels(mesh)
+            n_loc, b_loc = f.words.shape[0] // layout[1], d.ids.shape[0] // layout[0]
+            if (n_loc % 32 == 0) != packed:
+                raise AssertionError(f"{name} on {layout}: {n_loc} rows a shard")
+            counts = counts_k((f,), (d,))
+            want = torch.zeros(counts.shape, dtype=torch.int32, device=counts.device)
+            S.dense_tiles_ref(M.FORM_COUNTS, f, d, S._tiles(mesh, 0), n_loc, b_loc, want)
+            max_abs_err([counts], [want])
+            if packed:
+                got = packed_k((f,), (d,))
+                want = torch.zeros(got.shape, dtype=torch.int32, device=got.device)
+                S.dense_tiles_ref(M.FORM_PACKED, f, d, S._tiles(mesh, 0), n_loc, b_loc, want)
+                max_abs_err([u32(got)], [want])
+                host = u32(got).cpu().numpy().view(np.uint32)
+            hc = counts.cpu().numpy()
+        line = (f"{name} (B={hc.shape[0]} N={n_rows} L={t.max_levels} "
+                f"live={int(snap.active.sum())}): equal, matches={int(hc.sum())}")
+        if host is not None:
+            line += f", set_bits={int(np.unpackbits(host.view(np.uint8)).sum())}"
+        out.append(line)
     torch.cuda.synchronize()
     return out
+
+
+# rows a block of packed_match.cu's counts mode (its PT): the unit of
+# its global atomics
+COUNTS_BLOCK_ROWS = 256
+
+
+def counts_atomics(active, packed):
+    """(at most, nonzero): the global atomics of the counts kernel on a
+    table, from its active mask and its bitmap ([B, N/32], N a multiple
+    of COUNTS_BLOCK_ROWS): at most one a (live block, topic), and one
+    where the block's rows match the topic. The same for K11 and for
+    K13 counts on a mesh whose shard rows are a multiple of the block."""
+    b = packed.shape[0]
+    live = int(active.view(-1, COUNTS_BLOCK_ROWS).any(dim=1).sum())
+    nonzero = int((u32(packed).view(b, -1, COUNTS_BLOCK_ROWS // 32) != 0).any(dim=2).sum())
+    return live * b, nonzero
 
 
 def check_dense_forms(router, topics, card):
     """Phase 9 (a): K9-K11 on the card over the route table (its full
     capacity) against their plain versions; K10/K11 at BATCH topics, K9
     at DENSE_B; MESH_ORACLE_TOPICS topics against the host oracle; K10
-    on FORM_EDGES' tables."""
+    and K11 on FORM_EDGES' tables, K11 on the counts' own edge."""
     import numpy as np
     import torch
 
@@ -2866,10 +2919,14 @@ def check_dense_forms(router, topics, card):
         shape=f"B={B} {shape} live_words={live_words} of {N // 32} "
               f"set_bits={int(counts.sum())}; its launches, device us a call: "
               + launch_breakdown(lambda: M.match_packed(filters, denc)))
+    at_most, nonzero = counts_atomics(filters.active, packed)
     recs["match_counts"] = dict(
         **timed(lambda: M.match_counts(filters, denc),
                 lambda: M.match_counts_ref(filters, denc), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
-        bytes=nbytes + 4 * B, ops=ops, err=err_c, shape=f"B={B} {shape}")
+        bytes=nbytes + 4 * B, ops=ops, err=err_c,
+        shape=f"B={B} {shape} global_atomics at_most={at_most} nonzero={nonzero}; its "
+              f"launches, device us a call: "
+              + launch_breakdown(lambda: M.match_counts(filters, denc)))
     recs["match_dense"] = dict(
         **timed(lambda: M.match_dense(filters, small),
                 lambda: M.match_dense_ref(filters, small), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
@@ -2877,7 +2934,8 @@ def check_dense_forms(router, topics, card):
         shape=f"B={DENSE_B} {shape} output_bytes={DENSE_B * N}")
     del filters, packed, dense
     torch.cuda.synchronize()
-    log("K10 edge cases: " + "; ".join(form_edge_checks("single", card)) + f" [{card}]")
+    log("K10 and K11 edge cases: " + "; ".join(form_edge_checks("single", card))
+        + f" [{card}]")
     set_bounds(recs)
     return recs
 
@@ -3070,9 +3128,12 @@ def check_mesh_kernels(router, skel, exact, rng, card):
         S.dense_tiles_ref(M.FORM_PACKED, f_all, t_dev, tiles, n_loc, b_loc, out)
 
     shape = f"tiles={n_tiles} B={B} rows_per_shard={n_loc} L={L} active={n_act}"
+    at_most, nonzero = counts_atomics(f_all.active, pk)
     recs["mesh_match_counts"] = dict(
         **timed(lambda: counts_k(dt._dev, (t_dev,)), counts_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
-        bytes=nbytes + 4 * B, ops=ops, err=err, shape=shape)
+        bytes=nbytes + 4 * B, ops=ops, err=err,
+        shape=f"{shape} global_atomics at_most={at_most} nonzero={nonzero}; its launches, "
+              f"device us a call: " + launch_breakdown(lambda: counts_k(dt._dev, (t_dev,))))
     recs["mesh_match_packed"] = dict(
         **timed(lambda: packed_k(dt._dev, (t_dev,)), packed_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         bytes=nbytes + B * n_loc * n_sub // 8, ops=ops, err=err_p,
@@ -3080,7 +3141,7 @@ def check_mesh_kernels(router, skel, exact, rng, card):
               + launch_breakdown(lambda: packed_k(dt._dev, (t_dev,))))
     del pk, pk_ref
     for layout in (MESH, (1, 3)):
-        log(f"K13 packed edge cases on {layout}: "
+        log(f"K13 packed and counts edge cases on {layout}: "
             + "; ".join(form_edge_checks(layout, card)) + f" [{card}]")
 
     # K13 apply_delta and K18: the fused mesh table sync on phase 9's
@@ -4253,9 +4314,9 @@ def main(argv=None) -> int:
                         "emqx_tpu/ops/match.py:120"),
         "match_packed": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                          "emqx_tpu/ops/match.py:129"),
-        "match_counts": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+        "match_counts": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                          "emqx_tpu/ops/match.py:214"),
-        "mesh_match_counts": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+        "mesh_match_counts": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                               "emqx_tpu/parallel/sharded_match.py:73"),
         "mesh_match_packed": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                               "emqx_tpu/parallel/sharded_match.py:82"),

@@ -1,6 +1,6 @@
 // The dense match predicate (emqx_tpu/ops/match.py `_match_block`), once,
 // for every kernel that evaluates it: K2 and K16 (dense_match.cu), the
-// dense forms K9 and K11 (dense_forms.cu) and the bitmap K10
+// dense form K9 (dense_forms.cu), and the bitmap K10 and the counts K11
 // (packed_match.cu). Keeping it here means they cannot drift apart.
 //
 //   ok[b, n] = active[n] & ~(dollar[b] & root_wild[n])
@@ -14,11 +14,11 @@
 //   * the levels: `level_ok` for each i < min(plen, L).
 //
 // Two ways to hold a row's words:
-//   * staged (K9, K11): a warp's 32 consecutive rows in shared memory,
+//   * staged (K9): a warp's 32 consecutive rows in shared memory,
 //     transposed with a padded stride, so lane l reads level i of its
 //     own row at rw[i * STAGE_STRIDE + l] (conflict-free) and the staging
 //     stores spread over the banks;
-//   * in registers (K2, K16, K10): each thread gathers one live row by id
+//   * in registers (K2, K16, K10, K11): each thread gathers one live row by id
 //     (`RegRow`), its first REG_LEVELS levels in registers, deeper levels
 //     read from the table when a row has them. Its `quick` test is the
 //     head and level 0 -- branch-free, a few integer operations, and
@@ -79,7 +79,7 @@ __device__ __forceinline__ bool level_ok(int w, int t) {
   return w == DENSE_PLUS || w == t;
 }
 
-// --- staged rows (K9, K11) -------------------------------------------------
+// --- staged rows (K9) ------------------------------------------------------
 
 // Stage rows [row0, row0 + 32) of words [*, L] (rows at or past row_end
 // read as 0) into rw, transposed: rw[i * STAGE_STRIDE + r] = words[row0 + r,
@@ -109,7 +109,7 @@ __device__ __forceinline__ bool dense_pred(int tl, bool td, const int* tw, int p
   return true;
 }
 
-// --- register rows (K2, K16, K10) ----------------------------------------------
+// --- register rows (K2, K16, K10, K11) -----------------------------------------
 
 struct RegRow {
   int w[REG_LEVELS];  // levels 0 .. REG_LEVELS - 1 (0 past L)

@@ -1,51 +1,65 @@
-// K10 and K13's packed form: the dense match folded into a uint32 bitmap.
+// K10 and K13's packed form: the dense match folded into a uint32 bitmap;
+// K11 and K13's counts: the same tests, summed per topic. One kernel,
+// `packed_pass`, in two modes (its template parameter COUNTS).
 //
 // Replaces emqx_tpu/ops/match.py:129 `match_packed` with `_pack_bits`
 // (:111) -- uint32 [B, N/32], bit k of word j = row 32j + k -- and
 // emqx_tpu/parallel/sharded_match.py:82 `match_packed` (K13 packed): the
 // same with rows split over the mesh's sub axis and topics over its dp
 // axis, each (dp, sub) tile writing its block of the global [B, N/32]
-// plane (rows dp_i * b_loc .., words sub_i * n_loc/32 ..). The predicate
-// is dense_pred.cuh's, shared with K2, K16 and the other dense forms.
+// plane (rows dp_i * b_loc .., words sub_i * n_loc/32 ..). In counts
+// mode it replaces emqx_tpu/ops/match.py:214 `match_counts` (K11: int32
+// [B], `_match_block(...).sum(axis=1)`) and sharded_match.py:73
+// `match_counts` (K13 counts: each tile adds its rows' counts into
+// out[dp_i * b_loc ..], the sum over sub). The predicate is
+// dense_pred.cuh's, shared with K2, K16 and K9.
 //
 // What bounds it on the H100: the operations. The predicate runs over
 // every (topic, live row) pair, a few integer operations each (0.129 ms
 // for 1,024 topics over phase 9's 1,053,629 live rows at 67 T/s), ahead
 // of the bytes: the table once and the bitmap written once (B*N/8 bytes:
-// 0.080 ms for 1,024 x 2,097,152 at 3.35 TB/s). As compiled, `quick`
-// and the mask are integer compares, selects and logic, which issue at
-// half the fp32 rate the bound assumes: the kernel waits on them, not
-// on latency (more blocks an SM gain nothing).
+// 0.080 ms for 1,024 x 2,097,152 at 3.35 TB/s; a count writes 4B). As
+// compiled, `quick` and the mask are integer compares, selects and
+// logic, which issue at half the fp32 rate the bound assumes: the kernel
+// waits on them, not on latency (more blocks an SM gain nothing).
 //
 // Design: a block owns PW consecutive 32-row words of one tile, a warp
 // a word, and walks every topic of the tile TT at a time.
 //   * Dead rows cost next to nothing. A block whose PW*32 rows are all
-//     inactive writes its words as zeros for every topic and evaluates
-//     nothing; a dead word in a live block writes zeros into the block's
-//     buffer and skips the topic loop. An inactive lane in a live word
-//     holds a window that admits no topic, so it never reads its row and
-//     never reaches `rest`. The bitmap is still written in full.
+//     inactive evaluates nothing: the bitmap writes its words as zeros
+//     for every topic, a count returns at once (its output is zeroed
+//     before the launch). A dead word in a live block writes zeros into
+//     the block's buffer and skips the topic loop. An inactive lane in a
+//     live word (rows at or past n_loc are inactive) holds a window that
+//     admits no topic, so it never reads its row and never reaches
+//     `rest`.
 //   * Rows in registers, topics in groups. Each live lane gathers its
 //     row once as a `RegRow` (levels past REG_LEVELS are read from the
 //     table inside `rest`, as K2 reads them) and keeps it across every
 //     topic. It tests TG topics at a time with the branch-free `quick`
 //     into a lane mask; one warp reduction says which of the TG any lane
 //     passed, and only those take `rest` and a ballot, which is the
-//     word. Lane k keeps topic k's word, so a group's TG words land in
-//     the buffer in one store. (A topic at a time is a chain of
-//     dependent shared loads and a vote per topic, latency-bound.)
-//   * Whole-segment stores. The block gathers its PW words for TT
-//     topics in shared memory (a pad word a topic: the lanes' stores hit
-//     distinct banks), then writes each topic's contiguous run of PW
-//     words with 16-byte stores: PW*4 bytes a topic instead of one
-//     4-byte store per warp per topic.
+//     word. Lane k keeps topic k's word (its popcount for a count), so a
+//     group's TG values land in the buffer in one store. (A topic at a
+//     time is a chain of dependent shared loads and a vote per topic,
+//     latency-bound.)
+//   * The bitmap's stores are whole segments. The block gathers its PW
+//     words for TT topics in shared memory (a pad word a topic: the
+//     lanes' stores hit distinct banks), then writes each topic's
+//     contiguous run of PW words with 16-byte stores: PW*4 bytes a topic
+//     instead of one 4-byte store per warp per topic.
+//   * A count reduces in two levels. Thread t sums the PW warps' counts
+//     of topic t from the same buffer and adds the sum to the output with
+//     one global atomic, only when it is nonzero: at most one atomic per
+//     (live block, topic). Integer adds commute, so the counts are exact
+//     and the same on every run.
 //   * Enough blocks: N/32/PW blocks a tile (8,192 for K10's one tile of
 //     2,097,152 rows; 2,048 for each of K13's eight tiles of 524,288),
 //     four an SM at 64 registers a thread.
 // Two barriers a topic tile: after the tests (the buffer is whole),
 // and after the next tile's topics are staged (the buffer is written).
 // The constants were chosen on the card at phase 9's width with
-// tools/packed_variants.py (PERF.md, PR 12).
+// tools/packed_variants.py (PERF.md section 6).
 #include "scan.cuh"
 #include "dense_pred.cuh"
 
@@ -74,7 +88,7 @@ struct PackedArgs {
   const uint8_t* t_dollar;
   int b_loc;
   const int* tiles;         // [n_tiles, 4] or null for one tile
-  uint32_t* out;            // [B, out_w]
+  uint32_t* out;            // the bitmap [B, out_w]; a count's int32 [B] as uint32
   long long out_w;
   bool out_vec;             // out 16-byte aligned, out_w and n_loc/32 multiples of 4
 };
@@ -106,6 +120,20 @@ __device__ __forceinline__ void store_runs(const PackedArgs& a, long long row0,
   }
 }
 
+// Add the counts of topics [0, nt) to out[row0 + t]: topic t's sum over
+// the block's PW warps (buffer row t), when it is nonzero. The buffer's
+// stride OS is odd, so the threads' reads hit distinct banks.
+__device__ __forceinline__ void add_counts(const PackedArgs& a, long long row0, int nt,
+                                           const uint32_t* buf) {
+  for (int t = threadIdx.x; t < nt; t += PT) {
+    uint32_t sum = 0u;
+#pragma unroll
+    for (int w = 0; w < PW; ++w) sum += buf[t * OS + w];
+    if (sum != 0u) atomicAdd(a.out + row0 + t, sum);
+  }
+}
+
+template <bool COUNTS>
 __global__ void __launch_bounds__(PT, MIN_BLOCKS) packed_pass(PackedArgs a) {
   extern __shared__ int4 smem4[];
   const int L = a.L;
@@ -115,7 +143,7 @@ __global__ void __launch_bounds__(PT, MIN_BLOCKS) packed_pass(PackedArgs a) {
 
   const Tile tl_ = load_tile(a.tiles, blockIdx.y);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_words = a.n_loc >> 5;
+  const int n_words = (a.n_loc + 31) >> 5;  // the bitmap's n_loc is a multiple of 32
   const int w0 = blockIdx.x * PW;
   const int n_w = min(PW, n_words - w0);  // the last block of a tile may hold fewer
   const int row = w0 * 32 + tid;          // local row
@@ -125,8 +153,8 @@ __global__ void __launch_bounds__(PT, MIN_BLOCKS) packed_pass(PackedArgs a) {
   const long long t_src = static_cast<long long>(tl_.dp_pos) * a.b_loc;
   const long long t_dst = static_cast<long long>(tl_.dp_i) * a.b_loc;
 
-  if (!__syncthreads_or(act)) {  // a dead block: zeros, no topic evaluated
-    store_runs(a, t_dst, col0, a.b_loc, n_w, nullptr);
+  if (!__syncthreads_or(act)) {  // a dead block: no topic evaluated
+    if (!COUNTS) store_runs(a, t_dst, col0, a.b_loc, n_w, nullptr);  // its zeros
     return;
   }
   const bool live_word = __ballot_sync(EMQX_FULL_MASK, act) != 0u;  // warp-uniform
@@ -158,13 +186,13 @@ __global__ void __launch_bounds__(PT, MIN_BLOCKS) packed_pass(PackedArgs a) {
           q |= static_cast<unsigned>(quick(th.x, th.y, rr)) << k;
         }
         unsigned through = __reduce_or_sync(EMQX_FULL_MASK, q);
-        unsigned mine = 0u;  // lane k: the word of topic g + k
+        unsigned mine = 0u;  // lane k: the word (or its popcount) of topic g + k
         while (through != 0u) {  // warp-uniform
           const int k = __ffs(through) - 1;
           through &= through - 1;
           const bool ok = (q >> k & 1u) && rest(s_tw + (g + k) * L, rr);
           const unsigned m = __ballot_sync(EMQX_FULL_MASK, ok);
-          mine = lane == k ? m : mine;
+          mine = lane == k ? (COUNTS ? __popc(m) : m) : mine;
         }
         if (lane < TG) s_out[(g + lane) * OS + warp] = mine;
       }
@@ -172,8 +200,23 @@ __global__ void __launch_bounds__(PT, MIN_BLOCKS) packed_pass(PackedArgs a) {
       for (int t = lane; t < nt; t += 32) s_out[t * OS + warp] = 0u;
     }
     __syncthreads();  // the buffer is whole; the tile's topics are done with
-    store_runs(a, t_dst + t0, col0, nt, n_w, s_out);
+    if (COUNTS) {
+      add_counts(a, t_dst + t0, nt, s_out);
+    } else {
+      store_runs(a, t_dst + t0, col0, nt, n_w, s_out);
+    }
   }
+}
+
+template <bool COUNTS>
+int launch(const PackedArgs& a, int n_tiles, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.L);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(packed_pass<COUNTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(smem));
+  const dim3 grid(ceil_div(ceil_div(a.n_loc, 32), PW), n_tiles);
+  packed_pass<COUNTS><<<grid, PT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -192,17 +235,35 @@ extern "C" int emqx_match_packed(const int* words, const int* plen,
                                  long long out_w, cudaStream_t stream) {
   if (n_loc % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_loc == 0 || b_loc == 0 || n_tiles == 0) return static_cast<int>(cudaGetLastError());
-  const int n_words = n_loc / 32;
   PackedArgs a{words, plen, has_hash, root_wild, active, n_loc, L,
                reinterpret_cast<uintptr_t>(words) % 16 == 0 && L % 4 == 0,
                t_ids, t_len, t_dollar, b_loc, tiles, out, out_w,
                reinterpret_cast<uintptr_t>(out) % 16 == 0 && out_w % 4 == 0 &&
-                   n_words % 4 == 0};
-  const size_t smem = smem_bytes(L);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(packed_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         int(smem));
-  const dim3 grid(ceil_div(n_words, PW), n_tiles);
-  packed_pass<<<grid, PT, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+                   (n_loc / 32) % 4 == 0};
+  return launch<false>(a, n_tiles, stream);
+}
+
+// K11 (tiles null, n_tiles 1) and K13 counts (the n_tiles tiles of this
+// device): out is int32 [out_len], zeroed here first (the wrappers
+// allocate it uninitialised), then each tile adds its rows' counts of
+// topic t at out[dp_i * b_loc + t]. Any n_loc: the rows past it in the
+// last word are inactive. Returns the memset's error or
+// cudaGetLastError().
+extern "C" int emqx_match_counts(const int* words, const int* plen,
+                                 const uint8_t* has_hash, const uint8_t* root_wild,
+                                 const uint8_t* active, int n_loc, int L,
+                                 const int* t_ids, const int* t_len,
+                                 const uint8_t* t_dollar, int b_loc,
+                                 const int* tiles, int n_tiles, int* out,
+                                 long long out_len, cudaStream_t stream) {
+  if (out_len > 0) {
+    const cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int) * out_len, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (n_loc == 0 || b_loc == 0 || n_tiles == 0) return static_cast<int>(cudaGetLastError());
+  PackedArgs a{words, plen, has_hash, root_wild, active, n_loc, L,
+               reinterpret_cast<uintptr_t>(words) % 16 == 0 && L % 4 == 0,
+               t_ids, t_len, t_dollar, b_loc, tiles, reinterpret_cast<uint32_t*>(out),
+               0, false};
+  return launch<true>(a, n_tiles, stream);
 }

@@ -5,9 +5,9 @@ inert pow2 padding), `GenMatchCache` (generation-stamped topic →
 filters cache) and `oracle_match_rows` (the pure-Python ground truth).
 
 Device half: kernel K2 `match_ids` (ops/csrc/dense_match.cu) and the
-dense forms K9 `match_dense` and K11 `match_counts`
-(ops/csrc/dense_forms.cu) and K10 `match_packed`
-(ops/csrc/packed_match.cu), each beside its plain PyTorch version
+dense forms K9 `match_dense` (ops/csrc/dense_forms.cu), K10
+`match_packed` and K11 `match_counts` (ops/csrc/packed_match.cu, two
+modes of one kernel), each beside its plain PyTorch version
 (`*_ref`). All evaluate one predicate (csrc/dense_pred.cuh)
 
     match[b, n] = active[n]
@@ -35,7 +35,7 @@ from ._build import I, LL, P, CudaKernel, raw_stream
 from .table import EncodedFilters
 from .vocab import PLUS, Vocab
 
-# the CUDA kernels hold a tile of topics' words (and K9, K11 their rows'
+# the CUDA kernels hold a tile of topics' words (and K9 its rows'
 # words) in shared memory; deeper tables are refused on the CUDA path
 MAX_KERNEL_LEVELS = 128
 
@@ -293,16 +293,18 @@ def match_counts_ref(filters: EncodedFilters, topics: EncodedTopics) -> torch.Te
 
 
 # --- K9-K11: the CUDA kernels ---------------------------------------------
-# K9 and K11 are two modes of one entry point (dense_forms.cu); K10, the
-# bitmap, is its own kernel (packed_match.cu). FORM_* name the three forms.
+# K9 is dense_forms.cu; K10, the bitmap, and K11, the counts, are two
+# modes of one kernel (packed_match.cu), each with its entry point (one
+# argument list). FORM_* name the three forms.
 
 FORM_DENSE, FORM_PACKED, FORM_COUNTS = 0, 1, 2
-_FORMS_ARGTYPES = [I, P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, LL, P]
+_FORMS_ARGTYPES = [I, P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, P]
 _PACKED_ARGTYPES = [P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, P]
 _MATCH_DENSE = CudaKernel("match_dense", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
 _MATCH_PACKED = CudaKernel("match_packed", "packed_match.cu", "emqx_match_packed",
                            _PACKED_ARGTYPES)
-_MATCH_COUNTS = CudaKernel("match_counts", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
+_MATCH_COUNTS = CudaKernel("match_counts", "packed_match.cu", "emqx_match_counts",
+                           _PACKED_ARGTYPES)
 
 
 def check_filters(filters: EncodedFilters, device) -> tuple:
@@ -335,28 +337,17 @@ def _forms_args(
     )
 
 
-def launch_dense_forms(
-    kernel: CudaKernel, mode: int, filters: EncodedFilters, topics: EncodedTopics,
-    n_loc: int, b_loc: int, tiles: Optional[torch.Tensor], n_tiles: int,
-    out: torch.Tensor, out_w: int,
-) -> None:
-    """Launch dense_forms.cu in `mode` (FORM_DENSE or FORM_COUNTS) over
-    `n_tiles` tiles of n_loc rows and b_loc topics (tiles None: the one
-    tile (0, 0, 0, 0)), writing `out` ([B, out_w] for K9, [B] for K11).
-    Used by K9, K11 and by the mesh's K13 counts
-    (parallel/sharded_match.py)."""
-    args = _forms_args(filters, topics, n_loc, b_loc, tiles, n_tiles, out, out_w)
-    kernel(mode, *args, out.numel(), raw_stream(filters.words.device))
-
-
 def launch_packed(
     kernel: CudaKernel, filters: EncodedFilters, topics: EncodedTopics,
     n_loc: int, b_loc: int, tiles: Optional[torch.Tensor], n_tiles: int,
     out: torch.Tensor, out_w: int,
 ) -> None:
-    """Launch packed_match.cu over `n_tiles` tiles as launch_dense_forms
-    does, writing the uint32 bitmap `out` [B, out_w]. Used by K10 and by
-    the mesh's K13 packed."""
+    """Launch packed_match.cu over `n_tiles` tiles of n_loc rows and
+    b_loc topics (tiles None: the one tile (0, 0, 0, 0)). Its bitmap
+    entry (K10, the mesh's K13 packed) writes the uint32 `out` [B,
+    out_w]; its counts entry (K11, the mesh's K13 counts) zeroes the
+    int32 `out` [B] (out_w = B) and adds each tile's counts into it, so
+    `out` may be uninitialised."""
     args = _forms_args(filters, topics, n_loc, b_loc, tiles, n_tiles, out, out_w)
     kernel(*args, raw_stream(filters.words.device))
 
@@ -370,7 +361,8 @@ def match_dense(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
     n = filters.words.shape[0]
     b = topics.ids.shape[0]
     out = torch.empty((b, n), dtype=torch.bool, device=dev)
-    launch_dense_forms(_MATCH_DENSE, FORM_DENSE, filters, topics, n, b, None, 1, out, n)
+    _MATCH_DENSE(FORM_DENSE, *_forms_args(filters, topics, n, b, None, 1, out, n),
+                 raw_stream(dev))
     return out
 
 
@@ -400,8 +392,8 @@ def match_counts(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor
         return match_counts_ref(filters, topics)
     n = filters.words.shape[0]
     b = topics.ids.shape[0]
-    out = torch.empty(b, dtype=torch.int32, device=dev)
-    launch_dense_forms(_MATCH_COUNTS, FORM_COUNTS, filters, topics, n, b, None, 1, out, 1)
+    out = torch.empty(b, dtype=torch.int32, device=dev)  # zeroed by the kernel's entry
+    launch_packed(_MATCH_COUNTS, filters, topics, n, b, None, 1, out, b)
     return out
 
 

@@ -13,10 +13,10 @@ owner shard's position: the rows, slots and probe words each shard owns.
 Kernels (each a hand-written CUDA kernel beside its plain PyTorch
 version, which CPU tensors take):
 
-  K13  `make_sharded_kernels`: per-tile counts (the dense forms kernel,
-       csrc/dense_forms.cu), packed bitmap (K10's kernel,
-       csrc/packed_match.cu) and `apply_delta`, the owned-row scatter
-       (`mesh_table_sync` with no slots)
+  K13  `make_sharded_kernels`: per-tile counts and packed bitmap (K11's
+       and K10's kernel, csrc/packed_match.cu, in its two modes) and
+       `apply_delta`, the owned-row scatter (`mesh_table_sync` with no
+       slots)
   K14  `_combine_pairs`: the order-preserving recompaction over sub plus
        the summed counts (csrc/combine.cu)
   K15  `make_combine_probe_kernel`: K14 on salted one-entry buffers
@@ -45,7 +45,6 @@ failure domain (evacuate/restore) are not part of this port yet.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,7 +77,7 @@ from .mesh import DP_AXIS, SUB_AXIS, Mesh
 # --- the kernels' C entry points ----------------------------------------------
 
 _MESH_COUNTS = CudaKernel(
-    "mesh_match_counts", "dense_forms.cu", "emqx_dense_forms", match_ops._FORMS_ARGTYPES
+    "mesh_match_counts", "packed_match.cu", "emqx_match_counts", match_ops._PACKED_ARGTYPES
 )
 _MESH_PACKED = CudaKernel(
     "mesh_match_packed", "packed_match.cu", "emqx_match_packed", match_ops._PACKED_ARGTYPES
@@ -609,7 +608,8 @@ def make_sharded_kernels(mesh: Mesh):
     """The mesh-partitioned dense kernels (K13). Returns (match_counts,
     match_packed, apply_delta):
 
-      match_counts(filters, topics) -> int32 [B] (counts summed over sub)
+      match_counts(filters, topics) -> int32 [B] (counts summed over sub;
+          any shard row count)
       match_packed(filters, topics) -> uint32 [B, N/32] (tiled over
           (dp, sub); each shard's row count a multiple of 32)
       apply_delta(dev, rows, words, plen, hh, rw, act) -> dev, written
@@ -620,42 +620,44 @@ def make_sharded_kernels(mesh: Mesh):
     delta columns numpy arrays (or per-group tuples already placed)."""
     n_sub = mesh.shape[SUB_AXIS]
 
-    def _forms(launch, mode, filters, topics):
+    def _forms(kernel, mode, filters, topics):
         outs = []
         for gi, g in enumerate(mesh.groups):
             f, t = filters[gi], topics[gi]
             n_loc = f.words.shape[0] // len(g.subs)
             b_loc = t.ids.shape[0] // len(g.dps)
             b = b_loc * mesh.shape[DP_AXIS]
-            if mode == match_ops.FORM_PACKED and n_loc % 32:
-                raise ValueError(f"shard rows {n_loc} not a multiple of 32")
-            w = n_loc * n_sub // 32
+            cpu = g.device.type == "cpu"
             if mode == match_ops.FORM_COUNTS:
-                out = torch.zeros(b, dtype=torch.int32, device=g.device)
+                # the plain version adds into zeros; the kernel's entry
+                # zeroes its output itself
+                w = b
+                out = (torch.zeros if cpu else torch.empty)(b, dtype=torch.int32,
+                                                           device=g.device)
             else:
+                if n_loc % 32:
+                    raise ValueError(f"shard rows {n_loc} not a multiple of 32")
+                w = n_loc * n_sub // 32
                 # each tile's block is copied out only from the group
                 # that computed it, so no word outside them is read
                 out = torch.empty((b, w), dtype=torch.uint32, device=g.device)
-            if g.device.type == "cpu":
+            if cpu:
                 dense_tiles_ref(mode, f, t, _tiles(mesh, gi), n_loc, b_loc,
                                 out if mode == match_ops.FORM_COUNTS
                                 else out.view(torch.int32))
             else:
                 with torch.cuda.device(g.device):
-                    launch(f, t, n_loc, b_loc, mesh.tile_table(gi), len(g.tiles), out, w)
+                    match_ops.launch_packed(kernel, f, t, n_loc, b_loc, mesh.tile_table(gi),
+                                            len(g.tiles), out, w)
             outs.append(out)
         return outs, b_loc, n_loc
 
     def match_counts(filters, topics):
-        outs, _b, _n = _forms(
-            partial(match_ops.launch_dense_forms, _MESH_COUNTS, match_ops.FORM_COUNTS),
-            match_ops.FORM_COUNTS, filters, topics)
+        outs, _b, _n = _forms(_MESH_COUNTS, match_ops.FORM_COUNTS, filters, topics)
         return _sum_to_primary(mesh, outs)
 
     def match_packed(filters, topics):
-        outs, b_loc, n_loc = _forms(
-            partial(match_ops.launch_packed, _MESH_PACKED), match_ops.FORM_PACKED,
-            filters, topics)
+        outs, b_loc, n_loc = _forms(_MESH_PACKED, match_ops.FORM_PACKED, filters, topics)
         if len(outs) == 1:
             return outs[0]
         # every tile's block from the device that computed it

@@ -259,35 +259,42 @@ def test_gen_match_cache_is_generation_stamped():
 
 # --- K9-K11: the dense forms ---------------------------------------------------
 
-# (seed, n_filters, capacity, pad_to, chunk)
-# (seed, n_filters, capacity, pad_to, chunk, edge): edge None takes
+# (seed, n_filters, capacity, pad_to, chunk, edge, n_rows): edge None takes
 # `_twin_tables`' table and 48 topics; a name takes chip_smoke.FORM_EDGES'
 # table of that name (the cases the packed kernel treats apart, which
 # phase 9 of chip_smoke.py also runs on the card), its topics and pad_to,
-# the snapshot cut to FORM_EDGE_ROWS rows (4.5 of the kernel's 256-row
-# blocks)
+# the snapshot cut to n_rows rows: FORM_EDGE_ROWS (4.5 of the kernel's
+# 256-row blocks), or the counts' own edge, COUNTS_EDGE_ROWS (not a
+# multiple of 32: the counts and the matrix only)
 FORM_CASES = [
-    pytest.param(10, 300, 1024, 0, 65536, None, id="10-300-1024-0-65536"),  # one chunk
-    pytest.param(11, 500, 1024, 64, 256, None, id="11-500-1024-64-256"),  # chunked, padded
-    pytest.param(12, 900, 2048, 0, 512, None, id="12-900-2048-0-512"),  # a larger table
-] + [pytest.param(0, 0, 2048, 0, 128, edge, id=edge) for edge in chip_smoke.FORM_EDGES]
+    pytest.param(10, 300, 1024, 0, 65536, None, None, id="10-300-1024-0-65536"),  # one chunk
+    pytest.param(11, 500, 1024, 64, 256, None, None, id="11-500-1024-64-256"),  # chunked, padded
+    pytest.param(12, 900, 2048, 0, 512, None, None, id="12-900-2048-0-512"),  # a larger table
+] + [pytest.param(0, 0, 2048, 0, 128, edge, chip_smoke.FORM_EDGE_ROWS, id=edge)
+     for edge in chip_smoke.FORM_EDGES] + [
+    pytest.param(0, 0, 2048, 0, None, chip_smoke.COUNTS_EDGE, chip_smoke.COUNTS_EDGE_ROWS,
+                 id=f"{chip_smoke.COUNTS_EDGE}-rows{chip_smoke.COUNTS_EDGE_ROWS}"),
+]
 
 
-def _form_tables(seed, n_filters, capacity, pad_to, edge):
+def _form_tables(seed, n_filters, capacity, pad_to, edge, n_rows):
     """(reference table, port table, topics, reference snapshot, pad_to)."""
     if edge is None:
         jt, tt, topics = _twin_tables(seed, n_filters, capacity=capacity)
         return jt, tt, topics, jt.snapshot(), pad_to
     (jt, tt), topics, pad_to = chip_smoke.form_edge_case(edge, JFilterTable, FilterTable)
-    snap = jt.snapshot()
-    snap = type(snap)(*(a[:chip_smoke.FORM_EDGE_ROWS] for a in snap))
+    full = jt.snapshot()
+    snap = type(full)(*(a[:n_rows] for a in full))
     _assert_edge(edge, snap, topics)
+    if n_rows % 32:  # the cut leaves live rows out
+        assert full.active[n_rows:].any()
     return jt, tt, topics, snap, pad_to
 
 
 def _assert_edge(edge, snap, topics):
     """The edge case holds what it is named for."""
-    live = snap.active.reshape(-1, 32).sum(axis=1)
+    act = np.pad(snap.active, (0, -len(snap.active) % 32))
+    live = act.reshape(-1, 32).sum(axis=1)
     if edge == "dead_words":
         assert not snap.active[512:768].any()  # a whole dead block
         assert (live == 0).sum() > 8 and (live == 1).sum() >= 3  # dead words, lone rows
@@ -303,23 +310,29 @@ def _assert_edge(edge, snap, topics):
         assert len(topics) % 16  # a partial topic group and tile
 
 
-@pytest.mark.parametrize("seed,n_filters,capacity,pad_to,chunk,edge", FORM_CASES)
-def test_dense_forms_equal_reference(seed, n_filters, capacity, pad_to, chunk, edge):
-    jt, tt, topics, snap, pad_to = _form_tables(seed, n_filters, capacity, pad_to, edge)
+@pytest.mark.parametrize("seed,n_filters,capacity,pad_to,chunk,edge,n_rows", FORM_CASES)
+def test_dense_forms_equal_reference(seed, n_filters, capacity, pad_to, chunk, edge, n_rows):
+    jt, tt, topics, snap, pad_to = _form_tables(seed, n_filters, capacity, pad_to, edge,
+                                                n_rows)
     enc = JM.encode_topics(jt.vocab, topics, jt.max_levels, pad_to=pad_to)
     f = _torch(snap, EncodedFilters)
     t = _torch(enc, TM.EncodedTopics)
     dense = TM.match_dense(f, t)
     assert dense.dtype == torch.bool
     assert np.array_equal(np.asarray(JM.match_dense(snap, enc)), dense.numpy())
+    counts = TM.match_counts(f, t)
+    assert np.array_equal(np.asarray(JM.match_counts(snap, enc)), counts.numpy())
+    n = len(snap.active)
+    oracle = [rows[rows < n] for rows in TM.oracle_match_rows(tt, topics)]
+    assert [int(c) for c in counts[:len(topics)]] == [len(rows) for rows in oracle]
+    if n % 32:  # counts only: the bitmap refuses such a table, as the reference does
+        assert not counts[len(topics):].any()
+        return
     packed = TM.match_packed(f, t, chunk=chunk)
     want = np.asarray(JM.match_packed(snap, enc, chunk=chunk))
     assert packed.dtype == torch.uint32
     assert np.array_equal(want, packed.view(torch.int32).numpy().view(np.uint32))
-    counts = TM.match_counts(f, t)
-    assert np.array_equal(np.asarray(JM.match_counts(snap, enc)), counts.numpy())
     # the host unpack of the port's bitmap is the oracle's row set
-    oracle = TM.oracle_match_rows(tt, topics)
     host = packed.view(torch.int32).numpy().view(np.uint32)
     for i, rows in enumerate(oracle):
         assert np.array_equal(TM.unpack_indices(host[i]), JM.unpack_indices(want[i]))

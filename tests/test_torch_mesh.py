@@ -225,34 +225,55 @@ def test_topic_padding(mesh8):
 # which pads it to 3 x 384 rows (shard rows a multiple of 32, as the
 # packed form needs). One device holds every tile; two devices hold half
 # each, and each tile's block is read from the group that computed it.
-FORMS_MESH_CASES = [pytest.param(1, None, "mesh8", id="1"), pytest.param(2, None, "mesh8", id="2")]
-FORMS_MESH_CASES += [pytest.param(0, e, "mesh8", id=e) for e in chip_smoke.FORM_EDGES
+# (seed, edge, which, n_rows): n_rows None keeps FORM_EDGE_ROWS (one row
+# fewer on mesh3, whose shards then pad); the counts' own edge,
+# COUNTS_EDGE_ROWS, gives shards whose rows are not a multiple of 32
+# (counts only: the bitmap refuses them)
+FORMS_MESH_CASES = [pytest.param(1, None, "mesh8", None, id="1"),
+                    pytest.param(2, None, "mesh8", None, id="2")]
+FORMS_MESH_CASES += [pytest.param(0, e, "mesh8", None, id=e) for e in chip_smoke.FORM_EDGES
                      if e not in ("topics37_pad64", "topics1000")]
-FORMS_MESH_CASES += [pytest.param(0, e, "mesh3", id=f"{e}-mesh3") for e in ("dead_words", "sys")]
+FORMS_MESH_CASES += [pytest.param(0, e, "mesh3", None, id=f"{e}-mesh3")
+                     for e in ("dead_words", "sys")]
+FORMS_MESH_CASES += [
+    pytest.param(0, chip_smoke.COUNTS_EDGE, which, chip_smoke.COUNTS_EDGE_ROWS,
+                 id=f"{chip_smoke.COUNTS_EDGE}-rows{chip_smoke.COUNTS_EDGE_ROWS}-{which}")
+    for which in ("mesh8", "mesh3")]
 
 
-@pytest.mark.parametrize("seed,edge,which", FORMS_MESH_CASES)
+@pytest.mark.parametrize("seed,edge,which,n_rows", FORMS_MESH_CASES)
 @pytest.mark.parametrize("devs", sorted(DEVICE_SETS))
-def test_sharded_counts_and_packed_equal_reference(devs, seed, edge, which):
+def test_sharded_counts_and_packed_equal_reference(devs, seed, edge, which, n_rows):
     jmesh, tmesh = _meshes(SHAPES[which], devs)
+    counts_only = n_rows is not None
     if edge is None:
         jt, tt, topics = _twin_tables(seed, 300)
         snap, pad_to = jt.snapshot(), 0
     else:
         (jt, tt), topics, pad_to = chip_smoke.form_edge_case(edge, JFilterTable, FilterTable)
         snap = jt.snapshot()
-        n_rows = chip_smoke.FORM_EDGE_ROWS - (which == "mesh3")
+        if n_rows is None:
+            n_rows = chip_smoke.FORM_EDGE_ROWS - (which == "mesh3")
         snap = type(snap)(*(a[:n_rows] for a in snap))
     enc = JM.encode_topics(jt.vocab, topics, jt.max_levels, pad_to=pad_to)
     jc, jp, _ = JS.make_sharded_kernels(jmesh)
     tc, tp, _ = TS.make_sharded_kernels(tmesh)
     fj, tj = JMesh.put_filters(snap, jmesh), JMesh.put_topics(enc, jmesh)
     ft, t_t = TMesh.put_filters(snap, tmesh), TMesh.put_topics(enc, tmesh)
-    assert ft[0].words.shape[0] // len(tmesh.groups[0].subs) % 32 == 0
+    shard_rows = ft[0].words.shape[0] // len(tmesh.groups[0].subs)
+    assert bool(shard_rows % 32) == counts_only
+    n = len(snap.active)
+    oracle = [rows[rows < n] for rows in JM.oracle_match_rows(jt, topics)]
+    if counts_only:
+        _eq([jc(fj, tj)], [tc(ft, t_t)])
+        assert [int(c) for c in tc(ft, t_t)[: len(topics)]] == [len(r) for r in oracle]
+        with pytest.raises(ValueError, match="multiple of 32"):
+            tp(ft, t_t)
+        return
     _eq([jc(fj, tj), jp(fj, tj)], [tc(ft, t_t), tp(ft, t_t)])
     counts = tc(ft, t_t).numpy()[: len(topics)]
     packed = _np(tp(ft, t_t))
-    for i, rows in enumerate(JM.oracle_match_rows(jt, topics)):
+    for i, rows in enumerate(oracle):
         assert counts[i] == len(rows)
         assert np.array_equal(JM.unpack_indices(packed[i]), rows)
     assert not packed[len(topics):].any()  # pad topics match nothing

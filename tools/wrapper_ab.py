@@ -37,10 +37,11 @@ and the whole `ShardedDeviceTable.sync()` at that delta, the same rows
 and slots dirtied again (and the mask marked dirty) before every call;
 and the dense forms at phase 9's full width (FORMS_CASES: one table of
 2,097,152 rows holding phase 9's route set, built once, and 1,024 of
-its topics, both trees fed the same tensors): K10 `match_packed` and
-K13's packed form on each tree's own (2, 4) mesh of the card (a parent
-wrapper allocates its own zero fill), and as controls K9 at 64 topics,
-K11 and K13's counts. `--only forms` times the dense forms alone.
+its topics, both trees fed the same tensors): K10 `match_packed`, K11
+`match_counts`, and K13's packed form and counts on each tree's own
+(2, 4) mesh of the card (each wrapper as its tree has it: a parent's
+zero fills, separate or in its C entry, are in its time), and K9 at 64
+topics. `--only forms` times the dense forms alone.
 Each reading
 is `chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
 host's enqueue time a call (`enqueue_ms`). A whole `sync()` copies
