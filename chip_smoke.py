@@ -147,15 +147,18 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    given phase 3's route set. (a) K10 and K11 at 1,024 topics and K9 at
    64 over the table's full capacity (2,097,152 rows), each equal to its
    plain version, 32 topics' rows equal to the host oracle's
-   (Router.match_filters), K10's and K11's launches by torch.profiler
-   and K11's global atomics (at most, nonzero); then K10 and K11 on
+   (Router.match_filters), K9 equal to K10's bitmap unpacked, K9's,
+   K10's and K11's launches by torch.profiler (with each kernel's
+   events in the trace and the traced calls' CUDA-event time) and K11's
+   global atomics (at most, nonzero); then K9, K10 and K11 on
    FORM_EDGES' small tables built by the port (a dead block, dead
    words and lone live rows in a partial last block, rows of 17-24
    levels, max_levels 7, '#' and '+/#' rows against $SYS topics, 37
-   and 1,000 topics, unpadded and padded) and K11 on the counts' own
-   edge (COUNTS_EDGE_ROWS rows, not a multiple of 32), each equal to
-   its plain version and every topic's rows and count to the table's
-   host oracle. (b) The mesh sync and warm_up shapes (each
+   and 1,000 topics, unpadded and padded) and K9 and K11 on the counts'
+   own edge (COUNTS_EDGE_ROWS rows, not a multiple of 32 or 16: K9's
+   output rows unaligned), each equal to its plain version, every
+   topic's rows and count to the table's host oracle and K9 to K10's
+   bitmap unpacked. (b) The mesh sync and warm_up shapes (each
    batch shape's first escalation step, the churn scatters); counters
    set to 0; 16 pipelined 1024-topic batches of phase 5's mix with
    phase 5's churn between them, every answer checked against the host
@@ -168,7 +171,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    out of the timed window, the mesh table syncs' launches and entries,
    and the host legs (encode, sync, hash, dense, unpack). Then each mesh
    kernel against its plain version on the router's own state (K13
-   counts and packed, K14 over both legs' tiles, K15, K16, K17; K13
+   counts and packed, K14 over both legs' tiles, K15 (one launch, by
+   torch.profiler) and K15 at salts 12345, -2, 1.5e9 and 2,147,483,646
+   and block capacities of 1 and 7 beside the router's, on the (2, 4)
+   mesh and the padded (1, 3) layout, K16, K17; K13
    packed and counts also on FORM_EDGES' tables on the (2, 4) mesh and
    the padded (1, 3) layout, K13 counts on the counts' own edge there
    (shards of 286 and 381 rows), and both forms' launches by
@@ -416,9 +422,15 @@ def timed(kernel, plain, library=None, plain_repeats: int = REPEATS,
 
 def launch_breakdown(fn, calls: int = 10) -> str:
     """Device microseconds per call of each kernel a wrapper launches,
-    by torch.profiler over `calls` calls, largest first. A trace that
-    comes back with no device activity (seen once late in a full run)
-    is taken again."""
+    by torch.profiler over `calls` calls, largest first, each with the
+    number of its events in the trace; then the same calls' time a call
+    between two CUDA events recorded inside the trace. A trace can come
+    back short: with no device activity, or with fewer events of a
+    kernel than calls (seen in phase 9 (a)'s first traces), so
+    a trace in which some kernel has fewer than `calls` events is taken
+    again, up to three times in all, and the line says how many it
+    took. Every wrapper traced here launches each of its kernels once a
+    call."""
     import re
 
     import torch
@@ -426,17 +438,25 @@ def launch_breakdown(fn, calls: int = 10) -> str:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for attempt in range(1, 4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a.record()
             for _ in range(calls):
                 fn()
+            b.record()
             torch.cuda.synchronize()
-        rows = sorted(((ev.device_time_total / calls, re.search(r"(\w+(?:<\w+>)?)\(", ev.key),
-                        ev.key) for ev in prof.key_averages() if ev.device_time_total),
+        rows = sorted(((ev.device_time_total / calls, ev.count,
+                        re.search(r"(\w+(?:<\w+>)?)\(", ev.key), ev.key)
+                       for ev in prof.key_averages() if ev.device_time_total),
                       reverse=True, key=lambda r: r[0])
-        if rows:
+        if rows and min(n for _us, n, _m, _key in rows) >= calls:
             break
-    return ", ".join(f"{m.group(1) if m else key} {us:.3f}" for us, m, key in rows) or "no trace"
+    traced = ", ".join(f"{m.group(1) if m else key} {us:.3f} ({n} events)"
+                       for us, n, m, key in rows) or "no trace"
+    return (f"{traced} (events: {1e3 * a.elapsed_time(b) / calls:.3f} us a call; "
+            f"trace {attempt} of 3)")
 
 
 def set_bounds(recs) -> None:
@@ -2782,13 +2802,14 @@ def forms_inputs(mods, dev, seed=3):
 
 
 def form_edge_checks(layout, card):
-    """K10 and K11 (layout "single") or K13 packed and counts (layout
+    """K9, K10 and K11 (layout "single") or K13 packed and counts (layout
     (2, 4), or (1, 3): the padded layout, FORM_EDGE_ROWS - 1 rows) on the
-    card on every FORM_EDGES table, and the counts alone on the counts'
-    own edge (COUNTS_EDGE's table cut to COUNTS_EDGE_ROWS rows), each held
-    against its plain version exactly; on one device every topic's rows
-    and count also against the table's host oracle. Returns one line a
-    case."""
+    card on every FORM_EDGES table, and the counts (and on one device the
+    matrix) alone on the counts' own edge (COUNTS_EDGE's table cut to
+    COUNTS_EDGE_ROWS rows: K9's output rows are not 16-byte aligned),
+    each held against its plain version exactly; on one device every
+    topic's rows and count also against the table's host oracle, and
+    K9's matrix against K10's bitmap unpacked. Returns one line a case."""
     import numpy as np
     import torch
 
@@ -2813,21 +2834,30 @@ def form_edge_checks(layout, card):
             d = M.EncodedTopics(*(to_device(a, dev) for a in enc))
             counts = M.match_counts(f, d)
             max_abs_err([counts], [M.match_counts_ref(f, d)])
+            dense = M.match_dense(f, d)
+            max_abs_err([dense], [M.match_dense_ref(f, d)])
+            hd = dense.cpu().numpy()
             if packed:
                 got = M.match_packed(f, d, chunk=n_rows)
                 max_abs_err([u32(got)], [u32(M.match_packed_ref(f, d, chunk=n_rows))])
                 host = u32(got).cpu().numpy().view(np.uint32)
+                if not np.array_equal(hd, np.unpackbits(host.view(np.uint8), axis=1,
+                                                        bitorder="little").astype(bool)):
+                    raise AssertionError(f"K9 {case} differs from K10's bitmap")
             hc = counts.cpu().numpy()
             for i, rows in enumerate(M.oracle_match_rows(t, topics)):
                 rows = rows[rows < n_rows]
                 if hc[i] != len(rows):
                     raise AssertionError(f"K11 {name} topic {topics[i]!r}: count {hc[i]} "
                                          f"differs from the host oracle's {len(rows)}")
+                if not np.array_equal(np.flatnonzero(hd[i]), rows):
+                    raise AssertionError(f"K9 {name} topic {topics[i]!r}: rows differ "
+                                         f"from the host oracle")
                 if host is not None and not np.array_equal(M.unpack_indices(host[i]), rows):
                     raise AssertionError(f"K10 {case} topic {topics[i]!r}: rows differ "
                                          f"from the host oracle")
-            if hc[len(topics):].any():
-                raise AssertionError(f"K11 {name}: a pad topic counts a match")
+            if hc[len(topics):].any() or hd[len(topics):].any():
+                raise AssertionError(f"K9/K11 {name}: a pad topic matches")
         else:
             mesh = mesh_of(layout)
             (f,), (d,) = MS.put_filters(snap, mesh), MS.put_topics(enc, mesh)
@@ -2875,8 +2905,9 @@ def counts_atomics(active, packed):
 def check_dense_forms(router, topics, card):
     """Phase 9 (a): K9-K11 on the card over the route table (its full
     capacity) against their plain versions; K10/K11 at BATCH topics, K9
-    at DENSE_B; MESH_ORACLE_TOPICS topics against the host oracle; K10
-    and K11 on FORM_EDGES' tables, K11 on the counts' own edge."""
+    at DENSE_B; MESH_ORACLE_TOPICS topics against the host oracle; K9,
+    K10 and K11 on FORM_EDGES' tables, K9 and K11 on the counts' own
+    edge."""
     import numpy as np
     import torch
 
@@ -2931,10 +2962,12 @@ def check_dense_forms(router, topics, card):
         **timed(lambda: M.match_dense(filters, small),
                 lambda: M.match_dense_ref(filters, small), plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         bytes=nb_small + DENSE_B * N, ops=ops_small, err=err_d,
-        shape=f"B={DENSE_B} {shape} output_bytes={DENSE_B * N}")
+        shape=f"B={DENSE_B} {shape} output_bytes={DENSE_B * N} live_words={live_words}; "
+              f"its launches, device us a call: "
+              + launch_breakdown(lambda: M.match_dense(filters, small)))
     del filters, packed, dense
     torch.cuda.synchronize()
-    log("K10 and K11 edge cases: " + "; ".join(form_edge_checks("single", card))
+    log("K9, K10 and K11 edge cases: " + "; ".join(form_edge_checks("single", card))
         + f" [{card}]")
     set_bounds(recs)
     return recs
@@ -2953,6 +2986,48 @@ def flat(x):
     if isinstance(x, tuple):
         return [t for a in x for t in flat(a)]
     return [u32(x)]
+
+
+# K15's salts (the first is the timed one): -2 makes sub 0's entry -1
+# (invalid), 1.5e9 wraps salt * 2 + 1, 2,147,483,646 wraps sub 1's
+# entry negative; and its block capacities beside phase 9's: one slot a
+# block, and a width that allows no 16-byte row access
+PROBE_SALTS = (12345, -2, 1_500_000_000, 2_147_483_646)
+PROBE_MH = (1, 7)
+
+
+def probe_ref(mesh, salt, mh):
+    """K15's plain version on a mesh whose one device holds every tile:
+    combine_probe_ref's buffers, gathered (a view), then
+    combine_pairs_ref. Returns (ca, cb [n_dp, mh], totals [n_dp, 1])."""
+    from emqx_tpu_torch.parallel import sharded_match as S
+
+    n_dp, n_sub = mesh.shape["dp"], mesh.shape["sub"]
+    a, b, c = S.combine_probe_ref(salt, S._tiles(mesh, 0), mh, mesh.groups[0].device)
+    ca, cb, tot = S.combine_pairs_ref(a.reshape(n_dp, -1), b.reshape(n_dp, -1),
+                                      c.reshape(n_dp, n_sub), mh)
+    return ca, cb, tot.reshape(-1, 1)
+
+
+def probe_checks(mh):
+    """K15 on the card at every PROBE_SALTS salt and at block capacities
+    mh and PROBE_MH, on the (2, 4) mesh and the padded (1, 3) layout of
+    the one card, each equal to its plain version exactly. Returns the
+    totals a case, per layout and capacity."""
+    from emqx_tpu_torch.parallel import sharded_match as S
+
+    out = []
+    for layout in (MESH, (1, 3)):
+        mesh = mesh_of(layout)
+        for m in (mh, *PROBE_MH):
+            probe = S.make_combine_probe_kernel(mesh, m)
+            totals = []
+            for salt in PROBE_SALTS:
+                got = probe(salt)
+                max_abs_err(got, probe_ref(mesh, salt, m))
+                totals.append(got[2].reshape(-1).tolist())
+            out.append(f"{layout} max_hits={m}: equal, totals by salt {totals}")
+    return "; ".join(out)
 
 
 def check_mesh_kernels(router, skel, exact, rng, card):
@@ -3085,25 +3160,22 @@ def check_mesh_kernels(router, skel, exact, rng, card):
     log(f"mesh overflow: K17, K16 and K14 equal to their plain versions below the "
         f"tile counts {over} [{card}]")
 
-    # K15: the salted one-entry buffers, combined
+    # K15: the salted one-entry buffers, combined in one launch; then at
+    # its edges
     probe = S.make_combine_probe_kernel(mesh, mh)
-    salt = 12345
-
-    def probe_ref():
-        a, b, c = S.combine_probe_ref(salt, tiles, mh, t_dev.ids.device)
-        return S.combine_pairs_ref(a.reshape(n_dp, -1), b.reshape(n_dp, -1),
-                                   c.reshape(n_dp, n_sub), mh)
-
-    got = probe(salt)
-    err = max_abs_err([got[0], got[1], got[2].reshape(-1)], list(probe_ref()))
+    salt = PROBE_SALTS[0]
+    err = max_abs_err(probe(salt), probe_ref(mesh, salt, mh))
     recs["combine_probe"] = dict(
-        **timed(lambda: probe(salt), probe_ref, plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
+        **timed(lambda: probe(salt), lambda: probe_ref(mesh, salt, mh),
+                plain_repeats=PLAIN_REPEATS, plain_run=PLAIN_REPEATS),
         # the salted buffers written (a, b, counts), then the combine's
         # bytes on them: all of a, b at its one valid entry per tile,
         # the counts, the outputs
         bytes=n_tiles * (mh * 8 + 4) + n_tiles * (mh * 4 + 8) + n_dp * (mh * 8 + 4),
         ops=0, err=err,
-        shape=f"dp={n_dp} sub={n_sub} max_hits={mh} salt={salt}")
+        shape=f"dp={n_dp} sub={n_sub} max_hits={mh} salt={salt}; its launches, device us "
+              f"a call: " + launch_breakdown(lambda: probe(salt)))
+    log(f"K15 edge cases: {probe_checks(mh)} [{card}]")
 
     # K13 counts and packed over the full table's tiles
     counts_k, packed_k, _apply = S.make_sharded_kernels(mesh)
@@ -4310,7 +4382,7 @@ def main(argv=None) -> int:
                           "emqx_tpu/ops/transfer.py:150"),
         "retained_probe": ("emqx_tpu_torch/ops/csrc/retained_probe.cu",
                            "emqx_tpu/ops/retained.py:81"),
-        "match_dense": ("emqx_tpu_torch/ops/csrc/dense_forms.cu",
+        "match_dense": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                         "emqx_tpu/ops/match.py:120"),
         "match_packed": ("emqx_tpu_torch/ops/csrc/packed_match.cu",
                          "emqx_tpu/ops/match.py:129"),

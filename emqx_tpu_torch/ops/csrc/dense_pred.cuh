@@ -1,6 +1,6 @@
 // The dense match predicate (emqx_tpu/ops/match.py `_match_block`), once,
-// for every kernel that evaluates it: K2 and K16 (dense_match.cu), the
-// dense form K9 (dense_forms.cu), and the bitmap K10 and the counts K11
+// for every kernel that evaluates it: K2 and K16 (dense_match.cu), and
+// the three dense forms, the matrix K9, the bitmap K10 and the counts K11
 // (packed_match.cu). Keeping it here means they cannot drift apart.
 //
 //   ok[b, n] = active[n] & ~(dollar[b] & root_wild[n])
@@ -13,17 +13,12 @@
 //     rules hold iff hdr - lo <= span (unsigned) and !(hdr & rwm);
 //   * the levels: `level_ok` for each i < min(plen, L).
 //
-// Two ways to hold a row's words:
-//   * staged (K9): a warp's 32 consecutive rows in shared memory,
-//     transposed with a padded stride, so lane l reads level i of its
-//     own row at rw[i * STAGE_STRIDE + l] (conflict-free) and the staging
-//     stores spread over the banks;
-//   * in registers (K2, K16, K10, K11): each thread gathers one live row by id
-//     (`RegRow`), its first REG_LEVELS levels in registers, deeper levels
-//     read from the table when a row has them. Its `quick` test is the
-//     head and level 0 -- branch-free, a few integer operations, and
-//     what rejects almost every pair -- and `rest` the levels after 0.
-// Both hold a tile of topics in shared memory (broadcast reads).
+// A row's words are held in registers: each thread gathers one live row
+// by id (`RegRow`), its first REG_LEVELS levels in registers, deeper
+// levels read from the table when a row has them. Its `quick` test is
+// the head and level 0 -- branch-free, a few integer operations, and
+// what rejects almost every pair -- and `rest` the levels after 0. The
+// kernels hold a tile of topics in shared memory (broadcast reads).
 //
 // A tile is one (dp, sub) shard pair of a mesh: the kernels read the
 // tile's local rows and topics and write global ids. tiles[k] holds
@@ -40,9 +35,8 @@
 #define EMQX_FULL_MASK 0xFFFFFFFFu
 #endif
 
-constexpr int DENSE_PLUS = 1;    // vocab id of '+'
-constexpr int STAGE_STRIDE = 33;  // staged words per level: 32 rows + 1 pad
-constexpr int REG_LEVELS = 16;    // levels of a register row
+constexpr int DENSE_PLUS = 1;  // vocab id of '+'
+constexpr int REG_LEVELS = 16;  // levels of a register row
 
 struct Tile {
   int dp_i, sub_i, dp_pos, sub_pos;
@@ -79,37 +73,7 @@ __device__ __forceinline__ bool level_ok(int w, int t) {
   return w == DENSE_PLUS || w == t;
 }
 
-// --- staged rows (K9) ------------------------------------------------------
-
-// Stage rows [row0, row0 + 32) of words [*, L] (rows at or past row_end
-// read as 0) into rw, transposed: rw[i * STAGE_STRIDE + r] = words[row0 + r,
-// i]. Every lane of the warp calls it.
-__device__ __forceinline__ void stage_warp_rows(int* __restrict__ rw,
-                                                const int* __restrict__ words,
-                                                long long row0, long long row_end,
-                                                int L, int lane) {
-  for (int e = lane; e < 32 * L; e += 32) {
-    const int r = e / L, i = e - r * L;
-    const long long g = row0 + r;
-    rw[i * STAGE_STRIDE + r] = g < row_end ? words[g * L + i] : 0;
-  }
-  __syncwarp();
-}
-
-// The predicate for one live row (active checked by the caller): topic
-// length tl, $-flag td, words tw[L]; the row's plen, has_hash,
-// root_wild and its staged words (rw[i * STAGE_STRIDE] is level i).
-__device__ __forceinline__ bool dense_pred(int tl, bool td, const int* tw, int pl,
-                                           bool hh, bool rw_flag,
-                                           const int* rw, int L) {
-  if (!head_ok(topic_header(tl, td), row_window(pl, hh, rw_flag))) return false;
-  const int lim = min(pl, L);
-  for (int i = 0; i < lim; ++i)
-    if (!level_ok(rw[i * STAGE_STRIDE], tw[i])) return false;
-  return true;
-}
-
-// --- register rows (K2, K16, K10, K11) -----------------------------------------
+// --- register rows --------------------------------------------------------
 
 struct RegRow {
   int w[REG_LEVELS];  // levels 0 .. REG_LEVELS - 1 (0 past L)

@@ -5,10 +5,10 @@ inert pow2 padding), `GenMatchCache` (generation-stamped topic →
 filters cache) and `oracle_match_rows` (the pure-Python ground truth).
 
 Device half: kernel K2 `match_ids` (ops/csrc/dense_match.cu) and the
-dense forms K9 `match_dense` (ops/csrc/dense_forms.cu), K10
-`match_packed` and K11 `match_counts` (ops/csrc/packed_match.cu, two
-modes of one kernel), each beside its plain PyTorch version
-(`*_ref`). All evaluate one predicate (csrc/dense_pred.cuh)
+dense forms K9 `match_dense`, K10 `match_packed` and K11
+`match_counts` (ops/csrc/packed_match.cu, three forms of one kernel),
+each beside its plain PyTorch version (`*_ref`). All evaluate one
+predicate (csrc/dense_pred.cuh)
 
     match[b, n] = active[n]
                 & ~(dollar[b] & root_wild[n])              # $-root rule
@@ -35,8 +35,8 @@ from ._build import I, LL, P, CudaKernel, raw_stream
 from .table import EncodedFilters
 from .vocab import PLUS, Vocab
 
-# the CUDA kernels hold a tile of topics' words (and K9 its rows'
-# words) in shared memory; deeper tables are refused on the CUDA path
+# the CUDA kernels hold a tile of topics' words in shared memory;
+# deeper tables are refused on the CUDA path
 MAX_KERNEL_LEVELS = 128
 
 
@@ -293,14 +293,18 @@ def match_counts_ref(filters: EncodedFilters, topics: EncodedTopics) -> torch.Te
 
 
 # --- K9-K11: the CUDA kernels ---------------------------------------------
-# K9 is dense_forms.cu; K10, the bitmap, and K11, the counts, are two
-# modes of one kernel (packed_match.cu), each with its entry point (one
-# argument list). FORM_* name the three forms.
+# K9, the matrix, K10, the bitmap, and K11, the counts, are three forms
+# of one kernel (packed_match.cu), each with its entry point. The bitmap
+# and the counts take one argument list (with the mesh's tiles: K13
+# launches them too); the matrix takes the same without the tiles and
+# the output's width. FORM_PACKED and FORM_COUNTS name the mesh's two
+# forms.
 
-FORM_DENSE, FORM_PACKED, FORM_COUNTS = 0, 1, 2
-_FORMS_ARGTYPES = [I, P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, P]
+FORM_PACKED, FORM_COUNTS = 1, 2
 _PACKED_ARGTYPES = [P, P, P, P, P, I, I, P, P, P, I, P, I, P, LL, P]
-_MATCH_DENSE = CudaKernel("match_dense", "dense_forms.cu", "emqx_dense_forms", _FORMS_ARGTYPES)
+_DENSE_ARGTYPES = [P, P, P, P, P, I, I, P, P, P, I, P, P]
+_MATCH_DENSE = CudaKernel("match_dense", "packed_match.cu", "emqx_match_dense",
+                          _DENSE_ARGTYPES)
 _MATCH_PACKED = CudaKernel("match_packed", "packed_match.cu", "emqx_match_packed",
                            _PACKED_ARGTYPES)
 _MATCH_COUNTS = CudaKernel("match_counts", "packed_match.cu", "emqx_match_counts",
@@ -320,10 +324,10 @@ def check_filters(filters: EncodedFilters, device) -> tuple:
 
 
 def _forms_args(
-    filters: EncodedFilters, topics: EncodedTopics, n_loc: int, b_loc: int,
-    tiles: Optional[torch.Tensor], n_tiles: int, out: torch.Tensor, out_w: int,
+    filters: EncodedFilters, topics: EncodedTopics, n_loc: int, b_loc: int
 ) -> tuple:
-    """The arguments the dense forms entries share, checked."""
+    """The table and topic arguments every packed_match.cu entry takes
+    first, checked."""
     dev = filters.words.device
     check_filters(filters, dev)
     check_topics(topics, filters.words.shape[1], dev)
@@ -332,8 +336,7 @@ def _forms_args(
         filters.has_hash.data_ptr(), filters.root_wild.data_ptr(),
         filters.active.data_ptr(), n_loc, filters.words.shape[1],
         topics.ids.data_ptr(), topics.lens.data_ptr(), topics.dollar.data_ptr(),
-        b_loc, None if tiles is None else tiles.data_ptr(), n_tiles,
-        out.data_ptr(), out_w,
+        b_loc,
     )
 
 
@@ -348,8 +351,9 @@ def launch_packed(
     out_w]; its counts entry (K11, the mesh's K13 counts) zeroes the
     int32 `out` [B] (out_w = B) and adds each tile's counts into it, so
     `out` may be uninitialised."""
-    args = _forms_args(filters, topics, n_loc, b_loc, tiles, n_tiles, out, out_w)
-    kernel(*args, raw_stream(filters.words.device))
+    kernel(*_forms_args(filters, topics, n_loc, b_loc),
+           None if tiles is None else tiles.data_ptr(), n_tiles, out.data_ptr(), out_w,
+           raw_stream(filters.words.device))
 
 
 def match_dense(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
@@ -361,8 +365,7 @@ def match_dense(filters: EncodedFilters, topics: EncodedTopics) -> torch.Tensor:
     n = filters.words.shape[0]
     b = topics.ids.shape[0]
     out = torch.empty((b, n), dtype=torch.bool, device=dev)
-    _MATCH_DENSE(FORM_DENSE, *_forms_args(filters, topics, n, b, None, 1, out, n),
-                 raw_stream(dev))
+    _MATCH_DENSE(*_forms_args(filters, topics, n, b), out.data_ptr(), raw_stream(dev))
     return out
 
 

@@ -19,7 +19,9 @@ version, which CPU tensors take):
        slots)
   K14  `_combine_pairs`: the order-preserving recompaction over sub plus
        the summed counts (csrc/combine.cu)
-  K15  `make_combine_probe_kernel`: K14 on salted one-entry buffers
+  K15  `make_combine_probe_kernel`: K14's walk on salted one-entry
+       buffers, built and combined in one launch on one device
+       (csrc/combine.cu)
   K16  `make_match_ids_kernel`: per-tile dense compaction
        (csrc/dense_match.cu) + K14
   K17  `make_sharded_hash_kernel`: per-tile cuckoo probe over the owned
@@ -92,7 +94,7 @@ _COMBINE = CudaKernel(
     [P, P, P, I, I, I, P, P, P, P],
 )
 _PROBE = CudaKernel(
-    "combine_probe", "combine.cu", "emqx_combine_probe", [I, P, I, I, P, P, P, P]
+    "combine_probe", "combine.cu", "emqx_combine_probe", [I, P, I, I, I, P, P, P, P, P, P, P]
 )
 _MESH_IDS = CudaKernel(
     "mesh_match_ids", "dense_match.cu", "emqx_mesh_match_ids",
@@ -689,21 +691,37 @@ def make_sharded_kernels(mesh: Mesh):
 def make_combine_probe_kernel(mesh: Mesh, mh: int):
     """K15, the combine-only probe of the reference's mesh microscope:
     probe(salt) builds one salted entry per shard on the device and
-    runs exactly the match kernels' cross-shard reduction (K14) over
-    them. Returns (ca, cb [n_dp, mh], total [n_dp, 1])."""
+    runs exactly the match kernels' cross-shard reduction (K14's walk)
+    over them. On a mesh whose one device holds every tile, one launch
+    builds the buffers in the gathered layout and combines them; on
+    several devices each builds its tiles, then they are gathered and
+    K14 combines. Returns (ca, cb [n_dp, mh], total [n_dp, 1])."""
+    n_dp, n_sub = mesh.shape[DP_AXIS], mesh.shape[SUB_AXIS]
+
+    def buffers(g):
+        n_tiles = len(g.tiles)
+        return tuple(torch.empty(shape, dtype=torch.int32, device=g.device)
+                     for shape in ((n_tiles, mh), (n_tiles, mh), (n_tiles,)))
 
     def probe(salt: int):
+        g = mesh.groups[0]
+        if len(mesh.groups) == 1 and g.device.type != "cpu":
+            # the gathered rows are the tiles' buffers (_gather_sub's view)
+            a, b, cnt = buffers(g)
+            out = tuple(torch.empty(shape, dtype=torch.int32, device=g.device)
+                        for shape in ((n_dp, mh), (n_dp, mh), (n_dp,)))
+            _launch(_PROBE, g.device, _wrap32(salt), mesh.tile_table(0).data_ptr(),
+                    len(g.tiles), n_sub, mh, *(x.data_ptr() for x in (a, b, cnt, *out)))
+            return out[0], out[1], out[2].reshape(-1, 1)
         parts = []
         for gi, g in enumerate(mesh.groups):
             if g.device.type == "cpu":
                 parts.append(combine_probe_ref(salt, _tiles(mesh, gi), mh, g.device))
                 continue
-            n_tiles = len(g.tiles)
-            a = torch.empty((n_tiles, mh), dtype=torch.int32, device=g.device)
-            b = torch.empty((n_tiles, mh), dtype=torch.int32, device=g.device)
-            cnt = torch.empty(n_tiles, dtype=torch.int32, device=g.device)
+            a, b, cnt = buffers(g)
             _launch(_PROBE, g.device, _wrap32(salt), mesh.tile_table(gi).data_ptr(),
-                    n_tiles, mh, a.data_ptr(), b.data_ptr(), cnt.data_ptr())
+                    len(g.tiles), n_sub, mh, a.data_ptr(), b.data_ptr(), cnt.data_ptr(),
+                    None, None, None)
             parts.append((a, b, cnt))
         return _combine_pairs(mesh, parts, mh)
 

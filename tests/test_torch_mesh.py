@@ -408,14 +408,33 @@ def test_combine_pairs_edges_equal_reference(case, layout, mh, devs):
         assert (np.asarray(want[0]) == -1).all()
 
 
-@pytest.mark.parametrize("salt", [0, 7, -2, 1_500_000_000])
-def test_combine_probe_equals_reference(mesh8, salt):
-    """-2 makes sub 0's entry -1 (invalid); 1.5e9 wraps salt * 2 + 1."""
+# K15's cases: (salt, mh, layout). -2 makes sub 0's entry -1 (invalid);
+# 1.5e9 wraps salt * 2 + 1; 2,147,483,646 wraps sub 1's entry negative.
+# mh 1 is one slot a block, mh 7 allows no 16-byte row access; mesh3 is
+# the padded (1, 3) layout. The card runs the same cases (chip_smoke.py
+# phase 9, `probe_checks`).
+PROBE_SALTS = (12345, -2, 1_500_000_000, 2_147_483_646)
+PROBE_CASES = (
+    [pytest.param(salt, 32, "mesh8", id=str(salt)) for salt in (0, 7, -2, 1_500_000_000)]
+    + [pytest.param(salt, 32, "mesh8", id=f"{salt}-mh32") for salt in (12345, 2_147_483_646)]
+    + [pytest.param(salt, mh, "mesh8", id=f"{salt}-mh{mh}")
+       for mh in (1, 7) for salt in PROBE_SALTS]
+    + [pytest.param(salt, mh, "mesh3", id=f"{salt}-mh{mh}-mesh3")
+       for mh in (32, 7, 1) for salt in (12345, 2_147_483_646)]
+)
+
+
+@pytest.mark.parametrize("salt,mh,layout", PROBE_CASES)
+def test_combine_probe_equals_reference(mesh8, salt, mh, layout, request):
     jmesh, tmesh = mesh8
-    mh = 32
+    if layout != "mesh8":
+        jmesh, tmesh = _meshes(SHAPES[layout], request.node.callspec.params["mesh8"])
     want = JS.make_combine_probe_kernel(jmesh, mh)(jnp.int32(salt))
     got = TS.make_combine_probe_kernel(tmesh, mh)(salt)
     _eq(want, got)
+    n_dp, n_sub = SHAPES[layout]
+    valid = [(salt + s + 1 + (1 << 31)) % (1 << 32) >= (1 << 31) for s in range(n_sub)]
+    assert [int(t) for t in got[2].reshape(-1)] == [sum(valid)] * n_dp
 
 
 # --- K16: the sharded dense compaction ---------------------------------------------

@@ -41,7 +41,11 @@ its topics, both trees fed the same tensors): K10 `match_packed`, K11
 `match_counts`, and K13's packed form and counts on each tree's own
 (2, 4) mesh of the card (each wrapper as its tree has it: a parent's
 zero fills, separate or in its C entry, are in its time), and K9 at 64
-topics. `--only forms` times the dense forms alone.
+topics; and beside them the mesh combine at phase 9's block capacity
+(PROBE_MH): K14 (`_combine_launch`) on `chip_smoke.k14_case`'s
+scattered rows and K15 (`make_combine_probe_kernel` on each tree's own
+(2, 4) mesh of the card, salt 12345). `--only forms` times the dense
+forms and the combine alone.
 Each reading
 is `chip_smoke.run_ms`: the card's time a call (`device_ms`) and the
 host's enqueue time a call (`enqueue_ms`). A whole `sync()` copies
@@ -77,6 +81,8 @@ SYNC_DELTAS = {"churn": (2, 32), "route churn": (1000, 1000)}
 # rounds of phase 5's churn in a table delta (one is what each of its
 # syncs applies)
 TABLE_ROUNDS = (1, 2)
+# phase 9's block capacity: the width of the mesh combine (K14, K15)
+PROBE_MH = 2048
 
 
 def load_tree(root: Path, name: str):
@@ -447,8 +453,10 @@ def held_mesh(dt, t, ix, C):
 
 
 def forms_cases(trees, dev, C):
-    """The dense forms at phase 9's width (module docstring): {name: {tag:
-    fn}}, each fn held against the plain version first."""
+    """The dense forms at phase 9's width and the mesh combine (module
+    docstring): {name: {tag: fn}}, each fn held against the plain
+    version first."""
+    import numpy as np
     import torch
 
     M = trees["this"]["ops.match"]
@@ -486,6 +494,24 @@ def forms_cases(trees, dev, C):
     cases[f"K13 packed, (2, 4) on one card, B={b} over {n} rows"] = {
         tag: v[1] for tag, v in mesh_fns.items()}
     cases[f"K13 counts, (2, 4) on one card, B={b}"] = {tag: v[0] for tag, v in mesh_fns.items()}
+
+    # the mesh combine: K14 on synthetic rows, K15 on each tree's mesh
+    a, bb, c, mh = C.k14_case("scattered", PROBE_MH, dev, np.random.default_rng(0))
+    cases[f"K14 max_hits={mh}"] = {
+        tag: (lambda m=m: m["parallel.sharded_match"]._combine_launch(a, bb, c, mh))
+        for tag, m in trees.items()}
+    want = S.combine_pairs_ref(a, bb, c, mh)
+    for fn in cases[f"K14 max_hits={mh}"].values():
+        C.max_abs_err(fn(), want)
+    salt = C.PROBE_SALTS[0]
+    probes = {tag: m["parallel.sharded_match"].make_combine_probe_kernel(
+        m["parallel.mesh"].make_mesh(2, 4, devices=[dev] * 8), mh) for tag, m in trees.items()}
+    cases[f"K15 (2, 4) on one card, max_hits={mh}"] = {
+        tag: (lambda p=p: p(salt)) for tag, p in probes.items()}
+    want = C.probe_ref(trees["this"]["parallel.mesh"].make_mesh(2, 4, devices=[dev] * 8),
+                       salt, mh)
+    for fn in cases[f"K15 (2, 4) on one card, max_hits={mh}"].values():
+        C.max_abs_err(fn(), want)
     return cases
 
 
