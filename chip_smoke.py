@@ -11,8 +11,34 @@ to compare two trees in many turns of one call.
 Phases (any failure exits non-zero; no phase swallows an exception):
 
 1. Device: require a CUDA card; print `nvidia-smi`'s name and power limit.
-2. Build: compile every kernel from emqx_tpu_torch/ops/csrc with nvcc
-   for sm_90a (one nvcc per source, in parallel) and print the seconds.
+2. Build: compile the two native host cores (emqx_tpu_torch/native:
+   the churn core and delivery ledger, the frame codec) with g++ against
+   this Python's headers, printing their seconds, the g++ version and
+   the include directory; compile every kernel from
+   emqx_tpu_torch/ops/csrc with nvcc for sm_90a (one nvcc per source, in
+   parallel) and print the seconds. Then (not with --serve) the native
+   cores against their Python twins on this machine's build: one Router
+   with the churn core and one with its twin through the same seeded
+   storm (65,536 routes of phase 3's pattern, its 4,800 skeleton
+   filters, $SYS filters, exact topics, too-deep filters, then three
+   rounds of single and batched adds and deletes and skeleton swaps),
+   with device tables on the CPU: equal generation moves call for call,
+   equal staged deltas (live rows by filter), each device table equal
+   to a full upload after every delta sync, equal `churn_state` after
+   the last round and equal answers after every round; the same at
+   16,384 routes and 100 skeletons, where every class is compared too;
+   the delivery ledger's seeded 20,000-op fuzz, native against twin;
+   the frame corpus (`frame_results`: v4/v5 PUBLISH QoS 0-2, the PUBACK
+   family, SUBACK, a PUBLISH with properties, cut-short and malformed
+   frames) through the native codec and the Python one, bytes, parses
+   and FrameErrors equal. From phase 3 on, each route-building phase
+   (3, 5, 6, 7, 8, 9, 10) prints a "churn core" line and fails unless
+   every Router took the churn core, every Router holding routes has a
+   live churn handle and no twin leg ran (`ChurnCoreWatch`); phases 7,
+   8 and 10 print a "native cores" line and fail if any session bound
+   the twin ledger; phase 7 (sessions) and phase 8 (the server: sessions,
+   native frame encodes and decodes) fail unless the native legs
+   served.
 3. Slice set-up: a Router(max_levels=16) on the card holding 1,048,576
    routes `t{i%997}/r{i%13}/d{i}/+/m/#` (BASELINE.json config 2), 4,800
    filters over 600 distinct '+'/'#' skeletons (past the 256-class budget,
@@ -488,12 +514,12 @@ def max_abs_err(got, want) -> int:
 # --- workload ---------------------------------------------------------------
 
 
-def skeleton_filters(rng):
-    """N_SKELETONS distinct (plen, '+' positions, '#') skeletons over
+def skeleton_filters(rng, n_skeletons=N_SKELETONS):
+    """n_skeletons distinct (plen, '+' positions, '#') skeletons over
     levels 3..12, PER_SKELETON filters each with distinct literals."""
     seen = set()
     skels = []
-    while len(skels) < N_SKELETONS:
+    while len(skels) < n_skeletons:
         plen = int(rng.integers(3, 13))
         plus = int(rng.integers(0, 1 << plen))
         hh = bool(rng.integers(0, 2))
@@ -602,6 +628,630 @@ def churn(router, skel, rng) -> None:
         old, new = (f, swap_of(f)) if router.has_route(f, "s") else (swap_of(f), f)
         router.delete_route(old, "s")
         router.add_route(new, "s")
+
+
+# --- the native host cores against their twins (before phase 3) -------------------
+
+NATIVE_ROUTES = 1 << 16
+NATIVE_ROUNDS = 3
+NATIVE_LEDGER_OPS = 20_000
+NATIVE_TOPICS = 64
+# too deep for max_levels 16: the host-only deep stores
+DEEP_FILTER = "/".join(["z"] * 20) + "/#"
+DEEP_EXACT = "/".join(["q"] * 20)
+
+
+def native_route_ops(rng, n_routes, skel, rounds=NATIVE_ROUNDS):
+    """The native check's seeded storm, as calls (method name, argument
+    tuple): the set-up (n_routes of the slice's pattern in four
+    add_routes batches, the skeleton filters, $SYS filters, exact
+    topics, too-deep filters and topics), then `rounds` churn rounds of
+    single and batched deletes and adds (refcounted duplicates, new
+    dests on live filters, exact topics, the too-deep stores coming
+    and going) and single skeleton swaps. Returns (set-up calls, a list
+    of each round's calls, topics that hit every kind)."""
+    pat = lambda i: (f"t{i % 997}/r{i % 13}/d{i}/+/m/#", f"n{i % 7}")  # noqa: E731
+    exact = [f"e/{k}/v" for k in range(N_EXACT)]
+    q = max(1, n_routes // 4)
+    setup = [("add_routes", ([pat(i) for i in range(lo, min(n_routes, lo + q))],))
+             for lo in range(0, n_routes, q)]
+    setup += [("add_routes", ([(f, "s") for f in skel],)),
+              ("add_routes", ([("$SYS/brokers/+/stats", "sys"), ("$SYS/#", "sys")],)),
+              ("add_routes", ([(t, f"x{k % 3}") for k, t in enumerate(exact)]
+                              + [(DEEP_FILTER, "deep"), (DEEP_EXACT, "deep")],))]
+    have = set(skel)
+    rounds_out = []
+    for r in range(rounds):
+        calls = []
+        for i in rng.integers(0, n_routes, 200).tolist():
+            calls += [("delete_route", pat(i)), ("add_route", pat(i))]
+        idx = rng.integers(0, n_routes, 2000).tolist()
+        calls.append(("delete_routes", ([pat(i) for i in idx],)))
+        re_add = [pat(i) for i in idx] + [pat(i) for i in idx[:100]]
+        re_add += [(pat(i)[0], "n9") for i in idx[100:300]]  # a new dest on a live filter
+        calls.append(("add_routes", (re_add,)))
+        calls.append(("delete_routes", ([(pat(i)[0], "n9") for i in idx[100:200]],)))
+        for j in rng.integers(0, len(skel), 64).tolist():
+            f = skel[j]
+            old, new = (f, swap_of(f)) if f in have else (swap_of(f), f)
+            have.discard(old)
+            have.add(new)
+            calls += [("delete_route", (old, "s")), ("add_route", (new, "s"))]
+        ex = rng.integers(0, N_EXACT, 20).tolist()
+        calls.append(("delete_routes", ([(exact[k], f"x{k % 3}") for k in ex],)))
+        calls += [("add_route", (exact[k], f"y{r}")) for k in ex]
+        if r % 2 == 0:
+            calls += [("delete_route", (DEEP_FILTER, "deep")),
+                      ("delete_routes", ([(DEEP_EXACT, "deep")],)),
+                      ("add_route", ("$SYS/brokers/+/clients", "sys"))]
+        else:
+            calls += [("add_route", (DEEP_FILTER, "deep")),
+                      ("add_routes", ([(DEEP_EXACT, "deep")],)),
+                      ("delete_route", ("$SYS/brokers/+/clients", "sys"))]
+        rounds_out.append(calls)
+    topics = [instantiate(pat(int(i))[0], rng) for i in rng.integers(0, n_routes, NATIVE_TOPICS // 2)]
+    topics += [instantiate(skel[int(j)], rng) for j in rng.integers(0, len(skel), NATIVE_TOPICS // 4)]
+    topics += ["$SYS/brokers/n1/stats", "$SYS/brokers/n2/clients", exact[0], exact[-1],
+               DEEP_EXACT, DEEP_FILTER.replace("#", "x/y"), "nomatch/1/zz"]
+    return setup, rounds_out, topics
+
+
+def run_calls(router, calls):
+    """Apply calls to a router; returns, call by call, whether its
+    route-set generation moved."""
+    moved = []
+    for name, args in calls:
+        g = router.generation
+        getattr(router, name)(*args)
+        moved.append(router.generation != g)
+    return moved
+
+
+def _word_table(vocab, plus):
+    """Word id -> word (or '+'), as an object array indexed by id."""
+    import numpy as np
+
+    out = np.full(max(vocab._next, plus + 1), "", dtype=object)
+    for i, w in vocab._words.items():
+        out[i] = w
+    out[plus] = "+"
+    return out
+
+
+def churn_state(router, strict_classes=True):
+    """Everything the route write path leaves behind, keyed by filter
+    strings and words instead of row, word, class, bucket and slot ids
+    (those follow arrival order, which the batched twin and the churn
+    core walk differently), after each structure's own invariants hold:
+    the table (live filters' words, '#' and root flags, free rows), the
+    vocab (each word's refcount, the next id, the free ids), the class
+    index (each filter's bucket, its class's skeleton, the bucket's
+    cuckoo slot, fingerprint and probe byte, every h1/fp against the
+    host hash, `_skel_packed` against `_skel_class`, the residual rows),
+    the dest store after `_fanout_flush` (each filter's live edges in
+    order), the host-only deep stores and the routes. With
+    `strict_classes` False (a class budget that a batch exhausts: which
+    skeletons get a class then follows arrival order) the skeletons
+    and the residual set are left out of the comparison; their
+    invariants are still held."""
+    import numpy as np
+
+    t = router.table
+    v = t.vocab
+    plus = sys.modules[type(v).__module__].PLUS
+    cap = t.capacity
+    live = np.flatnonzero(t.active[:cap])
+    live_l = live.tolist()
+    assert len(live_l) == len(t) == cap - len(t._free), "table counts"
+    assert sorted(live_l + list(t._free)) == list(range(cap)), "table free list"
+    words = t.words[live]
+    plen = t.prefix_len[live].astype(np.int64)
+    in_prefix = np.arange(t.max_levels)[None, :] < plen[:, None]
+    assert not words[~in_prefix].any(), "padding"
+    dec = _word_table(v, plus)[words]
+    hh_l = t.has_hash[live].tolist()
+    rw_l = t.root_wild[live].tolist()
+    rows = {}
+    for i, r in enumerate(live_l):
+        f = t._fstr[r]
+        ws = dec[i, :plen[i]].tolist() + (["#"] if hh_l[i] else [])
+        assert "/".join(ws) == f, f
+        assert t._filters[r] is None or t._filters[r] == tuple(f.split("/")), f
+        assert f not in rows, f"{f} on two rows"
+        rows[f] = (hh_l[i], rw_l[i])
+    fr, xr = router._filter_row, router._exact_row
+    assert len(fr) + len(xr) == len(live_l), "filter rows"
+    assert all(fr.get(t._fstr[r], xr.get(t._fstr[r])) == r for r in live_l), "filter rows"
+    rf = router._row_filter
+    assert all(rf[r] == t._fstr[r] for r in live_l), "row filters"
+    assert sum(x is not None for x in rf) == len(live_l), "row filters"
+    refs = {w: int(v._refs[i]) for w, i in v._ids.items()}
+    assert v._words == {i: w for w, i in v._ids.items()}, "vocab words"
+    assert not set(v._free) & set(v._words), "vocab free ids"
+    out = {
+        "table": rows, "vocab": (refs, v._next, len(v._free)),
+        "exact": {f: dict(d) for f, d in router._exact.items()},
+        "wild": {f: dict(d) for f, d in router._wild.items()},
+        "deep": {f: dict(d) for f, d in router._deep.items()},
+        "exact_deep": sorted(router._exact_deep),
+        "deep_trie": sorted(router._deep_trie.match(tuple(DEEP_FILTER.split("/")[:-1]) + ("x",))),
+    }
+    ix = router.index
+    if ix is not None:
+        hmod = sys.modules[type(ix).__module__]
+        skel_of = {cid: sk for sk, cid in ix._skel_class.items()}
+        assert ix._skel_packed == {p | (int(h) << 6) | (pm << 7): c
+                                   for (p, h, pm), c in ix._skel_class.items()}, "_skel_packed"
+        assert sorted(np.flatnonzero(ix.meta.active).tolist()) == sorted(skel_of), "meta.active"
+        for cid, (p, h, pm) in skel_of.items():
+            assert (int(ix.meta.plen[cid]), bool(ix.meta.has_hash[cid]),
+                    int(ix.meta.plus[cid])) == (p, h, pm), "class meta"
+        rb = ix._row_bucket[live]
+        bucketed = rb >= 0
+        bids = rb[bucketed]
+        assert len(np.unique(bids)) == len(bids) == ix._live == len(ix._bucket_of), "buckets"
+        assert int((ix.slots.bucket >= 0).sum()) == ix._live, "live slots"
+        brow = live[bucketed]
+        bflt = [t._fstr[r] for r in brow.tolist()]
+        bid_l = bids.tolist()
+        assert all(ix._bucket_of[f] == b for f, b in zip(bflt, bid_l)), "bucket of"
+        assert all(list(ix.bucket_rows(b)) == [r]
+                   for b, r in zip(bid_l, brow.tolist())), "bucket rows"
+        assert all((w if type(w) is str else "/".join(w)) == f
+                   for w, f in zip((ix._bkt_ws[b] for b in bid_l), bflt)), "bucket words"
+        cids = ix._bkt_cid[bids]
+        bw = words[bucketed].astype(np.int64)
+        xs = np.where(in_prefix[bucketed] & (bw != plus), bw + 1, 0).astype(np.uint32)
+        h1, fp = hmod._hash_host_batch(cids.astype(np.uint32), xs)
+        assert np.array_equal(h1, ix._bkt_h1[bids]) and np.array_equal(fp, ix._bkt_fp[bids]), "hash"
+        slot = ix._bkt_slot[bids]
+        assert (slot >= 0).all() and np.array_equal(ix.slots.bucket[slot], bids), "slots"
+        assert np.array_equal(ix.slots.fp[slot], fp), "slot fingerprints"
+        per_class = np.bincount(cids, minlength=len(ix._class_buckets))
+        assert all(int(ix._class_buckets[c]) == int(per_class[c]) for c in skel_of), "class buckets"
+        assert per_class.sum() == per_class[list(skel_of)].sum(), "retired classes"
+        lanes = ix.slots.bucket.reshape(-1, hmod.BUCKET_W) >= 0
+        w = np.where(lanes, np.maximum(ix.slots.fp.reshape(-1, hmod.BUCKET_W) >> 24, 1), 0)
+        probe = (w.astype(np.uint32) << (8 * np.arange(hmod.BUCKET_W, dtype=np.uint32))).sum(1)
+        assert np.array_equal(probe.astype(np.uint32), ix.slots.probe), "probe words"
+        residual = sorted(t._fstr[r] for r in ix.residual_rows)
+        assert len(residual) + len(bid_l) == len(live_l), "indexed rows"
+        assert (ix._row_bucket[list(ix.residual_rows)] < 0).all(), "residual rows"
+        if strict_classes:
+            out["index"] = ({f: skel_of[c] for f, c in zip(bflt, cids.tolist())}, residual)
+    ds = router.dest_store
+    router._fanout_flush(live_l)
+    assert not ds.pending_rows, "pending rows"
+    edges = {}
+    for f, row in list(fr.items()) + list(xr.items()):
+        slots = ds._slots[row] if row < ds.row_capacity else None
+        off = int(ds.seg_off[row]) if slots else 0
+        order = sorted((k, d) for d, k in (slots or {}).items())
+        edges[f] = [(d, int(ds.edge_opts[off + k])) for k, d in order]
+        assert not slots or int(ds.seg_live[row]) == len(order), f
+    out["dest_store"] = edges
+    out["routes"] = sorted(map(repr, router.routes()))
+    return out
+
+
+class DeltaCapture:
+    """Records, while entered, every table delta the port stages (a
+    DeviceTable's `stage_table_delta`, a ShardedDeviceTable's
+    `pack_table_delta`): its live rows keyed by filter (words, '#',
+    root flag and, with `strict_classes`, the residual byte), its dead
+    rows and its slot entries, for the router `self.router`."""
+
+    def __init__(self, strict_classes=True):
+        self.strict = strict_classes
+        self.router = None
+        self.deltas = []
+
+    def _note(self, host, rows, slots, sids, residual_rows):
+        t = self.router.table
+        plus = sys.modules[type(t.vocab).__module__].PLUS
+        table = _word_table(t.vocab, plus)
+        live, dead = [], 0
+        for r in rows.tolist():
+            if not host.active[r]:
+                dead += 1
+                continue
+            plen = int(host.prefix_len[r])
+            ent = (t._fstr[r], tuple(table[host.words[r, :plen]].tolist()),
+                   bool(host.has_hash[r]), bool(host.root_wild[r]))
+            if self.strict and residual_rows is not None:
+                ent += (r in residual_rows,)
+            live.append(ent)
+        self.deltas.append((sorted(live), dead, len(sids)))
+
+    def __enter__(self):
+        from emqx_tpu_torch.models import router as router_mod
+        from emqx_tpu_torch.parallel import sharded_match
+
+        self._real = (router_mod.stage_table_delta, sharded_match.pack_table_delta)
+        real_stage, real_pack = self._real
+
+        def stage(host, rows, slots, sids, residual_rows, device):
+            self._note(host, rows, slots, sids, residual_rows)
+            return real_stage(host, rows, slots, sids, residual_rows, device)
+
+        def pack(host, rows, slots, sids, residual_rows):
+            self._note(host, rows, slots, sids, residual_rows)
+            return real_pack(host, rows, slots, sids, residual_rows)
+
+        router_mod.stage_table_delta = stage
+        sharded_match.pack_table_delta = pack
+        return self
+
+    def __exit__(self, *exc):
+        from emqx_tpu_torch.models import router as router_mod
+        from emqx_tpu_torch.parallel import sharded_match
+
+        router_mod.stage_table_delta, sharded_match.pack_table_delta = self._real
+        return False
+
+
+def _tensors(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def delta_equals_full_upload(router) -> None:
+    """The router's device table, brought up to date by its delta syncs,
+    equals a fresh table's full upload of the same host state (rows,
+    residual mask, class metadata and slot arrays): a dirty row or slot
+    that never reached a staged delta shows here."""
+    import torch
+
+    dt = router.device_table
+    fresh = type(dt)(router.table, router.mesh, index=router.index) if router.mesh is not None \
+        else type(dt)(router.table, device=dt.device, index=router.index)
+    fresh.sync()
+    for name in ("_dev", "_dev_meta", "_dev_slots", "_dev_residual"):
+        a, b = _tensors(getattr(dt, name)), _tensors(getattr(fresh, name))
+        assert len(a) == len(b), name
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and torch.equal(x, y), f"{name} differs from a full upload"
+
+
+def native_router_run(router, setup, rounds, topics, capture, strict_classes=True,
+                      every_round=False):
+    """Drive one router through the storm with its device table synced
+    after the set-up and after every round; returns its generation
+    moves, staged deltas, states (`churn_state` after the last round, or
+    after each with `every_round`) and answers (device batch and host
+    path, per round). A round's delta is None where the
+    round grew the table (a full upload of the rows)."""
+    capture.router = router
+    moved = run_calls(router, setup)
+    router.device_table.sync()
+    states, answers, deltas = [], [], []
+    for calls in rounds:
+        moved += run_calls(router, calls)
+        n0 = len(capture.deltas)
+        grew = router.table.grew
+        router.device_table.sync()
+        assert len(capture.deltas) <= n0 + 1
+        # a growth sync uploads the rows whole (the mesh still stages
+        # its slots): no row delta
+        deltas.append(None if grew or len(capture.deltas) == n0 else capture.deltas[n0])
+        delta_equals_full_upload(router)
+        if every_round or len(states) == len(rounds) - 1:
+            states.append(churn_state(router, strict_classes))
+        else:
+            states.append(None)
+        answers.append(([sorted(x) for x in router.match_filters_batch(topics)],
+                        [sorted(router.match_filters(t)) for t in topics]))
+    return moved, deltas, states, answers
+
+
+def native_twin_routers(n_routes=NATIVE_ROUTES, seed=0, device="cpu", mesh=None,
+                        n_skeletons=N_SKELETONS, rounds=NATIVE_ROUNDS, every_round=False):
+    """The churn core against its twin: one Router with the native core
+    (the default) and one with the twin, through the same seeded storm;
+    their generation moves call for call, their staged deltas (live
+    rows by filter), their states after every round (`churn_state`)
+    and their answers must be equal. A class budget smaller than the
+    storm's skeletons (`n_skeletons` past the class budget, as phase 3's
+    600) leaves the class assignment out (`churn_state`). Returns a
+    summary dict."""
+    import numpy as np
+
+    from emqx_tpu_torch.models.router import Router
+    from emqx_tpu_torch.ops import speedups
+    from emqx_tpu_torch.ops.hash_index import DEFAULT_CLASS_BUDGET
+
+    rng = np.random.default_rng(seed)
+    skel = skeleton_filters(rng, n_skeletons)
+    setup, rounds_calls, topics = native_route_ops(rng, n_routes, skel, rounds)
+    # the storm's other skeletons: the route pattern, $SYS, exact topics
+    strict = n_skeletons + 8 <= DEFAULT_CLASS_BUDGET
+    runs = []
+    for native in (True, False):
+        speedups.set_native_enabled(native)
+        try:
+            r = Router(max_levels=16, device=device, mesh=mesh)
+        finally:
+            speedups.set_native_enabled(True)
+        assert (r._sp is not None) == native
+        cap = DeltaCapture(strict)
+        t0 = time.perf_counter()
+        with cap:
+            run = native_router_run(r, setup, rounds_calls, topics, cap, strict, every_round)
+        runs.append((*run, time.perf_counter() - t0, r))
+    (m_n, d_n, s_n, a_n, sec_n, rn), (m_t, d_t, s_t, a_t, sec_t, rt) = runs
+    assert m_n == m_t, "generation moves differ"
+    for k, (x, y) in enumerate(zip(s_n, s_t)):
+        for key in x or ():
+            assert x[key] == y[key], f"round {k}: {key} differs"
+    assert a_n == a_t, "answers differ"
+    # a round where one side grew its table (the reserve chunk grows
+    # earlier) re-uploaded whole there: its delta has no counterpart
+    pairs = [(x, y) for x, y in zip(d_n, d_t) if x is not None and y is not None]
+    for x, y in pairs:
+        assert x[0] == y[0], "staged live rows differ"
+    return {"routes": len(rn.table), "calls": len(m_n), "strict_classes": strict,
+            "deltas": len(pairs), "delta_rows": sum(len(x[0]) + x[1] for x, _ in pairs),
+            "native_s": round(sec_n, 3), "twin_s": round(sec_t, 3),
+            "capacity": (rn.table.capacity, rt.table.capacity),
+            "n_buckets": (rn.index.n_buckets, rt.index.n_buckets),
+            "residual_rows": (len(rn.index.residual_rows), len(rt.index.residual_rows))}
+
+
+def ledger_fuzz(ledgers, n_ops=NATIVE_LEDGER_OPS, seed=0x19):
+    """A seeded fuzz over the delivery ledger's whole surface (the
+    reference's tests/test_delivery_engine.py fuzz), every op run on
+    every ledger: each result and, every 50 ops and at the end, each
+    slot's dump must be equal across them. Slot ids are each ledger's
+    own (free-list order). Returns the ops run."""
+    import random
+
+    rng = random.Random(seed)
+    phases = (0, 1, 2)  # PUBACK, PUBREC, PUBCOMP
+    slots = []
+
+    def op(name, pair, *args):
+        got = [getattr(led, name)(s, *args) for led, s in zip(ledgers, pair)]
+        assert all(g == got[0] for g in got), (name, args, got)
+        return got[0]
+
+    def dump(pair):
+        got = [led.dump(s) for led, s in zip(ledgers, pair)]
+        assert all(g == got[0] for g in got), got
+        return got[0]
+
+    for _ in range(4):
+        slots.append(tuple(led.open() for led in ledgers))
+    now = 100.0
+    for step in range(n_ops):
+        now += rng.random()
+        roll = rng.random()
+        if roll < 0.04 and len(slots) < 8:
+            slots.append(tuple(led.open() for led in ledgers))
+        elif roll < 0.06 and len(slots) > 1:
+            pair = rng.choice(slots)
+            for led, s in zip(ledgers, pair):
+                led.close(s)
+            slots.remove(pair)
+        pair = rng.choice(slots)
+        roll = rng.random()
+        if roll < 0.35:
+            op("reserve", pair, rng.choice((1, 2)), now, rng.choice((1, 2, 4, 32)))
+        elif roll < 0.42:
+            n = rng.randrange(1, 6)
+            qos = [rng.choice((1, 2)) for _ in range(n)]
+            rmax = [rng.choice((2, 4, 32)) for _ in range(n)]
+            got = [led.reserve_many([s] * n, qos, now, rmax) for led, s in zip(ledgers, pair)]
+            assert all(g == got[0] for g in got), ("reserve_many", got)
+        elif roll < 0.55:
+            infl = dump(pair)[1]
+            if infl and rng.random() < 0.8:
+                pid, phase, _, _ = rng.choice(infl)
+                kind = phase if rng.random() < 0.7 else rng.choice(phases)
+            else:
+                pid, kind = rng.randrange(1, 0x10000), 0
+            op("ack", pair, pid, kind)
+        elif roll < 0.62:
+            infl = dump(pair)[1]
+            op("forget", pair, infl[0][0] if infl else rng.randrange(1, 0x10000))
+        elif roll < 0.70:
+            op("retry_due", pair, now, rng.choice((0.0, 5.0, 1e9)))
+        elif roll < 0.74:
+            op("touch_all", pair, now)
+        elif roll < 0.90:
+            op("enqueue", pair, rng.randrange(0, 8), rng.choice((0, 0, 1, 2)),
+               rng.choice((2, 4, 8)), rng.choice((0, 1)))
+        elif roll < 0.96:
+            op("popleft", pair)
+        else:
+            op("window_len", pair)
+        if step % 50 == 0:
+            for p in slots:
+                dump(p)
+    for p in slots:
+        dump(p)
+    return n_ops
+
+
+def frame_corpus(pk):
+    """The codec's corpus over a packet module `pk` (the port's or the
+    reference's broker/packet.py): v4/v5 PUBLISH at QoS 0-2 (empty,
+    wide, multi-byte remaining lengths, UTF-8 topics, retain and dup),
+    the PUBACK family with and without reason codes, SUBACK, and a
+    PUBLISH with properties (outside the native surface)."""
+    return [
+        pk.Publish(topic="t", payload=b"", qos=0),
+        pk.Publish(topic="a/b/c", payload=b"x" * 200, qos=1, packet_id=1),
+        pk.Publish(topic="t/\u00e9/\u2206", payload=bytes(range(256)), qos=2, retain=True,
+                   dup=True, packet_id=0xFFFF),
+        pk.Publish(topic="big", payload=b"p" * 20000, qos=0),
+        pk.Publish(topic="w", payload=b"q" * 130, qos=1, packet_id=77),
+        pk.Publish(topic="$SYS/brokers/n1/stats", payload=b"{}", qos=2, packet_id=9),
+        pk.Puback(pk.Type.PUBACK, 1, 0),
+        pk.Puback(pk.Type.PUBREC, 0xFFFF, 0x80),
+        pk.Puback(pk.Type.PUBREL, 515, 0x92),
+        pk.Puback(pk.Type.PUBCOMP, 7, 0),
+        pk.Suback(9, [0, 1, 2, 0x80]),
+        pk.Suback(0xFFFF, [0]),
+        pk.Publish(topic="p", payload=b"x", qos=1, packet_id=3,
+                   props={"message_expiry_interval": 30}),
+    ]
+
+
+# malformed and truncated wire input: QoS 3, a 5-byte remaining length,
+# a PUBLISH whose topic runs past its frame, a packet id of 0, a PUBACK
+# of the wrong length, and a frame past the parser's size limit
+MALFORMED = (b"\x36\x02\x00\x05", b"\x30\xff\xff\xff\xff\x01",
+             b"\x32\x04\x00\x09ab", b"\x32\x05\x00\x01a\x00\x00",
+             b"\x40\x01\x00", b"\x30\x7f" + b"\x00\x01a" + b"x" * 124)
+
+
+def _parsed(p):
+    return (type(p).__name__, tuple(sorted((k, repr(v)) for k, v in vars(p).items()
+                                           if not k.startswith("_"))))
+
+
+def frame_results(codec, pyframe, pk):
+    """Every result of one codec over the corpus, as comparable values:
+    the wire bytes of each packet at v4 and v5; the packets parsed back
+    from the whole stream fed in seeded chunks, and from each frame cut
+    short; each malformed input's FrameError (message and reason code)."""
+    import random
+
+    out = []
+    corpus = frame_corpus(pk)
+    for ver in (pk.MQTT_V4, pk.MQTT_V5):
+        wires = [codec.serialize(p, ver) for p in corpus]
+        out.append(wires)
+        decodable = [w for w, p in zip(wires, corpus)
+                     if ver == pk.MQTT_V5 or not getattr(p, "props", None)]
+        rng = random.Random(7)
+        wire = b"".join(decodable)
+        parser = codec.Parser(proto_ver=ver)
+        got, i = [], 0
+        while i < len(wire):
+            j = min(len(wire), i + rng.randrange(1, 700))
+            got.extend(parser.feed(wire[i:j]))
+            i = j
+        out.append([_parsed(p) for p in got])
+        for w in decodable:
+            out.append([_parsed(p) for p in codec.Parser(proto_ver=ver).feed(w[:-1])])
+        for bad in MALFORMED:
+            parser = codec.Parser(proto_ver=ver, max_packet_size=100)
+            try:
+                out.append(("parsed", [_parsed(p) for p in parser.feed(bad)]))
+            except pyframe.FrameError as e:
+                out.append(("error", str(e), e.code))
+    return out
+
+
+class ChurnCoreWatch:
+    """From the port's own state, whether the native churn core served
+    every route write since the last `line()`: every Router built
+    since then took the core at construction (`_sp`), every Router
+    holding routes has a live churn handle, and no twin leg ran (each
+    twin leg of add_route, add_routes, delete_route and delete_routes
+    calls `_drop_native_state` first; the watch counts those calls)."""
+
+    def __init__(self):
+        import weakref
+
+        from emqx_tpu_torch.models.router import Router
+
+        self.twin_legs = 0
+        self._refs = []
+        self._seen = 0
+        real_drop, real_init = Router._drop_native_state, Router.__init__
+
+        def drop(router):
+            self.twin_legs += 1
+            real_drop(router)
+
+        def init(router, *a, **k):
+            real_init(router, *a, **k)
+            self._refs.append(weakref.ref(router))
+
+        Router._drop_native_state = drop
+        Router.__init__ = init
+
+    def line(self, where: str) -> str:
+        new = self._refs[self._seen:]
+        self._seen = len(self._refs)
+        live = [r for r in (w() for w in self._refs) if r is not None]
+        holding = [r for r in live if r.topic_count()]
+        if self.twin_legs:
+            raise AssertionError(f"{where}: {self.twin_legs} route writes took the twin")
+        if any(w() is not None and w()._sp is None for w in new):
+            raise AssertionError(f"{where}: a Router was built without the churn core")
+        if any(r._churn_handle is None for r in holding):
+            raise AssertionError(f"{where}: a Router holding routes has no churn handle")
+        return (f"churn core ({where}): {len(new)} routers built with it, "
+                f"{len(holding)} holding routes, each with a live handle; twin legs "
+                f"{self.twin_legs}")
+
+
+def native_checks(card):
+    """Before phase 3: the native host cores against their twins, on this
+    machine's own build (its compiler, its Python): the churn core at
+    NATIVE_ROUTES routes of the slice's pattern with phase 3's skeleton
+    filters (600, past the class budget) and at 16,384 routes with 100
+    skeletons (every class compared), `native_twin_routers` each; the
+    delivery ledger's seeded fuzz; the frame corpus (`frame_results`)
+    through the native codec and the Python one. Prints one line."""
+    from emqx_tpu_torch import framec
+    from emqx_tpu_torch.broker import delivery, frame, packet
+
+    t0 = time.perf_counter()
+    full = native_twin_routers()
+    strict = native_twin_routers(n_routes=1 << 14, n_skeletons=100)
+    t_routes = time.perf_counter() - t0
+    n_ops = ledger_fuzz([delivery.NativeDeliveryLedger(delivery._load()),
+                         delivery.PyDeliveryLedger()])
+    m = framec.FRAME_METRICS
+    before = m.snapshot()
+    got = frame_results(framec, frame, packet)
+    enc, dec = m.native_encodes - before["native_encodes"], m.native_decodes - before["native_decodes"]
+    want = frame_results(frame, frame, packet)
+    if got != want:
+        raise AssertionError("the native frame codec disagrees with the Python codec")
+    if not enc or not dec:
+        raise AssertionError(f"the frame corpus never reached the native codec ({enc}, {dec})")
+    errors = sum(isinstance(x, tuple) and x[0] == "error" for x in got)
+    log(f"native vs twin: churn core equal at {json.dumps(full)} and {json.dumps(strict)} "
+        f"({t_routes:.3f} s); ledger fuzz {n_ops} ops equal; frame corpus {len(got)} results "
+        f"equal ({errors} FrameErrors; native encodes {enc}, decodes {dec}) in "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+
+def codec_counts():
+    """The frame codec's and the delivery ledger's counters."""
+    from emqx_tpu_torch import framec
+    from emqx_tpu_torch.broker import delivery
+
+    return {**framec.FRAME_METRICS.snapshot(), **delivery.DELIVERY_METRICS.snapshot()}
+
+
+def codec_line(before, where: str, need_sessions: bool = True, need_frames: bool = True) -> str:
+    """The codec's and the ledger's counts since `before` (codec_counts);
+    raises if a session bound the twin ledger, and unless (with
+    `need_sessions`) a session bound the native one and (with
+    `need_frames`) the native codec both encoded and decoded."""
+    now = codec_counts()
+    d = {k: now[k] - before[k] for k in now if k != "native_enabled"}
+    if now["sessions_python"]:
+        raise AssertionError(f"{where}: {now['sessions_python']} sessions bound the twin ledger")
+    if need_sessions and d["sessions_native"] <= 0:
+        raise AssertionError(f"{where}: no session bound the native ledger")
+    if need_frames and (d["native_encodes"] <= 0 or d["native_decodes"] <= 0):
+        raise AssertionError(f"{where}: the native codec did not serve ({d})")
+    return (f"native cores ({where}): sessions_native {d['sessions_native']}, "
+            f"sessions_python {d['sessions_python']}; frames native encodes "
+            f"{d['native_encodes']}, decodes {d['native_decodes']}, fallback encodes "
+            f"{d['fallback_encodes']}, decodes {d['fallback_decodes']}")
 
 
 # --- kernel checks -------------------------------------------------------------
@@ -1561,7 +2211,11 @@ def check_broker_kernels(broker, skel, rng, deliveries):
     # K6/K7, fused: one churn's delta, on copies of the mirror. Its index
     # is one no pair uses (its own late joiners and mfan group) and even
     # (no route churn: a re-added storm route may grow the edge pool)
+    pending = set(store.pending_rows)
     broker_churn(broker, skel, rng, SETUP_CHURN, deliveries)
+    # the churn core only marks the churned rows pending; the next
+    # resolve of their filters flushes them: flush them here, as it would
+    router._fanout_flush(sorted(store.pending_rows - pending))
     if store.grew:
         raise AssertionError("the churn grew the edge pool: no delta sync to check")
     recs["fanout_sync"] = fanout_sync_checks(F, store, fan_dev, dev)
@@ -4215,17 +4869,27 @@ def main(argv=None) -> int:
 
     lap(1)
     # phase 2: build
+    from emqx_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native_s = native.build_all()
+    log(f"native build: {json.dumps(native_s)} in {time.perf_counter() - t0:.3f} s; "
+        f"{native.compiler_version()}; python include {native.include_dir()}")
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.3f} s")
+    if not args.serve:
+        native_checks(card)
 
     rng = np.random.default_rng(args.seed)
     lap(2)
 
     # phase 3: slice set-up
+    watch = ChurnCoreWatch()
     router, skel, exact, host_s = build_router(rng, DEVICE)
     log(f"routes: {router.stats()} residual_rows={len(router.index.residual_rows)} "
         f"classes={router.index.active_hi()} host_build_s={host_s:.3f} [{card}]")
+    log(watch.line("phase 3"))
     if not router.index.residual_rows:
         raise AssertionError("the residual leg has no rows")
     if args.serve:
@@ -4279,6 +4943,7 @@ def main(argv=None) -> int:
     dev_s, wall_s, n = device_busy_share(router, skel, exact, rng)
     log(f"profile: {n} topics, device busy {dev_s:.6f} s of {wall_s:.6f} s "
         f"begin+finish wall, busy share {dev_s / wall_s:.4f} [{card}]")
+    log(watch.line("phase 5"))
 
     lap(5)
     # phase 6: dense-only mode over the same routes
@@ -4304,13 +4969,18 @@ def main(argv=None) -> int:
     if d_launches["match_ids_hash"] or any(n_s for _, n_s in d_syncs.entries):
         raise AssertionError(f"dense-only mode launched the hash leg or synced slots: "
                              f"{d_launches}, {d_syncs.line()}")
+    log(watch.line("phase 6"))
     del dense
     gc.collect()
     torch.cuda.empty_cache()
 
     lap(6)
     # phase 7: the broker publish path
+    counts = codec_counts()
     b_recs, b_launches, b_ctx = broker_phase(np.random.default_rng(args.seed + 1), card)
+    log(watch.line("phase 7"))
+    # phase 7's QoS-0 broadcast to sinks reaches no codec: sessions only
+    log(codec_line(counts, "phase 7", need_frames=False))
     recs.update(b_recs)
     gc.collect()
     # phase 7's broker lives on for phase 10: keep its objects out of the
@@ -4320,19 +4990,26 @@ def main(argv=None) -> int:
     lap(7)
 
     # phase 8: retained reads and the server
+    counts = codec_counts()
     recs["retained_probe"], k8_launches = retained_phase(
         np.random.default_rng(args.seed + 2), card)
+    log(watch.line("phase 8"))
+    log(codec_line(counts, "phase 8"))
     lap(8)
 
     # phase 9: the sub-sharded mesh routing path
     m_recs, m_launches, m_ctx = mesh_phase(np.random.default_rng(args.seed + 3), card)
     recs.update(m_recs)
+    log(watch.line("phase 9"))
     lap(9)
 
     # phase 10: the device failure domain, on phase 7's broker and phase
     # 9's mesh; launch counters from zero at its start
+    counts = codec_counts()
     f_launches = failure_domain_phase(b_ctx, m_ctx, np.random.default_rng(args.seed + 4),
                                       args.seed, card)
+    log(watch.line("phase 10"))
+    log(codec_line(counts, "phase 10", need_sessions=False, need_frames=False))
     lap(10)
 
     def phase10_launches(name):

@@ -1,15 +1,26 @@
-"""Delivery-ledger seam: QoS bookkeeping for sessions (the port's own
-copy of emqx_tpu/broker/delivery.py's Python twin; the native
-`delivery_*` legs are not part of the port).
+"""Delivery-ledger seam: native QoS bookkeeping with a Python twin
+(the port's copy of emqx_tpu/broker/delivery.py).
 
 The per-session numeric state of `broker/session.py` — the inflight
 window (packet id, ack phase, dup, sent_at), the wraparound packet-id
 allocator, the QoS1/2 retry sweep and the priority-aware mqueue
-overflow decision — lives behind one process-global ledger. Sessions
-keep owning the *messages* (`Session.inflight` stays the pid -> entry
-mapping, `Session.mqueue` stays the real deque); the ledger owns only
-the numbers, and config scalars ride each call so `SessionConfig`
-stays authoritative.
+overflow decision — is pure integer bookkeeping the Python interpreter
+pays object-model tax on for every delivered message. This seam moves
+it behind one process-global ledger with two interchangeable
+implementations:
+
+  * `NativeDeliveryLedger` — the `delivery_*` legs of the port's
+    speedups.cc (`_emqx_torch_speedups`, built by emqx_tpu_torch/native),
+    slot arrays behind a capsule handle with the same discipline as the
+    route-churn core; the default, and a failed build or probe raises;
+  * `PyDeliveryLedger` — the bit-exact Python twin, selected only by
+    `set_native_enabled(False)`.
+
+Sessions keep owning the *messages* (`Session.inflight` stays the
+pid -> entry mapping, `Session.mqueue` stays the real deque); the
+ledger owns only the numbers, and config scalars ride each call so
+`SessionConfig` stays authoritative. `DELIVERY_METRICS` counts the
+sessions bound to each implementation.
 
 Inflight phases are encoded 0 = awaiting PUBACK, 1 = awaiting PUBREC,
 2 = awaiting PUBCOMP; ack kinds use the same codes.  `enqueue` returns
@@ -25,21 +36,112 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+from .. import native
+from ..native import NativeBuildError
+
 PHASE_PUBACK = 0
 PHASE_PUBREC = 1
 PHASE_PUBCOMP = 2
 
 PHASE_NAMES = ("puback", "pubrec", "pubcomp")
 
+_mod = None
+_enabled = True
+
+
+class DeliveryMetrics:
+    """Process-global delivery-ledger counters: the sessions bound to
+    each implementation. Plain unlocked ints under the GIL; tests and
+    chip_smoke.py assert deltas."""
+
+    def __init__(self) -> None:
+        self.sessions_native = 0
+        self.sessions_python = 0
+
+    def snapshot(self) -> dict:
+        return {
+            "sessions_native": self.sessions_native,
+            "sessions_python": self.sessions_python,
+            "native_enabled": 1 if (_mod is not None and _enabled) else 0,
+        }
+
+
+DELIVERY_METRICS = DeliveryMetrics()
+
+
+def set_native_enabled(flag: bool) -> None:
+    """Select the native ledger (True, the default) or its Python twin
+    (False) for sessions opened from now on."""
+    global _enabled
+    _enabled = bool(flag)
+
+
+def native_enabled() -> bool:
+    return _enabled
+
+
+def _probe(mod) -> bool:
+    """Mini parity probe: one slot through reserve / ack / enqueue /
+    dump against hand-computed expectations, so a miscompiled build
+    raises instead of lying."""
+    try:
+        h = mod.delivery_make_handle()
+        slot = mod.delivery_open(h)
+        if mod.delivery_reserve(h, slot, 1, 1.5, 2) != 1:
+            return False
+        if mod.delivery_reserve(h, slot, 2, 2.5, 2) != 2:
+            return False
+        if mod.delivery_reserve(h, slot, 1, 3.5, 2) != 0:  # window full
+            return False
+        if mod.delivery_ack(h, slot, 2, PHASE_PUBACK) != 0:  # wrong phase
+            return False
+        if mod.delivery_ack(h, slot, 2, PHASE_PUBREC) != 1:
+            return False
+        if mod.delivery_ack(h, slot, 1, PHASE_PUBACK) != 1:
+            return False
+        # overflow: QoS0 victim at index 0, insert at tail of 1-queue
+        if mod.delivery_enqueue(h, slot, 1, 0, 2, 0) != 1:
+            return False
+        if mod.delivery_enqueue(h, slot, 1, 1, 2, 0) != (1 | (1 << 2)):
+            return False
+        # overflow evicts the QoS0 entry at index 0; the higher-
+        # priority incoming message then inserts at the head
+        packed = mod.delivery_enqueue(h, slot, 2, 1, 2, 1)
+        if packed != (2 | (0 << 2) | (0 << 32)):
+            return False
+        if mod.delivery_dump(h, slot) != (
+            3,
+            [(2, PHASE_PUBCOMP, 0, 2.5)],
+            [(2, 1), (1, 1)],
+        ):
+            return False
+        mod.delivery_close(h, slot)
+        return True
+    except Exception:
+        return False
+
+
+def _load():
+    """The extension with the delivery legs, built and probed once;
+    raises NativeBuildError when either fails."""
+    global _mod
+    if _mod is None:
+        mod = native.load("_emqx_torch_speedups")
+        if not _probe(mod):
+            raise NativeBuildError("_emqx_torch_speedups failed its delivery-ledger probe")
+        _mod = mod
+    return _mod
+
 
 class PyDeliveryLedger:
-    """The delivery ledger (the reference's bit-exact Python twin of
-    its native `delivery_*` legs).
+    """Bit-exact Python twin of the native delivery legs.
 
     Slots hold `[next_pid, infl, queue]` where `infl` is a list of
     `[pid, phase, dup, sent_at]` in insertion order and `queue` a list
     of `(prio, qos)` shadow entries; every method mirrors one
-    `delivery_*` leg of the reference, result-for-result."""
+    `delivery_*` leg, result-for-result."""
+
+    is_native = False
 
 
     def __init__(self) -> None:
@@ -191,12 +293,71 @@ class PyDeliveryLedger:
         )
 
 
+class NativeDeliveryLedger:
+    """Capsule-handle wrapper over the `delivery_*` native legs, same
+    method surface as the twin."""
+
+    is_native = True
+
+    def __init__(self, mod) -> None:
+        self._mod = mod
+        self._h = mod.delivery_make_handle()
+
+    def open(self) -> int:
+        return self._mod.delivery_open(self._h)
+
+    def close(self, slot: int) -> None:
+        self._mod.delivery_close(self._h, slot)
+
+    def reserve(self, slot: int, qos: int, now: float, recv_max: int) -> int:
+        return self._mod.delivery_reserve(self._h, slot, qos, now, recv_max)
+
+    def reserve_many(self, slots, qoses, now, recv_maxes) -> List[int]:
+        return self._mod.delivery_reserve_many(
+            self._h, slots, qoses, now, recv_maxes
+        )
+
+    def ack(self, slot: int, pid: int, kind: int) -> int:
+        return self._mod.delivery_ack(self._h, slot, pid, kind)
+
+    def forget(self, slot: int, pid: int) -> int:
+        return self._mod.delivery_forget(self._h, slot, pid)
+
+    def retry_due(self, slot: int, now: float, interval: float):
+        return self._mod.delivery_retry_due(self._h, slot, now, interval)
+
+    def touch_all(self, slot: int, now: float):
+        return self._mod.delivery_touch_all(self._h, slot, now)
+
+    def enqueue(self, slot, prio, qos, max_len, has_prios) -> int:
+        return self._mod.delivery_enqueue(
+            self._h, slot, prio, qos, max_len, has_prios
+        )
+
+    def popleft(self, slot: int) -> int:
+        return self._mod.delivery_popleft(self._h, slot)
+
+    def window_len(self, slot: int) -> int:
+        return self._mod.delivery_window_len(self._h, slot)
+
+    def dump(self, slot: int) -> tuple:
+        return self._mod.delivery_dump(self._h, slot)
+
+
+_native_ledger: Optional[NativeDeliveryLedger] = None
 _py_ledger: Optional[PyDeliveryLedger] = None
 
 
-def make_ledger() -> PyDeliveryLedger:
-    """The process-global ledger a new Session binds to."""
-    global _py_ledger
+def make_ledger():
+    """The process-global ledger a new Session binds to: native unless
+    the twin is selected, counted either way."""
+    global _native_ledger, _py_ledger
+    if _enabled:
+        if _native_ledger is None:
+            _native_ledger = NativeDeliveryLedger(_load())
+        DELIVERY_METRICS.sessions_native += 1
+        return _native_ledger
     if _py_ledger is None:
         _py_ledger = PyDeliveryLedger()
+    DELIVERY_METRICS.sessions_python += 1
     return _py_ledger

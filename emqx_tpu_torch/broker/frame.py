@@ -9,9 +9,11 @@ property-tested in tests/test_frame.py (the analog of
 prop_emqx_frame.erl).
 
 The port's own copy of emqx_tpu/broker/frame.py, the pure-Python
-codec; the native `_emqx_frame` leg of the reference is not part of
-the port. `serialize` memoizes on a packet's `_wire` dict, which is
-the seam the broker's wide-fanout loop writes through.
+codec: the twin of the native codec in `emqx_tpu_torch/framec.py`,
+which the broker and the server call and which hands this module
+every packet outside its native surface. `serialize` memoizes on a
+packet's `_wire` dict, which is the seam the broker's wide-fanout loop
+writes through.
 """
 
 from __future__ import annotations

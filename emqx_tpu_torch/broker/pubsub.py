@@ -30,6 +30,7 @@ from __future__ import annotations
 import asyncio
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from .. import framec
 from ..chaos.faults import is_device_fault
 from ..device import DeviceLike
 from ..models.retainer import Retainer
@@ -37,7 +38,6 @@ from ..models.router import Router
 from ..models.shared_sub import SharedSubs
 from ..obs.profiler import STAGE_MARK
 from ..ops import topic as topic_mod
-from . import frame
 from .caps import MqttCaps
 from .hooks import Hooks
 from .message import Message
@@ -816,7 +816,7 @@ class Broker:
                             data = wget(("b0", ver))
                             if data is None:
                                 data = b"".join(
-                                    frame.serialize(p, ver) for p in pkts0
+                                    framec.serialize(p, ver) for p in pkts0
                                 )
                                 wctx[("b0", ver)] = data
                             last_ver = ver
@@ -925,7 +925,7 @@ class Broker:
         option tests (no_local/QoS/upgrade/retain-as-published) were
         answered once at plan-split time, and the wire bytes serialize
         once per protocol version for the WHOLE fanout
-        (frame.serialize memoizes on the shared packet)."""
+        (framec.serialize memoizes on the shared packet)."""
         bcast, rest, other = fast
         n = 0
         # profiler stage marks (obs/profiler.STAGE_MARK): one store per
@@ -963,7 +963,7 @@ class Broker:
                         if ver is not last_ver:
                             data = cache_get((ver, False))
                             if data is None:
-                                data = frame.serialize(cached[0], ver)
+                                data = framec.serialize(cached[0], ver)
                                 pkt_cache[(ver, False)] = data
                             last_ver = ver
                         if run_hook:
@@ -1011,7 +1011,7 @@ class Broker:
                         ver = s.sink_proto_ver
                         data = pkt_cache.get((ver, retain))
                         if data is None:
-                            data = frame.serialize(cached[0], ver)
+                            data = framec.serialize(cached[0], ver)
                             pkt_cache[(ver, retain)] = data
                         sb(data)
                     else:

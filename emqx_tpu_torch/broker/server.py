@@ -9,9 +9,9 @@ sessions arrive via the session's outgoing sink.
     python -m emqx_tpu_torch.broker.server --port 1883 [--device cpu]
 
 serves on the CUDA card by default (raising without one), with
-wildcard retained reads through the device index (kernel K8). The
-frame codec is the pure-Python `frame` module (the reference's native
-codec seam is not copied). The listener options of the reference (TLS,
+wildcard retained reads through the device index (kernel K8). Frames
+parse and serialize through `framec`, the native codec seam over the
+pure-Python `frame` module. The listener options of the reference (TLS,
 mountpoint, zone config, rate limits, load shedding, eviction holds)
 and the WebSocket listener are not ported yet.
 """
@@ -22,6 +22,7 @@ import asyncio
 import logging
 from typing import Optional
 
+from .. import framec
 from . import frame
 from .channel import KEEPALIVE_MULTIPLIER, Channel, ProtocolError
 from .packet import Connect, Disconnect, MQTT_V5, Publish, Subscribe
@@ -47,7 +48,7 @@ class Connection:
         self.channel = Channel(
             server.broker, peer=str(peer), max_packet_size=MAX_PACKET_SIZE
         )
-        self.parser = frame.Parser(max_packet_size=MAX_PACKET_SIZE)
+        self.parser = framec.Parser(max_packet_size=MAX_PACKET_SIZE)
 
     def _wire_sink(self) -> None:
         sess = self.channel.session
@@ -76,7 +77,7 @@ class Connection:
             chunks = []
             limit = self.channel.client_max_packet
             for p in pkts:
-                wire = frame.serialize(p, ver)
+                wire = framec.serialize(p, ver)
                 # client's maximum_packet_size: drop, don't send
                 # (MQTT-5 §3.1.2.11.4; the reference counts
                 # 'delivery.dropped.too_large')

@@ -9,7 +9,9 @@ The channel drives it with packets; it emits outgoing packets.
 The NUMERIC side of that state — packet-id allocation, window
 occupancy, ack phases, retry stamps, and the priority-aware mqueue
 overflow decision — lives in the process-global delivery ledger
-(broker/delivery.py).  This object keeps owning the messages:
+(broker/delivery.py: the native `delivery_*` legs of the port's
+speedups.cc by default, or the bit-exact Python twin when
+`delivery.set_native_enabled(False)` selects it).  This object keeps owning the messages:
 `inflight` stays the pid → entry mapping and `mqueue` the real deque;
 entry phase/dup/sent_at fields are observability mirrors of the
 ledger's authoritative copies.

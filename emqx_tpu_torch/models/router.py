@@ -28,9 +28,17 @@ surface. The device failure domain's router half is here: the
 `fault_injector` seam at every leg (chaos/faults.py), the open-breaker
 host mode (`suspend_device`), the host re-serve of a failed batch
 (`match_filters_host`), the breaker's canary (`canary_match`) and its
-full re-upload (`device_resync`). The shard failure domain, quarantine,
-the chaos corrupters and the native churn core of the reference are
-not part of this port.
+full re-upload (`device_resync`). The shard failure domain, quarantine
+and the chaos corrupters of the reference are not part of this port.
+
+Route writes run through the native churn core by default
+(ops/speedups.py over the port's speedups.cc): `add_route`,
+`add_routes`, `delete_route` and `delete_routes` hand their pairs to one
+C pass that mutates the SAME dicts, lists and numpy arrays the Python
+legs do, bumps the table generation, marks dest-store rows pending and
+appends dirty rows and slots for the device syncs. The Python legs stay
+as the twin, selected only by `speedups.set_native_enabled(False)`
+before the Router is built.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ..obs.profiler import STAGE_MARK
 from ..ops import fanout as fanout_ops
 from ..ops import hash_index as hash_ops
 from ..ops import match as match_ops
+from ..ops import speedups as _speedups
 from ..ops import topic as topic_mod
 from ..ops import transfer as transfer_ops
 from ..ops._build import I, P, CudaKernel, raw_stream
@@ -633,6 +642,12 @@ class Router:
         # the host trie); parallel lists (filter words-or-string, row)
         self._trie_pending_f: List[object] = []
         self._trie_pending_r: List[int] = []
+        # True when the pending op list was DROPPED (write-only storms
+        # outgrew it — see _trie_gc): the next host read rebuilds the
+        # trie from live state instead of replaying. The counter
+        # amortizes the single-row delete path's backlog check.
+        self._trie_stale = False
+        self._trie_gc_tick = 0
         self._wild: Dict[str, Dict[Dest, int]] = {}
         self._filter_row: Dict[str, int] = {}
         # row -> filter string, indexed by table row (None = free)
@@ -686,6 +701,21 @@ class Router:
         # while the circuit breaker is open.
         self.fault_injector = None
         self.device_suspended = False
+        # native churn core state: the handle caches the C side's
+        # entire attribute/buffer fetch so a ONE-pair add/delete rides
+        # the same core as a 1000-row storm with ~zero per-call setup.
+        # headroom counts how many fresh rows the last _reserve_native
+        # pre-grew for; reserve (and the post-rebuild path) recreate
+        # the handle because growth REPLACES the numpy arrays the
+        # handle's buffers pin. _churn_reserve is the pre-grow chunk
+        # for single-row adds. `_sp` is None when the twin was selected
+        # (speedups.set_native_enabled(False)) before construction.
+        self._churn_reserve = 512
+        self._native_headroom = 0
+        self._churn_handle = None
+        sp = self._sp = _speedups.load()
+        self._add_core = sp.add_route_core if sp is not None else None
+        self._del_core = sp.del_route_core if sp is not None else None
 
     @property
     def device(self) -> torch.device:
@@ -935,7 +965,61 @@ class Router:
         if len(rf) < cap:
             rf.extend([None] * (cap - len(rf)))
 
+    def _reserve_native(self, n: int) -> None:
+        """Pre-grow every structure up to `n` fresh rows could touch —
+        table free rows, vocab refcount array, row->filter list, class
+        index — so the C core can hold raw buffers for the whole call
+        (no growth mid-call), then rebuild the churn handle over the
+        (possibly replaced) arrays. Growth points move at most one
+        reserve chunk earlier than the twin's; final sizes are
+        identical (pow2)."""
+        t = self.table
+        while len(t._free) < n:
+            t._grow()
+        v = t.vocab
+        v.ensure_refs(v._next + n * (t.max_levels + 1))
+        self._ensure_row_filter()
+        if self.index is not None:
+            self.index.reserve(n, t.capacity)
+        self._native_headroom = n
+        self._churn_handle = self._sp.make_churn_handle(self)
+        self._trie_gc()  # amortized backlog bound for single-row adds
+
+    def _handle(self):
+        """The churn-core capsule; built on demand (deletes need no
+        reserve — they only append to the free lists)."""
+        h = self._churn_handle
+        if h is None:
+            h = self._churn_handle = self._sp.make_churn_handle(self)
+        return h
+
+    def _drop_native_state(self) -> None:
+        """Twin mutations bypass the headroom accounting and may replace
+        arrays the handle pins — drop both."""
+        self._native_headroom = 0
+        self._churn_handle = None
+
     def add_route(self, flt: str, dest: Dest) -> None:
+        core = self._add_core
+        if core is not None:
+            # allocation-free single-pair C entry (the broker's
+            # per-subscribe hot path), with ZERO per-call setup: the
+            # reserve pre-pass runs once per _churn_reserve adds and
+            # the churn handle carries the C side's whole
+            # attribute/buffer fetch between calls; the generation
+            # bump and the dest-store pending mark happen IN the core.
+            # Flags: 1 fresh, 2 need_rebuild, 8 deep changed.
+            if self._native_headroom < 1:
+                self._reserve_native(self._churn_reserve)
+            self._native_headroom -= 1
+            flags = core(self._churn_handle, flt, dest)
+            if flags & 8:
+                self._aux_gen += 1
+            if flags & 2:
+                self.index._rebuild(self.index.n_buckets * 2)
+                self._churn_handle = self._sp.make_churn_handle(self)
+            return
+        self._drop_native_state()
         if not topic_mod.is_wildcard(flt):
             fresh_topic = flt not in self._exact
             dests = self._exact.setdefault(flt, {})
@@ -989,6 +1073,30 @@ class Router:
         vectorized table scatter + class-index bulk placement, which is
         what subscribe storms hit. Each filter is split once and its
         parts ride into add_bulk."""
+        sp = self._sp
+        if sp is not None:
+            # native one-pass path: reserve headroom for the batch (a
+            # no-op when a prior reserve already covers it — the C core
+            # holds raw buffer pointers, so nothing may grow mid-call),
+            # then hand the whole batch to add_routes_core. Generation
+            # bumps and dest-store pending marks happen in the core; the
+            # aux generation (host-only deep stores) stays a len-delta
+            B = len(pairs)
+            if self._native_headroom < B:
+                self._reserve_native(max(B, self._churn_reserve))
+            self._native_headroom -= B
+            deep0 = len(self._deep) + len(self._exact_deep)
+            _fresh, need_rebuild = sp.add_routes_core(
+                self._churn_handle,
+                pairs if isinstance(pairs, list) else list(pairs),
+            )
+            if len(self._deep) + len(self._exact_deep) != deep0:
+                self._aux_gen += 1
+            if need_rebuild:
+                self.index._rebuild(self.index.n_buckets * 2)
+                self._churn_handle = sp.make_churn_handle(self)
+            return
+        self._drop_native_state()
         new_exact: List[str] = []
         new_exact_parts: List[List[str]] = []
         new_wild: List[str] = []
@@ -1063,11 +1171,74 @@ class Router:
             self._fanout_add_batch(fresh_pairs)
 
     def delete_routes(self, pairs: Sequence[Tuple[str, Dest]]) -> None:
-        """Batched delete_route (the syncer's delete leg)."""
-        for flt, dest in pairs:
-            self.delete_route(flt, dest)
+        """Batched delete_route (the syncer's delete leg). With the
+        native core this is ONE C pass over the pairs: dest refcounts,
+        index un-indexing, table tombstones and deferred host-trie
+        removals all land in C; generation bumps and surviving-filter
+        pending marks happen in the core, and the vanished rows'
+        dest-store segments free in one vectorized pass here."""
+        sp = self._sp
+        if sp is None:
+            self._drop_native_state()
+            for flt, dest in pairs:
+                self._delete_route_py(flt, dest)
+            return
+        deep0 = len(self._deep) + len(self._exact_deep)
+        _vanished, removed_rows = sp.del_routes_core(
+            self._handle(),
+            pairs if isinstance(pairs, list) else list(pairs),
+        )
+        if len(self._deep) + len(self._exact_deep) != deep0:
+            self._aux_gen += 1
+        if removed_rows:
+            self.dest_store.free_rows(removed_rows)
+            self._trie_gc()
+
+    def _trie_gc(self) -> None:
+        """Bound the deferred host-trie op list: a write-only workload
+        (pure storms, purge cycles with no host-path reads in between)
+        never drains it, so when the replay backlog outweighs the live
+        filter set, DROP it and mark the trie stale — the next host
+        read rebuilds from live state (_host_trie), which subsumes
+        every dropped op by construction."""
+        pf = self._trie_pending_f
+        if self._trie_stale:
+            if pf:
+                # still stale (no read since): keep memory flat
+                pf.clear()
+                self._trie_pending_r.clear()
+            return
+        if len(pf) > 4 * len(self._filter_row) + 1024:
+            self._trie_stale = True
+            pf.clear()
+            self._trie_pending_r.clear()
 
     def delete_route(self, flt: str, dest: Dest) -> None:
+        core = self._del_core
+        if core is not None:
+            # allocation-free single-pair delete (unsubscribe hot path;
+            # deletes need no reserve pre-pass; the generation bump and
+            # surviving-filter pending mark happen IN the core). Packed
+            # flags: 1 vanished, 2 row freed (id in bits 8+), 8 deep
+            # changed.
+            flags = core(self._handle(), flt, dest)
+            if flags & 8:
+                self._aux_gen += 1
+            if flags & 2:
+                self.dest_store.free_row(flags >> 8)
+                tick = self._trie_gc_tick + 1
+                if tick >= 1024:
+                    self._trie_gc_tick = 0
+                    self._trie_gc()
+                else:
+                    self._trie_gc_tick = tick
+            return
+        self._drop_native_state()
+        self._delete_route_py(flt, dest)
+
+    def _delete_route_py(self, flt: str, dest: Dest) -> None:
+        """The twin's delete leg (the oracle the C core is held
+        against)."""
         if not topic_mod.is_wildcard(flt):
             dests = self._exact.get(flt)
             if not dests or dest not in dests:
@@ -1163,12 +1334,35 @@ class Router:
         """The host trie with any deferred storm writes drained (a host
         read observes every mutation that preceded it, exactly once).
         Pending entries carry words tuples (single add) or raw filter
-        strings (bulk add)."""
+        strings (bulk add, the churn core). The churn core's delete legs
+        defer their trie removals into the same ordered list with the
+        row encoded as -(row+1), so interleaved add/delete storms replay
+        in arrival order."""
+        if self._trie_stale:
+            # the op backlog was dropped mid-storm (_trie_gc): rebuild
+            # from live state, which reflects every mutation up to NOW
+            # — any ops still pending are subsumed, so they drop too
+            t = TopicTrie()
+            ins = t.insert
+            words = self.table.filter_words
+            for _flt, row in self._filter_row.items():
+                ins(words(row), row)
+            self._trie = t
+            self._trie_pending_f.clear()
+            self._trie_pending_r.clear()
+            self._trie_stale = False
+            return t
         pf = self._trie_pending_f
         if pf:
-            ins = self._trie.insert
+            trie = self._trie
+            ins = trie.insert
+            rem = trie.remove
             for ws, row in zip(pf, self._trie_pending_r):
-                ins(tuple(ws.split("/")) if type(ws) is str else ws, row)
+                w = tuple(ws.split("/")) if type(ws) is str else ws
+                if row >= 0:
+                    ins(w, row)
+                else:
+                    rem(w, -row - 1)
             pf.clear()
             self._trie_pending_r.clear()
         return self._trie

@@ -745,10 +745,12 @@ class DestStore:
 
     def free_row(self, row: int) -> None:
         """Release a filter row's segment (the filter left the table);
-        the row id is about to be recycled for an unrelated filter."""
+        the row id is about to be recycled for an unrelated filter. The
+        churn core may have marked a row past the store's capacity
+        pending; the mark goes with the row."""
+        self.pending_rows.discard(row)
         if row >= self.row_capacity:
             return
-        self.pending_rows.discard(row)
         self._free_seg(int(self.seg_off[row]), int(self.seg_cap[row]))
         self.seg_off[row] = 0
         self.seg_len[row] = 0
@@ -756,6 +758,30 @@ class DestStore:
         self.seg_live[row] = 0
         self._slots[row] = None
         self.dirty_rows.append(row)
+
+    def free_rows(self, rows) -> None:
+        """Batched free_row — the delete/purge-storm path (the churn
+        core's del_routes_core hands the whole vanished-row list at
+        once): one vectorized zeroing of the segment arrays instead of
+        ~6 numpy scalar writes per row."""
+        pend = self.pending_rows
+        pend.difference_update(rows)
+        cap = self.row_capacity
+        live = [r for r in rows if r < cap]
+        if not live:
+            return
+        slots = self._slots
+        free_seg = self._free_seg
+        so, sc = self.seg_off, self.seg_cap
+        for r in live:
+            free_seg(int(so[r]), int(sc[r]))
+            slots[r] = None
+        rr = np.asarray(live, np.int64)
+        so[rr] = 0
+        self.seg_len[rr] = 0
+        sc[rr] = 0
+        self.seg_live[rr] = 0
+        self.dirty_rows.extend(live)
 
     # --- resolve-side reads ----------------------------------------------
 

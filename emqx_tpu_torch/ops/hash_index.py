@@ -1,5 +1,6 @@
 """Pattern-class hash index (counterpart of emqx_tpu/ops/hash_index.py:
-the host `ClassIndex` over its pure-Python paths, and kernel K1).
+the host `ClassIndex`, whose batched dedup runs in the native churn
+core's `index_dedup` unless its twin is selected, and kernel K1).
 
 The dense kernel (ops/match.py) streams every filter row per topic:
 B×N×L compares.
@@ -66,6 +67,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from . import speedups as _speedups
 from ._build import LL, I, P, CudaKernel, raw_stream
 from .match import MAX_KERNEL_LEVELS, EncodedTopics, check_tensor, check_topics
 from .table import FilterTable
@@ -355,6 +357,9 @@ class ClassIndex:
         self.class_budget = class_budget
         self._min_buckets = max(4, min_slots // BUCKET_W)
         self._skel_class: Dict[Tuple[int, bool, int], int] = {}
+        # packed mirror of _skel_class keyed by plen | hh<<6 | plus<<7
+        # (one int probe per row for the churn core's write path)
+        self._skel_packed: Dict[int, int] = {}
         self._class_free: List[int] = list(range(class_budget - 1, -1, -1))
         self._class_buckets = np.zeros(class_budget, np.int64)
         self.meta = ClassMeta(
@@ -389,7 +394,8 @@ class ClassIndex:
         # set when a second row shares the filter
         self._bucket_rows: List[object] = []
         # row -> bucket id, indexed by table row (-1 = not indexed);
-        # a flat array because rows are dense ints
+        # a flat array because rows are dense ints and the churn core
+        # writes it raw
         self._row_bucket = np.full(1024, -1, np.int64)
         # rows that could not get a class (skeleton budget exhausted):
         # matched by the dense kernel over a residual mask instead
@@ -450,6 +456,23 @@ class ClassIndex:
         self._bkt_slot = np.concatenate(
             [self._bkt_slot, np.full(pad, -1, np.int64)]
         )
+
+    def reserve(self, n_new: int, row_capacity: int) -> None:
+        """Pre-grow every structure a burst of up to `n_new` fresh rows
+        could touch, so the churn core can hold raw buffer pointers for
+        the whole batch (no growth mid-call). Growth points move at most
+        one batch earlier than the incremental path's; final sizes are
+        identical (pow2)."""
+        self.ensure_row_capacity(row_capacity)
+        self._grow_bucket_arrays(len(self._bkt_ws) + n_new)
+        need = self.n_buckets
+        while (
+            (self._live + n_new) * BULK_LOAD_DEN
+            > need * BUCKET_W * BULK_LOAD_NUM
+        ):
+            need *= 2
+        if need != self.n_buckets:
+            self._rebuild(need)
 
     def add_row(self, row: int, table: FilterTable) -> None:
         """Index row `row` of `table` (call right after table.add)."""
@@ -574,43 +597,51 @@ class ClassIndex:
         nb0 = len(self._bkt_ws)
         rows_l = rows if isinstance(rows, list) else list(rows)
         self.ensure_row_capacity(max(rows_l) + 1)
-        cid_l = cids.tolist()
-        new_bids = []
-        new_idx = []
-        # hot loop: locals bound once; only dict bookkeeping here
-        bucket_of = self._bucket_of
-        bucket_rows = self._bucket_rows
-        row_bucket = self._row_bucket
-        bucket_free = self._bucket_free
-        residual_add = self.residual_rows.add
-        nb = nb0
-        any_residual = False
-        for i, row in enumerate(rows_l):
-            if cid_l[i] < 0:
-                residual_add(row)
-                any_residual = True
-                continue
-            f = flt_l[i]
-            bid = bucket_of.get(f)
-            if bid is not None:
-                rs = bucket_rows[bid]
-                if isinstance(rs, set):
-                    rs.add(row)
-                elif rs != row:
-                    bucket_rows[bid] = {rs, row}
+        sp = _speedups.load()
+        if sp is not None:
+            new_idx, new_bids, nb, any_residual = sp.index_dedup(
+                flt_l, cids, rows_l, self._bucket_of, self._bucket_rows,
+                self._row_bucket, self._bucket_free, self.residual_rows,
+                nb0,
+            )
+        else:
+            cid_l = cids.tolist()
+            new_bids = []
+            new_idx = []
+            # hot loop: locals bound once; only dict bookkeeping here
+            bucket_of = self._bucket_of
+            bucket_rows = self._bucket_rows
+            row_bucket = self._row_bucket
+            bucket_free = self._bucket_free
+            residual_add = self.residual_rows.add
+            nb = nb0
+            any_residual = False
+            for i, row in enumerate(rows_l):
+                if cid_l[i] < 0:
+                    residual_add(row)
+                    any_residual = True
+                    continue
+                f = flt_l[i]
+                bid = bucket_of.get(f)
+                if bid is not None:
+                    rs = bucket_rows[bid]
+                    if isinstance(rs, set):
+                        rs.add(row)
+                    elif rs != row:
+                        bucket_rows[bid] = {rs, row}
+                    row_bucket[row] = bid
+                    continue
+                if bucket_free:
+                    bid = bucket_free.pop()
+                    bucket_rows[bid] = row
+                else:
+                    bid = nb
+                    nb += 1
+                    bucket_rows.append(row)
+                bucket_of[f] = bid
                 row_bucket[row] = bid
-                continue
-            if bucket_free:
-                bid = bucket_free.pop()
-                bucket_rows[bid] = row
-            else:
-                bid = nb
-                nb += 1
-                bucket_rows.append(row)
-            bucket_of[f] = bid
-            row_bucket[row] = bid
-            new_bids.append(bid)
-            new_idx.append(i)
+                new_bids.append(bid)
+                new_idx.append(i)
         if any_residual:
             self.residual_dirty = True
         if not new_bids:
@@ -797,6 +828,7 @@ class ClassIndex:
             return None
         cid = self._class_free.pop()
         self._skel_class[skel] = cid
+        self._skel_packed[plen | (int(has_hash) << 6) | (plus_mask << 7)] = cid
         self.meta.plen[cid] = plen
         self.meta.has_hash[cid] = has_hash
         self.meta.root_wild[cid] = root_wild
@@ -812,6 +844,7 @@ class ClassIndex:
             int(self.meta.plus[cid]),
         )
         del self._skel_class[skel]
+        del self._skel_packed[skel[0] | (int(skel[1]) << 6) | (skel[2] << 7)]
         self.meta.active[cid] = False
         self.meta_dirty = True
         self._class_free.append(cid)

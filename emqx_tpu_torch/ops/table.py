@@ -1,6 +1,7 @@
 """Flattened wildcard-filter table — the host source of truth for the
 device-resident match kernels (the port's own copy of
-emqx_tpu/ops/table.py, pure-Python write paths only).
+emqx_tpu/ops/table.py; `add_bulk`'s split/intern pass runs in the native
+churn core, `encode_filters`, unless its twin is selected).
 
 Instead of the reference's ordered-set filter index
 (apps/emqx/src/emqx_router.erl:133-162 ?ROUTE_TAB_FILTERS +
@@ -30,6 +31,7 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import speedups as _speedups
 from . import topic as topic_mod
 from .vocab import OOV, PLUS, Vocab
 
@@ -153,6 +155,9 @@ class FilterTable:
         FilterTooDeep degradation, kept in-band so one bad filter
         doesn't abort the batch). `parts` (when given) carries the
         filters pre-split so storm callers split each string once."""
+        sp = _speedups.load()
+        if sp is not None:
+            return self._add_bulk_native(sp, filters)
         L = self.max_levels
         pad = [OOV] * L
         rows: List[int] = []
@@ -210,6 +215,50 @@ class FilterTable:
             self.generation += 1
         return rows
 
+    def _add_bulk_native(self, sp, filters: Sequence[str]) -> List[int]:
+        """add_bulk with the split/intern/encode pass in C
+        (the churn core's encode_filters): the C side mutates the
+        vocab's own dicts, so state is identical to the python path."""
+        L = self.max_levels
+        v = self.vocab
+        v.ensure_refs(v._next + len(filters) * (L + 1))
+        # the C side reads and writes v._next itself so a partial batch
+        # can never leave created words ahead of a stale counter
+        ws_l, ids_b, plen_b, hh_b, rw_b = sp.encode_filters(filters, v, L)
+        plen = np.frombuffer(plen_b, np.int32)
+        keep_l = (plen >= 0).tolist()
+        rows: List[int] = []
+        kept_rows: List[int] = []
+        free = self._free
+        filters_store = self._filters
+        fstr_store = self._fstr
+        for j, flt in enumerate(filters):
+            if not keep_l[j]:
+                rows.append(-1)
+                continue
+            while not free:
+                self._grow()
+                free = self._free
+            row = free.pop()
+            filters_store[row] = ws_l[j]
+            fstr_store[row] = flt
+            rows.append(row)
+            kept_rows.append(row)
+        if kept_rows:
+            rr = np.asarray(kept_rows, np.int64)
+            sel = np.flatnonzero(plen >= 0)
+            ids = np.frombuffer(ids_b, np.int32).reshape(-1, L)
+            # C memsets padding to 0 == OOV, matching the python path
+            self.words[rr] = ids[sel]
+            self.prefix_len[rr] = plen[sel]
+            self.has_hash[rr] = np.frombuffer(hh_b, np.uint8)[sel].astype(bool)
+            self.root_wild[rr] = np.frombuffer(rw_b, np.uint8)[sel].astype(bool)
+            self.active[rr] = True
+            self._count += len(kept_rows)
+            self.dirty.extend(kept_rows)
+            self.generation += 1
+        return rows
+
     def remove(self, row: int) -> None:
         fs = self._fstr[row]
         assert fs is not None and self.active[row], f"row {row} not live"
@@ -231,7 +280,13 @@ class FilterTable:
 
     def filter_words(self, row: int) -> Tuple[str, ...]:
         ws = self._filters[row]
-        assert ws is not None, f"row {row} not live"
+        if ws is None:
+            # the churn core stores only the string; materialize (and
+            # cache) the words tuple on first host-side use
+            fs = self._fstr[row]
+            assert fs is not None, f"row {row} not live"
+            ws = tuple(fs.split("/"))
+            self._filters[row] = ws
         return ws
 
     def filter_str(self, row: int) -> str:

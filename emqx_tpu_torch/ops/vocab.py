@@ -30,8 +30,9 @@ class Vocab:
     """Refcounted word ↔ id interning table (host side).
 
     Refcounts live in a flat int64 array indexed by id: bulk writers
-    (np.add.at) pay ~nothing per word where a per-word dict round-trip
-    was the route-churn hot path.  PLUS's slot may accumulate counts from
+    (np.add.at, or the native churn core bumping the raw buffer) pay
+    ~nothing per word where a per-word dict round-trip was the
+    route-churn hot path.  PLUS's slot may accumulate counts from
     bulk bumps; it is never recycled, so the count is inert."""
 
     def __init__(self) -> None:
@@ -46,7 +47,7 @@ class Vocab:
 
     def ensure_refs(self, need: int) -> None:
         """Guarantee the refcount array covers ids < `need` (bulk
-        writers pre-grow before a batch)."""
+        writers pre-grow before handing the buffer to native code)."""
         if need <= len(self._refs):
             return
         cap = len(self._refs)

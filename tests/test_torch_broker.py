@@ -272,16 +272,12 @@ def test_plans_equal_reference(scenario):
     assert tx.sink == jx.sink
 
 
-def test_dest_store_after_broker_churn_equals_reference(monkeypatch):
+def test_dest_store_after_broker_churn_equals_reference():
     """The same subscribe / unsubscribe / resubscribe / close sequence
     through both Brokers leaves both CSR stores identical: segment
     relocation, tombstones, compaction, row frees and the client
-    registry. The reference runs its pure-Python write path (the port
-    has no native churn core to match its lazy marks)."""
-    from emqx_tpu.ops import speedups
-
-    monkeypatch.setattr(speedups, "_mod", None)
-    monkeypatch.setattr(speedups, "_tried", True)
+    registry. Both run their native churn cores (the default), whose
+    lazy pending marks the stores must share too."""
     sides = [Side(port=False), Side(port=True)]
     for x in sides:
         rng = random.Random(5)

@@ -580,12 +580,22 @@ def test_amb_host_fallbacks_under_churn_equal_reference(monkeypatch):
     count the same ones, batch for batch, and give the same answers
     wherever no route of the topic changed in flight (elsewhere the
     port's answer lies between the host truth at begin and at finish).
-    The reference runs its Python host path, which the port copied: its
-    native route core interns words in another order, and other word
-    ids give other byte coincidences."""
+    Both run their Python twins of the native route core, which
+    interns words in another order (other word ids give other byte
+    coincidences): the reference's through its loader, the port's
+    through its setter."""
     from emqx_tpu.ops import speedups as JS
+    from emqx_tpu_torch.ops import speedups as TS
 
     monkeypatch.setattr(JS, "load", lambda build=True: None)
+    TS.set_native_enabled(False)
+    try:
+        _amb_host_fallbacks_under_churn()
+    finally:
+        TS.set_native_enabled(True)
+
+
+def _amb_host_fallbacks_under_churn():
     rng = random.Random(0)
     n = 5800
     routes = []
