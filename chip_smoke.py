@@ -265,8 +265,46 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    line, heal() to closed and device_resync + first full sync (single
    and mesh), degraded against on-card publishes/s (no claim), the
    phase's seconds and launches.
-11. Summary: one line per kernel (times, bound, launches, phase 10's
-   launches, equal), the
+11. The publish path's observability, on phase 7's broker and phase 9's
+   mesh broker (both at full width, nothing cut), launch counters set
+   to 0 at its start, with `obs.Observability` attached (its flight
+   bundles in a temporary folder, removed at the end). (a) 4 of phase
+   7's windows with churn (held against the host oracle as phase 7's
+   pairs are) at sample_n 15: at least 256 audits, all clean
+   (audit_clean_total == audit_total, audit_total + skipped == the
+   captured spans), plus one pfan and one mfan publish at a sampled
+   tick (the 150k plan and a 2,048 plan audited); a histogram for every
+   publish stage and delivery sub-stage; stage p50/p99 and the
+   sum-to-wall self-check's out-of-band share printed. Then 2 turns of
+   one window pair, with Observability at sample_n 1024 and without it
+   (on, off; the same seeded windows): publishes/s, deliveries/s and the
+   delivery walk's seconds each, with the "on" turn's flight triggers,
+   profiler samples and tracked slow subscriptions, recorded, no
+   limit. At sample_n 1
+   from here: (b) `chaos_corrupt_rows` on one classed filter (8 new
+   subscribers), a publish on a fresh matching topic: divergence 1, the
+   filter quarantined, `xla_audit_divergence` active, an
+   `audit_divergence` bundle naming it (kind "match"); one batched match
+   launches `table_sync`, re-uploads the index (meta, slots, residual
+   mask), unquarantines (1) and returns the filter (its milliseconds
+   printed); the next publish delivers the oracle's count. (c) One
+   client dropped from the cached `mfan/3/+` plan: a "fanout"
+   divergence and quarantine; a synchronous publish while quarantined
+   moves `audit_quarantine_resolve_refusals_total` and delivers in
+   full; a batched match heals; the next publish is full. (d) (b) on
+   phase 9's (2, 4) mesh broker: `mesh_table_sync`,
+   `mesh_match_ids_hash` and `combine_pairs` launch. (e) A
+   DeviceFaultInjector's sticky loss trips the breaker: a
+   `device_breaker_trip` bundle and a `breaker.trip` ring event; heal()
+   and probe_once(): `breaker.close`. (f) The scrape: each family once;
+   the audit, stage, SLO and flight families present; its seconds. (g)
+   A MemoryTracer: `mqtt.publish` -> `broker.route` + `broker.dispatch`
+   with the reference's attributes. Fails on any condition, if a
+   device-fault counter moves outside (e), if K1, K2, the table sync,
+   K5 or the fanout sync never launched, or if the phase takes more than
+   90 s.
+12. Summary: one line per kernel (times, bound, launches, phase 10's
+   and phase 11's launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
@@ -280,7 +318,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    record, count phase 9 (c)'s row-only and slot-only growth launches);
    K9-K11, K13's counts
    and packed and K15 are on no serve path and show 0; `launches_phase10`
-   beside it), then, as the last line, `{"ok": true, "device": {...}}`.
+   and `launches_phase11` beside it), then, as the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -288,6 +326,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -354,6 +393,15 @@ P10_MESH_WINDOWS = 2
 P10_PFAN_PUBS = 1
 P10_MFAN_PUBS = 4
 P10_CHURN_K = 1000  # broker_churn's index base, past phase 7's
+# phase 11: the publish path's observability on phase 7's broker
+P11_SAMPLE_N = 15  # 4 windows of 1,024 publishes -> 273 sampled spans
+P11_WINDOWS = 4
+# one window pair a turn, the same seeded windows in both; an "on" turn
+# runs ~2.5x a pair's seconds, so two turns keep the phase near 60 s
+P11_TURNS = ("on", "off")
+P11_CHURN_K = 2000
+P11_CHAIN_SUBS = 8
+P11_LIMIT_S = 90.0
 PROBE_PARKED_MS = 3_600_000.0  # the probe loop never wakes: the phase drives probe_once()
 SINGLE_PATH = ("match_ids_hash", "match_ids", "table_sync", "resolve_fanout", "fanout_sync")
 # filter classes (see ret_filter) and their shares: a wave's, a client's
@@ -1958,8 +2006,8 @@ def record_serving(broker, served, installed):
     orig_begin = router.resolve_fanout_begin
     orig_finish = router.resolve_fanout_finish
 
-    def dispatch_window(lives, filter_lists, capture_errors=False):
-        results, meta = orig_window(lives, filter_lists, capture_errors)
+    def dispatch_window(lives, filter_lists, spans=None, capture_errors=False):
+        results, meta = orig_window(lives, filter_lists, spans, capture_errors)
         for live, n, m in zip(lives, results, meta):
             if live is not None:
                 served.append((live.topic, n, m[0]))
@@ -1983,11 +2031,13 @@ def record_serving(broker, served, installed):
             (router, "resolve_fanout_finish")]
 
 
-def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
+def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS,
+                 profiled=True, k_base=0):
     """Phase 7's traffic: windows of WINDOW publishes through the
     DispatchEngine, two at a time (the pipeline's depth), each pair
-    checked against the host oracle once it has landed, then churn.
-    Returns the run's record."""
+    checked against the host oracle once it has landed, then churn
+    (broker_churn's index from `k_base`). With `profiled`, one more pair
+    under torch.profiler. Returns the run's record."""
     import asyncio
 
     router = broker.router
@@ -2059,13 +2109,15 @@ def serve_broker(broker, skel, exact, rng, deliveries, n_windows=N_WINDOWS):
             rec["publishes"] += n_pubs
             rec["deliveries"] += n
             t0 = time.perf_counter()
-            broker_churn(broker, skel, rng, k, deliveries)
+            broker_churn(broker, skel, rng, k_base + k, deliveries)
             rec["churn_s"] += time.perf_counter() - t0
-        # one more pair, not counted above, under torch.profiler: the
-        # device's busy share of a pair's traffic wall
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall, spent, _n_pubs, n = await pair(n_pairs)
-        rec["profiled"] = (device_seconds(prof), wall, spent["walk"], n)
+        if profiled:
+            # one more pair, not counted above, under torch.profiler:
+            # the device's busy share of a pair's traffic wall
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall, spent, _n_pubs, n = await pair(n_pairs)
+            rec["profiled"] = (device_seconds(prof), wall, spent["walk"], n)
         await broker.engine.stop()
 
     try:
@@ -4773,6 +4825,474 @@ def failure_domain_phase(b_ctx, m_ctx, rng, seed, card):
     return phase
 
 
+# --- the publish path's observability (phase 11) --------------------------------------
+
+
+def p11_classed_filter(router):
+    """A wildcard filter of the route set that the pattern-class index
+    holds in a cuckoo slot (the hash leg serves it), not a residual row."""
+    ix = router.index
+    for f, row in router._filter_row.items():
+        if ("+" in f and not f.startswith("$") and row < len(ix._row_bucket)
+                and ix._row_bucket[row] >= 0 and row not in ix.residual_rows):
+            return f
+    raise AssertionError("no classed wildcard filter in the route set")
+
+
+def p11_topic(flt: str, tag: str) -> str:
+    """A topic no earlier phase published that `flt` matches."""
+    return "/".join(tag if w == "+" else f"{tag}/z" if w == "#" else w
+                    for w in flt.split("/"))
+
+
+def p11_want(broker, topic) -> int:
+    """The host oracle's delivery count for one publish."""
+    _key, (plan, groups) = oracle_of(broker, topic, {})
+    return len(plan[0]) + len(plan[1]) + groups
+
+
+def p11_bundle(obs, reason):
+    """The newest persisted flight bundle of `reason`, or None."""
+    store = obs.flight.store
+    names = [s["name"] for s in store.list() if s["name"].endswith(f"-{reason}.json")]
+    return store.read(names[-1]) if names else None
+
+
+async def p11_publish(broker, eng, topics):
+    """Serve `topics` through the engine, land them and drain the
+    sentinel's deferred audits; returns the delivery counts."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.message import Message
+
+    out = []
+    for t in topics:
+        out.append(await eng.submit_many(
+            [Message(topic=t, payload=bytes(64), from_client="pub")]))
+        await eng.drain()
+        await asyncio.sleep(0)
+    broker.sentinel.run_audits()
+    return out
+
+
+async def p11_row_chain(broker, eng, obs, tag, sync_kernel):
+    """Phase 11 (b) and (d): corrupt one classed filter's device slot,
+    detect, quarantine, alarm, bundle, heal through one batched match,
+    serve in full. Returns the step's record."""
+    from collections import Counter
+
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.ops import _build
+
+    router = broker.router
+    dt = router.device_table
+    c = router.telemetry.counters
+    flt = p11_classed_filter(router)
+    seen = Counter()
+    for i in range(P11_CHAIN_SUBS):
+        s, _ = broker.open_session(f"p11{tag}{i}", True)
+        s.outgoing_sink = lambda pkts, cid=f"p11{tag}{i}": seen.update([cid] * len(pkts))
+        broker.subscribe(s, flt, SubOpts(qos=0))
+    topics = [p11_topic(flt, f"p11{tag}{k}") for k in range(4)]
+    for t in topics:
+        if flt not in router.match_filters(t):
+            raise AssertionError(f"{tag}: {t} does not match {flt}")
+    (n0,) = await p11_publish(broker, eng, topics[:1])
+    if n0 != p11_want(broker, topics[0]) or n0 < P11_CHAIN_SUBS:
+        raise AssertionError(f"{tag}: before the corruption {n0} deliveries, "
+                             f"host oracle {p11_want(broker, topics[0])}")
+    div0 = c.get("audit_divergence_total", 0)
+    unq0 = c.get("audit_unquarantine_total", 0)
+    arrays = (dt._dev_meta, dt._dev_slots, dt._dev_residual)
+    k = router.chaos_corrupt_rows([flt])
+    if k != 1:
+        raise AssertionError(f"{tag}: chaos_corrupt_rows corrupted {k} slots")
+    (n1,) = await p11_publish(broker, eng, topics[1:2])
+    want1 = p11_want(broker, topics[1])
+    bundle = p11_bundle(obs, "audit_divergence")
+    if (c.get("audit_divergence_total", 0) != div0 + 1
+            or router.quarantined_filters() != [flt]
+            or not obs.alarms.is_active("xla_audit_divergence")
+            or bundle is None or bundle["details"].get("kind") != "match"
+            or flt not in bundle["details"].get("filters", ())
+            or n1 >= want1):
+        raise AssertionError(
+            f"{tag}: the chain did not complete in one sampling window: served "
+            f"{n1} of {want1}, divergences +{c.get('audit_divergence_total', 0) - div0}, "
+            f"quarantined {router.quarantined_filters()}, bundle "
+            f"{None if bundle is None else bundle['details']}")
+    before = {n: kk.launches for n, kk in _build.KERNELS.items()}
+    t0 = time.perf_counter()
+    out = router.match_filters_finish(router.match_filters_begin(topics[2:3]))
+    heal_ms = 1e3 * (time.perf_counter() - t0)
+    synced = _build.KERNELS[sync_kernel].launches - before[sync_kernel]
+    reuploaded = all(a is not b for a, b in zip(arrays, (dt._dev_meta, dt._dev_slots,
+                                                          dt._dev_residual)))
+    if (flt not in out[0] or router.quarantined_filters()
+            or c.get("audit_unquarantine_total", 0) != unq0 + 1 or synced < 1
+            or not reuploaded):
+        raise AssertionError(
+            f"{tag}: the clean sync did not heal: {flt} in answer {flt in out[0]}, "
+            f"quarantined {router.quarantined_filters()}, {sync_kernel} launches "
+            f"{synced}, index re-uploaded {reuploaded}")
+    (n3,) = await p11_publish(broker, eng, topics[3:])
+    if n3 != p11_want(broker, topics[3]):
+        raise AssertionError(f"{tag}: after the heal {n3} deliveries, host oracle "
+                             f"{p11_want(broker, topics[3])}")
+    for cid in [f"p11{tag}{i}" for i in range(P11_CHAIN_SUBS)]:
+        broker.close_session(broker.sessions[cid])
+    return {"filter": flt, "served_short": (n1, want1), "heal_ms": heal_ms,
+            "sync_launches": synced, "after": n3,
+            "bundle": bundle["details"]["filters"]}
+
+
+def observability_phase(b_ctx, m_ctx, rng, seed, card):
+    """Phase 11: the publish path's observability on phase 7's broker
+    (a-c, e-g) and phase 9's mesh broker (d). Returns the launches of the
+    phase, counted from 0 at its start."""
+    import asyncio
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.chaos import DeviceFaultInjector
+    from emqx_tpu_torch.obs import DELIVERY_STAGES, Observability
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
+    from emqx_tpu_torch.obs.otel import MemoryTracer
+    from emqx_tpu_torch.obs.sentinel import DECOMP_TOLERANCE, STAGES
+    from emqx_tpu_torch.ops import _build
+
+    broker, skel, exact, deliveries = b_ctx
+    m_broker = m_ctx[0]
+    router = broker.router
+    t_phase = time.perf_counter()
+    stages = {}
+    tmp = tempfile.mkdtemp(prefix="emqx_tpu_torch_p11_")
+
+    def fresh_telemetry(r):
+        # counters from zero, as phases 7 and 10 do, before an
+        # Observability binds the collector
+        r.telemetry = r.device_table.telemetry = KernelTelemetry()
+        r.device_table.fanout.telemetry = r.telemetry
+        return r.telemetry.counters
+
+    def attach(b, name, sample_n):
+        obs = Observability(b, node_name=f"{name}@card",
+                            trace_dir=f"{tmp}/{name}/trace",
+                            flight_dir=f"{tmp}/{name}/flight")
+        obs.sentinel.sample_n = sample_n
+        return obs
+
+    def engine(b):
+        return b.enable_dispatch_engine(
+            queue_depth=WINDOW, pipeline_depth=2, transfer_chunk_kb=0,
+            breaker_threshold=P10_THRESHOLD, probe_backoff_ms=PROBE_PARKED_MS,
+            probe_backoff_max_ms=PROBE_PARKED_MS)
+
+    def launches():
+        return {name: k.launches for name, k in _build.KERNELS.items()}
+
+    _build.reset_launches()
+    obs = m_obs = None
+    try:
+        # (a) clean audit at full width
+        t0 = time.perf_counter()
+        c = fresh_telemetry(router)
+        obs = attach(broker, "p11a", P11_SAMPLE_N)
+        st = obs.sentinel
+        # the pending-audit deque drops past its bound (64 captures, the
+        # reference's default) without a count; a window's collect
+        # captures ~WINDOW / P11_SAMPLE_N at once, so the bound is
+        # raised for this step and every captured span is audited
+        st._pending = collections.deque(maxlen=8 * WINDOW)
+        engine(broker).warmup()
+        rec = serve_broker(broker, skel, exact, rng, deliveries, n_windows=P11_WINDOWS,
+                           profiled=False, k_base=P11_CHURN_K)
+
+        async def sampled_fans():
+            eng = engine(broker)
+            out = []
+            for t in ("pfan/7/x", "mfan/5/p11a"):
+                st._tick = st.sample_n - 1  # the next publish is sampled
+                spans0 = st.spans_total
+                out += await p11_publish(broker, eng, [t])
+                if st.spans_total != spans0 + 1:
+                    raise AssertionError(f"(a): {t} was not sampled")
+            await eng.stop()
+            return out
+
+        fans = asyncio.run(sampled_fans())
+        want = [p11_want(broker, t) for t in ("pfan/7/x", "mfan/5/p11a")]
+        if fans != want:
+            raise AssertionError(f"(a): sampled fan publishes delivered {fans}, host {want}")
+        deliveries.seen.clear()
+        audits = c.get("audit_total", 0)
+        skipped = c.get("audit_skipped_stale_total", 0)
+        clean = c.get("audit_clean_total", 0)
+        missing = ([s for s in STAGES if s not in st.stage_hist]
+                   + [s for s in DELIVERY_STAGES if s not in st.delivery_hist])
+        if (c.get("audit_divergence_total", 0) or clean != audits
+                or audits + skipped != st.spans_total or audits < 256 or missing):
+            raise AssertionError(
+                f"(a): audits {audits} clean {clean} skipped {skipped} divergences "
+                f"{c.get('audit_divergence_total', 0)} spans {st.spans_total}; "
+                f"stages without a histogram {missing}")
+        require_no_device_fault(c, "phase 11 (a)")
+        decomp = st.decomposition_snapshot()
+        checked = decomp["in_band"] + decomp["out_of_band"]
+        hist = {**{s: st.stage_hist[s] for s in STAGES},
+                **{f"sub.{s}": st.delivery_hist[s] for s in DELIVERY_STAGES}}
+        pcts = {k: (round(h.percentile(50) * 1e3, 4), round(h.percentile(99) * 1e3, 4),
+                    h.total) for k, h in hist.items()}
+        log(f"observability (a) clean audit: {rec['publishes']} publishes in "
+            f"{P11_WINDOWS} windows of {WINDOW} with churn at sample_n {P11_SAMPLE_N}, "
+            f"every count and match equal to the host oracle, plus pfan/7/x ({fans[0]} "
+            f"deliveries) and mfan/5/p11a ({fans[1]}) at a sampled tick: "
+            f"{st.spans_total} sampled spans, audit_total {audits}, clean {clean}, "
+            f"skipped_stale {skipped}, divergences 0; stage ms (p50, p99, n) "
+            f"{json.dumps(pcts)}; sum-to-wall check: {decomp['out_of_band']} of "
+            f"{checked} spans out of band (tolerance {DECOMP_TOLERANCE}, share "
+            f"{decomp['out_of_band'] / max(1, checked):.4f}), warm-up spans excluded "
+            f"{st.warmup_skipped}; SLO {json.dumps(st.summary()['slo'])} [{card}]")
+        obs.stop()
+        obs = None
+        stages["(a) audit"] = time.perf_counter() - t0
+
+        # publishes/s with and without Observability, interleaved turns
+        t0 = time.perf_counter()
+        turns = []
+        for i, mode in enumerate(P11_TURNS):
+            t_obs = attach(broker, f"p11t{i}", 1024) if mode == "on" else None
+            engine(broker)
+            try:
+                r = serve_broker(broker, skel, exact, np.random.default_rng(seed + 110),
+                                 deliveries, n_windows=2, profiled=False,
+                                 k_base=P11_CHURN_K + 10 + i)
+                seen = "" if t_obs is None else (
+                    f"; flight triggers {t_obs.flight.triggers_total}, profiler "
+                    f"samples {t_obs.profiler.samples_total}, slow subscriptions "
+                    f"tracked {len(t_obs.slow_subs._tab)}")
+            finally:
+                if t_obs is not None:
+                    t_obs.stop()
+            turns.append((mode, r["publishes"] / r["traffic_s"],
+                          r["deliveries"] / r["traffic_s"], r["traffic_s"],
+                          r["stages"]["walk"], seen))
+        require_no_device_fault(c, "phase 11 turns")
+        log("observability rates (a record, no limit, no claim): " + "; ".join(
+            f"turn {i} Observability {m}: {p:.1f} publishes/s, {d:.1f} deliveries/s "
+            f"({w:.3f} s traffic, delivery walk {walk:.3f} s{seen})"
+            for i, (m, p, d, w, walk, seen) in enumerate(turns))
+            + f"; one window pair of phase 7's mix a turn, sample_n 1024 [{card}]")
+        stages["turns"] = time.perf_counter() - t0
+
+        # (b), (c), (e), (f), (g) at sample_n 1 on a fresh collector
+        c = fresh_telemetry(router)
+        obs = attach(broker, "p11b", 1)
+        eng = engine(broker)
+        rec = {}
+
+        async def steps():
+            t0 = time.perf_counter()
+            rec["b"] = await p11_row_chain(broker, eng, obs, "b", "table_sync")
+            log(f"observability (b) device-row chain: {rec['b']['filter']} corrupted in "
+                f"its cuckoo slot, a fresh publish served {rec['b']['served_short'][0]} "
+                f"of {rec['b']['served_short'][1]}; in one sampling window (sample_n 1): "
+                f"audit_divergence_total 1, quarantined, xla_audit_divergence active, "
+                f"audit_divergence bundle (kind match, filters {rec['b']['bundle']}); "
+                f"one batched match healed it in {rec['b']['heal_ms']:.3f} ms "
+                f"(table_sync launches {rec['b']['sync_launches']}, meta, slots and "
+                f"residual mask re-uploaded, audit_unquarantine_total 1); the next "
+                f"publish delivered {rec['b']['after']}, the host oracle's count [{card}]")
+            stages["(b) row chain"] = time.perf_counter() - t0
+
+            # (c) the plan chain on a 2,048-session plan
+            t0 = time.perf_counter()
+            topics = [f"mfan/3/p11c{k}" for k in range(4)]
+            (n0,) = await p11_publish(broker, eng, topics[:1])
+            key = tuple(f for f, _ in router.match_pairs(topics[0]))
+            entry = broker._fanout_cache[key]
+            mem, other = entry[1]
+            broker._fanout_cache[key] = (entry[0], (mem[:-1], other))
+            div0 = c.get("audit_divergence_total", 0)
+            # the injected divergence logs the whole served and oracle
+            # plans (2,048 entries each): kept off this run's stderr
+            s_log = logging.getLogger("emqx_tpu_torch.obs.sentinel")
+            level = s_log.level
+            s_log.setLevel(logging.CRITICAL)
+            try:
+                (n1,) = await p11_publish(broker, eng, topics[1:2])
+            finally:
+                s_log.setLevel(level)
+            if (n1 != n0 - 1 or c.get("audit_divergence_total", 0) != div0 + 1
+                    or broker.sentinel.divergences[-1]["kind"] != "fanout"
+                    or router.quarantined_filters() != sorted(key)):
+                raise AssertionError(f"(c): served {n1} after {n0}, divergences "
+                                     f"{c.get('audit_divergence_total', 0) - div0}, "
+                                     f"quarantined {router.quarantined_filters()}")
+            ref0 = c.get("audit_quarantine_resolve_refusals_total", 0)
+            n2 = broker.publish(Message(topic=topics[2], payload=bytes(64)))
+            broker.sentinel.run_audits()
+            refused = c.get("audit_quarantine_resolve_refusals_total", 0) - ref0
+            want2 = p11_want(broker, topics[2])
+            if refused < 1 or n2 != want2:
+                raise AssertionError(f"(c): while quarantined refusals +{refused}, "
+                                     f"served {n2} of {want2}")
+            t_h = time.perf_counter()
+            out = router.match_filters_finish(router.match_filters_begin([topics[3]]))
+            heal_ms = 1e3 * (time.perf_counter() - t_h)
+            if router.quarantined_filters() or sorted(out[0]) != sorted(key):
+                raise AssertionError(f"(c): the clean sync did not heal: {out}")
+            (n3,) = await p11_publish(broker, eng, ["mfan/3/p11c4"])
+            if n3 != p11_want(broker, "mfan/3/p11c4") or n3 != n0:
+                raise AssertionError(f"(c): after the heal {n3} deliveries, before {n0}")
+            log(f"observability (c) plan chain: one client dropped from the cached "
+                f"{key} plan ({n0} deliveries) served {n1}; a fanout divergence "
+                f"(its bundle within (b)'s trigger cooldown: flight triggers "
+                f"{obs.flight.triggers_total}), quarantined {sorted(key)}; a synchronous publish while quarantined: "
+                f"audit_quarantine_resolve_refusals_total +{refused}, {n2} deliveries "
+                f"(the host oracle's); one batched match healed it in {heal_ms:.3f} ms; "
+                f"the next publish delivered {n3} [{card}]")
+            stages["(c) plan chain"] = time.perf_counter() - t0
+            require_no_device_fault(c, "phase 11 (b) and (c)")
+
+            # (e) the breaker's flight hooks
+            t0 = time.perf_counter()
+            inj = DeviceFaultInjector(seed=seed).install(router)
+            try:
+                inj.fail_sticky()
+                trip = 0
+                for w in range(1, P10_THRESHOLD + 2):
+                    await p11_publish(broker, eng, [f"p11e/{w}/{j}" for j in range(4)])
+                    if eng.breaker_state == "open":
+                        trip = w
+                        break
+                bundle = p11_bundle(obs, "device_breaker_trip")
+                kinds = [e["kind"] for e in obs.flight.recorder.recent()]
+                if not trip or bundle is None or "breaker.trip" not in kinds:
+                    raise AssertionError(f"(e): trip {trip}, bundle {bundle is not None}, "
+                                         f"breaker.trip in the ring {'breaker.trip' in kinds}")
+                inj.heal()
+                closed = eng.probe_once()
+                kinds = [e["kind"] for e in obs.flight.recorder.recent()]
+                if not closed or "breaker.close" not in kinds:
+                    raise AssertionError(f"(e): closed {closed}, breaker.close in the ring "
+                                         f"{'breaker.close' in kinds}")
+            finally:
+                inj.uninstall()
+            rec["faults"] = {k: c.get(k, 0) for k in FAULT_COUNTERS}
+            log(f"observability (e) breaker hooks: sticky loss tripped after {trip} "
+                f"batches; device_breaker_trip bundle (details "
+                f"{sorted(bundle['details'])}), breaker.trip and breaker.close in the "
+                f"ring after heal() and probe_once(); fault counters {rec['faults']} "
+                f"[{card}]")
+            stages["(e) breaker"] = time.perf_counter() - t0
+            await eng.stop()
+
+        asyncio.run(steps())
+
+        # (d) the device-row chain on phase 9's mesh broker
+        t0 = time.perf_counter()
+        m_c = fresh_telemetry(m_broker.router)
+        m_obs = attach(m_broker, "p11d", 1)
+        m_eng = engine(m_broker)
+        before = launches()
+
+        async def mesh_chain():
+            out = await p11_row_chain(m_broker, m_eng, m_obs, "d", "mesh_table_sync")
+            await m_eng.stop()
+            return out
+
+        rec["d"] = asyncio.run(mesh_chain())
+        torch.cuda.synchronize()
+        moved = {n: v - before[n] for n, v in launches().items() if v != before[n]}
+        need = ("mesh_table_sync", "mesh_match_ids_hash", "combine_pairs")
+        if [n for n in need if not moved.get(n)]:
+            raise AssertionError(f"(d): mesh kernels not launched: {moved}")
+        require_no_device_fault(m_c, "phase 11 (d)")
+        log(f"observability (d) mesh {MESH} device-row chain (phase 9's mesh broker, "
+            f"{N_ROUTES:,} routes, no depth cut): {rec['d']['filter']} served "
+            f"{rec['d']['served_short'][0]} of {rec['d']['served_short'][1]}, "
+            f"divergence, quarantine, alarm and bundle (filters {rec['d']['bundle']}) in "
+            f"one sampling window; one batched match healed it in "
+            f"{rec['d']['heal_ms']:.3f} ms (mesh_table_sync launches "
+            f"{rec['d']['sync_launches']}, index re-uploaded per group); the next publish "
+            f"delivered {rec['d']['after']}; launches {moved} [{card}]")
+        m_obs.stop()
+        m_obs = None
+        stages["(d) mesh chain"] = time.perf_counter() - t0
+
+        # (f) the scrape
+        t0 = time.perf_counter()
+        text = obs.prometheus_text()
+        scrape_s = time.perf_counter() - t0
+        fams = [ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE ")]
+        series = [ln.rsplit(" ", 1)[0] for ln in text.splitlines()
+                  if ln and not ln.startswith("#")]
+        need = ("emqx_xla_audit_total", "emqx_xla_audit_divergence_total",
+                "emqx_xla_audit_quarantine_total", "emqx_xla_audit_unquarantine_total",
+                "emqx_xla_audit_quarantine_resolve_refusals_total",
+                "emqx_xla_publish_stage_seconds", "emqx_xla_delivery_stage_seconds",
+                "emqx_xla_slo_burn_rate", "emqx_xla_slo_breached",
+                "emqx_flight_events_total", "emqx_flight_snapshots_total",
+                "emqx_flight_triggers_total", "emqx_hook_duration_seconds")
+        absent = [f for f in need if f not in fams]
+        if len(fams) != len(set(fams)) or len(series) != len(set(series)) or absent:
+            raise AssertionError(f"(f): families twice or missing {absent}")
+        log(f"observability (f) scrape: {len(fams)} families, {len(series)} series, "
+            f"{len(text)} bytes in {scrape_s:.6f} s, each family once, the audit, "
+            f"stage, SLO and flight families present [{card}]")
+
+        # (g) OTel spans around single publishes
+        tr = MemoryTracer()
+        broker.tracer = tr
+        try:
+            ns = [broker.publish(Message(topic=t, payload=bytes(64), from_client="pub"))
+                  for t in ("mfan/6/p11g", publish_batch(rng, skel, exact)[0])]
+        finally:
+            broker.tracer = None
+        by_id = {sp.span_id: sp for sp in tr.spans}
+        roots = [sp for sp in tr.spans if sp.name == "mqtt.publish"]
+        kids = sorted((sp.name, by_id[sp.parent_id].name) for sp in tr.spans if sp.parent_id)
+        ok = (len(roots) == 2 and kids == [("broker.dispatch", "mqtt.publish")] * 2
+              + [("broker.route", "mqtt.publish")] * 2
+              and all(r.attrs.get("mqtt.deliveries") == n for r, n in zip(roots, ns))
+              and all({"mqtt.topic", "mqtt.qos", "mqtt.clientid"} <= set(r.attrs)
+                      for r in roots)
+              and all("broker.matched_filters" in sp.attrs for sp in tr.spans
+                      if sp.name == "broker.route"))
+        if not ok:
+            raise AssertionError(f"(g): span tree {kids}, roots "
+                                 f"{[r.attrs for r in roots]}")
+        deliveries.seen.clear()
+        log(f"observability (g) OTel: {len(tr.spans)} spans for 2 publishes "
+            f"({ns} deliveries), mqtt.publish -> broker.route + broker.dispatch with "
+            f"the reference's attributes [{card}]")
+        if {k: c.get(k, 0) for k in FAULT_COUNTERS} != rec["faults"]:
+            raise AssertionError("phase 11: device-fault counters moved outside (e)")
+    finally:
+        for o in (obs, m_obs):
+            if o is not None:
+                o.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    phase = launches()
+    missing = [n for n in SINGLE_PATH if phase[n] <= 0]
+    if missing:
+        raise AssertionError(f"phase 11 never launched {missing}")
+    took = time.perf_counter() - t_phase
+    log(f"phase 11: {took:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"), launches {phase} [{card}]")
+    if took > P11_LIMIT_S:
+        raise AssertionError(f"phase 11 took {took:.3f} s, over {P11_LIMIT_S} s")
+    return phase
+
+
 def host_encode_ms(router, skel, exact, seed: int) -> float:
     """The host's own speed in this process: the median of 20 host
     encodes of one batch, no device work."""
@@ -5012,6 +5532,13 @@ def main(argv=None) -> int:
     log(codec_line(counts, "phase 10", need_sessions=False, need_frames=False))
     lap(10)
 
+    # phase 11: the publish path's observability, on phase 7's broker and
+    # phase 9's mesh broker; launch counters from zero at its start
+    o_launches = observability_phase(b_ctx, m_ctx, np.random.default_rng(args.seed + 5),
+                                     args.seed, card)
+    log(watch.line("phase 11"))
+    lap(11)
+
     def phase10_launches(name):
         # a fused kernel's total on each of its entries; the dense-only
         # record's launches are phase 6's, none of them phase 10's
@@ -5020,6 +5547,11 @@ def main(argv=None) -> int:
         key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
         return f_launches.get(key, 0)
 
+    def phase11_launches(name):
+        if name == "match_ids_dense_only":
+            return 0
+        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
+        return o_launches.get(key, 0)
 
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
@@ -5031,9 +5563,10 @@ def main(argv=None) -> int:
         log(f"kernel {name}: {times_line(r)} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} phase10_launches="
-            f"{phase10_launches(name)} equal=True [{r['shape']}] [{card}]")
+            f"{phase10_launches(name)} phase11_launches={phase11_launches(name)} "
+            f"equal=True [{r['shape']}] [{card}]")
 
-    # phase 11: summary
+    # phase 12: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -5096,6 +5629,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches.get(name, path_launches[key]),
             "launches_phase10": phase10_launches(name),
+            "launches_phase11": phase11_launches(name),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

@@ -11,9 +11,11 @@ feeds packets in; the channel returns packets to write out.
 A SUBSCRIBE of two or more filters launches ONE batched retained read
 (`_begin_retained_batch` -> Retainer.retained_read_begin, kernel K8 on
 the card) before its authz/route loop; a single filter reads at B=1
-through Broker._read_retained. Not ported: the publish sentinel's
-sampled ack timing, the listener mountpoint and the zone's `mqtt`
-config (every session gets SessionConfig's defaults).
+through Broker._read_retained. With a publish sentinel attached
+(`broker.sentinel`), 1/sample_n ack packets wall-time their inflight
+bookkeeping into the `ack_sweep` delivery sub-stage. Not ported: the
+listener mountpoint and the zone's `mqtt` config (every session gets
+SessionConfig's defaults).
 """
 
 from __future__ import annotations
@@ -343,6 +345,21 @@ class Channel:
     # --- acks (outbound flow control) --------------------------------------
 
     def _handle_ack(self, pkt: Puback) -> List[object]:
+        # sampled ack-sweep attribution (obs/sentinel): 1/sample_n ack
+        # packets wall-time the inflight bookkeeping + drain below into
+        # the `ack_sweep` delivery sub-stage — QoS1/2 ack traffic shows
+        # up in the decomposition instead of hiding in socket reads
+        st = getattr(self.broker, "sentinel", None)
+        clock = st.maybe_ack_clock() if st is not None else None
+        if clock is None:
+            return self._handle_ack_inner(pkt)
+        t0 = clock()
+        try:
+            return self._handle_ack_inner(pkt)
+        finally:
+            st.observe_delivery("ack_sweep", clock() - t0)
+
+    def _handle_ack_inner(self, pkt: Puback) -> List[object]:
         assert self.session is not None
         s = self.session
         out: List[object] = []

@@ -57,6 +57,9 @@ class DeliveryMetrics:
     def __init__(self) -> None:
         self.sessions_native = 0
         self.sessions_python = 0
+        # rendered as the reference renders it; no path of either
+        # package increments it
+        self.batch_reserves = 0
 
     def snapshot(self) -> dict:
         return {
@@ -64,6 +67,23 @@ class DeliveryMetrics:
             "sessions_python": self.sessions_python,
             "native_enabled": 1 if (_mod is not None and _enabled) else 0,
         }
+
+    def prometheus_lines(self, node_name: str = "emqx@127.0.0.1") -> List[str]:
+        node = f'node="{node_name}"'
+        enabled = 1 if (_mod is not None and _enabled) else 0
+        return [
+            "# TYPE emqx_delivery_native_enabled gauge",
+            f"emqx_delivery_native_enabled{{{node}}} {enabled}",
+            "# TYPE emqx_delivery_sessions_native_total counter",
+            f"emqx_delivery_sessions_native_total{{{node}}} "
+            f"{self.sessions_native}",
+            "# TYPE emqx_delivery_sessions_python_total counter",
+            f"emqx_delivery_sessions_python_total{{{node}}} "
+            f"{self.sessions_python}",
+            "# TYPE emqx_delivery_batch_reserves_total counter",
+            f"emqx_delivery_batch_reserves_total{{{node}}} "
+            f"{self.batch_reserves}",
+        ]
 
 
 DELIVERY_METRICS = DeliveryMetrics()

@@ -61,8 +61,10 @@ same `Broker._pre_publish`/`Broker.dispatch_window`.
 
   * **Circuit breaker** — `breaker_threshold` CONSECUTIVE device
     failures trip the breaker: `Router.suspend_device()` routes ALL
-    match and fanout traffic host-side (degraded but correct), and the
-    `xla_device_breaker` alarm raises (the reference's name, kept).
+    match and fanout traffic host-side (degraded but correct), the
+    `xla_device_breaker` alarm raises (the reference's name, kept), and
+    the flight recorder records a `breaker.trip` event and freezes a
+    `device_breaker_trip` bundle.
 
   * **Recovery** — a background canary probe with bounded exponential
     backoff (`probe_once`, also callable directly) re-dispatches recent
@@ -72,13 +74,23 @@ same `Broker._pre_publish`/`Broker.dispatch_window`.
     and clearing the alarm. A sticky CUDA context error (an illegal
     address, an ECC fault) poisons the process's context: every probe
     then fails, the breaker stays open and the host serves until the
-    process restarts.
+    process restarts. The close records `breaker.close` in the flight
+    recorder's ring.
+
+**Publish sentinel** (obs/sentinel.py, when attached as
+`broker.sentinel`): `submit`/`submit_many` give 1/sample_n publishes a
+StageSpan (every other publish pays one attribute read and one counter
+tick); `_flush` splits its `queue` wait into `submit_wait` and
+`coalesce` and hands the batch's span to `match_filters_begin`
+(encode/kernel); `_collect_one` adds transfer/fetch through finish and
+`resolve` for the overlapped plans, finishes each sampled span and
+queues the shadow-oracle audit of exactly what served, stamped with the
+batch's begin generation.
 
 One deliberate divergence from the reference: it has no shard breaker
 yet, so a failure that carries a `shard` (a ShardedDeviceTable chip
 fault) counts toward the whole-device breaker — a coarser failure
-domain, with answers still exact. Left out too: the flight recorder's
-trip bundles, the publish sentinel and the rule batcher.
+domain, with answers still exact. Left out too: the rule batcher.
 
 Telemetry: queue-wait histogram family `pipeline_queue_wait_seconds`,
 gauges `pipeline_depth` / `pipeline_coalesce` / `queue_depth` /
@@ -186,6 +198,7 @@ class DispatchEngine:
         probe_backoff_ms: float = 100.0,
         probe_backoff_max_ms: float = 5000.0,
         alarms=None,
+        flight=None,
     ) -> None:
         self.broker = broker
         self.router = broker.router
@@ -200,8 +213,12 @@ class DispatchEngine:
         self.probe_backoff_max_s = max(
             self.probe_backoff_s, probe_backoff_max_ms / 1e3
         )
-        # obs/alarm.Alarms the breaker raises and clears (None: none)
+        # obs/alarm.Alarms and obs/flight_recorder.FlightControl: explicit
+        # wiring wins; otherwise resolved lazily through the attached
+        # sentinel (an Observability bundle attached before or after the
+        # engine must reach both)
         self.alarms = alarms
+        self.flight = flight
         # --- admission control knobs
         self.queue_max_depth = max(1, queue_max_depth)
         if queue_policy not in ("shed", "block"):
@@ -215,7 +232,7 @@ class DispatchEngine:
         # 0 = auto-size from the link probe at warmup (BDP).
         self.transfer_chunk_kb = float(transfer_chunk_kb)
         self.warmed = False
-        self._queue: List[tuple] = []  # (msg, future, enqueue clock)
+        self._queue: List[tuple] = []  # (msg, future, enqueue clock, span)
         # launched-but-uncollected batches:
         # (pending match, entries, overlapped resolves, launch clock)
         self._inflight: Deque[tuple] = deque()
@@ -257,6 +274,20 @@ class DispatchEngine:
             tel.set_gauge("queue_waiters", 0)
             tel.set_gauge("queue_overloaded", 0)
 
+    # --- obs wiring -------------------------------------------------------
+
+    def _get_alarms(self):
+        if self.alarms is not None:
+            return self.alarms
+        st = self.broker.sentinel
+        return st.alarms if st is not None else None
+
+    def _get_flight(self):
+        if self.flight is not None:
+            return self.flight
+        st = self.broker.sentinel
+        return st.flight if st is not None else None
+
     # --- warmup: chunk sizing + shape warm-up + GC discipline ------------
 
     def warmup(self) -> dict:
@@ -267,7 +298,9 @@ class DispatchEngine:
              BDP, kernel K12) — and push it into the device table;
           2. run every launch-shape bucket the engine can dispatch
              (pow2 batch ladder up to queue_depth through the REAL
-             begin/finish halves);
+             begin/finish halves), then flip the telemetry to serving:
+             a later new shape bucket counts as
+             `recompiles_at_serve_total`;
           3. freeze the now-steady object graph out of the cyclic
              collector (gc.freeze) so gen-2 passes never scan the
              table/session bulk from inside a launch.
@@ -312,6 +345,7 @@ class DispatchEngine:
         if router.mesh is not None:
             # the mesh's serve state at readiness: its shard count
             info["mesh_shards"] = router.device_table.n_shards
+        tel.mark_serving()
         if not self.warmed:
             gc.collect()
             gc.freeze()
@@ -350,7 +384,12 @@ class DispatchEngine:
         self._check_open()
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
-        if self._admit((msg, fut, self.telemetry.clock()), loop):
+        # publish sentinel (obs/sentinel.py): a 1/sample_n publish gets
+        # a stage span + a deferred shadow-oracle audit; every other
+        # publish pays one attribute read + one counter increment
+        st = self.broker.sentinel
+        span = st.maybe_span(msg) if st is not None else None
+        if self._admit((msg, fut, self.telemetry.clock(), span), loop):
             if len(self._queue) >= self.queue_depth:
                 self._flush()
             elif self._timer is None:
@@ -362,8 +401,9 @@ class DispatchEngine:
     def submit_many(self, msgs) -> "asyncio.Future":
         """Storm surface: enqueue a chunk of publishes as one unit and
         return ONE future resolving to the summed delivery count. Same
-        hooks and match path as submit(); admission control applies per
-        message: a shed message fails the aggregate."""
+        hooks, match path and sentinel sampling per message as submit();
+        admission control applies per message: a shed message fails the
+        aggregate."""
         self._check_open()
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
@@ -372,10 +412,12 @@ class DispatchEngine:
             return fut
         agg = _AggregateCount(fut, len(msgs))
         clock = self.telemetry.clock
+        st = self.broker.sentinel
         for msg in msgs:
+            span = st.maybe_span(msg) if st is not None else None
             # _flush REPLACES self._queue with a fresh list — re-read
             # it each append rather than holding a stale binding
-            if self._admit((msg, agg, clock()), loop):
+            if self._admit((msg, agg, clock(), span), loop):
                 if len(self._queue) >= self.queue_depth:
                     self._flush()
         if self._queue and self._timer is None:
@@ -407,7 +449,7 @@ class DispatchEngine:
                 )
             return False
         tel.count("queue_shed_total")
-        _msg, fut, _t = item
+        _msg, fut, _t, _span = item
         if not fut.done():
             fut.set_exception(
                 QueueOverloadError(
@@ -452,7 +494,7 @@ class DispatchEngine:
                 self.outstanding() < self.queue_max_depth
             ):
                 item = self._waiters.popleft()
-                _msg, fut, t_in = item
+                _msg, fut, t_in, _span = item
                 if fut.done():
                     continue
                 if now - t_in > self.queue_deadline_s:
@@ -478,7 +520,7 @@ class DispatchEngine:
         expired = 0
         while self._waiters:
             item = self._waiters.popleft()
-            _msg, fut, t_in = item
+            _msg, fut, t_in, _span = item
             if fut.done():
                 continue
             if now - t_in > self.queue_deadline_s:
@@ -525,14 +567,29 @@ class DispatchEngine:
             tel = self.telemetry
             broker = self.broker
             router = self.router
+            st = broker.sentinel
             now = tel.clock()
             entries = []
             topics = []
+            bspan = None
             STAGE_MARK.stage = "coalesce"
-            for msg, fut, t_in in batch:
+            for msg, fut, t_in, span in batch:
                 tel.observe_family("pipeline_queue_wait_seconds", now - t_in)
+                if span is not None and bspan is None and st is not None:
+                    bspan = st.batch_span()
                 live = broker._pre_publish(msg)
-                entries.append((live, fut))
+                if span is not None:
+                    # queue sub-decomposition: submit_wait is
+                    # submit()->flush fire; coalesce is this publish's
+                    # wait inside the flush fold (its own hook walk
+                    # included). submit_wait + coalesce == queue
+                    # exactly, by construction — the sum-to-wall
+                    # contract starts here.
+                    t_end = tel.clock()
+                    span.add("queue", t_end - t_in)
+                    span.add_sub("submit_wait", now - t_in)
+                    span.add_sub("coalesce", t_end - now)
+                entries.append((live, fut, span))
                 if live is not None:
                     topics.append(live.topic)
             STAGE_MARK.stage = ""
@@ -543,7 +600,7 @@ class DispatchEngine:
             STAGE_MARK.stage = "match_launch"
             try:
                 try:
-                    pending = router.match_filters_begin(topics)
+                    pending = router.match_filters_begin(topics, span=bspan)
                 except Exception as e:
                     if not is_device_fault(e):
                         raise
@@ -553,7 +610,7 @@ class DispatchEngine:
                     # host truth
                     tel.count("breaker_begin_failures_total")
                     self.note_device_failure(e)
-                    pending = self._host_begin(topics)
+                    pending = self._host_begin(topics, bspan)
                 # device-resolved fanout overlap: topics the match cache
                 # answered at begin time have known filter sets NOW —
                 # launch their plan resolves immediately so the deduped
@@ -582,7 +639,9 @@ class DispatchEngine:
                     tel.observe_family(
                         "ring_gap_seconds", t_launch - self._ring_last_land
                     )
-            self._inflight.append((pending, entries, fanout_pending, t_launch))
+            self._inflight.append(
+                (pending, entries, fanout_pending, bspan, t_launch)
+            )
             self._inflight_pubs += len(entries)
             tel.set_gauge("pipeline_depth", len(self._inflight))
             tel.set_gauge("pipeline_coalesce", len(batch))
@@ -595,14 +654,14 @@ class DispatchEngine:
             self._drain_scheduled = True
             asyncio.get_running_loop().call_soon(self._drain)
 
-    def _host_begin(self, topics):
+    def _host_begin(self, topics, bspan=None):
         """Begin a batch with the device forced out of the loop (the
         failover path when match_filters_begin itself raised)."""
         router = self.router
         prev = router.device_suspended
         router.device_suspended = True
         try:
-            return router.match_filters_begin(topics)
+            return router.match_filters_begin(topics, span=bspan)
         finally:
             router.device_suspended = prev
 
@@ -658,7 +717,7 @@ class DispatchEngine:
         head for re-serve and reports it ready, so the fault takes the
         failed-fetch path instead of escaping the loop callback and
         stranding the batch's publishers."""
-        pending, _entries, fanout_pending, _t = self._inflight[0]
+        pending, _entries, fanout_pending, _bspan, _t = self._inflight[0]
         try:
             if not self.router.match_finish_ready(pending):
                 return False
@@ -701,12 +760,15 @@ class DispatchEngine:
         tickets free their pinned host buffers through PyTorch's
         caching host allocator, which holds a buffer until the copy
         recorded on it has completed."""
-        pending, entries, fanout_pending, t_launch = self._inflight.popleft()
+        pending, entries, fanout_pending, bspan, t_launch = (
+            self._inflight.popleft()
+        )
         head_fault, self._head_fault = self._head_fault, None
         broker = self.broker
         router = self.router
         tel = self.telemetry
         tclock = tel.clock
+        st = broker.sentinel
         device_batch = pending.mode not in ("cached", "host")
         gc_tok = self._gc_pause()
         try:
@@ -750,6 +812,7 @@ class DispatchEngine:
                 # mutation that landed mid-flight leaves them
                 # stale-on-arrival and the dispatch below rebuilds
                 STAGE_MARK.stage = "plan_resolve"
+                t_res = tclock() if bspan is not None else 0.0
                 for fkey, clock, h in fanout_pending:
                     try:
                         plan = router.resolve_fanout_finish(h)
@@ -763,13 +826,18 @@ class DispatchEngine:
                         self.note_device_failure(e)
                         continue
                     broker._store_plan(fkey, clock, plan)
+                if bspan is not None:
+                    bspan.add("resolve", tclock() - t_res)
                 STAGE_MARK.stage = ""
             self._ring_land(tclock(), t_launch, pending.mode, len(entries))
             # the vectorized delivery half: ONE window dispatch for the
             # whole collected batch (plan resolution per unique filter
             # set, session-grouped writes)
-            results, _meta = broker.dispatch_window(
-                [e[0] for e in entries], filter_lists, capture_errors=True
+            results, meta = broker.dispatch_window(
+                [e[0] for e in entries],
+                filter_lists,
+                spans=[e[2] for e in entries],
+                capture_errors=True,
             )
             # aggregate completion: consecutive publishes sharing a
             # submit_many aggregate fold into one add_many
@@ -789,7 +857,7 @@ class DispatchEngine:
                 pend_total = 0
                 pend_k = 0
 
-            for idx, (_live, fut) in enumerate(entries):
+            for idx, (live, fut, span) in enumerate(entries):
                 n = results[idx]
                 if isinstance(n, BaseException):
                     # a delivery-side failure is the publisher's to see
@@ -799,6 +867,18 @@ class DispatchEngine:
                     if not fut.done():
                         fut.set_exception(n)
                     continue
+                if live is not None and span is not None and st is not None:
+                    if bspan is not None:
+                        span.merge(bspan)
+                    st.finish_span(span)
+                    # shadow-oracle audit of exactly what was served:
+                    # the matched filter set + the (filter, dests)
+                    # pairs, stamped with the begin generation so churn
+                    # mid-flight skips rather than false-positives
+                    key, pairs = meta[idx]
+                    st.capture_audit(
+                        live.topic, key, pairs, pending.gen, span.trace_id,
+                    )
                 if fut is pend_fut:
                     pend_total += n
                     pend_k += 1
@@ -825,7 +905,7 @@ class DispatchEngine:
         or host truth itself failed): every publisher in it sees that
         failure (counted)."""
         self.telemetry.count("publish_failures_total", len(entries))
-        for _live, fut in entries:
+        for _live, fut, _span in entries:
             if not fut.done():
                 fut.set_exception(exc)
 
@@ -911,28 +991,33 @@ class DispatchEngine:
         self._set_state("open")
         self.router.suspend_device()
         tel.count("breaker_trips_total")
+        details = {
+            "consecutive_failures": self._consecutive_failures,
+            "threshold": self.breaker_threshold,
+            "last_error": self.last_device_error,
+        }
         log.error(
             "device breaker TRIPPED after %d consecutive failures "
             "(last: %s) — all publish traffic degraded to the host "
             "walk; canary probe armed",
             self._consecutive_failures, self.last_device_error,
         )
-        alarms = self.alarms
+        alarms = self._get_alarms()
         if alarms is not None:
             try:
                 alarms.ensure(
                     ALARM_BREAKER,
-                    details={
-                        "consecutive_failures": self._consecutive_failures,
-                        "threshold": self.breaker_threshold,
-                        "last_error": self.last_device_error,
-                    },
+                    details=details,
                     message="XLA device breaker open: publish path "
                             "degraded to host walk",
                 )
             except Exception:
                 tel.count("breaker_alarm_failures_total")
                 log.exception("breaker alarm failed")
+        fl = self._get_flight()
+        if fl is not None:
+            fl.recorder.record("breaker.trip", "", details)
+            fl.maybe_trigger("device_breaker_trip", details)
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:
@@ -1005,8 +1090,14 @@ class DispatchEngine:
             "verified against host oracle on %d topics",
             len(canary_topics),
         )
-        if self.alarms is not None:
-            self.alarms.ensure_deactivated(ALARM_BREAKER)
+        alarms = self._get_alarms()
+        if alarms is not None:
+            alarms.ensure_deactivated(ALARM_BREAKER)
+        fl = self._get_flight()
+        if fl is not None:
+            fl.recorder.record(
+                "breaker.close", "", {"canary_topics": len(canary_topics)}
+            )
 
     # --- lifecycle --------------------------------------------------------
 

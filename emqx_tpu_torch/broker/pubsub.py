@@ -19,10 +19,18 @@ Publish offers two paths:
 Either way a fanout plan that misses the plan cache and clears
 `_fanout_min_fan` resolves on the card (K5, ops/fanout.py).
 
-Left out of the port for now: the durable-session tier, the external
-tracer, the rule batcher, the publish sentinel and its sampled-span
-delivery walk. A device fault raises to the caller: the host-serving
-failure domain comes with the breaker.
+Observability rides two None-seams, each one attribute read per
+publish when unset: `tracer` (obs/otel.py) wraps a single publish in
+`mqtt.publish` -> `broker.route` + `broker.dispatch` spans
+(`_publish_traced`), and `sentinel` (obs/sentinel.py, attached by
+obs.Observability) samples 1/N publishes: a sampled publish carries a
+StageSpan through `_dispatch`, delivers through `_deliver_plan_timed`
+(delivery-identical to `_deliver_plan`, with sub-stage clocks) and is
+queued for the shadow-oracle audit.
+
+Left out of the port for now: the durable-session tier and the rule
+batcher. A device fault on a plan resolve serves the host walk
+(counted, the breaker told); any other exception raises to the caller.
 """
 
 from __future__ import annotations
@@ -120,6 +128,13 @@ class Broker:
         self.engine = None
         # live listeners (broker/server.py Server.start/stop)
         self.servers: list = []
+        # external tracing seam (emqx_external_trace provider): None
+        # costs one attribute check per publish
+        self.tracer = None
+        # publish sentinel (obs/sentinel.py): shadow-oracle audit +
+        # per-stage latency attribution + SLO burn alarms. None is the
+        # probe-free default — the engine pays one attribute read
+        self.sentinel = None
 
     def enable_dispatch_engine(self, **kw):
         """Attach a DispatchEngine (pipelined async publish path):
@@ -295,11 +310,61 @@ class Broker:
 
     def publish(self, msg: Message) -> int:
         """Single-message cut-through (host trie). Returns deliveries.
-        The fanout PLAN it executes may be device-resolved."""
+        The fanout PLAN it executes may be device-resolved, so a sampled
+        publish audits that plan (and feeds the deliver stage and the
+        SLO). Unsampled cost: one attribute read; one counter tick when
+        a sentinel is attached."""
+        if self.tracer is not None:
+            return self._publish_traced(msg)
+        st = self.sentinel
+        span = st.maybe_span(msg) if st is not None else None
         msg = self._pre_publish(msg)
         if msg is None:
             return 0
-        return self._dispatch(msg, self.router.match_pairs(msg.topic))
+        if span is None:
+            return self._dispatch(msg, self.router.match_pairs(msg.topic))
+        clock = self.router.telemetry.clock
+        gen = self.router.generation
+        pairs = self.router.match_pairs(msg.topic)
+        t0 = clock()
+        n = self._dispatch(msg, pairs, span=span)
+        span.add("deliver", clock() - t0)
+        st.finish_span(span)
+        st.capture_audit(
+            msg.topic, tuple(f for f, _ in pairs), pairs, gen,
+            span.trace_id,
+        )
+        return n
+
+    def _publish_traced(self, msg: Message) -> int:
+        """The external-trace leg (emqx_external_trace.erl:29-123 /
+        emqx_otel_trace spans around route + dispatch); lives off the
+        None-tracer hot path entirely."""
+        from ..obs.otel import trace_id_of
+
+        tr = self.tracer
+        tid = trace_id_of(msg)
+        root = tr.start_span("mqtt.publish", tid, None)
+        root.set("mqtt.topic", msg.topic).set("mqtt.qos", msg.qos)
+        if msg.from_client:
+            root.set("mqtt.clientid", msg.from_client)
+        try:
+            out = self._pre_publish(msg)
+            if out is None:
+                root.set("mqtt.dropped", True)
+                return 0
+            rs = tr.start_span("broker.route", tid, root)
+            pairs = self.router.match_pairs(out.topic)
+            rs.set("broker.matched_filters", len(pairs))
+            tr.finish(rs)
+            ds = tr.start_span("broker.dispatch", tid, root)
+            n = self._dispatch(out, pairs)
+            ds.set("broker.deliveries", n)
+            tr.finish(ds)
+            root.set("mqtt.deliveries", n)
+            return n
+        finally:
+            tr.finish(root)
 
     def publish_batch(self, msgs: Sequence[Message]) -> List[int]:
         """The device hot path: one batched match launch for the whole
@@ -335,6 +400,7 @@ class Broker:
         self,
         lives: Sequence[Optional[Message]],
         filter_lists,
+        spans: Optional[Sequence] = None,
         capture_errors: bool = False,
     ):
         """Batch-at-a-time dispatch of one coalesced window — the
@@ -347,15 +413,20 @@ class Broker:
             walk (_deliver_plan_window): shared-buffer writes grouped
             per SESSION across the window's messages, and each
             session's QoS bookkeeping batched into one ledger call
-            (Session.deliver_many); per-topic delivery order is kept.
+            (Session.deliver_many);
+          * sampled publishes (spans[i] not None) take the per-publish
+            timed walk at their window position, so the stage
+            decomposition contract survives batching; per-topic
+            delivery order is kept either way.
 
         `filter_lists` carries one matched-filter list per non-None
         live, in order (the match_filters_finish shape).  Returns
         (results, meta): results[i] is lives[i]'s delivery count (0
         where the hooks dropped it) or, when capture_errors, the
         exception that publish's future should fail with; meta[i] is
-        (key, pairs), shared across publishes that matched the same
-        filter set."""
+        (key, pairs) for the audit, shared across publishes that matched
+        the same filter set. A failed run fails its publishers' results
+        with the exception; nothing is served in its place."""
         fd = self.router.filter_dests
         results: List = [0] * len(lives)
         meta: List = [None] * len(lives)
@@ -373,22 +444,38 @@ class Broker:
                 groups[key] = g = []
             g.append(i)
             meta[i] = (key, pairs_by_key[key])
+        clock = self.router.telemetry.clock
         for key, idxs in groups.items():
             pairs = pairs_by_key[key]
-            try:
-                if len(idxs) == 1:
-                    results[idxs[0]] = self._dispatch(lives[idxs[0]], pairs)
+            # contiguous span-free publishes batch; a sampled publish
+            # breaks the run so per-topic order survives
+            runs: List[tuple] = []
+            for i in idxs:
+                if spans is not None and spans[i] is not None:
+                    runs.append(("one", i))
+                elif runs and runs[-1][0] == "batch":
+                    runs[-1][1].append(i)
                 else:
-                    self._dispatch_window_group(
-                        [lives[i] for i in idxs], idxs, pairs, key, results
-                    )
-            except Exception as e:
-                # the publisher's future fails with it; nothing is
-                # served in its place
-                if not capture_errors:
-                    raise
-                for i in idxs:
-                    results[i] = e
+                    runs.append(("batch", [i]))
+            for kind, val in runs:
+                run = [val] if kind == "one" else val
+                try:
+                    if kind == "one":
+                        span = spans[val]
+                        t0 = clock()
+                        results[val] = self._dispatch(lives[val], pairs, span=span)
+                        span.add("deliver", clock() - t0)
+                    elif len(val) == 1:
+                        results[val[0]] = self._dispatch(lives[val[0]], pairs)
+                    else:
+                        self._dispatch_window_group(
+                            [lives[i] for i in val], val, pairs, key, results
+                        )
+                except Exception as e:
+                    if not capture_errors:
+                        raise
+                    for i in run:
+                        results[i] = e
         return results, meta
 
     def _dispatch_window_group(
@@ -411,7 +498,7 @@ class Broker:
         if entry is not None and self._plan_entry_fresh(entry, key):
             if tel.enabled:
                 tel.count("fanout_plan_hits", len(msgs))
-            fast = entry[2]
+            fast = self._entry_split(entry)
         else:
             # the first publish pays the miss; the rest of the window
             # would have hit — keep the counters per-publish-equivalent
@@ -451,14 +538,24 @@ class Broker:
             self.retainer.retain(out)
         return out
 
-    def _dispatch(self, msg: Message, pairs: Pairs) -> int:
+    def _dispatch(self, msg: Message, pairs: Pairs, span=None) -> int:
         # the matched-filter key is the cache identity for BOTH plan
         # families (shared legs + direct plan); build it once per
-        # dispatch instead of once per consumer
+        # dispatch instead of once per consumer. A sampled publish
+        # carries its StageSpan through here so the delivery walk
+        # decomposes into DELIVERY_STAGES sub-stages; the span=None
+        # path is the unsampled hot path unchanged.
         pairs = pairs if isinstance(pairs, list) else list(pairs)
         key = tuple(flt for flt, _ in pairs)
-        n = self._dispatch_shared_local(msg, pairs, key)
-        nd = self._dispatch_direct(msg, pairs, key)
+        if span is None:
+            n = self._dispatch_shared_local(msg, pairs, key)
+        else:
+            clock = self.router.telemetry.clock
+            t0 = clock()
+            n = self._dispatch_shared_local(msg, pairs, key)
+            # shared-group election rides the generic fan walk bucket
+            span.add_sub("dispatch_loop", clock() - t0)
+        nd = self._dispatch_direct(msg, pairs, key, span)
         if nd:
             self.metrics.inc("messages.delivered", nd)
         self._account_dispatch(msg, n + nd)
@@ -568,7 +665,9 @@ class Broker:
                 tried = tried + (member,)
         return n
 
-    def _dispatch_direct(self, msg: Message, pairs: Pairs, key: tuple) -> int:
+    def _dispatch_direct(
+        self, msg: Message, pairs: Pairs, key: tuple, span=None
+    ) -> int:
         """Dedup direct destinations across matched filters (aggre/1,
         emqx_broker.erl:408-424): one delivery per client, max granted
         QoS wins — then execute a cached fanout PLAN. Identical
@@ -584,11 +683,15 @@ class Broker:
         per plan so the per-subscriber hot loop skips every
         per-delivery option test the plan already answers."""
         tel = self.router.telemetry
+        t0 = tel.clock() if span is not None else 0.0
         entry = self._fanout_cache.get(key)
         if entry is not None and self._plan_entry_fresh(entry, key):
             if tel.enabled:
                 tel.count("fanout_plan_hits")
-            return self._fanout(msg, entry[2])
+            fast = self._entry_split(entry)
+            if span is not None:
+                span.add_sub("plan_resolve", tel.clock() - t0)
+            return self._fanout(msg, fast, span)
         if tel.enabled:
             tel.count("fanout_plan_stale" if entry is not None
                       else "fanout_plan_misses")
@@ -596,7 +699,20 @@ class Broker:
         plan = self._resolve_plan(key, pairs)
         fast = self._split_plan(plan)
         self._fanout_cache_put(key, entry, clock, plan, fast)
-        return self._fanout(msg, fast)
+        if span is not None:
+            span.add_sub("plan_resolve", tel.clock() - t0)
+        return self._fanout(msg, fast, span)
+
+    def _entry_split(self, entry: tuple) -> tuple:
+        """A cached direct-plan entry's broadcast split. An entry
+        written as (clock, plan) — a plan replaced in place, as the
+        audit tests corrupt one — derives its split from the plan
+        actually installed, so the served deliveries follow that plan
+        and the audit judges it."""
+        try:
+            return entry[2]
+        except IndexError:
+            return self._split_plan(entry[1])
 
     @staticmethod
     def _split_plan(plan: tuple) -> tuple:
@@ -695,24 +811,41 @@ class Broker:
                 other.append((client, flt, opts))
         return mem, other
 
-    def _fanout(self, msg: Message, fast: tuple) -> int:
+    def _fanout(self, msg: Message, fast: tuple, span=None) -> int:
         """Wide-fanout sharding (the 1024 rule) over a split plan
         (_split_plan's (bcast, rest, other)): shard 0 delivers inline;
         later shards are scheduled as separate event-loop turns so a
         100k-subscriber topic cannot stall the loop for one long
         dispatch (the reference parallelizes shards across broker-pool
         workers, emqx_broker.erl:643-672,753-760). Returns deliveries
-        INITIATED — deferred shards count at plan time."""
+        INITIATED — deferred shards count at plan time.
+
+        A sampled publish (span) takes the TIMED inline shard
+        (_deliver_plan_timed — delivery-identical, sub-stage accounting
+        added) and stamps its fan size; deferred shards always run the
+        plain loop (they execute outside the span's deliver wall, so
+        timing them would break sum-to-wall)."""
         bcast, rest, other = fast
         total = len(bcast) + len(rest) + len(other)
         pkt_cache: Dict[bool, tuple] = {}  # retain -> (pkt, (pkt,))
+        if span is not None:
+            span.fan += total
         if total <= FANOUT_SHARD:
+            if span is not None:
+                return self._deliver_plan_timed(
+                    msg, fast, 0, total, pkt_cache, span
+                )
             return self._deliver_plan(msg, fast, 0, total, pkt_cache)
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:
             loop = None
-        n = self._deliver_plan(msg, fast, 0, FANOUT_SHARD, pkt_cache)
+        if span is not None:
+            n = self._deliver_plan_timed(
+                msg, fast, 0, FANOUT_SHARD, pkt_cache, span
+            )
+        else:
+            n = self._deliver_plan(msg, fast, 0, FANOUT_SHARD, pkt_cache)
         for i in range(FANOUT_SHARD, total, FANOUT_SHARD):
             hi = min(i + FANOUT_SHARD, total)
             if loop is None:
@@ -1044,6 +1177,154 @@ class Broker:
                         sink(packets)
                 n += 1
         mark.stage = ""
+        return n
+
+    def _deliver_plan_timed(
+        self,
+        msg: Message,
+        fast: tuple,
+        lo: int,
+        hi: int,
+        pkt_cache: Dict[bool, tuple],
+        span,
+    ) -> int:
+        """_deliver_plan with sub-stage accounting, run ONLY for the
+        inline shard of a sampled publish (1/sample_n) — the unsampled
+        hot loop above stays untouched. Delivery semantics are
+        mirror-identical by contract (tests/test_torch_obs.py drives
+        both against the same plan and asserts identical sink output);
+        the additions are clock pairs around the write calls
+        (session_write: serialize + sink/socket writes) and the
+        session.deliver calls (ack_sweep: QoS1/2 inflight
+        bookkeeping), with dispatch_loop taking the residual of the
+        measured leg wall — so the three sub-stages sum to this
+        shard's wall exactly."""
+        clock = self.router.telemetry.clock
+        t_leg = clock()
+        sw = 0.0  # session_write accumulator
+        ack = 0.0  # ack_sweep accumulator
+        bcast, rest, other = fast
+        n = 0
+        run_hook = self.hooks.has("message.delivered")
+        hooks_run = self.hooks.run_unobserved
+        fr = msg.from_client
+        mq = msg.qos
+        nb = len(bcast)
+        if lo < nb:
+            cached = pkt_cache.get(False)
+            if cached is None:
+                cached = self._shared_pkt(msg, False, pkt_cache)
+            pkt_tuple = cached[1]
+            cache_get = pkt_cache.get
+            last_ver = None
+            data = None
+            for client, s, opts in bcast[lo:min(hi, nb)]:
+                if s.connected:
+                    sb = s.outgoing_sink_bytes
+                    if sb is not None:
+                        if run_hook:
+                            hooks_run("message.delivered", client, msg)
+                        t0 = clock()
+                        ver = s.sink_proto_ver
+                        if ver is not last_ver:
+                            data = cache_get((ver, False))
+                            if data is None:
+                                data = framec.serialize(cached[0], ver)
+                                pkt_cache[(ver, False)] = data
+                            last_ver = ver
+                        sb(data)
+                        sw += clock() - t0
+                        n += 1
+                        continue
+                    if run_hook:
+                        hooks_run("message.delivered", client, msg)
+                    sink = s.outgoing_sink
+                    if sink is not None:
+                        t0 = clock()
+                        sink(pkt_tuple)
+                        sw += clock() - t0
+                    n += 1
+                    continue
+                t0 = clock()
+                packets = s.deliver(msg, opts)
+                ack += clock() - t0
+                if run_hook:
+                    hooks_run("message.delivered", client, msg)
+                if packets:
+                    sink = s.outgoing_sink
+                    if sink is not None:
+                        t0 = clock()
+                        sink(packets)
+                        sw += clock() - t0
+                n += 1
+        m = nb + len(rest)
+        if hi > nb and lo < m:
+            for client, s, opts in rest[max(lo - nb, 0):min(hi, m) - nb]:
+                if opts.no_local and fr == client:
+                    continue
+                if (
+                    s.connected
+                    and (mq == 0 or opts.qos == 0)
+                    and not s.cfg.upgrade_qos
+                ):
+                    retain = msg.retain if opts.retain_as_published else False
+                    cached = pkt_cache.get(retain)
+                    if cached is None:
+                        cached = self._shared_pkt(msg, retain, pkt_cache)
+                    if run_hook:
+                        hooks_run("message.delivered", client, msg)
+                    t0 = clock()
+                    sb = s.outgoing_sink_bytes
+                    if sb is not None:
+                        ver = s.sink_proto_ver
+                        data = pkt_cache.get((ver, retain))
+                        if data is None:
+                            data = framec.serialize(cached[0], ver)
+                            pkt_cache[(ver, retain)] = data
+                        sb(data)
+                    else:
+                        sink = s.outgoing_sink
+                        if sink is not None:
+                            sink(cached[1])
+                    sw += clock() - t0
+                    n += 1
+                    continue
+                t0 = clock()
+                packets = s.deliver(msg, opts)
+                ack += clock() - t0
+                if run_hook:
+                    hooks_run("message.delivered", client, msg)
+                if packets:
+                    sink = s.outgoing_sink
+                    if sink is not None:
+                        t0 = clock()
+                        sink(packets)
+                        sw += clock() - t0
+                n += 1
+        if hi > m:
+            for client, flt, opts in other[max(lo - m, 0):hi - m]:
+                session = self.sessions.get(client)
+                if session is None:
+                    continue
+                if opts.no_local and fr == client:
+                    continue
+                t0 = clock()
+                packets = session.deliver(msg, opts)
+                ack += clock() - t0
+                if run_hook:
+                    hooks_run("message.delivered", client, msg)
+                if packets:
+                    sink = getattr(session, "outgoing_sink", None)
+                    if sink is not None:
+                        t0 = clock()
+                        sink(packets)
+                        sw += clock() - t0
+                n += 1
+        span.add_sub("session_write", sw)
+        span.add_sub("ack_sweep", ack)
+        span.add_sub(
+            "dispatch_loop", max(0.0, clock() - t_leg - sw - ack)
+        )
         return n
 
     def _deliver_to(

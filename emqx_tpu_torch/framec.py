@@ -23,7 +23,7 @@ Python codec for the process.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 from . import native
 from .broker import frame as _pyframe
@@ -61,6 +61,24 @@ class FrameMetrics:
             "fallback_decodes": self.fallback_decodes,
             "native_enabled": 1 if (_mod is not None and _enabled) else 0,
         }
+
+    def prometheus_lines(self, node_name: str = "emqx@127.0.0.1") -> List[str]:
+        node = f'node="{node_name}"'
+        enabled = 1 if (_mod is not None and _enabled) else 0
+        return [
+            "# TYPE emqx_frame_native_enabled gauge",
+            f"emqx_frame_native_enabled{{{node}}} {enabled}",
+            "# TYPE emqx_frame_native_encodes_total counter",
+            f"emqx_frame_native_encodes_total{{{node}}} {self.native_encodes}",
+            "# TYPE emqx_frame_native_decodes_total counter",
+            f"emqx_frame_native_decodes_total{{{node}}} {self.native_decodes}",
+            "# TYPE emqx_frame_fallback_encodes_total counter",
+            f"emqx_frame_fallback_encodes_total{{{node}}} "
+            f"{self.fallback_encodes}",
+            "# TYPE emqx_frame_fallback_decodes_total counter",
+            f"emqx_frame_fallback_decodes_total{{{node}}} "
+            f"{self.fallback_decodes}",
+        ]
 
 
 FRAME_METRICS = FrameMetrics()

@@ -28,8 +28,16 @@ surface. The device failure domain's router half is here: the
 `fault_injector` seam at every leg (chaos/faults.py), the open-breaker
 host mode (`suspend_device`), the host re-serve of a failed batch
 (`match_filters_host`), the breaker's canary (`canary_match`) and its
-full re-upload (`device_resync`). The shard failure domain, quarantine
-and the chaos corrupters of the reference are not part of this port.
+full re-upload (`device_resync`). The shadow-audit quarantine is here
+too: the publish sentinel (obs/sentinel.py) moves filters whose served
+answer diverged from host truth to the host walk
+(`quarantine_filters`; the overlay in `match_filters_finish`, the
+refusal in `resolve_fanout_begin`) until the next table sync re-uploads
+the index and their rows, which ends it (`_maybe_unquarantine`). The
+chaos corrupters (`chaos_corrupt_rows`, `chaos_corrupt_slots`) decay
+the device slot table in place, on one device and on the mesh, so that
+chain can be driven. The shard failure domain of the reference is not
+part of this port.
 
 Route writes run through the native churn core by default
 (ops/speedups.py over the port's speedups.cc): `add_route`,
@@ -701,6 +709,13 @@ class Router:
         # while the circuit breaker is open.
         self.fault_injector = None
         self.device_suspended = False
+        # shadow-audit quarantine (obs/sentinel.py): filters whose
+        # device rows diverged from the host oracle. While quarantined
+        # a filter is answered by the host walk (overlay in
+        # match_filters_finish, refusal in resolve_fanout_begin); its
+        # row is re-marked dirty so the next table sync rewrites device
+        # state from host truth, which auto-unquarantines (counted).
+        self._quarantined: Dict[str, Optional[int]] = {}
         # native churn core state: the handle caches the C side's
         # entire attribute/buffer fetch so a ONE-pair add/delete rides
         # the same core as a 1000-row storm with ~zero per-call setup.
@@ -736,6 +751,183 @@ class Router:
         if self.match_cache is None or self.match_cache.capacity != capacity:
             self.match_cache = match_ops.GenMatchCache(capacity)
         return self.match_cache
+
+    # --- shadow-audit quarantine (obs/sentinel.py) ----------------------
+
+    def quarantine_filters(self, filters: Sequence[str]) -> int:
+        """Move `filters` to the host-walk fallback: the batched match
+        path overlays their answers from the host state and the fanout
+        kernel refuses their rows, until the next table sync rewrites
+        the rows from host truth. Returns newly quarantined count."""
+        tel = self.telemetry
+        added = 0
+        for f in filters:
+            if f in self._quarantined:
+                continue
+            row = self._fanout_row(f)
+            self._quarantined[f] = row
+            if row is not None:
+                # force a device rewrite of this row at the next sync —
+                # content is unchanged host-side, so no generation bump
+                # from the table itself
+                self.table.dirty.append(row)
+                # dest segment rebuilds from the dest dict at the next
+                # resolve (post-unquarantine), through the live
+                # suboption seam — same lazy path as the storm feed
+                self.dest_store.pending_rows.add(row)
+            added += 1
+        if added:
+            # cached match results were populated from the now-suspect
+            # device output: stale them all via the aux generation
+            self._aux_gen += 1
+            # the divergence localizes to filters, not to WHICH device
+            # array decayed — re-upload the whole hash-index device
+            # state at the next sync, not just the rows: the class
+            # metadata and the slot arrays (the index's flags) and the
+            # residual mask (dropped here, so _sync_index re-uploads it
+            # whole on DeviceTable and ShardedDeviceTable alike)
+            ix = self.index
+            if ix is not None:
+                ix.meta_dirty = True
+                ix.rebuilt = True
+                ix.residual_dirty = True
+                self.device_table._dev_residual = None
+            if tel.enabled:
+                tel.count("audit_quarantine_total", added)
+                tel.set_gauge(
+                    "audit_quarantined_filters", len(self._quarantined)
+                )
+        return added
+
+    def quarantined_filters(self) -> List[str]:
+        return sorted(self._quarantined)
+
+    def _quarantine_overlay(
+        self, topics: Sequence[str], out: List[List[str]]
+    ) -> None:
+        """Rewrite kernel answers for quarantined filters from host
+        truth: a filter the device wrongly dropped is re-added, one it
+        wrongly surfaced is removed. Runs only while the quarantine set
+        is non-empty — the steady-state cost is one falsy test in
+        match_filters_finish. Covers batches LAUNCHED against the
+        corrupt table that finish after the audit quarantined it (the
+        pipeline's in-flight window)."""
+        q = []
+        for f in self._quarantined:
+            routed = (
+                f in self._wild or f in self._deep or f in self._exact
+            )
+            q.append((f, topic_mod.words(f), routed))
+        served = 0
+        for i, t in enumerate(topics):
+            tw = topic_mod.words(t)
+            lst = out[i]
+            for f, fw, routed in q:
+                hit = routed and topic_mod.match(tw, fw)
+                if hit and f not in lst:
+                    lst.append(f)
+                elif not hit and f in lst:
+                    lst.remove(f)
+            served += 1
+        tel = self.telemetry
+        if tel.enabled and served:
+            tel.count("audit_quarantine_overlay_total", served)
+
+    def _maybe_unquarantine(self) -> None:
+        """Called after a device sync: once the dirtied rows drained,
+        the device rows were rewritten from host truth — the clean
+        table sync that ends the quarantine."""
+        if self.table.dirty:
+            return  # quarantined rows not yet synced (mid-storm)
+        n = len(self._quarantined)
+        self._quarantined.clear()
+        self._aux_gen += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.count("audit_unquarantine_total", n)
+            tel.set_gauge("audit_quarantined_filters", 0)
+
+    # --- chaos corruption seam --------------------------------------------
+
+    def chaos_corrupt_rows(self, filters: Sequence[str]) -> int:
+        """Fault injection: empty the DEVICE copy of the given filters'
+        cuckoo slots while host truth stays pristine. The hash kernel
+        stops surfacing exactly these filters, so a served publish on a
+        matching topic diverges from the host oracle and the sentinel's
+        detect -> quarantine -> clean-sync chain must engage. Scoped:
+        every other filter keeps serving correctly. The write is one
+        in-place store per device tensor, in stream order before the
+        next launch (no host round trip of the table); on a mesh each
+        slot is written in the bucket tensor of every device group
+        holding its shard. Returns slots corrupted (0 when a filter is
+        host-resident or unclassed, or the device state is not built
+        yet — callers warm the table first). The quarantine's recovery
+        sync re-uploads the index state, which heals this."""
+        ix = self.index
+        if ix is None or getattr(self.device_table, "_dev_slots", None) is None:
+            return 0
+        slots = []
+        for f in filters:
+            row = self._fanout_row(f)
+            if row is None or row >= len(ix._row_bucket):
+                continue
+            b = int(ix._row_bucket[row])
+            if b < 0:
+                continue  # residual/unclassed: dense leg, not slotted
+            slots.append(int(ix._bkt_slot[b]))
+        if not slots:
+            return 0
+        self._corrupt_slot_ids(np.asarray(slots, np.int64))
+        if self.telemetry.enabled:
+            self.telemetry.count("chaos_corrupt_slots_total", len(slots))
+        return len(slots)
+
+    def chaos_corrupt_slots(self) -> int:
+        """Fault injection: full device slot-table decay — every bucket
+        id becomes -1, so the hash kernel stops surfacing every classed
+        filter. Returns slots decayed (the device table's slot count,
+        a mesh's trailing pad slots included, as the reference counts)."""
+        dt = self.device_table
+        if self.index is None or getattr(dt, "_dev_slots", None) is None:
+            return 0
+        n = self._corrupt_slot_ids(None)
+        if self.telemetry.enabled:
+            self.telemetry.count("chaos_corrupt_slots_total", n)
+        return n
+
+    def _corrupt_slot_ids(self, slots: Optional[np.ndarray]) -> int:
+        """Write bucket id -1 at global slot ids `slots` (every slot when
+        None) of the device slot table; returns the table's global slot
+        count. DeviceTable holds one SlotArrays; ShardedDeviceTable one
+        per device group, each the bucket-aligned slices of the shards
+        that group holds, back to back in sub order (parallel/mesh.py)."""
+        dt = self.device_table
+        if self.mesh is None:
+            bucket = dt._dev_slots.bucket
+            if slots is None:
+                bucket.fill_(-1)
+            else:
+                idx = torch.from_numpy(slots).to(bucket.device, non_blocking=True)
+                bucket.index_fill_(0, idx, -1)
+            return int(bucket.shape[0])
+        n_sub = dt.n_shards
+        local = 0
+        for g, sl in zip(self.mesh.groups, dt._dev_slots):
+            bucket = sl.bucket
+            local = int(bucket.shape[0]) // len(g.subs)
+            if slots is None:
+                bucket.fill_(-1)
+                continue
+            shard = slots // local
+            keep = np.isin(shard, g.subs)
+            if not keep.any():
+                continue
+            pos_of = np.full(n_sub, -1, np.int64)
+            pos_of[list(g.subs)] = np.arange(len(g.subs))
+            pos = pos_of[shard[keep]] * local + slots[keep] % local
+            idx = torch.from_numpy(pos).to(bucket.device, non_blocking=True)
+            bucket.index_fill_(0, idx, -1)
+        return local * n_sub
 
     # --- device failure domain -------------------------------------------
 
@@ -907,6 +1099,15 @@ class Router:
             if tel.enabled:
                 tel.count("fanout_host_fallback_total")
             return None
+        if self._quarantined:
+            # a quarantined filter's dest segment is suspect: the whole
+            # set resolves host-side until the clean sync clears it
+            for f in filters:
+                if f in self._quarantined:
+                    if tel.enabled:
+                        tel.count("fanout_host_fallback_total")
+                        tel.count("audit_quarantine_resolve_refusals_total")
+                    return None
         rows = []
         for f in filters:
             row = self._fanout_row(f)
@@ -1468,6 +1669,8 @@ class Router:
             root.set("batch", len(sub))
         p.root = root
         self.device_table.sync()
+        if self._quarantined:
+            self._maybe_unquarantine()
         mark = STAGE_MARK
         prev_stage = mark.stage
         mark.stage = "encode"
@@ -1637,10 +1840,13 @@ class Router:
             tel.record_dispatch(LEG_DENSE, p.dense_elapsed + clock() - t0)
             tel.end_span(sp)
         if p.mode not in ("cached", "host"):
-            # (host mode already folded deep matches via match_filters)
+            # (host mode already folded deep matches via match_filters
+            # and needs no quarantine overlay: it IS host truth)
             if self._deep:
                 for i, t in enumerate(topics):
                     out[i].extend(self._deep_trie.match(topic_mod.words(t)))
+            if self._quarantined and out:
+                self._quarantine_overlay(topics, out)
             tel.end_span(p.root)
         if span is not None:
             # transfer = residual device->host wait the tickets

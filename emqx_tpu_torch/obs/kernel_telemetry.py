@@ -28,6 +28,15 @@ per-shard host->device rows as the labeled counter family
 keys `mesh_match_ids`, `mesh_match_ids_hash`, `apply_delta`,
 `mesh_slot_delta` and `mesh_sync`.
 
+Export surfaces: `prometheus_lines()` renders the `emqx_xla_*`
+families (the reference's names, kept so the two scrapes compare one to
+one: histograms with `_bucket`/`_sum`/`_count` + `le` labels) appended
+to the broker scrape; `snapshot()` is the JSON view the flight
+recorder's bundles carry; an optional `tracer` (obs/otel.py Tracer)
+receives encode -> dispatch -> unpack spans per batch, and an attached
+flight recorder (`flight`, obs/flight_recorder.py) receives every
+dispatch-leg sample and every new shape bucket as a ring event.
+
 `NullKernelTelemetry` keeps the hot path branch-free when disabled:
 every record method is a bound no-op and `clock` returns 0.0 without a
 syscall, so instrumented code never tests a flag.
@@ -38,7 +47,7 @@ from __future__ import annotations
 import logging
 from bisect import bisect_left
 from time import perf_counter
-from typing import Dict, Sequence, Set, Tuple
+from typing import Any, Dict, List, Sequence, Set, Tuple
 
 log = logging.getLogger("emqx_tpu_torch.obs.kernel_telemetry")
 
@@ -89,6 +98,13 @@ class StreamingHistogram:
         self.total += 1
         self.sum += v
 
+    def merge(self, other: "StreamingHistogram") -> None:
+        assert self.bounds == other.bounds
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.total += other.total
+        self.sum += other.sum
+
     def percentile(self, p: float) -> float:
         """p in [0, 100] -> seconds (0.0 when empty). Interpolates
         linearly within the located bucket; the +Inf bucket reports the
@@ -108,6 +124,77 @@ class StreamingHistogram:
                 return lo + (hi - lo) * max(0.0, min(1.0, frac))
         return self.bounds[-1]
 
+    def clamp_saturated(self) -> bool:
+        """True when at least half the samples sit in bucket zero —
+        i.e. the median is at or below the epsilon clamp ceiling, so
+        the series measures the floor, not a throughput."""
+        return self.total > 0 and 2 * self.counts[0] >= self.total
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "count": self.total,
+            "sum_seconds": round(self.sum, 9),
+            "p50_ms": round(self.percentile(50) * 1e3, 6),
+            "p99_ms": round(self.percentile(99) * 1e3, 6),
+            "p999_ms": round(self.percentile(99.9) * 1e3, 6),
+            "clamp_saturated": self.clamp_saturated(),
+        }
+
+
+class CountHistogram(StreamingHistogram):
+    """Unitless twin for SIZE distributions (fanout width, batch
+    occupancy): same streaming ladder machinery, but the snapshot
+    reports raw quantiles — `p50`, not `p50_ms` — so a subscriber
+    count never renders as seconds of latency, and the exposition
+    `_sum` drops the nanosecond padding."""
+
+    __slots__ = ()
+
+    unit = "count"
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "count": self.total,
+            "sum": round(self.sum, 3),
+            "p50": round(self.percentile(50), 3),
+            "p99": round(self.percentile(99), 3),
+            "p999": round(self.percentile(99.9), 3),
+            "clamp_saturated": self.clamp_saturated(),
+        }
+
+
+def _fmt_le(v: float) -> str:
+    return format(v, "g")
+
+
+def render_histogram_lines(
+    lines: List[str],
+    fam: str,
+    label_str: str,
+    h: StreamingHistogram,
+    emit_type: bool = True,
+) -> None:
+    """Append one labeled histogram series in Prometheus text
+    exposition (cumulative `le` buckets, terminal +Inf, `_sum`/`_count`).
+    Shared by every histogram exporter in obs/ — kernel telemetry,
+    flight-recorder hook durations, sentinel publish stages — so the
+    structural invariants live in one place. `emit_type=False` for the
+    2nd..nth series of one family."""
+    if emit_type:
+        lines.append(f"# TYPE {fam} histogram")
+    cum = 0
+    for le, c in zip(h.bounds, h.counts):
+        cum += c
+        lines.append(f'{fam}_bucket{{{label_str},le="{_fmt_le(le)}"}} {cum}')
+    lines.append(f'{fam}_bucket{{{label_str},le="+Inf"}} {h.total}')
+    # seconds histograms keep nanosecond precision; unitless (count)
+    # histograms render their sum as a plain number
+    if h.unit == "seconds":
+        lines.append(f"{fam}_sum{{{label_str}}} {h.sum:.9f}")
+    else:
+        lines.append(f"{fam}_sum{{{label_str}}} {_fmt_le(h.sum)}")
+    lines.append(f"{fam}_count{{{label_str}}} {h.total}")
+
 
 class KernelTelemetry:
     """The live collector. One instance per Router (always-on by
@@ -123,6 +210,12 @@ class KernelTelemetry:
         # (None costs one attribute read per batch, same contract as
         # broker.tracer)
         self.tracer = tracer
+        # flight-recorder seam (obs/flight_recorder.FlightRecorder):
+        # when attached, every dispatch-leg sample also lands in the
+        # ring as an `xla.<leg>` event (the reference's kind names) and
+        # every new shape bucket as `xla.recompile`. None costs one
+        # attribute read per record.
+        self.flight = None
         self.retrace_warn_after = retrace_warn_after
         self.hist: Dict[str, StreamingHistogram] = {}
         # standalone histograms outside the dispatch legs (the result
@@ -134,6 +227,11 @@ class KernelTelemetry:
         self.gauges: Dict[str, float] = {}
         self._shape_keys: Dict[str, Set[tuple]] = {}
         self._trace_seq = 0
+        # serve-time shape accounting: False during the engine's shape
+        # warm-up, True once mark_serving() flips it — a fresh shape key
+        # after that is a new launch shape a production publisher met,
+        # counted as `recompiles_at_serve_total`
+        self.serving = False
 
     # --- dispatch histograms ---------------------------------------------
 
@@ -145,6 +243,22 @@ class KernelTelemetry:
 
     def record_dispatch(self, leg: str, seconds: float) -> None:
         self.histogram(leg).observe(seconds)
+        fr = self.flight
+        if fr is not None:
+            fr.record("xla." + leg, "", {"s": seconds})
+
+    def record_samples(
+        self, leg: str, values: Sequence[float]
+    ) -> StreamingHistogram:
+        """Fold a batch of already-measured samples into `leg`,
+        returning a histogram of JUST this batch so the caller can
+        query saturation per measurement while the collector
+        accumulates the run-wide series."""
+        batch = StreamingHistogram()
+        for v in values:
+            batch.observe(float(v))
+        self.histogram(leg).merge(batch)
+        return batch
 
     def observe_family(self, name: str, seconds: float) -> None:
         """Record one sample into the standalone histogram `name`
@@ -153,6 +267,20 @@ class KernelTelemetry:
         if h is None:
             h = self.family_hist[name] = StreamingHistogram()
         h.observe(seconds)
+
+    def dispatch_percentile(
+        self,
+        p: float,
+        legs: Sequence[str] = (LEG_HASH, LEG_DENSE, LEG_FALLBACK),
+    ) -> float:
+        """Percentile over the merged device-dispatch legs (seconds) —
+        the dashboard's one-number 'match p99'."""
+        merged = StreamingHistogram()
+        for leg in legs:
+            h = self.hist.get(leg)
+            if h is not None:
+                merged.merge(h)
+        return merged.percentile(p)
 
     # --- counters / gauges ------------------------------------------------
 
@@ -192,6 +320,14 @@ class KernelTelemetry:
             return False
         seen.add(key)
         self.count("recompiles_total")
+        if self.serving:
+            self.count("recompiles_at_serve_total")
+        fr = self.flight
+        if fr is not None:
+            fr.record(
+                "xla.recompile", "",
+                {"kernel": kernel, "shape": str(key), "buckets": len(seen)},
+            )
         if len(seen) == self.retrace_warn_after:
             self.count("retrace_warnings_total")
             log.warning(
@@ -200,6 +336,16 @@ class KernelTelemetry:
                 "pow2 sizes", kernel, len(seen),
             )
         return True
+
+    def shape_buckets(self) -> Dict[str, int]:
+        return {k: len(v) for k, v in self._shape_keys.items()}
+
+    def mark_serving(self) -> None:
+        """Close the warm-up window: every shape bucket met from here on
+        is a serve-time new launch shape. The counter is seeded at 0 so
+        the family renders on the scrape even over a clean run."""
+        self.serving = True
+        self.counters.setdefault("recompiles_at_serve_total", 0)
 
     # --- device-table state ----------------------------------------------
 
@@ -256,6 +402,78 @@ class KernelTelemetry:
         if span is not None:
             self.tracer.finish(span)
 
+    # --- export -----------------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-able runtime view (the flight bundles' telemetry dump)."""
+        return {
+            "enabled": True,
+            "counters": dict(sorted(self.counters.items())),
+            "labeled_counters": {
+                name: {
+                    ",".join(f"{k}={v}" for k, v in key): n
+                    for key, n in sorted(series.items())
+                }
+                for name, series in sorted(self.labeled_counters.items())
+            },
+            "gauges": dict(sorted(self.gauges.items())),
+            "dispatch": {
+                leg: h.snapshot() for leg, h in sorted(self.hist.items())
+            },
+            "families": {
+                name: h.snapshot()
+                for name, h in sorted(self.family_hist.items())
+            },
+            "recompiles": {
+                "total": self.counters.get("recompiles_total", 0),
+                "shape_buckets": dict(sorted(self.shape_buckets().items())),
+            },
+        }
+
+    def prometheus_lines(self, node_name: str = "emqx@127.0.0.1") -> List[str]:
+        """`emqx_xla_*` families in Prometheus text exposition. The
+        namespace is disjoint from the broker's `emqx_` families (none
+        of which start with `xla_`), so appending to the broker scrape
+        preserves the one-family-per-name invariant."""
+        node = f'node="{node_name}"'
+        lines: List[str] = []
+        if self.hist:
+            fam = "emqx_xla_dispatch_duration_seconds"
+            lines.append(f"# TYPE {fam} histogram")
+            for leg in sorted(self.hist):
+                render_histogram_lines(
+                    lines, fam, f'{node},leg="{leg}"', self.hist[leg],
+                    emit_type=False,
+                )
+        for name in sorted(self.family_hist):
+            render_histogram_lines(
+                lines, f"emqx_xla_{name}", node, self.family_hist[name]
+            )
+        for name in sorted(self.counters):
+            fam = f"emqx_xla_{name}"
+            lines.append(f"# TYPE {fam} counter")
+            lines.append(f"{fam}{{{node}}} {self.counters[name]}")
+        for name in sorted(self.labeled_counters):
+            fam = f"emqx_xla_{name}"
+            lines.append(f"# TYPE {fam} counter")
+            series = self.labeled_counters[name]
+            for key in sorted(series):
+                lbl = ",".join(f'{k}="{v}"' for k, v in key)
+                lines.append(f"{fam}{{{node},{lbl}}} {series[key]}")
+        for name in sorted(self.gauges):
+            fam = f"emqx_xla_{name}"
+            lines.append(f"# TYPE {fam} gauge")
+            lines.append(f"{fam}{{{node}}} {self.gauges[name]}")
+        buckets = self.shape_buckets()
+        if buckets:
+            fam = "emqx_xla_jit_cache_entries"
+            lines.append(f"# TYPE {fam} gauge")
+            for kernel in sorted(buckets):
+                lines.append(
+                    f'{fam}{{{node},kernel="{kernel}"}} {buckets[kernel]}'
+                )
+        return lines
+
 
 def _nbytes(x) -> int:
     """Bytes of a tensor or of nested tuples of tensors (a mesh table
@@ -274,6 +492,7 @@ class NullKernelTelemetry:
 
     enabled = False
     tracer = None
+    flight = None
 
     @staticmethod
     def clock() -> float:
@@ -285,8 +504,17 @@ class NullKernelTelemetry:
     def record_dispatch(self, leg, seconds) -> None:
         pass
 
+    def record_samples(self, leg, values) -> StreamingHistogram:
+        batch = StreamingHistogram()
+        for v in values:
+            batch.observe(float(v))
+        return batch
+
     def observe_family(self, name, seconds) -> None:
         pass
+
+    def dispatch_percentile(self, p, legs=()) -> float:
+        return 0.0
 
     def count(self, name, n=1) -> None:
         pass
@@ -314,6 +542,18 @@ class NullKernelTelemetry:
 
     def end_span(self, span) -> None:
         pass
+
+    def shape_buckets(self) -> Dict[str, int]:
+        return {}
+
+    def mark_serving(self) -> None:
+        pass
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"enabled": False}
+
+    def prometheus_lines(self, node_name: str = "emqx@127.0.0.1") -> List[str]:
+        return []
 
 
 NULL = NullKernelTelemetry()
