@@ -11,8 +11,9 @@ to compare two trees in many turns of one call.
 Phases (any failure exits non-zero; no phase swallows an exception):
 
 1. Device: require a CUDA card; print `nvidia-smi`'s name and power limit.
-2. Build: compile the two native host cores (emqx_tpu_torch/native:
-   the churn core and delivery ledger, the frame codec) with g++ against
+2. Build: compile the three native host extensions (emqx_tpu_torch/
+   native: the churn core and delivery ledger, the frame codec, the JSON
+   codec of the rule engine) with g++ against
    this Python's headers, printing their seconds, the g++ version and
    the include directory; compile every kernel from
    emqx_tpu_torch/ops/csrc with nvcc for sm_90a (one nvcc per source, in
@@ -303,8 +304,45 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    device-fault counter moves outside (e), if K1, K2, the table sync,
    K5 or the fanout sync never launched, or if the phase takes more than
    90 s.
-12. Summary: one line per kernel (times, bound, launches, phase 10's
-   and phase 11's launches, equal), the
+12. The rule engine, the JSON codec and payload governance on the publish
+   path. (a) The codec
+   (`_emqx_torch_json`, built in phase 2) byte-equal to stdlib on
+   bench_json's payload mix and 400 seeded documents (loads and dumps,
+   plain and compact), with sort_keys and an int dict key replayed on
+   stdlib and counted in fallback_dumps. (b) A fresh Broker on the card
+   holding 65,536 routes of phase 3's pattern (with its skeleton
+   filters, so the residual leg runs), sessions on hot/#, on hot/wide/+
+   (1,024: a plan past the fanout threshold), on out/# and on 4
+   cold/{i}/# each (1,024), all QoS 0, and the three 'message.publish'
+   hooks: a SchemaValidation (a registry JSON schema on hot/#: x past
+   93 fails, ~6% dropped), a MessageTransformation (payload.unit
+   rewritten on hot/#) and a RuleEngine with the batched WHERE window
+   and BASELINE.json config 5's 10,000 rules as bench_rules_where builds
+   them (9,968 cold `cold/{i}/#` rules, 32 hot `hot/#` rules with a
+   capture action, 4 of them also republishing to `out/${topic}`).
+   Launch counters set to 0; 8 batches of 4,096 hot publishes (4 on
+   hot/wide/...) and 512 cold ones, 4 through Broker.publish_batch and
+   4 through the DispatchEngine (one flush a batch), with 256 routes
+   deleted and re-added, 16 skeleton swaps and a joiner and a leaver on
+   hot/wide/+ between batches; counters read. The same seeded
+   publishes and churn through a Broker(device="cpu") whose engine
+   evaluates WHERE per row (Broker.publish: the host walk and
+   eval_expr, the oracle): every rule's metrics, the captured rows
+   (count and content, by rule), the validation, transformation and
+   broker counters and each client's delivery count and payload digest
+   equal; where_stats 0 uncompiled and 0 fallback rows, one window a
+   batch. (c) K1, K2, the table sync, K5 and the fanout sync launched in
+   (b), no device-fault counter moved. (d) Recorded, no limit: batched
+   rule-rows/s against eval_expr rule-rows/s (bench_rules_where in this
+   process, 3 turns each), publish_batch publishes/s with the three
+   hooks against the same broker without them (3 turns each: on, off,
+   off, on, on, off, the collector paused in each), and
+   the codec's loads and dumps per second against stdlib (bench_json's
+   timing). (e) The scrape shows each emqx_json_* family once, the
+   codec enabled. Fails on any difference, a missing launch or past
+   90 s.
+13. Summary: one line per kernel (times, bound, launches, phase 10's,
+   phase 11's and phase 12's launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
@@ -317,8 +355,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    K13 apply_delta and K18 slot delta entries, three entries of the one
    record, count phase 9 (c)'s row-only and slot-only growth launches);
    K9-K11, K13's counts
-   and packed and K15 are on no serve path and show 0; `launches_phase10`
-   and `launches_phase11` beside it), then, as the last line, `{"ok": true, "device": {...}}`.
+   and packed and K15 are on no serve path and show 0; `launches_phase10`,
+   `launches_phase11` and `launches_phase12` beside it), then, as the
+   last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -633,16 +672,16 @@ def publish_batch(rng, skel, exact):
     return out
 
 
-def add_route_set(router, rng):
-    """The slice's route set, through the cluster-route storm path
-    (Router.add_routes). Returns (skeleton filters, exact topics, host
-    seconds)."""
+def add_route_set(router, rng, n_routes=N_ROUTES):
+    """The slice's route set (n_routes of its pattern), through the
+    cluster-route storm path (Router.add_routes). Returns (skeleton
+    filters, exact topics, host seconds)."""
     t0 = time.perf_counter()
     step = 1 << 16
-    for lo in range(0, N_ROUTES, step):
+    for lo in range(0, n_routes, step):
         router.add_routes([
             (f"t{i % 997}/r{i % 13}/d{i}/+/m/#", f"n{i % 7}")
-            for i in range(lo, min(N_ROUTES, lo + step))
+            for i in range(lo, min(n_routes, lo + step))
         ])
     skel = skeleton_filters(rng)
     router.add_routes([(f, "s") for f in skel])
@@ -5293,6 +5332,582 @@ def observability_phase(b_ctx, m_ctx, rng, seed, card):
     return phase
 
 
+# --- phase 12: the rule engine and payload governance on the publish path ----------
+
+RULES_N = 10_000  # bench_rules_where (bench.py:1531): 9,968 cold rules and 32 hot
+RULES_HOT = 32
+RULES_REPUBLISH = 4  # hot rules that also republish to out/${topic}
+RULES_BATCH = 4096  # hot publishes a batch: each meets every hot rule's WHERE
+RULES_COLD_PUBS = 512  # cold publishes a batch, besides the hot ones
+RULES_WIDE_PUBS = 4  # hot publishes a batch on hot/wide/{v}: the plan K5 resolves
+RULES_BATCHES = 4  # batches through each path (publish_batch, the dispatch engine)
+RULES_ROUTES = NATIVE_ROUTES  # routes of the slice's pattern the broker holds
+# sessions on hot/#, on hot/wide/+ (a fan past Broker._fanout_min_fan),
+# on out/# (the republished copies) and on RULES_COLD_FILTERS cold/{i}/# each
+RULES_SUBS = {"hot": 8, "wide": 1024, "out": 8, "cold": 1024}
+RULES_COLD_FILTERS = 4
+RULES_CHURN = 256  # routes deleted and re-added between batches
+RULES_SWAP = 16  # skeleton filters swapped between batches
+RULES_TURNS = 3
+JSON_N = 4000  # bench_json's loop (bench.py:1653)
+P12_LIMIT_S = 90.0
+# the validation's schema: an x past 93 fails (6 of the 100 values of x)
+HOT_SCHEMA = {"type": "object", "required": ["x", "s"],
+              "properties": {"x": {"type": "integer", "maximum": 93},
+                             "s": {"type": "string"}}}
+RULES_SIZES = {"n_rules": RULES_N, "n_hot": RULES_HOT, "n_republish": RULES_REPUBLISH,
+               "batch": RULES_BATCH, "n_cold_pubs": RULES_COLD_PUBS,
+               "n_wide_pubs": RULES_WIDE_PUBS, "n_batches": 2 * RULES_BATCHES,
+               "n_routes": RULES_ROUTES, "subs": RULES_SUBS}
+WHERE_STATS_KEYS = ("windows", "batch_rows", "fallback_rows", "uncompiled_rows")
+
+
+def rules_specs(n_rules=RULES_N, n_hot=RULES_HOT, n_republish=RULES_REPUBLISH):
+    """BASELINE.json config 5 as bench_rules_where builds it, as
+    `convert.rules_from_specs` tuples: cold rule i `SELECT qos FROM
+    "cold/{i}/#" WHERE payload.x > {i % 50}` (no action); hot rule i
+    `SELECT qos FROM "hot/#" WHERE payload.x > {3i} AND payload.s =
+    'a{i % 4}'` with a `capture` action, the first n_republish also
+    republishing to `out/${topic}`."""
+    specs = [(f"cold{i}", f'SELECT qos FROM "cold/{i}/#" WHERE payload.x > {i % 50}',
+              [], True, "") for i in range(n_rules - n_hot)]
+    for i in range(n_hot):
+        acts = [{"function": "capture", "args": {"rule": f"hot{i}"}}]
+        if i < n_republish:
+            acts.append({"function": "republish", "args": {"topic": "out/${topic}"}})
+        specs.append((f"hot{i}", f'SELECT qos FROM "hot/#" WHERE payload.x > {i * 3} '
+                      f"AND payload.s = 'a{i % 4}'", acts, True, ""))
+    return specs
+
+
+def rules_batch(rng, k, batch=RULES_BATCH, n_cold_pubs=RULES_COLD_PUBS,
+                n_wide_pubs=RULES_WIDE_PUBS, n_cold_rules=RULES_N - RULES_HOT):
+    """Batch k as plain (topic, payload, id, timestamp) tuples, shuffled:
+    `batch` hot publishes (n_wide_pubs on `hot/wide/v{k}_{j}`, the rest
+    on `hot/t`) and n_cold_pubs on `cold/{i}/t`, each payload
+    `{"x": 0..99, "s": "a0".."a3", "unit": "c"}` (bench_rules_where's)."""
+    n = batch + n_cold_pubs
+    x = rng.integers(0, 100, n).tolist()
+    s = rng.integers(0, 4, n).tolist()
+    topics = ([f"hot/wide/v{k}_{j}" for j in range(n_wide_pubs)]
+              + ["hot/t"] * (batch - n_wide_pubs)
+              + [f"cold/{i}/t" for i in rng.integers(0, n_cold_rules, n_cold_pubs).tolist()])
+    out = []
+    for j, i in enumerate(rng.permutation(n).tolist()):
+        payload = json.dumps({"x": x[i], "s": f"a{s[i]}", "unit": "c"}).encode()
+        out.append((topics[i], payload, f"m{k}_{j}", 1.7e9 + k + j * 1e-6))
+    return out
+
+
+class PayloadSink:
+    """Every session's QoS-0 sink records a digest of each (topic,
+    payload) it is handed; `summary()` gives each client's delivery
+    count and the digest of its sorted multiset (the paths deliver a
+    republished copy at different points of a batch)."""
+
+    def __init__(self) -> None:
+        self.got = {}
+
+    def sink_for(self, cid):
+        import hashlib
+
+        got = self.got.setdefault(cid, [])
+
+        def sink(pkts):
+            for p in pkts:
+                got.append(hashlib.blake2b(p.topic.encode() + b"\0" + bytes(p.payload),
+                                           digest_size=8).digest())
+
+        return sink
+
+    def summary(self):
+        import hashlib
+
+        return {cid: (len(v), hashlib.sha256(b"".join(sorted(v))).hexdigest())
+                for cid, v in self.got.items()}
+
+
+class Governed:
+    """A broker with the three 'message.publish' hooks installed where
+    the reference installs them: a SchemaValidation (priority 860) that
+    drops hot/# payloads failing HOT_SCHEMA (a registry schema), a
+    MessageTransformation (850) that rewrites payload.unit on hot/#, and
+    a RuleEngine (50) holding `specs`, whose `capture` action records
+    each (row, topic, message id) by rule. `mods` names one
+    implementation's SchemaRegistry, SchemaValidation,
+    MessageTransformation and RuleEngine."""
+
+    def __init__(self, broker, mods, specs, batched):
+        from emqx_tpu_torch import convert
+
+        self.broker = broker
+        self.registry = mods.SchemaRegistry()
+        convert.schemas_from_specs(self.registry,
+                                   [("hot_v1", "json_schema", {"schema": HOT_SCHEMA})])
+        self.validation = mods.SchemaValidation(broker, self.registry)
+        self.validation.put({"name": "hot_schema", "topics": ["hot/#"],
+                             "checks": [{"type": "schema", "schema": "hot_v1"}]})
+        self.transformation = mods.MessageTransformation(broker)
+        self.transformation.put({"name": "hot_unit", "topics": ["hot/#"],
+                                 "operations": [{"key": "payload.unit",
+                                                 "value": "celsius"}]})
+        self.engine = mods.RuleEngine(broker)
+        self.engine.batch_where_enabled = batched
+        self.engine.action_providers["capture"] = self._capture
+        self.rows = {}
+        convert.rules_from_specs(self.engine, specs)
+        self.attached = False
+        self.attach()
+
+    def _capture(self, args, row, env):
+        self.rows.setdefault(args["rule"], []).append((row, env["topic"], env["id"]))
+
+    def attach(self) -> None:
+        """Put the three hooks back after detach; a no-op while they
+        are on, so no hook is ever in the fold twice."""
+        if self.attached:
+            return
+        self.validation.enable()
+        self.transformation.enable()
+        self.engine.install(self.broker.hooks)
+        self.attached = True
+
+    def detach(self) -> None:
+        if not self.attached:
+            return
+        self.validation.disable()
+        self.transformation.disable()
+        self.engine.uninstall(self.broker.hooks)
+        self.attached = False
+
+    def state(self) -> dict:
+        """What the paths must agree on: every rule's metrics, the
+        captured rows by rule, the governance counters."""
+        m = self.broker.metrics
+        return {
+            "metrics": {rid: vars(r.metrics).copy() for rid, r in self.engine.rules.items()},
+            "rows": self.rows,
+            "validation": self.validation.list(),
+            "transformation": self.transformation.list(),
+            "broker": {k: m.val(k) for k in (
+                "messages.received", "messages.dropped", "messages.delivered",
+                "schema_validation.failed", "message_transformation.failed")},
+        }
+
+
+def rules_subscribers(broker, sub_opts, sink, seed, subs=RULES_SUBS,
+                      n_cold_rules=RULES_N - RULES_HOT):
+    """Sessions on hot/#, hot/wide/+, out/# and seeded cold/{i}/# spreads,
+    all QoS 0, each writing to `sink`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q0 = sub_opts(qos=0)
+
+    def session(cid):
+        s, _ = broker.open_session(cid, True)
+        s.outgoing_sink = sink.sink_for(cid)
+        return s
+
+    for kind, flt in (("hot", "hot/#"), ("wide", "hot/wide/+"), ("out", "out/#")):
+        for j in range(subs[kind]):
+            broker.subscribe(session(f"{kind}{j}"), flt, q0)
+    for j in range(subs["cold"]):
+        s = session(f"cold{j}")
+        for i in rng.choice(n_cold_rules, RULES_COLD_FILTERS, replace=False).tolist():
+            broker.subscribe(s, f"cold/{i}/#", q0)
+
+
+def rules_churn(broker, sub_opts, sink, rng, k, n_routes, skel):
+    """Between batches: RULES_CHURN of the slice's routes deleted and
+    re-added and RULES_SWAP skeleton filters swapped (the next batched
+    match syncs the table), a late joiner on hot/wide/+ and a leaver
+    from it (the fanout mirror syncs and the wide plan resolves again)."""
+    router = broker.router
+    for i in rng.integers(0, n_routes, RULES_CHURN).tolist():
+        f, d = f"t{i % 997}/r{i % 13}/d{i}/+/m/#", f"n{i % 7}"
+        router.delete_route(f, d)
+        router.add_route(f, d)
+    for j in rng.integers(0, len(skel), RULES_SWAP).tolist():
+        f = skel[j]
+        old, new = (f, swap_of(f)) if router.has_route(f, "s") else (swap_of(f), f)
+        router.delete_route(old, "s")
+        router.add_route(new, "s")
+    cid = f"wlate{k}"
+    s, _ = broker.open_session(cid, True)
+    s.outgoing_sink = sink.sink_for(cid)
+    broker.subscribe(s, "hot/wide/+", sub_opts(qos=0))
+    broker.unsubscribe(broker.sessions[f"wide{k}"], "hot/wide/+")
+
+
+def rules_run(impl, device, path, batched, seed, sizes=None):
+    """One broker with the three hooks through seeded batches, with
+    rules_churn between them. `impl` names an implementation's Broker,
+    Message, SubOpts and the four classes of Governed; `path` is
+    "batch" (Broker.publish_batch), "engine" (DispatchEngine.submit_many,
+    one flush a batch), "single" (Broker.publish a message: the host
+    walk) or "both" (the first half of the n_batches through
+    publish_batch, the rest through the engine). Returns (Governed, PayloadSink, routes s,
+    drive s); the broker is `governed.broker`."""
+    import asyncio
+
+    import numpy as np
+
+    sz = dict(RULES_SIZES, **(sizes or {}))
+    n_cold_rules = sz["n_rules"] - sz["n_hot"]
+    broker = impl.Broker(max_levels=16, device=device) if device else impl.Broker(max_levels=16)
+    t0 = time.perf_counter()
+    skel, _exact, _s = add_route_set(broker.router, np.random.default_rng(seed), sz["n_routes"])
+    routes_s = time.perf_counter() - t0
+    sink = PayloadSink()
+    rules_subscribers(broker, impl.SubOpts, sink, seed, sz["subs"], n_cold_rules)
+    gov = Governed(broker, impl, rules_specs(sz["n_rules"], sz["n_hot"], sz["n_republish"]),
+                   batched)
+    rng = np.random.default_rng(seed + 1)
+    n_total = sz["n_batches"]
+    batches = [[impl.Message(topic=t, payload=p, id=i, timestamp=ts, from_client="pub")
+                for t, p, i, ts in rules_batch(rng, k, sz["batch"], sz["n_cold_pubs"],
+                                               sz["n_wide_pubs"], n_cold_rules)]
+               for k in range(n_total)]
+
+    def between(k):
+        rules_churn(broker, impl.SubOpts, sink, rng, k, sz["n_routes"], skel)
+
+    async def through_engine(first):
+        eng = broker.enable_dispatch_engine(queue_depth=len(batches[0]),
+                                            queue_max_depth=2 * len(batches[0]))
+        for k in range(first, n_total):
+            await eng.submit_many(batches[k])
+            between(k)
+        await eng.stop()
+
+    t0 = time.perf_counter()
+    if path == "single":
+        for k, msgs in enumerate(batches):
+            for m in msgs:
+                broker.publish(m)
+            between(k)
+    elif path in ("batch", "both"):
+        last = n_total // 2 if path == "both" else n_total
+        for k in range(last):
+            broker.publish_batch(batches[k])
+            between(k)
+        if path == "both":
+            asyncio.run(through_engine(last))
+    else:
+        asyncio.run(through_engine(0))
+    return gov, sink, routes_s, time.perf_counter() - t0
+
+
+def rules_differences(a, b):
+    """The keys of two rules_run results (Governed, PayloadSink, ...)
+    that differ: rule metrics, captured rows (count and content),
+    governance and broker counters, each client's deliveries."""
+    sa, sb = a[0].state(), b[0].state()
+    sa["deliveries"], sb["deliveries"] = a[1].summary(), b[1].summary()
+    return [k for k in sa if sa[k] != sb[k]]
+
+
+# bench_json's payload mix (bench.py:1640): telemetry, alarm, batch, config
+JSON_MIX = (
+    {"deviceId": "d-000123", "ts": 1722860000123, "temp": 23.75,
+     "hum": 41.2, "ok": True, "tags": ["a", "b", "c"],
+     "geo": {"lat": 52.0116, "lon": 4.3571}},
+    {"event": "alarm", "level": 3, "msg": "over-temperature é漢",
+     "ack": False, "src": None},
+    [{"v": round(i / 7, 2), "i": i, "k": f"s{i}"} for i in range(40)],
+    {"cfg": {"a": {"deep": [1, 2, 3, {"b": "x" * 120}]},
+             "keys": {f"k{i}": i for i in range(30)}}},
+)
+
+
+def json_docs(rng, n):
+    """JSON_MIX and n seeded documents over every token kind: ints past
+    2^53 and 10**40, floats (NaN and the infinities too), strings with
+    escapes, controls, non-ASCII and astral characters, None, bools,
+    nested lists and str-keyed dicts."""
+    chars = list("abcXYZ09 _-\"\\/\b\f\n\r\t\x00\x1fé漢 😀")
+
+    def text():
+        return "".join(chars[int(c)] for c in rng.integers(0, len(chars), int(rng.integers(0, 12))))
+
+    def value(depth):
+        kind = int(rng.integers(0, 9 if depth < 4 else 7))
+        if kind == 0:
+            return int(rng.integers(-2**62, 2**62)) * [1, 1 << 20, 10**20][int(rng.integers(0, 3))]
+        if kind == 1:
+            return [float(rng.normal()) * 10.0 ** int(rng.integers(-8, 20)),
+                    float("nan"), float("inf"), -float("inf"), -0.0][int(rng.integers(0, 5))]
+        if kind == 2:
+            return text()
+        if kind == 3:
+            return None
+        if kind in (4, 5):
+            return bool(rng.integers(0, 2))
+        if kind == 6:
+            return int(rng.integers(-1000, 1000))
+        if kind == 7:
+            return [value(depth + 1) for _ in range(int(rng.integers(0, 5)))]
+        return {text(): value(depth + 1) for _ in range(int(rng.integers(0, 5)))}
+
+    return list(JSON_MIX) + [value(3 if i % 2 else 0) for i in range(n)]
+
+
+def json_parity(jsonc, docs):
+    """Hold the codec's loads and dumps byte-equal to stdlib on `docs`
+    (dumps plain and compact; loads of str and bytes, compared by
+    their stdlib re-encoding), and the replay on stdlib of a
+    parity-risk kwarg (sort_keys) and of an int dict key, each counted
+    in fallback_dumps. Returns the JSON_METRICS deltas; raises on any
+    difference."""
+    m = jsonc.JSON_METRICS
+    before = m.snapshot()
+    bad = []
+    for i, d in enumerate(docs):
+        plain, compact = json.dumps(d), json.dumps(d, separators=(",", ":"))
+        if jsonc.dumps(d) != plain or jsonc.dumps(d, separators=(",", ":")) != compact:
+            bad.append((i, "dumps"))
+        for wire in (plain, compact.encode()):
+            if json.dumps(jsonc.loads(wire)) != json.dumps(json.loads(wire)):
+                bad.append((i, "loads"))
+    for d in docs[:4]:
+        if jsonc.dumps(d, sort_keys=True) != json.dumps(d, sort_keys=True):
+            bad.append(("sort_keys", d))
+    if jsonc.dumps({1: "a", "b": [2]}) != json.dumps({1: "a", "b": [2]}):
+        bad.append(("int key", None))
+    after = m.snapshot()
+    delta = {k: after[k] - before[k] for k in before if k != "native_enabled"}
+    want = {"native_loads": 2 * len(docs), "native_dumps": 2 * len(docs),
+            "fallback_loads": 0, "fallback_dumps": 5}
+    if bad or delta != want:
+        raise AssertionError(f"json codec against stdlib: {bad[:5]}, counters {delta} "
+                             f"against {want}")
+    return delta
+
+
+def where_rates(impl, seed, sizes=None, turns=RULES_TURNS):
+    """bench_rules_where in one process: the hot batch through an engine
+    with the batched WHERE window and through one without (per-row
+    eval_expr), `turns` turns each after a warm batch, every turn's
+    metrics equal. Returns (batched rule-rows/s list, eval_expr
+    rule-rows/s list, rule-rows a turn)."""
+    import numpy as np
+
+    from emqx_tpu_torch import convert
+
+    sz = dict(RULES_SIZES, **(sizes or {}))
+    rng = np.random.default_rng(seed)
+    specs = rules_specs(sz["n_rules"], sz["n_hot"], 0)
+    msgs = [impl.Message(topic="hot/t", payload=json.dumps(
+        {"x": int(x), "s": f"a{int(s)}"}).encode())
+        for x, s in zip(rng.integers(0, 100, sz["batch"]), rng.integers(0, 4, sz["batch"]))]
+    engines, hits = [], []
+    for batched in (True, False):
+        eng = impl.RuleEngine()
+        eng.batch_where_enabled = batched
+        hit = [0]
+
+        def bump(args, row, env, hit=hit):
+            hit[0] += 1
+
+        eng.action_providers["capture"] = bump
+        convert.rules_from_specs(eng, specs)
+        engines.append(eng)
+        hits.append(hit)
+
+    def drive(eng):
+        t0 = time.perf_counter()
+        if eng.batch_where_enabled:
+            with eng.batch_window():
+                for m in msgs:
+                    eng.on_message_publish(m)
+        else:
+            for m in msgs:
+                eng.on_message_publish(m)
+        return time.perf_counter() - t0
+
+    drive(engines[0])  # warm: compile and cache the predicates
+    rates = ([], [])
+    rows = sz["batch"] * sz["n_hot"]
+    for _ in range(turns):
+        for eng, hit in zip(engines, hits):
+            for r in eng.rules.values():
+                r.metrics = type(r.metrics)()
+            hit[0] = 0
+        for j, eng in enumerate(engines):
+            rates[j].append(rows / paused(drive, eng))
+        if hits[0][0] != hits[1][0] or not hits[0][0] or (
+                {rid: vars(r.metrics) for rid, r in engines[0].rules.items()}
+                != {rid: vars(r.metrics) for rid, r in engines[1].rules.items()}):
+            raise AssertionError("batched WHERE and eval_expr disagree")
+    st = engines[0].where_stats
+    if st["uncompiled_rows"] or st["fallback_rows"]:
+        raise AssertionError(f"the hot corpus left the columnar mask: {st}")
+    return rates[0], rates[1], rows
+
+
+def paused(fn, *args):
+    """fn(*args) with the collector paused (a full collection inside one
+    timed batch moves it up to 10x); returns what fn returns."""
+    gc.disable()
+    try:
+        return fn(*args)
+    finally:
+        gc.enable()
+
+
+def timed_call(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
+def json_rates(jsonc, n=JSON_N):
+    """bench_json's timing (best of 3 loops of n over the mix): native
+    and stdlib loads and dumps per second."""
+    docs = JSON_MIX
+    wires = [json.dumps(d, separators=(",", ":")) for d in docs]
+
+    def rate(fn, args):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _i in range(n):
+                for x in args:
+                    fn(x)
+            best = min(best, time.perf_counter() - t0)
+        return n * len(args) / best
+
+    return {
+        "native_loads_per_s": rate(jsonc.loads, wires),
+        "stdlib_loads_per_s": rate(json.loads, wires),
+        "native_dumps_per_s": rate(lambda d: jsonc.dumps(d, separators=(",", ":")), docs),
+        "stdlib_dumps_per_s": rate(lambda d: json.dumps(d, separators=(",", ":")), docs),
+    }
+
+
+class PortImpl:
+    """The port's classes, as rules_run and where_rates take them."""
+
+    def __init__(self):
+        from emqx_tpu_torch.broker.message import Message
+        from emqx_tpu_torch.broker.packet import SubOpts
+        from emqx_tpu_torch.broker.pubsub import Broker
+        from emqx_tpu_torch.rules import RuleEngine
+        from emqx_tpu_torch.transform import (
+            MessageTransformation, SchemaRegistry, SchemaValidation)
+
+        self.Broker, self.Message, self.SubOpts = Broker, Message, SubOpts
+        self.RuleEngine, self.SchemaRegistry = RuleEngine, SchemaRegistry
+        self.SchemaValidation = SchemaValidation
+        self.MessageTransformation = MessageTransformation
+
+
+def rules_phase(seed, card):
+    """Phase 12: the rule engine with batched WHERE, the native JSON codec
+    and payload governance on the card's publish path. Returns the
+    launches of (b), counted from 0 at its start."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch import jsonc
+    from emqx_tpu_torch.obs.prometheus import prometheus_text
+    from emqx_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    stages = {}
+    impl = PortImpl()
+
+    # (a) the codec: built in phase 2; byte parity with stdlib
+    t0 = time.perf_counter()
+    docs = json_docs(np.random.default_rng(seed), 400)
+    delta = json_parity(jsonc, docs)
+    stages["a"] = time.perf_counter() - t0
+    log(f"rules (a) json codec: {len(docs)} documents byte-equal to "
+        f"stdlib (loads and dumps, plain and compact), sort_keys and an int key "
+        f"replayed on stdlib; counters {delta} [{card}]")
+
+    # (b) the three hooks on the card's publish path, against the CPU oracle
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    dev = rules_run(impl, DEVICE, "both", True, seed)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    gov, sink = dev[0], dev[1]
+    broker = gov.broker
+    counters = broker.router.telemetry.counters
+    stages["b_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ora = rules_run(impl, "cpu", "single", False, seed)
+    stages["b_oracle"] = time.perf_counter() - t0
+    diff = rules_differences(dev, ora)
+    st = {k: gov.engine.where_stats[k] for k in WHERE_STATS_KEYS}
+    state = gov.state()
+    n_rows = sum(len(v) for v in state["rows"].values())
+    n_deliv = sum(c for c, _ in sink.summary().values())
+    log(f"rules (b) card: {RULES_N:,} rules ({RULES_HOT} hot, {RULES_REPUBLISH} "
+        f"republishing), {2 * RULES_BATCHES} batches of {RULES_BATCH} hot + "
+        f"{RULES_COLD_PUBS} cold publishes ({RULES_BATCHES} publish_batch, "
+        f"{RULES_BATCHES} dispatch engine), {RULES_ROUTES:,} slice routes, routes "
+        f"{dev[2]:.3f} s, drive {dev[3]:.3f} s; oracle (CPU broker, Broker.publish, "
+        f"eval_expr) drive {ora[3]:.3f} s; where_stats {st}; validation "
+        f"{state['validation']}; transformation {state['transformation']}; broker "
+        f"{state['broker']}; captured rows {n_rows}; deliveries {n_deliv} to "
+        f"{len(sink.got)} clients; differences {diff} [{card}]")
+    if diff:
+        raise AssertionError(f"phase 12 (b): the card and the oracle differ in {diff}")
+    if st["uncompiled_rows"] or st["fallback_rows"] or st["windows"] != 2 * RULES_BATCHES:
+        raise AssertionError(f"phase 12 (b): where_stats {st}")
+    if not state["broker"]["schema_validation.failed"] or not n_rows:
+        raise AssertionError(f"phase 12 (b): nothing dropped or captured: {state['broker']}")
+
+    # (c) launches of (b)
+    missing = [n for n in SINGLE_PATH if launches[n] <= 0]
+    log(f"rules (c) launches {launches} [{card}]")
+    if missing:
+        raise AssertionError(f"phase 12 never launched {missing}")
+    require_no_device_fault(counters, "phase 12")
+
+    # (d) rates, recorded with no limit
+    t0 = time.perf_counter()
+    b_rates, e_rates, rows = where_rates(impl, seed)
+    rng = np.random.default_rng(seed + 7)
+    pub_rates = {"on": [], "off": []}
+    for turn, on in enumerate((True, False, False, True, True, False)):
+        (gov.attach if on else gov.detach)()
+        msgs = [impl.Message(topic=t, payload=p, id=i, timestamp=ts, from_client="pub")
+                for t, p, i, ts in rules_batch(rng, 100 + turn)]
+        took = paused(timed_call, broker.publish_batch, msgs)
+        pub_rates["on" if on else "off"].append(len(msgs) / took)
+    codec = json_rates(jsonc)
+    stages["d"] = time.perf_counter() - t0
+    log(f"rules (d) batched WHERE {[round(r, 1) for r in b_rates]} rule-rows/s against "
+        f"eval_expr {[round(r, 1) for r in e_rates]} rule-rows/s ({rows} rule-rows a "
+        f"turn, {RULES_N:,} rules, {RULES_HOT} hot), median ratio "
+        f"{statistics.median(b_rates) / statistics.median(e_rates):.3f}; publish_batch "
+        f"publishes/s with the three hooks {[round(r, 1) for r in pub_rates['on']]} "
+        f"against without {[round(r, 1) for r in pub_rates['off']]}; json codec "
+        f"{ {k: round(v, 1) for k, v in codec.items()} } [{card}]")
+
+    # (e) the scrape
+    text = prometheus_text(broker)
+    fams = [ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE ")]
+    want = ("emqx_json_native_enabled", "emqx_json_native_loads_total",
+            "emqx_json_native_dumps_total", "emqx_json_fallback_loads_total",
+            "emqx_json_fallback_dumps_total")
+    got = [f for f in fams if f.startswith("emqx_json_")]
+    if sorted(got) != sorted(want) or f'emqx_json_native_enabled{{node="emqx@127.0.0.1"}} 1' \
+            not in text:
+        raise AssertionError(f"phase 12 (e): json families {got}")
+    took = time.perf_counter() - t_phase
+    log(f"phase 12: {took:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"), the scrape's emqx_json_* families once each [{card}]")
+    if took > P12_LIMIT_S:
+        raise AssertionError(f"phase 12 took {took:.3f} s, over {P12_LIMIT_S} s")
+    return launches
+
+
 def host_encode_ms(router, skel, exact, seed: int) -> float:
     """The host's own speed in this process: the median of 20 host
     encodes of one batch, no device work."""
@@ -5539,6 +6154,12 @@ def main(argv=None) -> int:
     log(watch.line("phase 11"))
     lap(11)
 
+    # phase 12: the rule engine, the JSON codec and payload governance on a
+    # fresh broker
+    r_launches = rules_phase(args.seed + 6, card)
+    log(watch.line("phase 12"))
+    lap(12)
+
     def phase10_launches(name):
         # a fused kernel's total on each of its entries; the dense-only
         # record's launches are phase 6's, none of them phase 10's
@@ -5553,6 +6174,12 @@ def main(argv=None) -> int:
         key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
         return o_launches.get(key, 0)
 
+    def phase12_launches(name):
+        if name == "match_ids_dense_only":
+            return 0
+        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
+        return r_launches.get(key, 0)
+
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
     for name in b_recs:
@@ -5564,9 +6191,10 @@ def main(argv=None) -> int:
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} phase10_launches="
             f"{phase10_launches(name)} phase11_launches={phase11_launches(name)} "
+            f"phase12_launches={phase12_launches(name)} "
             f"equal=True [{r['shape']}] [{card}]")
 
-    # phase 12: summary
+    # phase 13: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -5630,6 +6258,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": path_launches.get(name, path_launches[key]),
             "launches_phase10": phase10_launches(name),
             "launches_phase11": phase11_launches(name),
+            "launches_phase12": phase12_launches(name),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

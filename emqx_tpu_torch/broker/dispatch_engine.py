@@ -90,7 +90,12 @@ batch's begin generation.
 One deliberate divergence from the reference: it has no shard breaker
 yet, so a failure that carries a `shard` (a ShardedDeviceTable chip
 fault) counts toward the whole-device breaker — a coarser failure
-domain, with answers still exact. Left out too: the rule batcher.
+domain, with answers still exact.
+
+**Rule batcher**: when a rule engine with `batch_where_enabled` is
+installed (`broker.rule_batcher`), `_flush` opens its batched-WHERE
+window around the coalesce loop; the window drains at its close, under
+the `coalesce` stage mark, before the match launch.
 
 Telemetry: queue-wait histogram family `pipeline_queue_wait_seconds`,
 gauges `pipeline_depth` / `pipeline_coalesce` / `queue_depth` /
@@ -572,26 +577,39 @@ class DispatchEngine:
             entries = []
             topics = []
             bspan = None
+            # batched-WHERE window: rule predicates hit inside the
+            # publish-hook fold defer into one columnar drain when the
+            # window closes — the whole coalesced batch shares one
+            # column extraction per referenced path
+            rb = getattr(broker, "rule_batcher", None)
+            win = (
+                rb.batch_window()
+                if rb is not None and rb.batch_where_enabled
+                else contextlib.nullcontext()
+            )
             STAGE_MARK.stage = "coalesce"
-            for msg, fut, t_in, span in batch:
-                tel.observe_family("pipeline_queue_wait_seconds", now - t_in)
-                if span is not None and bspan is None and st is not None:
-                    bspan = st.batch_span()
-                live = broker._pre_publish(msg)
-                if span is not None:
-                    # queue sub-decomposition: submit_wait is
-                    # submit()->flush fire; coalesce is this publish's
-                    # wait inside the flush fold (its own hook walk
-                    # included). submit_wait + coalesce == queue
-                    # exactly, by construction — the sum-to-wall
-                    # contract starts here.
-                    t_end = tel.clock()
-                    span.add("queue", t_end - t_in)
-                    span.add_sub("submit_wait", now - t_in)
-                    span.add_sub("coalesce", t_end - now)
-                entries.append((live, fut, span))
-                if live is not None:
-                    topics.append(live.topic)
+            with win:
+                for msg, fut, t_in, span in batch:
+                    tel.observe_family(
+                        "pipeline_queue_wait_seconds", now - t_in
+                    )
+                    if span is not None and bspan is None and st is not None:
+                        bspan = st.batch_span()
+                    live = broker._pre_publish(msg)
+                    if span is not None:
+                        # queue sub-decomposition: submit_wait is
+                        # submit()->flush fire; coalesce is this
+                        # publish's wait inside the flush fold (its own
+                        # hook walk included). submit_wait + coalesce
+                        # == queue exactly, by construction — the
+                        # sum-to-wall contract starts here.
+                        t_end = tel.clock()
+                        span.add("queue", t_end - t_in)
+                        span.add_sub("submit_wait", now - t_in)
+                        span.add_sub("coalesce", t_end - now)
+                    entries.append((live, fut, span))
+                    if live is not None:
+                        topics.append(live.topic)
             STAGE_MARK.stage = ""
             self.batches_total += 1
             self.publishes_total += len(batch)

@@ -28,9 +28,14 @@ StageSpan through `_dispatch`, delivers through `_deliver_plan_timed`
 (delivery-identical to `_deliver_plan`, with sub-stage clocks) and is
 queued for the shadow-oracle audit.
 
-Left out of the port for now: the durable-session tier and the rule
-batcher. A device fault on a plan resolve serves the host walk
-(counted, the breaker told); any other exception raises to the caller.
+A rule engine (rules/engine.py) installed on the broker sets
+`rule_batcher`; with its `batch_where_enabled`, publish_batch opens the
+engine's batched-WHERE window around the 'message.publish' fold, so
+the WHERE predicates of the whole batch drain as one columnar mask.
+
+Left out of the port for now: the durable-session tier. A device
+fault on a plan resolve serves the host walk (counted, the breaker
+told); any other exception raises to the caller.
 """
 
 from __future__ import annotations
@@ -375,7 +380,14 @@ class Broker:
         contract as the pipelined engine, for the synchronous
         surface. Any other exception (a kernel that fails to build,
         a bug) raises to the caller."""
-        live = [self._pre_publish(m) for m in msgs]
+        rb = getattr(self, "rule_batcher", None)
+        if rb is not None and rb.batch_where_enabled:
+            # batched-WHERE window: rule predicates hit in the publish
+            # hooks defer into one columnar drain at window close
+            with rb.batch_window():
+                live = [self._pre_publish(m) for m in msgs]
+        else:
+            live = [self._pre_publish(m) for m in msgs]
         topics = [m.topic for m in live if m is not None]
         router = self.router
         eng = self.engine

@@ -14,11 +14,14 @@ cuckoo table (`RetainedIndex._slots`) that K8 reads.
 `mesh_state_from_numpy` lays the same route-table arrays onto a port
 mesh (parallel/mesh.py) with the reference ShardedDeviceTable's padding:
 trailing inert rows, bucket-aligned inert slots.
+`rules_from_specs` and `schemas_from_specs` load a rule engine's rules
+and a schema registry's schemas from plain tuples (`rule_specs` reads
+the rules off either implementation's engine).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -122,3 +125,46 @@ def mesh_state_from_numpy(filters, class_meta, slots, residual_mask, mesh) -> Me
         tuple(SlotArrays(*c) for c in zip(*slot_cols)),
         mesh_mod.put_sub(np.asarray(residual_mask, bool), mesh),
     )
+
+
+# --- host state of the rule engine and the schema registry ------------------
+# A rule is (id, sql, actions, enable, description); a schema is
+# (name, type, source), `source` being the rest of the registry's spec
+# (a dict) or, for an external schema, its decoder. Either
+# implementation's engine and registry read and load alike.
+
+RuleSpec = Tuple[str, str, List[Dict[str, Any]], bool, str]
+SchemaSpec = Tuple[str, str, Any]
+
+
+def rule_specs(engine) -> List[RuleSpec]:
+    """The plain tuples of a rule engine's rules, in creation order."""
+    return [
+        (r.id, r.sql, [dict(a) for a in r.actions], r.enable, r.description)
+        for r in engine.rules.values()
+    ]
+
+
+def rules_from_specs(engine, specs: Iterable[RuleSpec]) -> int:
+    """Create each rule of `specs` on `engine` (a rules.RuleEngine), in
+    order; returns the number created. An id the engine already holds
+    raises, as create_rule does."""
+    n = 0
+    for rule_id, sql, actions, enable, description in specs:
+        engine.create_rule(rule_id, sql, [dict(a) for a in actions], enable, description)
+        n += 1
+    return n
+
+
+def schemas_from_specs(registry, specs: Iterable[SchemaSpec]) -> int:
+    """Register each schema of `specs` on `registry` (a
+    transform.SchemaRegistry); returns the number registered. A spec
+    the registry cannot compile raises its SchemaError."""
+    n = 0
+    for name, stype, source in specs:
+        if stype == "external":
+            registry.put_external(name, source)
+        else:
+            registry.put(name, {"type": stype, **source})
+        n += 1
+    return n

@@ -1,11 +1,13 @@
 """Build and load the port's native host cores.
 
-Two CPython extensions, compiled from the sources in this directory:
+Three CPython extensions, compiled from the sources in this directory:
 
   * `_emqx_torch_speedups` (speedups.cc): the route-churn core
     (`wild_flags`, `encode_filters`, `index_dedup`, the churn handle and
     the add/delete legs) and the delivery ledger (`delivery_*`);
-  * `_emqx_torch_frame` (frame.cc): the MQTT frame codec's hot surface.
+  * `_emqx_torch_frame` (frame.cc): the MQTT frame codec's hot surface;
+  * `_emqx_torch_json` (json.cc): the JSON codec of the rule engine's
+    payload path.
 
 Each builds with `g++ -O2 -std=c++17 -fPIC -shared` against the running
 interpreter's headers (`sysconfig.get_paths()["include"]`) at first use,
@@ -16,7 +18,8 @@ a file lock makes concurrent processes (pytest-xdist workers) build a
 source once and share it. A missing compiler or `Python.h`, a failed
 build or a failed import raises `NativeBuildError`: nothing falls back
 to the Python twins. Only the `set_native_enabled` setters of
-`ops/speedups.py`, `broker/delivery.py` and `framec.py` select a twin.
+`ops/speedups.py`, `broker/delivery.py`, `framec.py` and `jsonc.py`
+select a twin.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 SOURCES: Dict[str, str] = {
     "_emqx_torch_speedups": "speedups.cc",
     "_emqx_torch_frame": "frame.cc",
+    "_emqx_torch_json": "json.cc",
 }
 
 # seconds each build took in this process (0.0 when the output was on disk)
@@ -139,7 +143,7 @@ def load(name: str):
 
 
 def build_all() -> Dict[str, float]:
-    """Build and import both extensions; returns the seconds each build
+    """Build and import every extension; returns the seconds each build
     took (0.0 where the output was already on disk)."""
     build(sorted(SOURCES))
     for name in SOURCES:

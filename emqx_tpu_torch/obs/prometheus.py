@@ -25,10 +25,14 @@ When the Observability bundle is passed, the scrape also carries:
     ring/trigger counters and per-hookpoint latency histograms
     (obs/flight_recorder.py).
 
+The process-global codec ledgers render on every scrape: `emqx_json_*`
+(jsonc.py), `emqx_frame_*` (framec.py) and `emqx_delivery_*`
+(broker/delivery.py).
+
 The reference's families of layers the port does not have yet are not
 rendered: `emqx_ds_*` (the durable tier), `emqx_cluster_*` and the mesh
 microscope's `emqx_xla_mesh_*` scope families (the cluster layer and
-obs/mesh_scope.py), `emqx_json_*` (the JSON codec of the rule engine).
+obs/mesh_scope.py).
 """
 
 from __future__ import annotations
@@ -93,6 +97,11 @@ def prometheus_text(broker, node_name: str = "emqx@127.0.0.1", obs=None) -> str:
         emit("emqx_otel_spans_dropped", "counter", tracer.dropped)
     if obs is not None:
         _emit_obs(lines, obs, node_name)
+    # JSON codec seam ledger (emqx_json_* namespace — process-global:
+    # payloads are decoded before any broker object exists)
+    from ..jsonc import JSON_METRICS
+
+    lines.extend(JSON_METRICS.prometheus_lines(node_name))
     # wire-frame codec seam ledger (emqx_frame_* namespace — process-
     # global: the counted fallback IS the parity story, so it must
     # render even before a broker object exists)

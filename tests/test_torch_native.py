@@ -14,7 +14,7 @@ on the same seeded inputs:
     against the reference's two;
   * the frame codec: bytes, parses and FrameErrors against the port's
     Python codec and emqx_tpu.framec;
-  * the loader: both extensions import beside the reference's, a failed
+  * the loader: the extensions import beside the reference's, a failed
     build or a missing Python.h raises NativeBuildError with nothing
     falling back, only the setters select a twin, and the sources and
     the build module name neither the repo's native/ nor emqx_tpu.
@@ -34,6 +34,7 @@ from emqx_tpu.broker import frame as JF
 from emqx_tpu.broker import packet as JP
 from emqx_tpu.models import router as JR
 from emqx_tpu_torch import framec as TFC
+from emqx_tpu_torch import jsonc as TJ
 from emqx_tpu_torch import native
 from emqx_tpu_torch.broker import delivery as TD
 from emqx_tpu_torch.broker import frame as TF
@@ -315,6 +316,7 @@ def fresh_native(monkeypatch, tmp_path):
     monkeypatch.setattr(TD, "_mod", None)
     monkeypatch.setattr(TD, "_native_ledger", None)
     monkeypatch.setattr(TFC, "_mod", None)
+    monkeypatch.setattr(TJ, "_mod", None)
     return tmp_path
 
 
@@ -329,6 +331,10 @@ def _nothing_falls_back():
         TFC.serialize(TP.Publish(topic="t", payload=b""), TP.MQTT_V4)
     with pytest.raises(native.NativeBuildError):
         TFC.Parser(proto_ver=TP.MQTT_V4).feed(b"\x30\x03\x00\x01t")
+    with pytest.raises(native.NativeBuildError):
+        TJ.loads(b"{}")
+    with pytest.raises(native.NativeBuildError):
+        TJ.dumps({})
 
 
 def test_missing_compiler_raises_and_nothing_falls_back(fresh_native, monkeypatch):
@@ -361,7 +367,7 @@ def test_build_is_keyed_by_source_and_reused(fresh_native):
     reuses the file; an edited source builds a new one."""
     native.build(sorted(native.SOURCES))
     built = sorted(p.name for p in (fresh_native / "build").glob("*.so"))
-    assert len(built) == 2 and all(re.search(r"-[0-9a-f]{16}\.", n) for n in built)
+    assert len(built) == len(native.SOURCES) and all(re.search(r"-[0-9a-f]{16}\.", n) for n in built)
     t0 = {p.name: p.stat().st_mtime_ns for p in (fresh_native / "build").glob("*.so")}
     native.build(sorted(native.SOURCES))
     assert {p.name: p.stat().st_mtime_ns for p in (fresh_native / "build").glob("*.so")} == t0
@@ -372,13 +378,16 @@ def test_only_the_setters_select_the_twins(monkeypatch):
     """No environment variable turns a native core off: the reference's
     switches are not read; the routers, sessions and codec built with
     them set are native."""
-    for var in ("EMQX_TPU_NO_SPEEDUPS", "EMQX_TPU_NO_FRAMEC"):
+    for var in ("EMQX_TPU_NO_SPEEDUPS", "EMQX_TPU_NO_FRAMEC", "EMQX_TPU_NO_JSONC"):
         monkeypatch.setenv(var, "1")
     assert TR.Router(max_levels=8, device="cpu")._sp is not None
     assert TD.make_ledger().is_native
     n0 = TFC.FRAME_METRICS.native_encodes
     TFC.serialize(TP.Publish(topic="t", payload=b""), TP.MQTT_V4)
     assert TFC.FRAME_METRICS.native_encodes == n0 + 1
+    n0 = TJ.JSON_METRICS.native_dumps
+    TJ.dumps({"a": 1})
+    assert TJ.JSON_METRICS.native_dumps == n0 + 1
     TS.set_native_enabled(False)
     try:
         assert TS.load() is None and TR.Router(max_levels=8, device="cpu")._sp is None
@@ -388,11 +397,12 @@ def test_only_the_setters_select_the_twins(monkeypatch):
 
 
 # the reference's package and the repo's native/ directory, as named in text
-_FOREIGN = re.compile(r"\bemqx_tpu\b|(?<![\w/])native/|_emqx_speedups|_emqx_frame\b")
+_FOREIGN = re.compile(
+    r"\bemqx_tpu\b|(?<![\w/])native/|_emqx_speedups|_emqx_frame\b|_emqx_json\b")
 
 
 def test_native_sources_and_build_module_name_neither_native_dir_nor_reference():
-    """The port's two C++ sources and its build module name neither the
+    """The port's three C++ sources and its build module name neither the
     repo's native/ (its sources, its Makefile, its committed .so) nor
     emqx_tpu, nor the reference's module names; the build module imports
     neither jax nor emqx_tpu."""
@@ -400,7 +410,7 @@ def test_native_sources_and_build_module_name_neither_native_dir_nor_reference()
 
     files = sorted((REPO / "emqx_tpu_torch" / "native").glob("*.cc"))
     files.append(REPO / "emqx_tpu_torch" / "native" / "__init__.py")
-    assert [p.name for p in files] == ["frame.cc", "speedups.cc", "__init__.py"]
+    assert [p.name for p in files] == ["frame.cc", "json.cc", "speedups.cc", "__init__.py"]
     bad = [f"{p.name}:{k + 1}: {line.strip()}"
            for p in files for k, line in enumerate(p.read_text().splitlines())
            if _FOREIGN.search(line)]

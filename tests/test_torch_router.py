@@ -790,7 +790,11 @@ def test_port_imports_neither_jax_nor_reference():
     for mod in ("ops/fanout.py", "broker/pubsub.py", "broker/dispatch_engine.py",
                 "broker/session.py", "models/retainer.py", "ops/retained.py",
                 "broker/channel.py", "broker/server.py", "parallel/mesh.py",
-                "parallel/sharded_match.py", "convert.py"):
+                "parallel/sharded_match.py", "convert.py", "jsonc.py",
+                "rules/engine.py", "rules/batch_where.py", "rules/funcs.py",
+                "rules/sql.py", "rules/events.py", "transform/registry.py",
+                "transform/avro.py", "transform/protobuf.py",
+                "transform/validation.py", "transform/transformation.py"):
         assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
