@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 2. Build: compile the three native host extensions (emqx_tpu_torch/
    native: the churn core and delivery ledger, the frame codec, the JSON
    codec of the rule engine) with g++ against
-   this Python's headers, printing their seconds, the g++ version and
+   this Python's headers, and the durable tier's WAL engine (kvlog.cc,
+   a plain C library loaded with ctypes, no Python.h), printing their
+   seconds, the g++ version and
    the include directory; compile every kernel from
    emqx_tpu_torch/ops/csrc with nvcc for sm_90a (one nvcc per source, in
    parallel) and print the seconds. Then (not with --serve) the native
@@ -341,8 +343,55 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    timing). (e) The scrape shows each emqx_json_* family once, the
    codec enabled. Fails on any difference, a missing launch or past
    90 s.
-13. Summary: one line per kernel (times, bound, launches, phase 10's,
-   phase 11's and phase 12's launches, equal), the
+13. The durable tier on the publish path (its own limit, 90 s). A
+   deployment on the schema's defaults (durable_storage.messages:
+   builtin_local, n_shards 4; durable_sessions.batch_size 100): a fresh
+   Broker on the card with 65,536 live routes of phase 3's pattern
+   (phase 12's cut), 2,048 live QoS-1 sessions (1,040 on
+   fleet/0/0/alarm: a plan past the fanout threshold, resolved on K5),
+   a Db, a DurableSessionManager and a PersistentRetainer, its device
+   index attached, holding 65,536 retained names. Durable sessions
+   (session_expiry_interval 3,600) on fleet/{i % F}/+/state at QoS 1,
+   4 a filter on 32 filters (past the LTS's threshold of 20 words, so
+   each shard learns a '+' at the filter's level and most sessions read
+   the learned-wildcard streams through varying_match), 64 also on
+   $share/g{i % 8}/fleet/+/+/alarm (the live router: the card). Launch
+   counters set to 0. (a) Two waves of 4,096
+   retained filters through K8; windows of 1,024 QoS-1 publishes to
+   fleet/{t}/{d}/state and .../alarm from 4,096 publishers, through
+   publish_batch and the DispatchEngine in turns, the odd durable
+   sessions offline in the first half; before each window's
+   `db.buffer.flush_now()` (the only flushes: the shards' writes, then
+   the pump of every connected session) every session acks all it
+   holds, so only its last batch stays unacked; live churn between
+   windows. (b) SIGKILL: `mgr.kill()`, `db.kill()`, the retainer's KV
+   killed. (c) A fresh card broker over the same directory: Db open ms,
+   manager recovery ms, retained reload s and the index's backfill, the
+   same K8 waves; every session resumed and pumped dry with acks. A
+   session resumed from its document keeps the document's config (the
+   phase sets receive_maximum back to the client's) and puts its $share
+   filters into the ps-router only, not the live router: a fault of the
+   reference the port keeps (ROADMAP Queue 3), so from here on the
+   shared groups have no live members. (d)
+   `DiskFaultInjector().fail_sticky("fsync", paths=["shard_2"])` over
+   two more windows: each window's flush raises ShardFailedError, shard
+   2 fail-stops, its reads serve, the other shards grow, each window's
+   live deliveries equal the host trie's audience, the engine's breaker
+   stays closed; heal, `recover_shard(2)`.
+   The same sequence through a CPU oracle broker (Broker.publish on the
+   host trie, retained reads through K8's plain version) over its own
+   directory: every (step, client) delivery multiset of (topic,
+   payload, QoS), replay duplicates included, every session's committed
+   positions after the reopen, both recovery reports, the retained
+   answers before and after the reopen, DS_METRICS and the emqx_ds_*
+   scrape equal. Prints persist-gate stores/s, pump deliveries/s, the
+   reopen's figures, K8 filters/s and the launches of K1, K2, the table
+   sync, K5, the fanout sync and K8, each with the card's name and
+   power limit. Fails on a difference, a missing launch, a device-fault
+   counter, no session stream on a learned '+', or past 90 s. The cuts
+   (§4 of PERF.md) are P13_SIZES.
+14. Summary: one line per kernel (times, bound, launches, phase 10's,
+   phase 11's, phase 12's and phase 13's launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
@@ -356,7 +405,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    record, count phase 9 (c)'s row-only and slot-only growth launches);
    K9-K11, K13's counts
    and packed and K15 are on no serve path and show 0; `launches_phase10`,
-   `launches_phase11` and `launches_phase12` beside it), then, as the
+   `launches_phase11`, `launches_phase12` and `launches_phase13` beside
+   it), then, as the
    last line, `{"ok": true, "device": {...}}`.
 """
 
@@ -366,6 +416,7 @@ import argparse
 import gc
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -5908,6 +5959,688 @@ def rules_phase(seed, card):
     return launches
 
 
+# --- phase 13: the durable tier on the card's publish path -------------------------
+
+P13_SHARDS = 4  # durable_storage.messages.n_shards (emqx_tpu/config/default_schema.py:587)
+P13_BATCH = 100  # durable_sessions.batch_size (emqx_tpu/config/default_schema.py:570)
+P13_ROUTES = RULES_ROUTES  # the live table: phase 12's cut of the slice's 1M
+P13_LIVE = 2048  # live QoS-1 sessions
+P13_WIDE = 1040  # of them on P13_WIDE_FILTER: a fan past _fanout_min_fan, resolved on K5
+P13_WIDE_FILTER = "fleet/0/0/alarm"
+# durable sessions, each on fleet/{i % P13_FILTERS}/+/state, 4 a filter
+# (8,192 on 512 filters, 16 a filter, cut for time: a session on a
+# learned '+' whose word matches nothing there rescans the shared stream
+# on every pump, and each committed stream position fsyncs the sessions
+# KV; 32 x 8 over 6 windows took 137 s, PERF.md §4). 32 filters stay
+# past the LTS's threshold of 20 words, so the '+' is learned.
+P13_DURABLE = 128
+P13_FILTERS = 32
+P13_SHARED = 64  # durable sessions also on $share/g{i % P13_GROUPS}/fleet/+/+/alarm (256 cut)
+P13_GROUPS = 8
+P13_WINDOWS = 4  # 16 cut
+P13_WINDOW = 1024  # QoS-1 publishes a window
+P13_PUBLISHERS = 4096
+P13_LEVEL_D = 2  # fleet/{t}/{d}/...: d < P13_LEVEL_D (the streams a session commits)
+P13_OFFLINE = 2  # the odd durable sessions are offline in windows 1..P13_OFFLINE (8 cut)
+P13_FAULT_WINDOWS = 2
+P13_RET = 65536  # retained names (bench_retained's 1M, cut)
+P13_RET_WAVE = 4096
+P13_RET_WAVES = 2
+P13_RECV_MAX = 65535  # every client's receive_maximum: each pumped message is inflight
+P13_NEVER_MS = 3_600_000  # the DS buffer's own flush never fires: every flush is the phase's
+P13_LIMIT_S = 90.0
+P13_SIZES = {"routes": P13_ROUTES, "live": P13_LIVE, "wide": P13_WIDE,
+             "durable": P13_DURABLE, "filters": P13_FILTERS, "shared": P13_SHARED,
+             "windows": P13_WINDOWS, "window": P13_WINDOW, "offline": P13_OFFLINE,
+             "fault_windows": P13_FAULT_WINDOWS, "ret": P13_RET, "ret_wave": P13_RET_WAVE,
+             "ret_waves": P13_RET_WAVES, "level_d": P13_LEVEL_D}
+P13_PATH = ("match_ids_hash", "match_ids", "table_sync", "resolve_fanout", "fanout_sync",
+            "retained_probe")
+
+
+def _digest(topic, payload, qos) -> bytes:
+    import hashlib
+
+    return hashlib.blake2b(topic.encode() + b"\0" + bytes(payload) + bytes((qos,)),
+                           digest_size=8).digest()
+
+
+class DurableClients:
+    """Every client's sink. Each (step, client) keeps the digests of the
+    (topic, payload, QoS) it is handed; a durable session keeps the
+    packet ids of its batches not yet acked (`ack_held` acks all of them
+    at once), a live one is acked whole after each window."""
+
+    def __init__(self) -> None:
+        self.step = "a"
+        self.got = {}
+        self.held = {}
+        self.pumped = 0
+
+    def sink_for(self, cid):
+        def sink(pkts):
+            got = self.got.setdefault((self.step, cid), [])
+            held = self.held.setdefault(cid, [])
+            for p in pkts:
+                got.append(_digest(p.topic, p.payload, p.qos))
+                if p.packet_id is not None:
+                    held.append(p.packet_id)
+            self.pumped += len(pkts)
+
+        return sink
+
+    def ack_held(self, sessions) -> None:
+        for cid, pids in self.held.items():
+            s = sessions.get(cid)
+            if s is None or not pids:
+                continue
+            for pid in pids:
+                s.on_puback(pid)
+            pids.clear()
+
+    def summary(self):
+        import hashlib
+
+        return {k: (len(v), hashlib.sha256(b"".join(sorted(v))).hexdigest())
+                for k, v in sorted(self.got.items())}
+
+
+def durable_window(rng, w, sz):
+    """Window w's (topic, publisher) pairs: fleet/{t}/{d}/state (3 in 4)
+    and fleet/{t}/{d}/alarm, t < filters, d < level_d, from `publishers`
+    ids, so all four shards fill."""
+    n = sz["window"]
+    t = rng.integers(0, sz["filters"], n).tolist()
+    d = rng.integers(0, sz["level_d"], n).tolist()
+    kind = (rng.random(n) < 0.75).tolist()
+    pub = rng.integers(0, P13_PUBLISHERS, n).tolist()
+    return [(f"fleet/{t[j]}/{d[j]}/{'state' if kind[j] else 'alarm'}", f"p{pub[j]}")
+            for j in range(n)]
+
+
+def durable_live(broker, clients, sz, seed):
+    """The live side of the deployment: the slice's routes, `live` QoS-1
+    sessions (the first `wide` on P13_WIDE_FILTER, the rest each on one
+    fleet/{t}/{d}/alarm), each acked whole after a window. Returns the
+    skeleton filters."""
+    import numpy as np
+
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.session import SessionConfig
+
+    skel, _exact, _s = add_route_set(broker.router, np.random.default_rng(seed), sz["routes"])
+    q1 = SubOpts(qos=1)
+    for i in range(sz["live"]):
+        cid = f"live{i}"
+        s, _ = broker.open_session(cid, True, SessionConfig(receive_maximum=P13_RECV_MAX))
+        s.outgoing_sink = clients.sink_for(cid)
+        broker.subscribe(s, P13_WIDE_FILTER if i < sz["wide"] else
+                         f"fleet/{i % sz['filters']}/{i // sz['filters'] % sz['level_d']}/alarm",
+                         q1)
+    return skel
+
+
+def durable_churn(broker, clients, rng, k, sz, skel):
+    """Between windows: slice routes deleted and re-added and skeleton
+    filters swapped (the next batched match syncs the table), a late
+    live joiner on P13_WIDE_FILTER and a leaver from it (the fanout
+    mirror syncs, the wide plan resolves again on K5)."""
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.session import SessionConfig
+
+    router = broker.router
+    for i in rng.integers(0, sz["routes"], RULES_CHURN).tolist():
+        f, dst = f"t{i % 997}/r{i % 13}/d{i}/+/m/#", f"n{i % 7}"
+        router.delete_route(f, dst)
+        router.add_route(f, dst)
+    for j in rng.integers(0, len(skel), RULES_SWAP).tolist():
+        f = skel[j]
+        old, new = (f, swap_of(f)) if router.has_route(f, "s") else (swap_of(f), f)
+        router.delete_route(old, "s")
+        router.add_route(new, "s")
+    cid = f"late{k}"
+    s, _ = broker.open_session(cid, True, SessionConfig(receive_maximum=P13_RECV_MAX))
+    s.outgoing_sink = clients.sink_for(cid)
+    broker.subscribe(s, P13_WIDE_FILTER, SubOpts(qos=1))
+    leaver = broker.sessions.get(f"live{k}")
+    if leaver is not None:
+        broker.unsubscribe(leaver, P13_WIDE_FILTER)
+
+
+def durable_publish(broker, msgs, path, stats):
+    """One window through `path`: "batch" (Broker.publish_batch),
+    "engine" (DispatchEngine.submit_many, one flush) or "single"
+    (Broker.publish a message: the host walk, the oracle's). Returns
+    the deliveries and the engine's breaker state (None off the engine)."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    state = None
+    if path == "single":
+        n = sum(broker.publish(m) for m in msgs)
+    elif path == "batch":
+        n = sum(broker.publish_batch(msgs))
+    else:
+        async def run():
+            eng = broker.enable_dispatch_engine(queue_depth=len(msgs),
+                                                queue_max_depth=2 * len(msgs))
+            out = await eng.submit_many(msgs)
+            st = eng.breaker_state
+            await eng.stop()
+            return out, st
+
+        n, state = asyncio.run(run())
+    stats["publish_s"] += time.perf_counter() - t0
+    return n, state
+
+
+def durable_flush(db, fault_ok=False):
+    """db.buffer.flush_now(): the shards' writes, then the pump of every
+    connected durable session into its sink (durable_instrument times
+    the two apart). With fault_ok a shard's fail-stop (ShardFailedError,
+    no other exception) returns its name, else "ok"."""
+    from emqx_tpu_torch.ds.storage import ShardFailedError
+
+    try:
+        db.buffer.flush_now()
+    except ShardFailedError as exc:
+        if not fault_ok:
+            raise
+        return type(exc).__name__
+    return "ok"
+
+
+def durable_instrument(db, mgr, stats):
+    """Time the DS writes (every shard's store_batch) and the pumps."""
+    for sh in db.storage.shards:
+        real = sh.store_batch
+
+        def store(msgs, sync=True, _real=real):
+            t0 = time.perf_counter()
+            try:
+                return _real(msgs, sync=sync)
+            finally:
+                stats["store_s"] += time.perf_counter() - t0
+                stats["stored"] += len(msgs)
+
+        sh.store_batch = store
+    real_pump = mgr.pump
+
+    def pump(session, batch_size=P13_BATCH):
+        t0 = time.perf_counter()
+        out = real_pump(session, batch_size)
+        stats["pump_s"] += time.perf_counter() - t0
+        stats["pumped"] += len(out)
+        return out
+
+    mgr.pump = pump
+
+
+def durable_ret_waves(ret, seed, sz, device_reads):
+    """P13_RET_WAVES waves of P13_RET_WAVE filters (phase 8's class mix
+    over this store); returns one digest a wave of every filter's answer
+    (a multiset of (topic, payload, QoS)) and the seconds of the reads."""
+    import hashlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_groups = sz["ret"] // N_RET_PER_GROUP
+    out, secs = [], 0.0
+    for _ in range(sz["ret_waves"]):
+        flts = [ret_filter(c, rng, n_groups, N_RET_PER_GROUP)
+                for c in draw_classes(WAVE_MIX, sz["ret_wave"], rng)]
+        t0 = time.perf_counter()
+        if device_reads:
+            answers = ret.retained_read_finish(ret.retained_read_begin(flts, now=1.8e9))
+        else:
+            answers = [ret.read(f, now=1.8e9) for f in flts]
+        secs += time.perf_counter() - t0
+        h = hashlib.sha256()
+        for a in answers:
+            h.update(b"\0".join(sorted(m.topic.encode() + b"\1" + m.payload + bytes((m.qos,))
+                                       for m in a)) + b"|")
+        out.append(h.hexdigest())
+    return out, secs
+
+
+def durable_positions(mgr):
+    """Every durable session's committed positions, one digest a session."""
+    import hashlib
+
+    return {cid: hashlib.sha256(repr(sorted(
+        (sid, st.committed.hex()) for sid, st in s._streams.items())).encode()).hexdigest()
+        for cid, s in sorted(mgr.sessions.items())}
+
+
+def durable_wild(mgr):
+    """(sessions with a stream on a learned '+', those of them with a
+    committed position in such a stream): whether the learned-wildcard
+    streams (varying_match, the shared-stream rescans) served."""
+    on = [[st for st in s._streams.values() if st.stream.constraints]
+          for s in mgr.sessions.values()]
+    on = [sts for sts in on if sts]
+    return len(on), sum(1 for sts in on if any(st.committed for st in sts))
+
+
+def durable_ledger():
+    """DS_METRICS and the emqx_ds_* scrape lines, the timing gauge
+    (recovery_last_ms) left out."""
+    from emqx_tpu_torch.ds.metrics import DS_METRICS
+
+    snap = DS_METRICS.snapshot()
+    snap.pop("recovery_last_ms")
+    lines = [ln for ln in DS_METRICS.prometheus_lines()
+             if not ln.startswith(("emqx_ds_recovery_last_ms", "# TYPE emqx_ds_recovery_last_ms"))]
+    return snap, dict(DS_METRICS.injected), lines
+
+
+def reset_ds_ledger() -> None:
+    from emqx_tpu_torch.ds.metrics import DS_METRICS
+
+    with DS_METRICS._lock:
+        for k in DS_METRICS.counters:
+            DS_METRICS.counters[k] = 0
+        for k in DS_METRICS.gauges:
+            DS_METRICS.gauges[k] = 0.0
+        DS_METRICS.injected.clear()
+
+
+def durable_open(device, d, clients, sz, seed, stats, device_reads):
+    """A broker over the deployment's directory `d`: Db, manager, the
+    persistent retainer (reloaded, then, with `device_reads`, its device
+    index attached: K8 serves the reloaded names), the live side. Returns
+    (broker, db, mgr, ret, skel)."""
+    from emqx_tpu_torch.broker.pubsub import Broker
+    from emqx_tpu_torch.ds.api import Db
+    from emqx_tpu_torch.ds.session_ds import DurableSessionManager
+    from emqx_tpu_torch.models.retainer import PersistentRetainer
+    from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
+
+    # hash_clientid: a shared group's member is a function of the
+    # publisher, so every publish path elects the same one
+    broker = Broker(max_levels=16, device=device, shared_strategy="hash_clientid")
+    db = Db("messages", data_dir=d, n_shards=P13_SHARDS, buffer_flush_ms=P13_NEVER_MS,
+            buffer_max=1 << 30)
+    stats["db_open_ms"] = db.storage.open_ms
+    t0 = time.perf_counter()
+    mgr = DurableSessionManager(db, state_dir=d)
+    stats["mgr_open_ms"] = (time.perf_counter() - t0) * 1e3
+    broker.enable_durable(mgr)
+    durable_instrument(db, mgr, stats)
+    t0 = time.perf_counter()
+    ret = PersistentRetainer(os.path.join(d, "retained.kv"), max_retained=sz["ret"] + 1,
+                             device=device)
+    stats["ret_reload_s"] = time.perf_counter() - t0
+    stats["ret_enable_s"] = 0.0
+    if device_reads:
+        t0 = time.perf_counter()
+        ret.enable_device(telemetry=KernelTelemetry())
+        stats["ret_enable_s"] = time.perf_counter() - t0
+    broker.retainer = ret
+    return broker, db, mgr, ret, durable_live(broker, clients, sz, seed)
+
+
+def live_audience(broker, msgs) -> int:
+    """The deliveries the live router owes a window by the host trie:
+    each matched session once, each matched shared group once (the
+    durable audience is the pump's, not the publish's)."""
+    from emqx_tpu_torch.broker.pubsub import GROUP_DEST
+
+    n = 0
+    for m in msgs:
+        dests = broker.router.match_routes(m.topic)
+        n += sum(1 for x in dests if isinstance(x, tuple) and x[0] == GROUP_DEST)
+        n += sum(1 for x in dests if isinstance(x, str) and x in broker.sessions)
+    return n
+
+
+def durable_run(device, path_for, d, seed, sz=None, device_reads=True):
+    """The deployment on one broker, steps (a)-(d) (see phase 13 in the
+    module docstring). `device` is the broker's ("cuda" for the card,
+    "cpu" for the oracle); with `device_reads` the retained reads go
+    through the device index (K8 on the card), else the host walks;
+    `path_for(w)` names window w's publish path. Returns (state, stats):
+    `state` is what card and oracle must agree on."""
+    import numpy as np
+
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.session import SessionConfig
+    from emqx_tpu_torch.chaos.faults import DiskFaultInjector
+    from emqx_tpu_torch.obs.prometheus import prometheus_text
+
+    sz = dict(P13_SIZES, **(sz or {}))
+    stats = {"publish_s": 0.0, "store_s": 0.0, "stored": 0, "pump_s": 0.0, "pumped": 0}
+    state = {}
+    reset_ds_ledger()
+    clients = DurableClients()
+    rng = np.random.default_rng(seed)
+    dur_cfg = lambda: SessionConfig(session_expiry_interval=3600,  # noqa: E731
+                                    receive_maximum=P13_RECV_MAX)
+
+    # (a) the deployment and its windows
+    t_a = time.perf_counter()
+    broker, db, mgr, ret, skel = durable_open(device, d, clients, sz, seed, stats, device_reads)
+    # with device_reads the index is attached before the names arrive:
+    # each retain() adds its name to it; the reopen in (c) backfills
+    t0 = time.perf_counter()
+    n_groups = sz["ret"] // N_RET_PER_GROUP
+    for i, name in enumerate(retained_names(n_groups, N_RET_PER_GROUP,
+                                            sz["ret"] - n_groups * N_RET_PER_GROUP)):
+        ret.retain(Message(topic=name, payload=b"%032d" % i, qos=i % 3, retain=True,
+                           timestamp=1.7e9))
+    ret.flush()
+    stats["ret_store_s"] = time.perf_counter() - t0
+    state["ret_a"], stats["ret_read_a_s"] = durable_ret_waves(ret, seed + 1, sz, device_reads)
+    q1 = SubOpts(qos=1)
+    for i in range(sz["durable"]):
+        cid = f"dur{i}"
+        s, _ = broker.open_session(cid, True, dur_cfg())
+        s.outgoing_sink = clients.sink_for(cid)
+        broker.subscribe(s, f"fleet/{i % sz['filters']}/+/state", q1)
+        if i < sz["shared"]:
+            broker.subscribe(s, f"$share/g{i % P13_GROUPS}/fleet/+/+/alarm", q1)
+    offline = [f"dur{i}" for i in range(1, sz["durable"], 2)]
+    for cid in offline:
+        broker.sessions[cid].on_disconnect()
+    breaker = []
+    for w in range(1, sz["windows"] + 1):
+        if w == sz["offline"] + 1:
+            for cid in offline:
+                s, present = broker.open_session(cid, False, dur_cfg())
+                assert present, cid
+                clients.sink_for(cid)(s.on_reconnect())
+        msgs = [Message(topic=t, payload=b"w%dj%d" % (w, j), qos=1, from_client=p,
+                        id=f"w{w}_{j}", timestamp=1.7e9 + w + j * 1e-4)
+                for j, (t, p) in enumerate(durable_window(rng, w, sz))]
+        _n, st = durable_publish(broker, msgs, path_for(w), stats)
+        breaker.append(st)
+        clients.ack_held(broker.sessions)
+        durable_flush(db)
+        durable_churn(broker, clients, rng, w - 1, sz, skel)
+        # progress, for the child's log: how far a run cut at its limit got
+        print(f"window {w}: {time.perf_counter() - t_a:.3f} s", flush=True)
+    state["report_a"] = mgr.recovery_report()
+    stats["a_s"] = time.perf_counter() - t_a
+
+    # (b) SIGKILL: nothing closes gracefully
+    mgr.kill()
+    db.kill()
+    ret.kill()
+    del broker, db, mgr, ret
+    gc.collect()
+
+    # (c) a fresh broker over the same directory
+    t_c = time.perf_counter()
+    clients.step = "c"
+    reset_ds_ledger()
+    broker, db, mgr, ret, skel = durable_open(device, d, clients, sz, seed, stats, device_reads)
+    report = db.recovery_report()
+    report.pop("open_ms")
+    state["report_c"] = (report, mgr.recovery_report())
+    state["positions"] = durable_positions(mgr)
+    state["ret_c"], stats["ret_read_c_s"] = durable_ret_waves(ret, seed + 1, sz, device_reads)
+    state["ret_len"] = len(ret)
+    for cid in sorted(mgr.sessions):
+        mgr.sessions[cid].cfg.receive_maximum = P13_RECV_MAX  # the client's CONNECT
+        s, present = broker.open_session(cid, False, dur_cfg())
+        assert present, cid
+        s.outgoing_sink = clients.sink_for(cid)
+        s.outgoing_sink(s.on_reconnect())
+    for _ in range(64):
+        before = clients.pumped
+        clients.ack_held(broker.sessions)
+        for cid in sorted(mgr.sessions):
+            s = broker.sessions[cid]
+            s.outgoing_sink(mgr.pump(s))
+        if clients.pumped == before:
+            break
+    clients.ack_held(broker.sessions)
+    state["wild"] = durable_wild(mgr)
+    state["ledger_c"] = durable_ledger()
+    stats["c_s"] = time.perf_counter() - t_c
+
+    # (d) a disk fault on shard 2 under two more windows
+    t_d = time.perf_counter()
+    clients.step = "d"
+    inj = DiskFaultInjector(seed=seed).install()
+    legs, audience = [], []
+    try:
+        inj.fail_sticky("fsync", paths=["shard_2"])
+        for w in range(sz["windows"] + 1, sz["windows"] + 1 + sz["fault_windows"]):
+            msgs = [Message(topic=t, payload=b"w%dj%d" % (w, j), qos=1, from_client=p,
+                            id=f"w{w}_{j}", timestamp=1.7e9 + w + j * 1e-4)
+                    for j, (t, p) in enumerate(durable_window(rng, w, sz))]
+            before = [int(sh.kv.wal_records()) for sh in db.storage.shards]
+            want = live_audience(broker, msgs)
+            n, st = durable_publish(broker, msgs, path_for(w), stats)
+            audience.append((n, want))
+            breaker.append(st)
+            clients.ack_held(broker.sessions)
+            legs.append(durable_flush(db, fault_ok=True))
+            grew = [int(sh.kv.wal_records()) > b for sh, b in zip(db.storage.shards, before)]
+            legs.append((tuple(db.failed_shards()), tuple(grew)))
+        reads2 = 0
+        for stream in db.get_streams("fleet/+/+/state"):
+            if stream.shard == 2:
+                reads2 += len(db.next(db.make_iterator(stream, "fleet/+/+/state"),
+                                      batch_size=1 << 20)[1])
+        legs.append(("shard2_reads", reads2))
+        legs.append(("injector", inj.status()["faults_raised"] > 0))
+        inj.heal()
+        legs.append(("recovered", db.recover_shard(2), tuple(db.failed_shards())))
+    finally:
+        inj.heal()
+        inj.uninstall()
+    state["fault"] = legs
+    state["ledger_d"] = durable_ledger()
+    state["scrape"] = [ln for ln in prometheus_text(broker).splitlines()
+                       if ln.startswith("emqx_ds_")
+                       and not ln.startswith("emqx_ds_recovery_last_ms")]
+    state["deliveries"] = clients.summary()
+    m = broker.metrics
+    state["metrics"] = {k: m.val(k) for k in ("messages.received", "messages.delivered",
+                                              "messages.dropped.no_subscribers")}
+    stats["d_s"] = time.perf_counter() - t_d
+    stats["breaker"] = breaker
+    stats["audience"] = audience
+    stats["telemetry"] = dict(broker.router.telemetry.counters)
+    mgr.close()
+    db.close()
+    ret.close()
+    return state, stats
+
+
+def jsonable(x):
+    """`x` with tuples as lists and tuple keys joined by '|': what a
+    child of phase 13 writes and the parent compares."""
+    if isinstance(x, dict):
+        return {("|".join(map(str, k)) if isinstance(k, tuple) else k): jsonable(v)
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [jsonable(v) for v in x]
+    return x
+
+
+def durable_role(role, d, seed, sz):
+    """One of phase 13's two runs: "card" (the card's broker, launch
+    counters from 0 just before it) or "oracle" (the CPU broker).
+    Returns {"state", "stats", "launches", "s"}, JSON-able."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    if role == "card":
+        _build.reset_launches()
+        state, stats = durable_run(DEVICE, lambda w: "engine" if w % 2 == 0 else "batch",
+                                   d, seed, sz, True)
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    else:
+        state, stats = durable_run("cpu", lambda w: "single", d, seed, sz, True)
+        launches = {}
+    return {"state": jsonable(state), "stats": jsonable(stats), "launches": launches,
+            "s": time.perf_counter() - t0}
+
+
+def durable_child() -> int:
+    """Entry of a phase-13 child process:
+    `python3 -c "import chip_smoke; chip_smoke.durable_child()" ROLE DIR
+    OUT SEED SIZES_JSON DEVICE` writes durable_role's result to OUT (the
+    card's run on DEVICE, the parent's)."""
+    global DEVICE
+    import torch
+
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.broker import pubsub as _pubsub  # noqa: F401  registers every kernel
+    from emqx_tpu_torch.ops import _build
+
+    role, d, out, seed, sizes, DEVICE = sys.argv[1:7]
+    native.build_all()  # on disk since phase 2: loads only
+    if role == "card" and DEVICE != "cpu":
+        _build.build_all()
+    else:
+        torch.set_num_threads(2)
+    res = durable_role(role, d, int(seed), json.loads(sizes))
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def durable_children(root, seed, sz, timeout_s):
+    """The card's run and the oracle's, each in a process of its own
+    started together (the host work of the two overlaps on the
+    machine's cores); both get PYTHONHASHSEED=0, so the shared groups'
+    hash_clientid elections agree. Every child is waited for, or killed
+    at the limit. Returns (card, oracle) results."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    procs = {}
+    for role in ("card", "oracle"):
+        out = os.path.join(root, f"{role}.json")
+        cmd = [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.durable_child())",
+               role, os.path.join(root, role), out, str(seed), json.dumps(sz), DEVICE]
+        log_f = open(os.path.join(root, f"{role}.log"), "w")
+        procs[role] = (subprocess.Popen(cmd, cwd=here, env=env, stdout=log_f,
+                                        stderr=subprocess.STDOUT), out, log_f)
+    t_end = time.perf_counter() + timeout_s
+    failed = []
+    try:
+        for role, (proc, _out, _f) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                failed.append((role, rc))
+    finally:
+        for proc, _out, f in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    if failed:
+        tails = {role: open(os.path.join(root, f"{role}.log")).read()[-3000:]
+                 for role, _rc in failed}
+        raise AssertionError(f"phase 13: child runs failed {failed}: {tails}")
+    return tuple(json.load(open(procs[r][1])) for r in ("card", "oracle"))
+
+
+def durable_verdict(dev_r, ora_r, sz, card):
+    """Phase 13's figures and checks on the card's and the oracle's
+    results (durable_children's): prints them, raises on a difference or
+    a failed check, returns the card run's launches."""
+    dev, st, launches = dev_r["state"], dev_r["stats"], dev_r["launches"]
+    ora = ora_r["state"]
+    t_card, t_oracle = dev_r["s"], ora_r["s"]
+    diff = [k for k in ora if dev.get(k) != ora[k]]
+    per_step = {}
+    for key, (n, _h) in dev["deliveries"].items():
+        step = key.split("|")[0]
+        per_step[step] = per_step.get(step, 0) + n
+    log(f"durable (a) card: {sz['durable']:,} durable sessions on {sz['filters']} filters "
+        f"({sz['shared']} also on $share groups), {sz['live']:,} live QoS-1 sessions, "
+        f"{sz['routes']:,} live routes, "
+        f"{sz['windows']} windows of {sz['window']:,} QoS-1 publishes (publish_batch and "
+        f"the dispatch engine in turns), {P13_SHARDS} shards, {dev['ret_len']:,} retained "
+        f"names stored in {st['ret_store_s']:.3f} s; persist gate "
+        f"{st['stored'] / st['store_s']:.1f} stores/s ({st['stored']:,} stored in "
+        f"{st['store_s']:.3f} s of shard writes), pump {st['pumped'] / st['pump_s']:.1f} "
+        f"deliveries/s ({st['pumped']:,} in {st['pump_s']:.3f} s), publish "
+        f"{st['publish_s']:.3f} s; deliveries by step {per_step}; sessions on a learned "
+        f"'+' (with a committed position there) {dev['wild']} [{card}]")
+    log(f"durable (c) reopen: Db open {st['db_open_ms']:.3f} ms, manager recovery "
+        f"{st['mgr_open_ms']:.3f} ms, retained reload {st['ret_reload_s']:.3f} s "
+        f"({dev['ret_len']:,} names) + device index {st['ret_enable_s']:.3f} s, K8 "
+        f"{sz['ret_waves'] * sz['ret_wave'] / st['ret_read_c_s']:.1f} filters/s after the "
+        f"reopen ({sz['ret_waves']} waves of {sz['ret_wave']:,}; "
+        f"{sz['ret_waves'] * sz['ret_wave'] / st['ret_read_a_s']:.1f} filters/s before); "
+        f"recovery {dev['report_c'][1]} [{card}]")
+    log(f"durable (d) disk fault on shard 2: {dev['fault']}; live audience "
+        f"(delivered, host trie) {st['audience']}; engine breaker {st['breaker']} [{card}]")
+    log(f"durable launches {launches} [{card}]")
+    log(f"durable gate: card {t_card:.3f} s against the oracle (a CPU broker: "
+        f"Broker.publish on the host trie, retained reads through K8's plain version) "
+        f"{t_oracle:.3f} s; {len(dev['deliveries'])} (step, client) "
+        f"multisets, {len(dev['positions'])} sessions' positions, reports, retained "
+        f"answers, DS_METRICS and {len(dev['scrape'])} emqx_ds_* samples; differences "
+        f"{diff} [{card}]")
+    if diff:
+        raise AssertionError(f"phase 13: the card and the oracle differ in {diff}")
+    fault = dev["fault"]
+    named = {x[0]: x[1:] for x in fault if isinstance(x, list) and isinstance(x[0], str)}
+    legs = [x for x in fault if isinstance(x, list) and isinstance(x[0], list)]
+    raised = [x for x in fault if isinstance(x, str)]
+    if not legs or len(raised) != len(legs) \
+            or any(x != "ShardFailedError" for x in raised) \
+            or any(failed != [2] or not all(g for i, g in enumerate(grew) if i != 2)
+                   for failed, grew in legs) \
+            or named["shard2_reads"][0] <= 0 or named["recovered"] != [True, []]:
+        raise AssertionError(f"phase 13 (d): {fault}")
+    if any(n != want for n, want in st["audience"]):
+        raise AssertionError(f"phase 13 (d): live deliveries {st['audience']}")
+    if any(b not in (None, "closed") for b in st["breaker"]):
+        raise AssertionError(f"phase 13: the engine's breaker {st['breaker']}")
+    require_no_device_fault(st["telemetry"], "phase 13")
+    if not per_step.get("c") or not per_step.get("a"):
+        raise AssertionError(f"phase 13: deliveries by step {per_step}")
+    if min(dev["wild"]) <= 0:
+        raise AssertionError(f"phase 13: no session served from a learned '+' {dev['wild']}")
+    missing = [n for n in P13_PATH if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"phase 13 never launched {missing}")
+    return launches
+
+
+def durable_phase(seed, card):
+    """Phase 13: the durable tier on the card's publish path, held against
+    a CPU oracle broker fed the same sequence over its own directory, the
+    two runs in two processes started together (durable_children).
+    Returns the launches of the card's run, counted from 0 at its start."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    try:
+        dev_r, ora_r = durable_children(root, seed, P13_SIZES, P13_LIMIT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = durable_verdict(dev_r, ora_r, P13_SIZES, card)
+    st = dev_r["stats"]
+    took = time.perf_counter() - t_phase
+    log(f"phase 13: {took:.3f} s (card {dev_r['s']:.3f} s: (a) {st['a_s']:.3f} s, (c) "
+        f"{st['c_s']:.3f} s, (d) {st['d_s']:.3f} s; oracle {ora_r['s']:.3f} s) [{card}]")
+    if took > P13_LIMIT_S:
+        raise AssertionError(f"phase 13 took {took:.3f} s, over {P13_LIMIT_S} s")
+    return launches
+
+
 def host_encode_ms(router, skel, exact, seed: int) -> float:
     """The host's own speed in this process: the median of 20 host
     encodes of one batch, no device work."""
@@ -6160,6 +6893,12 @@ def main(argv=None) -> int:
     log(watch.line("phase 12"))
     lap(12)
 
+    # phase 13: the durable tier on a fresh card broker, against a CPU
+    # oracle broker, in two child processes; launch counters from zero
+    # at the card run's start
+    p13_launches = durable_phase(args.seed + 7, card)
+    lap(13)
+
     def phase10_launches(name):
         # a fused kernel's total on each of its entries; the dense-only
         # record's launches are phase 6's, none of them phase 10's
@@ -6180,6 +6919,12 @@ def main(argv=None) -> int:
         key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
         return r_launches.get(key, 0)
 
+    def phase13_launches(name):
+        if name == "match_ids_dense_only":
+            return 0
+        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
+        return p13_launches.get(key, 0)
+
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
     for name in b_recs:
@@ -6192,9 +6937,10 @@ def main(argv=None) -> int:
             f"launches={path_launches[name]} phase10_launches="
             f"{phase10_launches(name)} phase11_launches={phase11_launches(name)} "
             f"phase12_launches={phase12_launches(name)} "
+            f"phase13_launches={phase13_launches(name)} "
             f"equal=True [{r['shape']}] [{card}]")
 
-    # phase 13: summary
+    # phase 14: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -6259,6 +7005,7 @@ def main(argv=None) -> int:
             "launches_phase10": phase10_launches(name),
             "launches_phase11": phase11_launches(name),
             "launches_phase12": phase12_launches(name),
+            "launches_phase13": phase13_launches(name),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

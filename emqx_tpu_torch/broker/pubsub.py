@@ -33,9 +33,16 @@ A rule engine (rules/engine.py) installed on the broker sets
 engine's batched-WHERE window around the 'message.publish' fold, so
 the WHERE predicates of the whole batch drain as one columnar mask.
 
-Left out of the port for now: the durable-session tier. A device
-fault on a plan resolve serves the host walk (counted, the breaker
-told); any other exception raises to the caller.
+A DurableSessionManager (ds/session_ds.py) attached with
+`enable_durable` holds the persist gate in the 'message.publish' fold
+(priority 40, so it runs inside the batched-WHERE window too, on both
+publish paths): a message whose topic matches a durable subscription
+is stored to DS, and a durable-only audience is not counted as a drop.
+Sessions with a nonzero expiry then open as durable sessions whose
+direct subscriptions live in the manager's host ps-router and are fed
+by the DS pump; their shared subscriptions stay in the live router, on
+the card. A device fault on a plan resolve serves the host walk
+(counted, the breaker told); any other exception raises to the caller.
 """
 
 from __future__ import annotations
@@ -128,6 +135,9 @@ class Broker:
         self.router.fanout_opts_lookup = self._fanout_opts_lookup
         # (filter, client) subopts — mirror of ?SUBOPTION
         self.suboptions: Dict[Tuple[str, str], SubOpts] = {}
+        # durable-session manager (emqx_persistent_session_ds seam);
+        # attach with enable_durable()
+        self.durable = None
         # pipelined micro-batching dispatcher; attach with
         # enable_dispatch_engine() (broker/dispatch_engine.py)
         self.engine = None
@@ -151,13 +161,43 @@ class Broker:
         self.engine = DispatchEngine(self, **kw)
         return self.engine
 
+    def enable_durable(self, manager) -> None:
+        """Wire a DurableSessionManager: installs the persist gate and
+        routes qualifying sessions through DS (emqx_broker.erl:294,
+        300-311 persist path)."""
+        self.durable = manager
+        manager.broker = self
+        manager.install(self.hooks)
+
     # --- session registry (emqx_cm-lite) --------------------------------
 
     def open_session(
         self, client_id: str, clean_start: bool, cfg=None
     ) -> Tuple[Session, bool]:
         """Returns (session, session_present). Clean start discards
-        (emqx_cm:open_session:285-304)."""
+        (emqx_cm:open_session:285-304). Sessions with a nonzero expiry
+        become durable when a DS manager is attached."""
+        if (
+            self.durable is not None
+            and cfg is not None
+            and cfg.session_expiry_interval > 0
+            and cfg.durable is not False
+        ):
+            # an existing LIVE session under this id must be torn down
+            # first or its routes leak and deliveries double up (the
+            # close touches every filter the old session held, staling
+            # exactly the plans that embedded it)
+            prev = self.sessions.get(client_id)
+            if prev is not None and not self._is_durable(prev):
+                self.close_session(prev, discard=True)
+            session, present = self.durable.open_session(client_id, clean_start, cfg)
+            self.sessions[client_id] = session
+            self.router.dest_store.note_session(client_id, session)
+            self.stats.set("sessions.count", len(self.sessions))
+            self.hooks.run(
+                "session.resumed" if present else "session.created", client_id
+            )
+            return session, present
         old = self.sessions.get(client_id)
         if clean_start or old is None or old.expired():
             if old is not None:
@@ -191,6 +231,26 @@ class Broker:
                 closer()
             except Exception:
                 pass
+        if self.durable is not None and self._is_durable(session):
+            # shared-group routes live in the live router — release them
+            for flt in list(session.subscriptions):
+                if topic_mod.parse_share(flt)[0] is not None:
+                    self._unsubscribe_route(session.client_id, flt)
+                self.suboptions.pop((flt, session.client_id), None)
+                self._release_exclusive(session.client_id, flt)
+                # observers must see the subscription END even when the
+                # whole session goes
+                self.hooks.run("session.unsubscribed", session.client_id, flt)
+            self.durable.discard_session(session.client_id)
+            self.sessions.pop(session.client_id, None)
+            self.router.dest_store.note_session(session.client_id, None)
+            self.stats.set("sessions.count", len(self.sessions))
+            self.stats.set("subscriptions.count", len(self.suboptions))
+            self.hooks.run(
+                "session.discarded" if discard else "session.terminated",
+                session.client_id,
+            )
+            return
         # batch the direct-route deletes through Router.delete_routes —
         # session close IS the route-churn steady state at millions of
         # users; shared legs keep the per-filter group election
@@ -250,6 +310,17 @@ class Broker:
             if owner is not None and owner != session.client_id:
                 raise ExclusiveTaken(flt)
             self.exclusive[flt] = session.client_id
+        # durable sessions route through the ps-router + DS scheduler,
+        # never the live router (emqx_persistent_session_ds model)
+        if self.durable is not None and self._is_durable(session) and group is None:
+            existed = self.durable.subscribe(session, flt, opts)
+            self.suboptions[(flt, session.client_id)] = opts
+            self._mark_fanout(real)
+            self.stats.set("subscriptions.count", len(self.suboptions))
+            self.hooks.run("session.subscribed", session.client_id, flt, opts)
+            if opts.retain_handling == 2 or (opts.retain_handling == 1 and existed):
+                return []
+            return self._read_retained(real, retained_reader)
         existed = flt in session.subscriptions
         session.subscriptions[flt] = opts
         self.suboptions[(flt, session.client_id)] = opts
@@ -292,6 +363,14 @@ class Broker:
         group, real = topic_mod.parse_share(flt)
         self._mark_fanout(real)
         self._release_exclusive(session.client_id, flt)
+        # shared subs always live in the live router, even for durable
+        # sessions (the durable subscribe branch requires group None)
+        if self.durable is not None and self._is_durable(session) and group is None:
+            self.durable.unsubscribe(session, flt)
+            self.suboptions.pop((flt, session.client_id), None)
+            self.stats.set("subscriptions.count", len(self.suboptions))
+            self.hooks.run("session.unsubscribed", session.client_id, flt)
+            return True
         del session.subscriptions[flt]
         self.suboptions.pop((flt, session.client_id), None)
         self._unsubscribe_route(session.client_id, flt)
@@ -302,6 +381,12 @@ class Broker:
     def _release_exclusive(self, client_id: str, flt: str) -> None:
         if self.exclusive.get(flt) == client_id:
             del self.exclusive[flt]
+
+    @staticmethod
+    def _is_durable(session: Session) -> bool:
+        from ..ds.session_ds import DurableSession
+
+        return isinstance(session, DurableSession)
 
     def _unsubscribe_route(self, client_id: str, flt: str) -> None:
         group, real = topic_mod.parse_share(flt)
@@ -643,8 +728,11 @@ class Broker:
 
     def _account_dispatch(self, msg: Message, n: int) -> None:
         if n == 0:
-            self.metrics.inc("messages.dropped.no_subscribers")
-            self.hooks.run("message.dropped", msg, "no_subscribers")
+            # a durable-only audience isn't a drop: the persist gate
+            # stored the message and the DS pump will deliver it
+            if self.durable is None or not self.durable.needs_persist(msg.topic):
+                self.metrics.inc("messages.dropped.no_subscribers")
+                self.hooks.run("message.dropped", msg, "no_subscribers")
 
     def _dispatch_shared_local(
         self, msg: Message, pairs: Pairs, key: tuple

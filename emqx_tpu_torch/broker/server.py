@@ -58,6 +58,10 @@ class Connection:
             sess.sink_proto_ver = self.channel.proto_ver
             # admin kick severs the socket through this
             sess.closer = self.transport.close
+            # background producers (the DS pump on the buffer's flush
+            # thread) must hop onto this loop before touching the
+            # session or the transport
+            sess.event_loop = asyncio.get_running_loop()
 
     def _send_bytes(self, data: bytes) -> None:
         """Fanout fast path: one shared QoS0 PUBLISH, serialized once

@@ -42,15 +42,32 @@ torch); CUDA errors are asynchronous, so a faulting kernel is reported by
 a later synchronising call. `is_device_fault` tells those and the
 injected `DeviceLinkError` family apart from every other exception: a
 kernel that fails to build or launch, or a bug of the port's own code,
-is not the card's fault, and the failure domain lets it propagate."""
+is not the card's fault, and the failure domain lets it propagate.
+
+The disk seam (`DiskFaultInjector`, the port's copy of the disk half of
+emqx_tpu/chaos/faults.py) plugs into the durable tier's ds/diskio
+None-seam. Its errors are `OSError`s (and `SimulatedCrash`), never
+device faults: a disk fault fail-stops a DS shard, and the device
+breaker does not hear of it."""
 
 from __future__ import annotations
 
+import errno
 import random
 import time
 from typing import Any, Dict, FrozenSet, Optional, Sequence, Tuple
 
 import torch
+
+from ..ds import diskio
+from ..ds.diskio import (  # noqa: F401  re-exported with the disk seam
+    DiskFaultError,
+    DiskFullError,
+    DiskIOError,
+    FsyncFailedError,
+    SimulatedCrash,
+)
+from ..ds.metrics import DS_METRICS
 
 # the legs check() is called with — one name per seam at the card
 LEGS = (
@@ -346,4 +363,273 @@ class DeviceFaultInjector:
                 f"{leg}/{shard}": n
                 for (leg, shard), n in sorted(self.injected.items())
             },
+        }
+
+
+# --- the disk seam --------------------------------------------------------
+
+# the legs DiskFaultInjector.check() is called with — one name per
+# durable-tier I/O seam (ds/diskio.py)
+DISK_LEGS = (
+    "open",
+    "append",
+    "fsync",
+    "dir_fsync",
+    "rename",
+)
+
+# named places the process can die during compaction choreography —
+# each one is a distinct on-disk state the reopen must recover from
+CRASH_POINTS = (
+    "compact_before_tmp_fsync",
+    "compact_after_tmp_fsync",
+    "compact_before_rename",
+    "compact_after_rename",
+)
+
+_DISK_ERRORS: Dict[str, Any] = {
+    "enospc": (DiskFullError, errno.ENOSPC, "injected ENOSPC"),
+    "eio": (DiskIOError, errno.EIO, "injected EIO"),
+    "fsync": (FsyncFailedError, errno.EIO, "injected fsync failure"),
+}
+
+
+class DiskFaultInjector:
+    """The durable tier's fault source — installs into the
+    `ds/diskio` None-seam so every WAL append, fsync, rename and
+    directory fsync in the process becomes injectable (the disk analog
+    of DeviceFaultInjector's XLA seam). Modes:
+
+      * **transient / sticky errno faults** (`fail_transient`,
+        `fail_sticky`): ENOSPC (full disk), EIO (media error) or
+        fsync failure, optionally scoped to `legs` and/or `paths`
+        (substring match — one shard's file vs. the whole tier). A
+        failed fsync must FAIL-STOP the shard: the storage layer
+        never retries it, because the kernel may already have dropped
+        the dirty pages (the fsyncgate loss mode).
+      * **torn write** (`torn_write`): the next matching append puts
+        only the first N bytes in the file and then 'the process
+        dies' (SimulatedCrash) — the classic crash-mid-record state
+        WAL v2's CRC framing exists to detect.
+      * **crash points** (`crash_at`): die at a named step of the
+        compaction swap — before/after tmp-fsync, before/after
+        rename — each leaving a distinct on-disk state the reopen
+        replay must recover to a consistent store.
+      * **bit flip** (`corrupt_at`): flip bits at a byte offset of a
+        closed WAL file, the silent-media-corruption mode replay's
+        CRC check must refuse to deserialize.
+      * seeded probabilistic schedule (`fail_random`), replayable
+        from `seed` like the device injector's.
+
+    Healthy cost: one falsy module-global read per I/O op."""
+
+    def __init__(self, seed: int = 0) -> None:
+        self.seed = int(seed)
+        self.rng = random.Random(self.seed)
+        self._sticky: Optional[str] = None  # error kind, or None
+        self._transient_left = 0
+        self._transient_kind = "eio"
+        self._random_p = 0.0
+        self._random_kind = "eio"
+        self._torn: Optional[int] = None
+        self._crash: Optional[str] = None
+        self._legs: Optional[Tuple[str, ...]] = None
+        self._paths: Optional[Tuple[str, ...]] = None
+        self.checks_total = 0
+        self.faults_raised = 0
+        self.crashes_injected = 0
+        self.injected: Dict[str, int] = {}
+
+    # --- wiring -----------------------------------------------------------
+
+    def install(self) -> "DiskFaultInjector":
+        """Attach to the process-wide ds/diskio seam (idempotent)."""
+        diskio.install_injector(self)
+        return self
+
+    def uninstall(self) -> None:
+        diskio.uninstall_injector(self)
+
+    # --- fault programming ------------------------------------------------
+
+    def fail_transient(
+        self,
+        n: int = 1,
+        kind: str = "eio",
+        legs: Optional[Sequence[str]] = None,
+        paths: Optional[Sequence[str]] = None,
+    ) -> None:
+        """The next `n` matching disk ops fail with `kind`
+        (enospc/eio/fsync), then the disk is healthy again."""
+        self._transient_left = int(n)
+        self._transient_kind = kind
+        self._legs = tuple(legs) if legs else None
+        self._paths = tuple(paths) if paths else None
+
+    def fail_sticky(
+        self,
+        kind: str = "eio",
+        legs: Optional[Sequence[str]] = None,
+        paths: Optional[Sequence[str]] = None,
+    ) -> None:
+        """Every matching disk op fails with `kind` until heal() —
+        the full-disk / dead-media mode the shard breaker must
+        fail-stop around."""
+        self._sticky = kind
+        self._legs = tuple(legs) if legs else None
+        self._paths = tuple(paths) if paths else None
+
+    def torn_write(
+        self, nbytes: int, paths: Optional[Sequence[str]] = None
+    ) -> None:
+        """The next matching append writes only its first `nbytes`
+        and then the process dies (SimulatedCrash). nbytes may exceed
+        the record — it is clamped, so 0 = crash before any byte."""
+        self._torn = max(0, int(nbytes))
+        self._paths = tuple(paths) if paths else None
+
+    def crash_at(
+        self, point: str, paths: Optional[Sequence[str]] = None
+    ) -> None:
+        """Die at a named compaction crash point (CRASH_POINTS)."""
+        if point not in CRASH_POINTS:
+            raise ValueError(f"unknown crash point: {point}")
+        self._crash = point
+        self._paths = tuple(paths) if paths else None
+
+    def fail_random(
+        self,
+        p: float,
+        kind: str = "eio",
+        legs: Optional[Sequence[str]] = None,
+        paths: Optional[Sequence[str]] = None,
+    ) -> None:
+        """Seeded probabilistic schedule: every matching op fails with
+        probability `p` — deterministic given seed + op sequence."""
+        self._random_p = float(p)
+        self._random_kind = kind
+        self._legs = tuple(legs) if legs else None
+        self._paths = tuple(paths) if paths else None
+
+    def heal(self) -> None:
+        """Clear every programmed fault: the disk is healthy."""
+        self._sticky = None
+        self._transient_left = 0
+        self._random_p = 0.0
+        self._torn = None
+        self._crash = None
+        self._legs = None
+        self._paths = None
+
+    @property
+    def healthy(self) -> bool:
+        return not (
+            self._sticky is not None
+            or self._transient_left > 0
+            or self._random_p > 0.0
+            or self._torn is not None
+            or self._crash is not None
+        )
+
+    # --- direct media corruption -----------------------------------------
+
+    @staticmethod
+    def tear_tail(path: str, garbage: bytes = b"\x7f" * 7) -> None:
+        """Append a partial record to a (closed) WAL file — the
+        on-disk state a crash mid-append leaves behind, engine-
+        independent (the live `torn_write` seam can only tear the
+        Python engine's writes; the native engine writes from C)."""
+        with open(path, "ab") as f:
+            f.write(garbage)
+
+    @staticmethod
+    def corrupt_at(path: str, offset: int, xor: int = 0xFF) -> None:
+        """Flip bits at `offset` of a (closed) file — silent media
+        corruption; replay's CRC verification must refuse the record.
+        Negative offsets index from the end."""
+        with open(path, "r+b") as f:
+            if offset < 0:
+                f.seek(offset, 2)
+            else:
+                f.seek(offset)
+            pos = f.tell()
+            b = f.read(1)
+            if not b:
+                raise ValueError(f"offset {offset} past EOF of {path}")
+            f.seek(pos)
+            f.write(bytes([b[0] ^ (xor & 0xFF)]))
+
+    # --- the seam entries (called by ds/diskio) ---------------------------
+
+    def _match_path(self, path: str) -> bool:
+        targets = self._paths
+        if targets is None:
+            return True
+        return any(t in path for t in targets)
+
+    def _record_injected(self, leg: str) -> None:
+        self.injected[leg] = self.injected.get(leg, 0) + 1
+        DS_METRICS.count_injected(leg)
+
+    def _raise(self, kind: str, leg: str, path: str) -> None:
+        cls, eno, msg = _DISK_ERRORS[kind]
+        self.faults_raised += 1
+        self._record_injected(leg)
+        err = cls(f"{msg} at {leg}: {path}", path)
+        err.errno = eno
+        raise err
+
+    def torn_len(self, path: str, n: int) -> Optional[int]:
+        """Consulted by the append seam BEFORE the errno gate: when a
+        torn write is armed for this path, returns how many bytes to
+        land before the crash; the arm is one-shot."""
+        if self._torn is None or not self._match_path(path):
+            return None
+        torn, self._torn = self._torn, None
+        self.crashes_injected += 1
+        self._record_injected("torn_write")
+        return min(torn, n)
+
+    def check(self, leg: str, path: str) -> None:
+        """Called by every diskio seam entry. Healthy: one falsy test
+        (done by the caller reading the module slot); here the
+        programmed mode decides."""
+        if self._legs is not None and leg not in self._legs:
+            return
+        if not self._match_path(path):
+            return
+        self.checks_total += 1
+        if self._sticky is not None:
+            self._raise(self._sticky, leg, path)
+        if self._transient_left > 0:
+            self._transient_left -= 1
+            self._raise(self._transient_kind, leg, path)
+        if self._random_p > 0.0 and self.rng.random() < self._random_p:
+            self._raise(self._random_kind, leg, path)
+
+    def crash_check(self, point: str, path: str) -> None:
+        """Consulted at every named crash point; fires (one-shot) when
+        exactly this point is armed."""
+        if self._crash != point or not self._match_path(path):
+            return
+        self._crash = None
+        self.crashes_injected += 1
+        self._record_injected(point)
+        raise SimulatedCrash(f"injected crash at {point}: {path}", path)
+
+    def status(self) -> dict:
+        return {
+            "healthy": self.healthy,
+            "sticky": self._sticky,
+            "transient_left": self._transient_left,
+            "random_p": self._random_p,
+            "torn": self._torn,
+            "crash": self._crash,
+            "legs": list(self._legs) if self._legs else None,
+            "paths": list(self._paths) if self._paths else None,
+            "seed": self.seed,
+            "checks_total": self.checks_total,
+            "faults_raised": self.faults_raised,
+            "crashes_injected": self.crashes_injected,
+            "injected": dict(sorted(self.injected.items())),
         }

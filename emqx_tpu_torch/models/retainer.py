@@ -11,7 +11,11 @@ dedicated index tables (emqx_retainer_index.erl:17-50).
 `enable_device()` attaches the cuckoo-backed index of ops/retained.py
 (kernel K8 on the card) and serves wildcard reads through
 `retained_read_begin/finish`; the host trie stays the exact oracle and
-the escalation path. The durable `PersistentRetainer` is not ported.
+the escalation path. `PersistentRetainer` writes the store through to
+the durable tier's KV engine and reloads it on open; a reloaded name
+reaches the device index either way round (reload then
+`enable_device()` backfills it, `enable_device()` then `reload()` adds
+it as it arrives).
 """
 
 from __future__ import annotations
@@ -260,3 +264,102 @@ class Retainer:
         for t in dead:
             self._purge(t)
         return len(dead)
+
+
+class PersistentRetainer(Retainer):
+    """Retainer backed by the DS KV engine: write-through on
+    store/delete, full reload on open — retained state survives broker
+    restart the way the reference's mnesia disc backend does
+    (apps/emqx_retainer/src/emqx_retainer_mnesia.erl:288-298). Reads
+    stay in-memory and on the device index (the KV tier is durability,
+    not the read path). The records are the reference's: the term codec
+    of cluster/wire.py, keyed by topic, so either package opens the
+    other's file."""
+
+    def __init__(
+        self,
+        path: str,
+        max_retained: int = 1_000_000,
+        prefer_native: bool = True,
+        device: DeviceLike = None,
+        load: bool = True,
+    ):
+        """`device` as for Retainer; `prefer_native=False` selects the
+        KV engine's Python twin; `load=False` opens the KV without
+        reading it, for a caller that attaches the device index first
+        and then calls reload()."""
+        super().__init__(max_retained, device=device)
+        from ..cluster import wire
+        from ..ds.kvstore import open_kv
+
+        self._wire = wire
+        self._kv = open_kv(path, prefer_native=prefer_native)
+        if load:
+            self.reload()
+
+    def reload(self, now: Optional[float] = None) -> int:
+        """Read every record of the KV into the store (and the device
+        index, when attached), deleting the expired ones from the KV and
+        skipping torn or corrupt ones; returns the names loaded."""
+        now = now if now is not None else time.time()
+        loaded = 0
+        for key, val in self._kv.scan():
+            try:
+                d = self._wire.decode(val)
+                msg = Message(
+                    topic=d["topic"],
+                    payload=d["payload"],
+                    qos=d["qos"],
+                    retain=True,
+                    from_client=d.get("from_client", ""),
+                    timestamp=d.get("timestamp", now),
+                    props=dict(d.get("props") or {}),
+                )
+            except Exception:
+                continue  # torn/corrupt record: skip, don't fail boot
+            if msg.expired(now):
+                self._kv.delete(key)
+                continue
+            Retainer.retain(self, msg)
+            loaded += 1
+        return loaded
+
+    def retain(self, msg: Message) -> None:
+        had = msg.topic in self._store
+        super().retain(msg)
+        key = msg.topic.encode()
+        if not msg.payload:
+            if had:
+                self._kv.delete(key)
+            return
+        if msg.topic in self._store:  # not rejected by max_retained
+            self._kv.put(
+                key,
+                self._wire.encode(
+                    {
+                        "topic": msg.topic,
+                        "payload": msg.payload,
+                        "qos": msg.qos,
+                        "from_client": msg.from_client,
+                        "timestamp": msg.timestamp,
+                        "props": dict(msg.props),
+                    }
+                ),
+            )
+
+    def _purge(self, topic: str) -> None:
+        had = topic in self._store
+        super()._purge(topic)
+        if had:
+            self._kv.delete(topic.encode())
+
+    def flush(self) -> None:
+        self._kv.flush()
+
+    def close(self) -> None:
+        self._kv.close()
+
+    def kill(self) -> None:
+        """Simulated SIGKILL: drop the KV handle with no fsync
+        boundary."""
+        self._kv.kill()

@@ -1,29 +1,34 @@
 """Build and load the port's native host cores.
 
-Three CPython extensions, compiled from the sources in this directory:
+Three CPython extensions and one plain C library, compiled from the
+sources in this directory:
 
   * `_emqx_torch_speedups` (speedups.cc): the route-churn core
     (`wild_flags`, `encode_filters`, `index_dedup`, the churn handle and
     the add/delete legs) and the delivery ledger (`delivery_*`);
   * `_emqx_torch_frame` (frame.cc): the MQTT frame codec's hot surface;
   * `_emqx_torch_json` (json.cc): the JSON codec of the rule engine's
-    payload path.
+    payload path;
+  * `libemqx_torch_kv` (kvlog.cc): the durable tier's WAL and ordered
+    memtable engine, a C ABI that `ds/kvstore.py` loads with `ctypes`.
 
-Each builds with `g++ -O2 -std=c++17 -fPIC -shared` against the running
-interpreter's headers (`sysconfig.get_paths()["include"]`) at first use,
-never at import, into `build/emqx_tpu_torch/native/` at the repository
-root. An output is keyed by a hash of its source, the flags, the
+Each builds with `g++ -O2 -std=c++17 -fPIC -shared` at first use, never
+at import, into `build/emqx_tpu_torch/native/` at the repository root:
+an extension against the running interpreter's headers
+(`sysconfig.get_paths()["include"]`), a library (LIBRARIES) without
+them. An output is keyed by a hash of its source, the flags, the
 compiler and the interpreter, and lands through an atomic `os.replace`;
 a file lock makes concurrent processes (pytest-xdist workers) build a
 source once and share it. A missing compiler or `Python.h`, a failed
-build or a failed import raises `NativeBuildError`: nothing falls back
-to the Python twins. Only the `set_native_enabled` setters of
-`ops/speedups.py`, `broker/delivery.py`, `framec.py` and `jsonc.py`
-select a twin.
+build or a failed import or load raises `NativeBuildError`: nothing
+falls back to the Python twins. Only the `set_native_enabled` setters
+of `ops/speedups.py`, `broker/delivery.py`, `framec.py` and `jsonc.py`,
+and `prefer_native=False` of `ds/kvstore.open_kv`, select a twin.
 """
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import importlib.machinery
@@ -47,6 +52,12 @@ SOURCES: Dict[str, str] = {
     "_emqx_torch_speedups": "speedups.cc",
     "_emqx_torch_frame": "frame.cc",
     "_emqx_torch_json": "json.cc",
+}
+
+# library name -> source file: plain C ABI libraries, built without
+# Python.h and loaded with ctypes
+LIBRARIES: Dict[str, str] = {
+    "libemqx_torch_kv": "kvlog.cc",
 }
 
 # seconds each build took in this process (0.0 when the output was on disk)
@@ -86,16 +97,22 @@ def _digest(source: str, cxx: str, inc: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    cxx, inc = compiler(), include_dir()
+    """The output of `name`, a key of SOURCES or of LIBRARIES."""
+    cxx = compiler()
+    if name in LIBRARIES:
+        return BUILD_DIR / f"{name}-{_digest(LIBRARIES[name], cxx, '')}.so"
+    inc = include_dir()
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     return BUILD_DIR / f"{name}-{_digest(SOURCES[name], cxx, inc)}{suffix}"
 
 
 def build(names: Sequence[str]) -> None:
-    """Compile every named extension not yet on disk, one g++ per
-    source, all started together, under a lock so that a concurrent
-    process waits for the output instead of building it again."""
-    cxx, inc = compiler(), include_dir()
+    """Compile every named extension or library not yet on disk, one
+    g++ per source, all started together, under a lock so that a
+    concurrent process waits for the output instead of building it
+    again. Only an extension needs (and is given) Python.h."""
+    cxx = compiler()
+    inc = include_dir() if any(n not in LIBRARIES for n in names) else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -106,7 +123,10 @@ def build(names: Sequence[str]) -> None:
                 BUILD_SECONDS.setdefault(name, 0.0)
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [cxx, *CXX_FLAGS, f"-I{inc}", "-o", str(tmp), str(SRC / SOURCES[name])]
+            if name in LIBRARIES:
+                cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(SRC / LIBRARIES[name])]
+            else:
+                cmd = [cxx, *CXX_FLAGS, f"-I{inc}", "-o", str(tmp), str(SRC / SOURCES[name])]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
             jobs.append((name, proc, cmd, tmp, out, time.perf_counter()))
@@ -142,10 +162,28 @@ def load(name: str):
     return mod
 
 
+def load_library(name: str) -> ctypes.CDLL:
+    """The C library `name` (a key of LIBRARIES), built if needed and
+    loaded once per process; the caller declares its argtypes."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    path = str(library_path(name))
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:  # a foreign ABI, a truncated file
+        raise NativeBuildError(f"{name}: load of {path} failed: {e}") from e
+    _loaded[name] = lib
+    return lib
+
+
 def build_all() -> Dict[str, float]:
-    """Build and import every extension; returns the seconds each build
-    took (0.0 where the output was already on disk)."""
-    build(sorted(SOURCES))
+    """Build and load every extension and library; returns the seconds
+    each build took (0.0 where the output was already on disk)."""
+    build(sorted(SOURCES) + sorted(LIBRARIES))
     for name in SOURCES:
         load(name)
-    return {name: BUILD_SECONDS.get(name, 0.0) for name in SOURCES}
+    for name in LIBRARIES:
+        load_library(name)
+    return {name: BUILD_SECONDS.get(name, 0.0) for name in (*SOURCES, *LIBRARIES)}

@@ -25,14 +25,14 @@ When the Observability bundle is passed, the scrape also carries:
     ring/trigger counters and per-hookpoint latency histograms
     (obs/flight_recorder.py).
 
-The process-global codec ledgers render on every scrape: `emqx_json_*`
-(jsonc.py), `emqx_frame_*` (framec.py) and `emqx_delivery_*`
-(broker/delivery.py).
+The process-global ledgers render on every scrape, each family with a
+zero default: `emqx_ds_*` (the durable tier's crash-consistency
+counters, ds/metrics.py), `emqx_json_*` (jsonc.py), `emqx_frame_*`
+(framec.py) and `emqx_delivery_*` (broker/delivery.py).
 
 The reference's families of layers the port does not have yet are not
-rendered: `emqx_ds_*` (the durable tier), `emqx_cluster_*` and the mesh
-microscope's `emqx_xla_mesh_*` scope families (the cluster layer and
-obs/mesh_scope.py).
+rendered: `emqx_cluster_*` and the mesh microscope's `emqx_xla_mesh_*`
+scope families (the cluster layer and obs/mesh_scope.py).
 """
 
 from __future__ import annotations
@@ -97,6 +97,12 @@ def prometheus_text(broker, node_name: str = "emqx@127.0.0.1", obs=None) -> str:
         emit("emqx_otel_spans_dropped", "counter", tracer.dropped)
     if obs is not None:
         _emit_obs(lines, obs, node_name)
+    # durable-tier crash-consistency ledger (emqx_ds_* namespace —
+    # process-global: WAL replay runs at open(), often before any
+    # broker or obs object exists, so it renders on EVERY scrape)
+    from ..ds.metrics import DS_METRICS
+
+    lines.extend(DS_METRICS.prometheus_lines(node_name))
     # JSON codec seam ledger (emqx_json_* namespace — process-global:
     # payloads are decoded before any broker object exists)
     from ..jsonc import JSON_METRICS

@@ -398,19 +398,20 @@ def test_only_the_setters_select_the_twins(monkeypatch):
 
 # the reference's package and the repo's native/ directory, as named in text
 _FOREIGN = re.compile(
-    r"\bemqx_tpu\b|(?<![\w/])native/|_emqx_speedups|_emqx_frame\b|_emqx_json\b")
+    r"\bemqx_tpu\b|(?<![\w/])native/|_emqx_speedups|_emqx_frame\b|_emqx_json\b|libemqxkv")
 
 
 def test_native_sources_and_build_module_name_neither_native_dir_nor_reference():
-    """The port's three C++ sources and its build module name neither the
-    repo's native/ (its sources, its Makefile, its committed .so) nor
-    emqx_tpu, nor the reference's module names; the build module imports
-    neither jax nor emqx_tpu."""
+    """The port's four C++ sources and its build module name neither the
+    repo's native/ (its sources, its Makefile, its committed .so files)
+    nor emqx_tpu, nor the reference's module and library names; the
+    build module imports neither jax nor emqx_tpu."""
     from test_torch_router import _imports
 
     files = sorted((REPO / "emqx_tpu_torch" / "native").glob("*.cc"))
     files.append(REPO / "emqx_tpu_torch" / "native" / "__init__.py")
-    assert [p.name for p in files] == ["frame.cc", "json.cc", "speedups.cc", "__init__.py"]
+    assert [p.name for p in files] == ["frame.cc", "json.cc", "kvlog.cc", "speedups.cc",
+                                       "__init__.py"]
     bad = [f"{p.name}:{k + 1}: {line.strip()}"
            for p in files for k, line in enumerate(p.read_text().splitlines())
            if _FOREIGN.search(line)]

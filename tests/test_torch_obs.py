@@ -48,7 +48,7 @@ from emqx_tpu_torch.obs import sentinel as TS
 from emqx_tpu_torch.parallel import mesh as TMesh
 
 # the reference's families of layers the port does not have yet
-NOT_PORTED = ("emqx_ds_", "emqx_cluster_", "emqx_xla_mesh_")
+NOT_PORTED = ("emqx_cluster_", "emqx_xla_mesh_")
 # flight bundles whose firing is event-driven (never a timed poll), so
 # both sides must freeze the same ones
 EVENT_RULES = ("audit_divergence", "alarm", "device_breaker_trip")
@@ -755,7 +755,8 @@ async def test_scrape_families_equal_reference_minus_unported(tmp_path):
                 "emqx_hook_duration_seconds", "emqx_otel_spans_dropped",
                 "emqx_frame_native_encodes_total", "emqx_delivery_native_enabled",
                 "emqx_json_native_loads_total", "emqx_json_fallback_dumps_total",
-                "emqx_retainer_entries", "emqx_xla_loop_lag_seconds"):
+                "emqx_retainer_entries", "emqx_xla_loop_lag_seconds",
+                "emqx_ds_shard_failures_total", "emqx_ds_fault_injected_total"):
         assert fam in port and fam in ref, fam
 
 

@@ -794,7 +794,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "rules/engine.py", "rules/batch_where.py", "rules/funcs.py",
                 "rules/sql.py", "rules/events.py", "transform/registry.py",
                 "transform/avro.py", "transform/protobuf.py",
-                "transform/validation.py", "transform/transformation.py"):
+                "transform/validation.py", "transform/transformation.py",
+                "ds/metrics.py", "ds/diskio.py", "ds/kvstore.py", "ds/lts.py",
+                "ds/storage.py", "ds/buffer.py", "ds/api.py", "ds/session_ds.py",
+                "ds/shared_queue.py", "cluster/wire.py", "chaos/faults.py"):
         assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
