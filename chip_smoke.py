@@ -122,7 +122,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    150k-fan plan by host walk and by device resolve. Then the DispatchEngine (queue_depth 1024, pipeline
    depth 2, the default match cache, fanout min_fan 1024,
    transfer_chunk_kb 0 so warm-up probes the link through K12) with the
-   counters set to 0 just before its warm-up: 32 windows of 1,024 QoS-0
+   counters set to 0 just before its warm-up: 16 windows of 1,024 QoS-0
    publishes (64-byte payloads; 4 on `pfan/{k}/x`, 20 on `mfan/{g}/{v}`,
    the rest phase 5's mix) through submit_many, two windows at a time.
    After each pair lands: every plan a device resolve installed equals
@@ -390,8 +390,57 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    power limit. Fails on a difference, a missing launch, a device-fault
    counter, no session stream on a learned '+', or past 90 s. The cuts
    (§4 of PERF.md) are P13_SIZES.
-14. Summary: one line per kernel (times, bound, launches, phase 10's,
-   phase 11's, phase 12's and phase 13's launches, equal), the
+14. The booted node (its own limit, 90 s): `emqx_tpu_torch.boot.Node`
+   from `p14_config` (as config_text, a temp data_dir): tcp:default,
+   tcp:mounted (mountpoint m/${clientid}/, max_conn_rate above the
+   phase's rate: the schema has no listener messages_rate) and
+   ws:default on 127.0.0.1:0; the management API off; etc/emqx.conf's
+   caps; the retainer with tpu_retained_enable and
+   tpu_retained_shards 2; the match and fanout legs; durable sessions
+   on the schema's storage defaults; three rules on t/# with a WHERE
+   and a republish, the batched WHERE on; delayed, a rewrite old/# ->
+   new/$1, auto_subscribe on inbox/${clientid}; the chaos engine armed;
+   the $SYS heartbeat at 1 h (a wall-clock ticker: its publishes would
+   follow each run's duration, not the script).
+   Launch counters set to 0 and the first boot cold: the card's child
+   builds the native cores and kernels into a fresh directory inside
+   `start()`. In process: 65,536 routes of phase 3's pattern, 2,048
+   QoS-1 sessions (1,040 on fleet/0/0/alarm, K5), 8 durable sessions,
+   65,536 retained names. Through the listeners: 256 TCP clients (v4
+   and v5), 32 on the mounted listener and 64 WebSocket clients connect
+   (CONNACK seconds) and each sends one SUBSCRIBE of wildcard filters
+   (SUBACK seconds; one batched retained read, K8 on both shards), then
+   publish at QoS 0/1/2 to the rules' t/..., old/... and
+   $delayed/1/new/...; 4 windows of 1,024 in-process QoS-1 publishes
+   through the dispatch engine with route churn between them, durable
+   publishes and flushes. Every client's deliveries settle; a
+   DiskFaultInjector fsync fault on DS shard 2 must raise
+   ds_shard_failed_2 and a flight bundle (boot step 6b), then heal and
+   recover; `node.stop()` must release every port; a second boot over
+   the directory (warm): ds_recovery, the retained reload, the durable
+   sessions resumed, one more window and one retained wave. The card's
+   run and the same script on Node(device="cpu") run as two child
+   processes started together (PYTHONHASHSEED=0): every client's
+   delivery multiset (topic, payload, QoS, retain), the acks, the
+   retained answers, the rule metrics, both recovery reports,
+   DS_METRICS, the alarms and the broker counters must be equal; K1,
+   K2, the table sync, K5, the fanout sync, K8 (on each shard, in both
+   boots) and K12 must launch; no device-fault counter may move.
+   Prints boot seconds to the first bound listener cold and warm, stop
+   and reboot seconds, CONNACK and SUBACK p50/p99 per listener type and
+   publishes/s through the listeners. The cuts (§4 of PERF.md) are
+   P14_SIZES.
+15. The chaos soak on the card (its own limit, 150 s):
+   `chaos.run_soak(victim_sessions=0, device="cuda")` over the whole
+   single-device catalog at 100,000 sessions (run_soak's 1,000,000,
+   cut for time), groups n/5, sample_n 64, baseline 5 s, strict, a
+   temp data_dir and report. Fails on a violated contract, a skipped
+   scenario, a silent divergence, a provenance without the card's name
+   or any `jax` in the row. Prints sustained pub/s, delivered/s, the
+   storm chunk's p50/p99 and each scenario's detection and recovery
+   milliseconds.
+16. Summary: one line per kernel (times, bound, launches, phase 10's,
+   phase 11's, phase 12's, 13's, 14's and 15's launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
@@ -404,9 +453,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    K13 apply_delta and K18 slot delta entries, three entries of the one
    record, count phase 9 (c)'s row-only and slot-only growth launches);
    K9-K11, K13's counts
-   and packed and K15 are on no serve path and show 0; `launches_phase10`,
-   `launches_phase11`, `launches_phase12` and `launches_phase13` beside
-   it), then, as the
+   and packed and K15 are on no serve path and show 0; `launches_phase10`
+   to `launches_phase15` beside it), then, as the
    last line, `{"ok": true, "device": {...}}`.
 """
 
@@ -446,7 +494,8 @@ N_PFAN = 100_000
 N_MFAN_GROUPS = 16
 MFAN_GROUP = 2048
 N_SHARED = 8
-N_WINDOWS = 32
+# 32 cut to 16 for the run's time (PERF.md §4)
+N_WINDOWS = 16
 WINDOW = 1024
 N_PFAN_PUBS = 4
 N_MFAN_PUBS = 20
@@ -458,9 +507,10 @@ N_RET_GROUPS = 10_000
 N_RET_PER_GROUP = 100
 N_RET_SYS = 1024
 RET_WAVES = (512, 4096)
-# 4 timed waves per size and 256 clients keep the phase near two
-# minutes of the run (8 and 512 took 181.6 s on an H100 80GB HBM3, 700 W)
-N_TIMED_WAVES = 4
+# 2 timed waves per size and 256 clients keep the phase near two
+# minutes of the run (8 and 512 took 181.6 s on an H100 80GB HBM3, 700 W;
+# 4 cut to 2 for the run's time, PERF.md §4)
+N_TIMED_WAVES = 2
 SPLIT_WAVE = 5000
 N_CLIENTS = 256
 N_SINGLE = 128
@@ -6065,18 +6115,8 @@ def durable_live(broker, clients, sz, seed):
     skeleton filters."""
     import numpy as np
 
-    from emqx_tpu_torch.broker.packet import SubOpts
-    from emqx_tpu_torch.broker.session import SessionConfig
-
     skel, _exact, _s = add_route_set(broker.router, np.random.default_rng(seed), sz["routes"])
-    q1 = SubOpts(qos=1)
-    for i in range(sz["live"]):
-        cid = f"live{i}"
-        s, _ = broker.open_session(cid, True, SessionConfig(receive_maximum=P13_RECV_MAX))
-        s.outgoing_sink = clients.sink_for(cid)
-        broker.subscribe(s, P13_WIDE_FILTER if i < sz["wide"] else
-                         f"fleet/{i % sz['filters']}/{i // sz['filters'] % sz['level_d']}/alarm",
-                         q1)
+    durable_live_sessions(broker, clients, sz)
     return skel
 
 
@@ -6510,7 +6550,7 @@ def durable_child() -> int:
     return 0
 
 
-def durable_children(root, seed, sz, timeout_s):
+def durable_children(root, seed, sz, timeout_s, entry="durable_child", phase=13):
     """The card's run and the oracle's, each in a process of its own
     started together (the host work of the two overlaps on the
     machine's cores); both get PYTHONHASHSEED=0, so the shared groups'
@@ -6523,7 +6563,7 @@ def durable_children(root, seed, sz, timeout_s):
     procs = {}
     for role in ("card", "oracle"):
         out = os.path.join(root, f"{role}.json")
-        cmd = [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.durable_child())",
+        cmd = [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}())",
                role, os.path.join(root, role), out, str(seed), json.dumps(sz), DEVICE]
         log_f = open(os.path.join(root, f"{role}.log"), "w")
         procs[role] = (subprocess.Popen(cmd, cwd=here, env=env, stdout=log_f,
@@ -6547,7 +6587,7 @@ def durable_children(root, seed, sz, timeout_s):
     if failed:
         tails = {role: open(os.path.join(root, f"{role}.log")).read()[-3000:]
                  for role, _rc in failed}
-        raise AssertionError(f"phase 13: child runs failed {failed}: {tails}")
+        raise AssertionError(f"phase {phase}: child runs failed {failed}: {tails}")
     return tuple(json.load(open(procs[r][1])) for r in ("card", "oracle"))
 
 
@@ -6638,6 +6678,852 @@ def durable_phase(seed, card):
         f"{st['c_s']:.3f} s, (d) {st['d_s']:.3f} s; oracle {ora_r['s']:.3f} s) [{card}]")
     if took > P13_LIMIT_S:
         raise AssertionError(f"phase 13 took {took:.3f} s, over {P13_LIMIT_S} s")
+    return launches
+
+
+# --- phase 14: the booted node --------------------------------------------------
+
+P14_ROUTES = RULES_ROUTES  # phases 12-13's cut of the slice's 1M, for time
+P14_LIVE = 2048  # in-process live QoS-1 sessions (phase 13's)
+P14_WIDE = 1040  # of them on P13_WIDE_FILTER: a fan past tpu_fanout_min_fan, on K5
+P14_FILTERS = 32
+P14_DURABLE = 8  # in-process durable QoS-1 sessions on dur/{k}/+
+P14_RET = 65536  # retained names (phase 13's cut)
+P14_TCP = 256  # TCP clients (phase 8's count)
+P14_MOUNTED = 32  # clients of the mounted listener
+P14_WS = 64  # WebSocket clients
+P14_WINDOWS = 4
+P14_WINDOW = 1024  # in-process publishes a window, through the dispatch engine
+P14_DUR_PUBS = 64  # durable QoS-1 publishes a window
+P14_RET_WAVE = 1024  # filters of the in-process retained wave after the reboot
+P14_CONN_RATE = 1000  # the mounted listener's max_conn_rate: above the phase's own
+P14_DELAY_S = 1  # $delayed/{s}/...
+P14_QUIET_S = 0.5  # no client packet for this long: the deliveries settled
+P14_LIMIT_S = 90.0
+P14_SIZES = {"routes": P14_ROUTES, "live": P14_LIVE, "wide": P14_WIDE,
+             "filters": P14_FILTERS, "level_d": P13_LEVEL_D, "durable": P14_DURABLE,
+             "ret": P14_RET, "tcp": P14_TCP, "mounted": P14_MOUNTED, "ws": P14_WS,
+             "windows": P14_WINDOWS, "window": P14_WINDOW, "dur_pubs": P14_DUR_PUBS,
+             "ret_wave": P14_RET_WAVE}
+# the kernels the booted node must launch (K8 on each retained shard besides)
+P14_PATH = ("match_ids_hash", "match_ids", "table_sync", "resolve_fanout", "fanout_sync",
+            "retained_probe", "probe_add_one")
+# the rules on t/#, each with a WHERE the batched leg compiles and a republish
+P14_RULES = {
+    "hot": {"sql": 'SELECT payload.v AS v, topic FROM "t/#" WHERE payload.v > 60',
+            "actions": [{"function": "republish",
+                         "args": {"topic": "alert/${topic}", "qos": 1}}]},
+    "cold": {"sql": 'SELECT clientid, topic FROM "t/#" WHERE payload.v <= 20',
+             "actions": [{"function": "republish",
+                          "args": {"topic": "audit/${clientid}", "payload": "${topic}"}}]},
+    "mid": {"sql": 'SELECT * FROM "t/#" WHERE payload.v > 20 AND payload.v <= 60',
+            "actions": [{"function": "republish", "args": {"topic": "mid/${topic}"}}]},
+}
+
+
+def p14_config(d, sz, wss=None):
+    """Phase 14's node config (JSON, which the HOCON parser reads) over
+    data_dir `d`: tcp:default, tcp:mounted (mountpoint m/${clientid}/,
+    max_conn_rate above the phase's rate; the schema has no listener
+    messages_rate) and ws:default, all on 127.0.0.1:0, and wss:default
+    with `wss` = (certfile, keyfile); the caps of etc/emqx.conf; the
+    retainer with K8 over two shards; the match and fanout legs; the
+    durable tier on the schema's storage defaults; P14_RULES with the
+    batched WHERE; delayed, a rewrite old/# -> new/$1 and auto_subscribe
+    on inbox/${clientid}; the chaos engine armed; the management API off;
+    the $SYS heartbeat at 1 h."""
+    listeners = {
+        "tcp": {"default": {"bind": "127.0.0.1:0"},
+                "mounted": {"bind": "127.0.0.1:0", "mountpoint": "m/${clientid}/",
+                            "max_conn_rate": P14_CONN_RATE}},
+        "ws": {"default": {"bind": "127.0.0.1:0", "path": "/mqtt"}},
+    }
+    if wss is not None:
+        listeners["wss"] = {"default": {"bind": "127.0.0.1:0", "path": "/mqtt",
+                                        "ssl_certfile": wss[0], "ssl_keyfile": wss[1]}}
+    return json.dumps({
+        "node": {"name": "p14@127.0.0.1", "data_dir": d},
+        "listeners": listeners,
+        "api": {"enable": False},
+        "mqtt": {"max_qos_allowed": 2, "retain_available": True},
+        "retainer": {"enable": True, "max_retained_messages": sz["ret"] + 4096},
+        "broker": {"perf": {"tpu_match_enable": True, "tpu_fanout_enable": True,
+                            "tpu_retained_enable": True, "tpu_retained_shards": 2,
+                            "tpu_rule_where_enable": True}},
+        "durable_sessions": {"enable": True},
+        "rule_engine": {"rules": P14_RULES},
+        "delayed": {"enable": True},
+        "rewrite": [{"action": "all", "source_topic": "old/#", "re": "^old/(.+)$",
+                     "dest_topic": "new/$1"}],
+        "auto_subscribe": {"topics": [{"topic": "inbox/${clientid}", "qos": 1}]},
+        "chaos": {"enable": True, "sessions": 1000},
+        # the $SYS heartbeat is a wall-clock ticker: how many ticks a run
+        # publishes follows its duration, which differs between the
+        # card's run and the CPU run; at 1 h none fires in the phase
+        "sys_topics": {"sys_heartbeat_interval": "1h"},
+    })
+
+
+class ListenerClient:
+    """A minimal MQTT client over TCP, TLS or WebSocket (masked frames) on
+    the port's pure-Python codec. It acks what it is sent (PUBACK,
+    PUBREC/PUBCOMP), completes its own QoS 1/2 flows, and records every
+    PUBLISH it receives as (topic, payload, QoS, retain) in `got`;
+    `last_rx` is the loop time of its last packet."""
+
+    def __init__(self, cid, ver=4):
+        self.cid, self.ver = cid, ver
+        self.got = []
+        self.acks = []  # (type name, code) of the acks of its own publishes
+        self.last_rx = 0.0
+        self._waiters = {}
+        self._pid = 0
+        self._ws = False
+
+    async def open(self, host, port, ws_path=None, ssl_ctx=None):
+        import asyncio
+        import base64
+
+        from emqx_tpu_torch.broker import frame
+
+        self.reader, self.writer = await asyncio.open_connection(host, port, ssl=ssl_ctx)
+        if ws_path is not None:
+            key = base64.b64encode(os.urandom(16)).decode()
+            self.writer.write((
+                f"GET {ws_path} HTTP/1.1\r\nHost: {host}\r\nUpgrade: websocket\r\n"
+                f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                "Sec-WebSocket-Version: 13\r\nSec-WebSocket-Protocol: mqtt\r\n\r\n").encode())
+            resp = await self.reader.readuntil(b"\r\n\r\n")
+            if b" 101 " not in resp.split(b"\r\n")[0] + b" ":
+                raise AssertionError(f"{self.cid}: ws handshake {resp[:40]!r}")
+            self._ws = True
+        self.parser = frame.Parser(proto_ver=self.ver)
+        self._task = asyncio.get_running_loop().create_task(self._read_loop())
+        return self
+
+    def send(self, pkt):
+        import os as _os
+
+        from emqx_tpu_torch.broker import frame
+        from emqx_tpu_torch.broker.transport import OP_BINARY, ws_encode_frame
+
+        data = frame.serialize(pkt, self.ver)
+        if self._ws:
+            data = ws_encode_frame(OP_BINARY, data, mask=_os.urandom(4))
+        self.writer.write(data)
+
+    async def _frames(self):
+        import struct
+
+        from emqx_tpu_torch.broker.transport import OP_BINARY, OP_CLOSE
+
+        if not self._ws:
+            data = await self.reader.read(65536)
+            return [data] if data else None
+        h = await self.reader.readexactly(2)
+        n = h[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", await self.reader.readexactly(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", await self.reader.readexactly(8))[0]
+        payload = await self.reader.readexactly(n) if n else b""
+        op = h[0] & 0x0F
+        if op == OP_CLOSE:
+            return None
+        return [payload] if op == OP_BINARY else []
+
+    async def _read_loop(self):
+        import asyncio
+
+        from emqx_tpu_torch.broker.packet import Puback, Publish, Type
+
+        loop = asyncio.get_running_loop()
+        try:
+            while True:
+                chunks = await self._frames()
+                if chunks is None:
+                    break
+                for data in chunks:
+                    for p in self.parser.feed(data):
+                        self.last_rx = loop.time()
+                        if isinstance(p, Publish):
+                            self.got.append((p.topic, bytes(p.payload), p.qos, p.retain))
+                            if p.qos == 1:
+                                self.send(Puback(Type.PUBACK, p.packet_id))
+                            elif p.qos == 2:
+                                self.send(Puback(Type.PUBREC, p.packet_id))
+                            continue
+                        if isinstance(p, Puback) and p.type == Type.PUBREL:
+                            self.send(Puback(Type.PUBCOMP, p.packet_id))
+                            continue
+                        key = (type(p).__name__, getattr(p, "type", None),
+                               getattr(p, "packet_id", None))
+                        fut = self._waiters.pop(key, None)
+                        if fut is not None and not fut.done():
+                            fut.set_result(p)
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+
+    def _wait(self, key):
+        import asyncio
+
+        fut = asyncio.get_running_loop().create_future()
+        self._waiters[key] = fut
+        return fut
+
+    def _next_pid(self):
+        self._pid = self._pid % 65535 + 1
+        return self._pid
+
+    async def connect(self, clean=True, timeout=30.0):
+        """CONNECT; returns (CONNACK, seconds to it)."""
+        import asyncio
+
+        from emqx_tpu_torch.broker.packet import Connect
+
+        fut = self._wait(("Connack", None, None))
+        t0 = time.perf_counter()
+        self.send(Connect(client_id=self.cid, proto_ver=self.ver, clean_start=clean))
+        ack = await asyncio.wait_for(fut, timeout)
+        return ack, time.perf_counter() - t0
+
+    async def subscribe(self, filters, timeout=30.0):
+        """One SUBSCRIBE of [(filter, qos)]; returns (SUBACK, seconds)."""
+        import asyncio
+
+        from emqx_tpu_torch.broker.packet import SubOpts, Subscribe
+
+        pid = self._next_pid()
+        fut = self._wait(("Suback", None, pid))
+        t0 = time.perf_counter()
+        self.send(Subscribe(packet_id=pid, filters=[(f, SubOpts(qos=q)) for f, q in filters]))
+        ack = await asyncio.wait_for(fut, timeout)
+        return ack, time.perf_counter() - t0
+
+    async def publish(self, topic, payload, qos=0, retain=False, timeout=30.0):
+        """PUBLISH and its whole flow (PUBACK, or PUBREC-PUBREL-PUBCOMP)."""
+        import asyncio
+
+        from emqx_tpu_torch.broker.packet import Puback, Publish, Type
+
+        if qos == 0:
+            self.send(Publish(topic=topic, payload=payload, retain=retain))
+            await self.writer.drain()
+            return
+        pid = self._next_pid()
+        fut = self._wait(("Puback", Type.PUBACK if qos == 1 else Type.PUBREC, pid))
+        self.send(Publish(topic=topic, payload=payload, qos=qos, retain=retain,
+                          packet_id=pid))
+        ack = await asyncio.wait_for(fut, timeout)
+        self.acks.append((ack.type.name, ack.code))
+        if qos == 2:
+            fut = self._wait(("Puback", Type.PUBCOMP, pid))
+            self.send(Puback(Type.PUBREL, pid))
+            ack = await asyncio.wait_for(fut, timeout)
+            self.acks.append((ack.type.name, ack.code))
+
+    async def close(self):
+        import asyncio
+
+        from emqx_tpu_torch.broker.packet import Disconnect
+
+        try:
+            self.send(Disconnect())
+            await self.writer.drain()
+        except (ConnectionError, RuntimeError):
+            pass
+        self.writer.close()
+        self._task.cancel()
+        try:
+            await self._task
+        except asyncio.CancelledError:
+            pass
+
+
+async def settle(clients, min_until, quiet_s=P14_QUIET_S, limit_s=30.0):
+    """Wait until loop time `min_until` has passed and no client got a
+    packet for `quiet_s` (limit `limit_s`)."""
+    import asyncio
+
+    loop = asyncio.get_running_loop()
+    t_end = loop.time() + limit_s
+    while loop.time() < t_end:
+        await asyncio.sleep(0.05)
+        now = loop.time()
+        last = max([c.last_rx for c in clients] + [0.0])
+        if now >= min_until and now - last >= quiet_s:
+            return
+    raise AssertionError(f"deliveries did not settle in {limit_s} s")
+
+
+def p14_clients(node, sz, wss_ctx=None):
+    """(kind, client, open kwargs) of every listener client: tcp i at v5
+    for odd i, the mounted listener's, ws, and (with `wss_ctx`) wss."""
+    out = []
+
+    def addr(ltype, name):
+        return node.listeners.get(ltype, name).listen_addr[:2]
+
+    for i in range(sz["tcp"]):
+        out.append(("tcp", ListenerClient(f"tc{i}", 5 if i % 2 else 4), addr("tcp", "default"), {}))
+    for j in range(sz["mounted"]):
+        out.append(("mounted", ListenerClient(f"mc{j}", 4), addr("tcp", "mounted"), {}))
+    for w in range(sz["ws"]):
+        out.append(("ws", ListenerClient(f"wc{w}", 5 if w % 2 else 4), addr("ws", "default"),
+                    {"ws_path": "/mqtt"}))
+    if wss_ctx is not None:
+        for w in range(sz.get("wss", 0)):
+            out.append(("wss", ListenerClient(f"sc{w}", 4), addr("wss", "default"),
+                        {"ws_path": "/mqtt", "ssl_ctx": wss_ctx}))
+    return out
+
+
+def p14_filters(kind, i, sz):
+    """A listener client's one SUBSCRIBE (two or more wildcard filters:
+    one batched retained read, K8 on both shards)."""
+    g = sz["ret"] // N_RET_PER_GROUP
+    if kind == "tcp":
+        f = [(f"dev/{i % g}/{i % N_RET_PER_GROUP}/+", 1), (f"t/{i % 16}/#", i % 3),
+             (f"new/{i % 8}/+", 2), (f"alert/t/{i % 16}/#", 1), (f"audit/tc{i}", 0)]
+        if i % 32 == 0:
+            f += [(f"dev/{i % g}/+/state", 0), ("m/#", 1), ("mid/#", 0)]
+        return f
+    if kind == "mounted":
+        return [("t/#", 1), (f"dev/{i}/+/state", 0), ("new/#", 2)]
+    return [(f"dev/{(i * 7) % g}/+/state", i % 2), (f"t/{i % 16}/#", 1), ("new/#", 0)]
+
+
+async def p14_listener_load(node, sz, clients, lat, stats):
+    """Connect and subscribe every listener client (CONNACK and SUBACK
+    seconds into `lat[kind]`), then each publishes through its listener
+    at QoS 0/1/2: tcp to t/{i%16}/{i} (a JSON v the rules split on),
+    old/{i%8}/{i} (rewritten to new/...), every 8th a $delayed/{s}/
+    new/{i%8}/d{i} and every 16th a retained r/{i}; mounted to t/x/{j}
+    (m/mc{j}/t/x/{j} inside); ws to t/{w%16}/w{w} and old/{w%8}/w{w}.
+    Returns the loop time the delayed publishes are due by."""
+    import asyncio
+
+    loop = asyncio.get_running_loop()
+
+    async def up(kind, c, addr, kw):
+        await c.open(*addr, **kw)
+        ack, s_c = await c.connect()
+        if ack.code != 0:
+            raise AssertionError(f"{c.cid}: CONNACK {ack.code}")
+        idx = int(c.cid[2:])
+        ack, s_s = await c.subscribe(p14_filters(kind, idx, sz))
+        if any(code >= 0x80 for code in ack.codes):
+            raise AssertionError(f"{c.cid}: SUBACK {ack.codes}")
+        lat.setdefault(kind, {"connack": [], "suback": []})
+        lat[kind]["connack"].append(s_c)
+        lat[kind]["suback"].append(s_s)
+
+    await asyncio.gather(*(up(*x) for x in clients))
+
+    async def pub(kind, c):
+        i = int(c.cid[2:])
+        v = (i * 37 + len(kind)) % 100
+        body = json.dumps({"v": v, "c": c.cid}).encode()
+        if kind == "tcp":
+            await c.publish(f"t/{i % 16}/{i}", body, i % 3)
+            await c.publish(f"old/{i % 8}/{i}", b"o%d" % i, (i + 1) % 3)
+            if i % 8 == 0:
+                await c.publish(f"$delayed/{P14_DELAY_S}/new/{i % 8}/d{i}", b"d%d" % i, 1)
+            if i % 16 == 0:
+                await c.publish(f"r/{i}", b"r%d" % i, 1, retain=True)
+        elif kind == "mounted":
+            await c.publish(f"t/x/{i}", body, i % 3)
+        else:
+            await c.publish(f"t/{i % 16}/{c.cid}", body, i % 3)
+            await c.publish(f"old/{i % 8}/{c.cid}", b"o" + c.cid.encode(), 1)
+
+    t_pub = loop.time()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(pub(kind, c) for kind, c, _a, _k in clients))
+    stats["pub_s"] = time.perf_counter() - t0
+    return t_pub + P14_DELAY_S + 0.5
+
+
+def p14_durable(broker, clients, sz, clean):
+    """The in-process durable sessions dur{k} on dur/{k}/+ (QoS 1)."""
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.session import SessionConfig
+
+    for k in range(sz["durable"]):
+        cid = f"dur{k}"
+        s, _ = broker.open_session(cid, clean, SessionConfig(
+            session_expiry_interval=3600, receive_maximum=P13_RECV_MAX))
+        s.outgoing_sink = clients.sink_for(cid)
+        if clean:
+            broker.subscribe(s, f"dur/{k}/+", SubOpts(qos=1))
+
+
+def p14_dur_publish(broker, w, sz):
+    """The window's durable QoS-1 publishes, to every dur/{k}/m{w}_{n},
+    from publishers p{n} (the DS shard is the publisher's)."""
+    from emqx_tpu_torch.broker.message import Message
+
+    for n in range(sz["dur_pubs"]):
+        broker.publish(Message(topic=f"dur/{n % sz['durable']}/m{w}_{n}",
+                               payload=b"w%d/%d" % (w, n), qos=1, from_client=f"p{n}"))
+
+
+async def p14_window(node, clients, rng, w, sz, skel, churn=True):
+    """One in-process window: P14_WINDOW QoS-1 fleet publishes through
+    the engine (K1/K2, K5 on the wide plan), the durable publishes and
+    a flush (the pump), acks; with `churn`, phase 13's route churn and a
+    joiner/leaver on the wide filter first (the table and fanout syncs)."""
+    from emqx_tpu_torch.broker.message import Message
+
+    broker = node.broker
+    if churn:
+        durable_churn(broker, clients, rng, w, sz, skel)
+    msgs = [Message(topic=t, payload=pid.encode(), qos=1, from_client=pid)
+            for t, pid in durable_window(rng, w, sz)]
+    n = await broker.engine.submit_many(msgs)
+    p14_dur_publish(broker, w, sz)
+    durable_flush(node.durable_db)
+    clients.ack_held(broker.sessions)
+    return n
+
+
+def shard_k8_counter(ret):
+    """Wrap each retained shard's read_begin: the K8 launches of its reads."""
+    from emqx_tpu_torch.ops import _build
+
+    k = _build.KERNELS["retained_probe"]
+    counts = [0] * len(ret._index.shards)
+    for si, shard in enumerate(ret._index.shards):
+        real = shard.read_begin
+
+        def read_begin(filters, _real=real, _si=si):
+            n0 = k.launches
+            try:
+                return _real(filters)
+            finally:
+                counts[_si] += k.launches - n0
+
+        shard.read_begin = read_begin
+    return counts
+
+
+def ports_released(addrs):
+    """The listener addresses that still accept a connection."""
+    import socket
+
+    open_ = []
+    for host, port in addrs:
+        try:
+            socket.create_connection((host, port), timeout=1.0).close()
+            open_.append(port)
+        except OSError:
+            pass
+    return open_
+
+
+def boot_run(device, d, seed, sz=None, node_cls=None):
+    """Phase 14's script on one node class (the port's Node by default)
+    over data_dir `d`: (a) boot, (b) the in-process load (routes, live
+    and durable sessions, retained names), (c) the listener clients, (d)
+    the engine windows, (e) the settled deliveries, (f) a disk fault on
+    DS shard 2 (the ds_shard_failed alarm and flight bundle of boot step
+    6b), (g) stop, every port released, (h) a second boot over `d`: the
+    recovery, the retained reload, the durable sessions resumed, one
+    window and one retained wave. Returns (state, stats): `state` is
+    what the card's run and the CPU run must agree on."""
+    import asyncio
+
+    import numpy as np
+
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.chaos.faults import DiskFaultInjector
+    from emqx_tpu_torch.ops import _build
+
+    if node_cls is None:
+        from emqx_tpu_torch.boot import Node as node_cls
+    sz = dict(P14_SIZES, **(sz or {}))
+    state, stats = {}, {}
+    reset_ds_ledger()
+    clients = DurableClients()
+    rng = np.random.default_rng(seed)
+    conf = p14_config(d, sz)
+
+    async def first():
+        # (a) boot
+        t0 = time.perf_counter()
+        node = node_cls(config_text=conf, device=device)
+        await node.start()
+        stats["boot_s"] = node.boot_steps["first_listener"]
+        stats["boot_listeners_s"] = node.boot_steps["listeners"]
+        stats["boot_total_s"] = time.perf_counter() - t0
+        stats["boot_steps"] = dict(node.boot_steps)
+        broker = node.broker
+        ret = broker.retainer
+        k8 = shard_k8_counter(ret) if device != "cpu" else [0] * len(ret._index.shards)
+        # the DS buffer's own flush never fires: every flush is the phase's
+        node.durable_db.buffer.flush_interval = P13_NEVER_MS / 1e3
+        # (b) in-process load
+        t0 = time.perf_counter()
+        skel = durable_live(broker, clients, sz, seed)
+        p14_durable(broker, clients, sz, True)
+        n_groups = sz["ret"] // N_RET_PER_GROUP
+        for i, name in enumerate(retained_names(n_groups, N_RET_PER_GROUP,
+                                                sz["ret"] - n_groups * N_RET_PER_GROUP)):
+            ret.retain(Message(topic=name, payload=b"%d" % i + bytes(56), qos=i % 3,
+                               retain=True))
+        stats["load_s"] = time.perf_counter() - t0
+        # (c) the listener clients
+        t0 = time.perf_counter()
+        lat = {}
+        cl = p14_clients(node, sz)
+        due = await p14_listener_load(node, sz, cl, lat, stats)
+        stats["listener_s"] = time.perf_counter() - t0
+        n_pubs = sum(len(c.acks) for _k, c, _a, _kw in cl) + len(cl)
+        stats["lat"] = {kind: {step: (float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+                               for step, v in x.items()} for kind, x in lat.items()}
+        # (d) the windows through the engine
+        t0 = time.perf_counter()
+        win = []
+        for w in range(sz["windows"]):
+            win.append(await p14_window(node, clients, rng, w, sz, skel))
+        stats["windows_s"] = time.perf_counter() - t0
+        state["windows"] = win
+        # (e) the settled deliveries of every listener client
+        t0 = time.perf_counter()
+        await settle([c for _k, c, _a, _kw in cl], due)
+        stats["settle_s"] = time.perf_counter() - t0
+        stats["listener_pubs"] = n_pubs
+        state["listener_deliveries"] = {
+            c.cid: sorted([t, p.hex(), q, r] for t, p, q, r in c.got) for _k, c, _a, _kw in cl}
+        state["listener_acks"] = {c.cid: c.acks for _k, c, _a, _kw in cl}
+        state["retained_r"] = sorted([m.topic, m.payload.hex(), m.qos]
+                                     for m in ret.read("r/+"))
+        # under the mountpoint the forced filter is m/{cid}/inbox/{cid}
+        state["auto_subscribed"] = sum(
+            any(f.endswith(f"inbox/{c.cid}") for f in broker.sessions[c.cid].subscriptions)
+            for _k, c, _a, _kw in cl)
+        state["rules"] = {rid: jsonable(vars(r.metrics)) for rid, r in
+                          sorted(node.rules.rules.items())}
+        state["broker_metrics"] = dict(sorted(broker.metrics.all().items()))
+        stats["telemetry"] = dict(broker.router.telemetry.counters)
+        # (f) a disk fault on DS shard 2: the alarm and bundle of step 6b
+        inj = DiskFaultInjector(seed).install()
+        fires0 = node.obs.flight.triggers_total.get("ds_shard_failed", 0)
+        try:
+            inj.fail_sticky("fsync", paths=["shard_2"])
+            p14_dur_publish(broker, 99, sz)
+            fault = durable_flush(node.durable_db, fault_ok=True)
+            alarm = node.obs.alarms.is_active("ds_shard_failed_2")
+            bundles = node.obs.flight.triggers_total.get("ds_shard_failed", 0) - fires0
+            failed = node.durable_db.failed_shards()
+            inj.heal()
+            recovered = node.durable_db.recover_shard(2)
+            node.obs.alarms.ensure_deactivated("ds_shard_failed_2")
+        finally:
+            inj.uninstall()
+        state["fault"] = [fault, alarm, bundles > 0, failed, recovered,
+                          node.obs.alarms.is_active("ds_shard_failed_2")]
+        durable_flush(node.durable_db)
+        clients.ack_held(broker.sessions)
+        # (g) stop: every port released
+        addrs = [srv.listen_addr[:2] for srv in node.listeners._live.values()]
+        for _k, c, _a, _kw in cl:
+            await c.close()
+        t0 = time.perf_counter()
+        await node.stop()
+        stats["stop_s"] = time.perf_counter() - t0
+        state["still_open"] = ports_released(addrs)
+        stats["k8_shards_a"] = list(k8)
+        return skel
+
+    async def second(skel):
+        # (h) the second boot over the same directory
+        t0 = time.perf_counter()
+        node = node_cls(config_text=conf, device=device)
+        await node.start()
+        stats["reboot_s"] = time.perf_counter() - t0
+        stats["reboot_steps"] = dict(node.boot_steps)
+        broker = node.broker
+        ret = broker.retainer
+        k8 = shard_k8_counter(ret) if device != "cpu" else [0] * len(ret._index.shards)
+        node.durable_db.buffer.flush_interval = P13_NEVER_MS / 1e3
+        rec = node.ds_recovery
+        state["recovery"] = [rec["sessions"], rec["compacted_shards"],
+                             [{k: v for k, v in sh.items() if not k.endswith("_ms")}
+                              for sh in rec["db"]["shards"]]]
+        state["ret_len"] = len(ret)
+        clients.step = "h"
+        durable_live_sessions(broker, clients, sz)
+        p14_durable(broker, clients, sz, False)
+        durable_flush(node.durable_db)
+        clients.ack_held(broker.sessions)
+        state["window_h"] = await p14_window(node, clients, rng, sz["windows"], sz, skel,
+                                             churn=False)
+        state["ret_wave"] = p14_ret_wave(ret, seed, sz)
+        state["deliveries"] = clients.summary()
+        state["ds"] = jsonable(durable_ledger())
+        state["alarms"] = sorted(a["name"] for a in node.obs.alarms.get_alarms("activated"))
+        stats["telemetry_h"] = dict(broker.router.telemetry.counters)
+        await node.stop()
+        stats["k8_shards_h"] = list(k8)
+
+    t_run = time.perf_counter()
+    if device != "cpu":
+        _build.reset_launches()
+    skel = asyncio.run(first())
+    asyncio.run(second(skel))
+    stats["run_s"] = time.perf_counter() - t_run
+    return state, stats
+
+
+def durable_live_sessions(broker, clients, sz):
+    """durable_live's QoS-1 sessions, without the route set."""
+    from emqx_tpu_torch.broker.packet import SubOpts
+    from emqx_tpu_torch.broker.session import SessionConfig
+
+    q1 = SubOpts(qos=1)
+    for i in range(sz["live"]):
+        cid = f"live{i}"
+        s, _ = broker.open_session(cid, True, SessionConfig(receive_maximum=P13_RECV_MAX))
+        s.outgoing_sink = clients.sink_for(cid)
+        broker.subscribe(s, P13_WIDE_FILTER if i < sz["wide"] else
+                         f"fleet/{i % sz['filters']}/{i // sz['filters'] % sz['level_d']}/alarm",
+                         q1)
+
+
+def p14_ret_wave(ret, seed, sz):
+    """One wave of retained filters (phase 8's mix) after the reload, one
+    digest of every answer."""
+    import hashlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    n_groups = sz["ret"] // N_RET_PER_GROUP
+    flts = [ret_filter(c, rng, n_groups, N_RET_PER_GROUP)
+            for c in draw_classes(WAVE_MIX, sz["ret_wave"], rng)]
+    answers = ret.retained_read_finish(ret.retained_read_begin(flts, now=1.8e9))
+    h = hashlib.sha256()
+    for a in answers:
+        h.update(b"\0".join(sorted(m.topic.encode() + b"\1" + m.payload + bytes((m.qos,))
+                                   for m in a)) + b"|")
+    return h.hexdigest()
+
+
+def boot_role(role, d, seed, sz):
+    """One of phase 14's two runs: "card" (the port's node on the card,
+    its first boot cold: the native cores and kernels build into a fresh
+    directory beside `d`; launch counters from 0 just before it) or
+    "oracle" (the same script on Node(device="cpu")). Returns {"state",
+    "stats", "launches", "s"}, JSON-able."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    if role == "card":
+        state, stats = boot_run(DEVICE, d, seed, sz)
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    else:
+        state, stats = boot_run("cpu", d, seed, sz)
+        launches = {}
+    return {"state": jsonable(state), "stats": jsonable(stats), "launches": launches,
+            "s": time.perf_counter() - t0}
+
+
+def boot_child() -> int:
+    """Entry of a phase-14 child process:
+    `python3 -c "import chip_smoke; chip_smoke.boot_child()" ROLE DIR OUT
+    SEED SIZES_JSON DEVICE` writes boot_role's result to OUT. The card's
+    child points the native and kernel build directories at fresh ones
+    first, so its first boot builds everything (the cold boot)."""
+    global DEVICE
+    from pathlib import Path
+
+    import torch
+
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops import _build
+
+    role, d, out, seed, sizes, DEVICE = sys.argv[1:7]
+    if role == "card" and DEVICE != "cpu":
+        cold = Path(d + "_build")
+        native.BUILD_DIR = cold / "native"
+        _build.BUILD_DIR = cold
+    else:
+        native.build_all()  # on disk since phase 2: loads only
+        torch.set_num_threads(2)
+    res = boot_role(role, d, int(seed), json.loads(sizes))
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def boot_verdict(dev_r, ora_r, sz, card):
+    """Phase 14's figures and checks on the card's and the CPU run's
+    results: prints them, raises on a difference or a failed check,
+    returns the card run's launches."""
+    dev, st, launches = dev_r["state"], dev_r["stats"], dev_r["launches"]
+    ora = ora_r["state"]
+    diff = [k for k in ora if dev.get(k) != ora[k]]
+    n_got = {k: 0 for k in ("tc", "mc", "wc")}
+    for cid, got in dev["listener_deliveries"].items():
+        n_got[cid[:2]] += len(got)
+    lat = "; ".join(f"{kind} CONNACK p50/p99 {v['connack'][0] * 1e3:.3f}/"
+                    f"{v['connack'][1] * 1e3:.3f} ms, SUBACK {v['suback'][0] * 1e3:.3f}/"
+                    f"{v['suback'][1] * 1e3:.3f} ms" for kind, v in sorted(st["lat"].items()))
+    log(f"boot (a) card: first listener bound {st['boot_s']:.3f} s after start() cold "
+        f"(native cores and kernels built in it: build step {st['boot_steps']['build']:.3f} s), "
+        f"warm {st['reboot_steps']['first_listener']:.3f} s; all listeners "
+        f"{st['boot_listeners_s']:.3f} s cold; stop {st['stop_s']:.3f} s; reboot "
+        f"{st['reboot_s']:.3f} s (start() whole, recovery and the retained reload in it) "
+        f"[{card}]")
+    log(f"boot (c) listeners: {sz['tcp']} tcp, {sz['mounted']} mounted, {sz['ws']} ws "
+        f"clients up and subscribed in {st['listener_s'] - st['pub_s']:.3f} s; {lat}; "
+        f"{st['listener_pubs']} publishes in {st['pub_s']:.3f} s through the listeners, "
+        f"{st['listener_pubs'] / st['pub_s']:.1f} publishes/s (each client's in turn, "
+        f"QoS flows completed); deliveries tcp {n_got['tc']}, mounted {n_got['mc']}, "
+        f"ws {n_got['wc']}, settled in {st['settle_s']:.3f} s [{card}]")
+    log(f"boot (b, d) in process: {sz['routes']:,} routes, {sz['live']:,} live QoS-1 "
+        f"sessions, {sz['durable']} durable, {sz['ret']:,} retained names in "
+        f"{st['load_s']:.3f} s; {sz['windows']} windows of {sz['window']:,} through the "
+        f"engine in {st['windows_s']:.3f} s, deliveries {dev['windows']}; K8 launches by "
+        f"shard {st['k8_shards_a']} (first boot), {st['k8_shards_h']} (second) [{card}]")
+    log(f"boot (f, h) disk fault {dev['fault']}; reboot recovery {dev['recovery'][0]}, "
+        f"retained reloaded {dev['ret_len']:,}, window {dev['window_h']}; rules "
+        f"{ {k: (v['matched'], v['passed']) for k, v in dev['rules'].items()} } [{card}]")
+    log(f"boot launches {launches} [{card}]")
+    log(f"boot gate: card {dev_r['s']:.3f} s against the CPU run {ora_r['s']:.3f} s; "
+        f"{len(dev['listener_deliveries'])} clients' delivery multisets, acks, retained "
+        f"answers, rule metrics, recovery reports, DS_METRICS, alarms and broker "
+        f"counters; differences {diff} [{card}]")
+    if diff:
+        detail = {k: ({kk: (dev[k].get(kk), ora[k].get(kk)) for kk in set(dev[k]) | set(ora[k])
+                       if dev[k].get(kk) != ora[k].get(kk)}
+                      if isinstance(ora[k], dict) and isinstance(dev.get(k), dict) else "")
+                  for k in diff}
+        raise AssertionError(f"phase 14: the card and the CPU run differ in {diff}: "
+                             f"{str(detail)[:3000]}")
+    if dev["still_open"]:
+        raise AssertionError(f"phase 14: ports still open after stop {dev['still_open']}")
+    if dev["fault"] != ["ShardFailedError", True, True, [2], True, False]:
+        raise AssertionError(f"phase 14 (f): {dev['fault']}")
+    n_clients = sz["tcp"] + sz["mounted"] + sz["ws"]
+    if dev["auto_subscribed"] != n_clients or min(n_got.values()) <= 0:
+        raise AssertionError(f"phase 14: auto-subscribed {dev['auto_subscribed']}, "
+                             f"deliveries {n_got}")
+    if dev["recovery"][0]["sessions"] != sz["durable"] or not dev["window_h"]:
+        raise AssertionError(f"phase 14 (h): {dev['recovery'][0]}, {dev['window_h']}")
+    if not all(v["matched"] for v in dev["rules"].values()):
+        raise AssertionError(f"phase 14: a rule never matched {dev['rules']}")
+    require_no_device_fault(st["telemetry"], "phase 14")
+    require_no_device_fault(st["telemetry_h"], "phase 14 (h)")
+    missing = [n for n in P14_PATH if launches[n] <= 0]
+    if missing or min(st["k8_shards_a"] + st["k8_shards_h"]) <= 0:
+        raise AssertionError(f"phase 14 never launched {missing} (K8 by shard "
+                             f"{st['k8_shards_a']}, {st['k8_shards_h']})")
+    return launches
+
+
+def boot_phase(seed, card):
+    """Phase 14: the node booted from its config on the card, held against
+    the same script on a CPU node, the two runs in two processes started
+    together. Returns the launches of the card's run."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p14_")
+    try:
+        dev_r, ora_r = durable_children(root, seed, P14_SIZES, P14_LIMIT_S,
+                                        entry="boot_child", phase=14)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = boot_verdict(dev_r, ora_r, P14_SIZES, card)
+    took = time.perf_counter() - t_phase
+    log(f"phase 14: {took:.3f} s (card {dev_r['s']:.3f} s, CPU run {ora_r['s']:.3f} s) "
+        f"[{card}]")
+    if took > P14_LIMIT_S:
+        raise AssertionError(f"phase 14 took {took:.3f} s, over {P14_LIMIT_S} s")
+    return launches
+
+
+# --- phase 15: the chaos soak on the card -----------------------------------------
+
+P15_SESSIONS = 100_000  # run_soak's 1,000,000, cut for time
+P15_SAMPLE_N = 64
+P15_BASELINE_S = 5.0
+P15_LIMIT_S = 150.0
+
+
+def soak_phase(card, sessions=None, limit_s=None):
+    """Phase 15: run_soak over the single-device catalog on the card
+    (victim_sessions=0, groups n/5, strict), in a temp data_dir with a
+    temp report; fails on a violated contract, a skipped scenario, a
+    silent divergence, a provenance without the card or any `jax` in the
+    row. Returns the launches of the soak, counted from 0 at its start."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import torch
+
+    from emqx_tpu_torch.chaos import CATALOG, run_soak
+    from emqx_tpu_torch.ops import _build
+
+    n = sessions or P15_SESSIONS
+    limit_s = limit_s or P15_LIMIT_S
+    root = tempfile.mkdtemp(prefix="chip_smoke_p15_")
+    t_phase = time.perf_counter()
+    reset_ds_ledger()
+    _build.reset_launches()
+    try:
+        row = asyncio.run(run_soak(
+            sessions=n, victim_sessions=0, groups=max(1, n // 5), sample_n=P15_SAMPLE_N,
+            baseline_s=P15_BASELINE_S, strict=True, data_dir=os.path.join(root, "d"),
+            report_path=os.path.join(root, "soak.json"), device=DEVICE,
+            progress=lambda msg: log(f"soak: {msg}")))
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+        with open(os.path.join(root, "soak.json")) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    took = time.perf_counter() - t_phase
+    sto = row["storm"]
+    log(f"soak: {row['sessions']:,} sessions ({row['groups']:,} groups), setup "
+        f"{row['setup_seconds']} s, run {row['run_seconds']} s; sustained "
+        f"{sto['sustained_pub_per_sec']} pub/s, {sto['delivered_per_sec']} delivered/s, "
+        f"chunk of {sto['chunk_size']} p50/p99 {sto['e2e_chunk_p50_ms']}/"
+        f"{sto['e2e_chunk_p99_ms']} ms, publish p99 incl. chaos "
+        f"{row['publish_p99_ms_incl_chaos']} ms; faults {row['divergences_detected']}/"
+        f"{row['divergences_injected']} detected, silent {row['silent_divergences']}; "
+        f"breaker {row['breaker']['trips']} trips, {row['breaker']['recoveries']} "
+        f"recoveries [{card}]")
+    for name, sc in row["scenarios"].items():
+        log(f"soak scenario {name}: ok={sc['ok']} detect_ms={sc['detect_ms']} "
+            f"recovery_ms={sc['recovery_ms']} [{card}]")
+    log(f"soak provenance {json.dumps(row['provenance'])}; launches {launches} [{card}]")
+    blob = json.dumps(row, default=str)
+    skipped = [s for s in CATALOG if s not in row["scenarios"]]
+    prov = row["provenance"]
+    if not row["contracts_ok"] or skipped or row["silent_divergences"] \
+            or row["final_sweep"]["silent_divergences"]:
+        raise AssertionError(f"phase 15: contracts {row['violations']}, skipped {skipped}, "
+                             f"silent {row['silent_divergences']}")
+    if DEVICE != "cpu" and (prov.get("platform") != "gpu"
+                            or not prov.get("device_name") or "card" not in prov):
+        raise AssertionError(f"phase 15: provenance without the card {prov}")
+    if "jax" in blob.lower() or written != json.loads(blob):
+        raise AssertionError("phase 15: the row names jax, or its report differs")
+    if DEVICE != "cpu" and launches["match_ids_hash"] + launches["match_ids"] <= 0:
+        raise AssertionError(f"phase 15: no match kernel launched {launches}")
+    log(f"phase 15: {took:.3f} s [{card}]")
+    if took > limit_s:
+        raise AssertionError(f"phase 15 took {took:.3f} s, over {limit_s} s")
     return launches
 
 
@@ -6899,31 +7785,25 @@ def main(argv=None) -> int:
     p13_launches = durable_phase(args.seed + 7, card)
     lap(13)
 
-    def phase10_launches(name):
+    # phase 14: the node booted from its config, against the same script
+    # on a CPU node, in two child processes; launch counters from zero at
+    # the card run's start (its first boot is cold)
+    p14_launches = boot_phase(args.seed + 8, card)
+    lap(14)
+
+    # phase 15: the chaos soak over the single-device catalog; launch
+    # counters from zero at its start. Phase 7's and 9's brokers stay
+    # alive: tearing them down took 34.6 s of a run (PERF.md §4)
+    p15_launches = soak_phase(card)
+    lap(15)
+
+    def phase_launches(name, by_kernel):
         # a fused kernel's total on each of its entries; the dense-only
-        # record's launches are phase 6's, none of them phase 10's
+        # record's launches are phase 6's, none of a later phase's
         if name == "match_ids_dense_only":
             return 0
         key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
-        return f_launches.get(key, 0)
-
-    def phase11_launches(name):
-        if name == "match_ids_dense_only":
-            return 0
-        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
-        return o_launches.get(key, 0)
-
-    def phase12_launches(name):
-        if name == "match_ids_dense_only":
-            return 0
-        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
-        return r_launches.get(key, 0)
-
-    def phase13_launches(name):
-        if name == "match_ids_dense_only":
-            return 0
-        key = name.split(" ")[0].replace("resolve_fanout_small", "resolve_fanout")
-        return p13_launches.get(key, 0)
+        return by_kernel.get(key, 0)
 
     path_launches = dict(launches, match_ids_dense_only=d_launches["match_ids"],
                          retained_probe=k8_launches)
@@ -6935,12 +7815,14 @@ def main(argv=None) -> int:
         log(f"kernel {name}: {times_line(r)} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"launches={path_launches[name]} phase10_launches="
-            f"{phase10_launches(name)} phase11_launches={phase11_launches(name)} "
-            f"phase12_launches={phase12_launches(name)} "
-            f"phase13_launches={phase13_launches(name)} "
+            f"{phase_launches(name, f_launches)} phase11_launches={phase_launches(name, o_launches)} "
+            f"phase12_launches={phase_launches(name, r_launches)} "
+            f"phase13_launches={phase_launches(name, p13_launches)} "
+            f"phase14_launches={phase_launches(name, p14_launches)} "
+            f"phase15_launches={phase_launches(name, p15_launches)} "
             f"equal=True [{r['shape']}] [{card}]")
 
-    # phase 14: summary
+    # phase 16: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -7002,10 +7884,12 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches.get(name, path_launches[key]),
-            "launches_phase10": phase10_launches(name),
-            "launches_phase11": phase11_launches(name),
-            "launches_phase12": phase12_launches(name),
-            "launches_phase13": phase13_launches(name),
+            "launches_phase10": phase_launches(name, f_launches),
+            "launches_phase11": phase_launches(name, o_launches),
+            "launches_phase12": phase_launches(name, r_launches),
+            "launches_phase13": phase_launches(name, p13_launches),
+            "launches_phase14": phase_launches(name, p14_launches),
+            "launches_phase15": phase_launches(name, p15_launches),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

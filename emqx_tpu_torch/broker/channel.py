@@ -13,9 +13,10 @@ A SUBSCRIBE of two or more filters launches ONE batched retained read
 the card) before its authz/route loop; a single filter reads at B=1
 through Broker._read_retained. With a publish sentinel attached
 (`broker.sentinel`), 1/sample_n ack packets wall-time their inflight
-bookkeeping into the `ack_sweep` delivery sub-stage. Not ported: the
-listener mountpoint and the zone's `mqtt` config (every session gets
-SessionConfig's defaults).
+bookkeeping into the `ack_sweep` delivery sub-stage. A listener's
+`mountpoint` template resolves at CONNECT and applies to publish
+topics, filters and the will; its zone's `mqtt` section (`mqtt_conf`)
+sets the session windows and the keepalive policy.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 import time
 from typing import List, Optional
 
-from ..ops.topic import parse_share, validate_name
+from ..ops.topic import mount_filter, parse_share, validate_name
 from .message import Message
 from .packet import (
     MQTT_V5,
@@ -48,10 +49,6 @@ from .pubsub import Broker, EXCLUSIVE_PREFIX, ExclusiveTaken
 from .session import Session, SessionConfig
 
 
-# a client is dropped after this many keepalive intervals of silence
-KEEPALIVE_MULTIPLIER = 1.5
-
-
 class ProtocolError(Exception):
     def __init__(self, code: int, msg: str = ""):
         super().__init__(msg or hex(code))
@@ -63,7 +60,9 @@ class Channel:
         self,
         broker: Broker,
         peer: str = "?",
+        mountpoint: str = "",
         max_packet_size: Optional[int] = None,
+        mqtt_conf: Optional[dict] = None,
     ):
         self.broker = broker
         self.peer = peer
@@ -77,9 +76,20 @@ class Channel:
         self.connected = False
         self.clean_disconnect = False
         self.topic_aliases: dict = {}  # v5 inbound alias -> topic
+        # per-listener mountpoint template; resolved at CONNECT
+        # (emqx_mountpoint: applied to publish topics, filters, and the
+        # will; stripped from deliveries in the outgoing path)
+        self.mountpoint_tpl = mountpoint
+        self.mountpoint = ""
         # the listener's inbound parser limit, advertised in CONNACK so
         # the client is never told a limit the parser will reject
         self.listener_max_packet = max_packet_size
+        # the listener zone's checked `mqtt` section: session windows,
+        # mqueue behavior, keepalive policy (emqx zone config)
+        self.mqtt_conf = mqtt_conf or {}
+        self.keepalive_multiplier = float(
+            self.mqtt_conf.get("keepalive_multiplier", 1.5)
+        )
         # client's advertised maximum packet size: outgoing PUBLISHes
         # exceeding it are dropped, not sent (MQTT-5 §3.1.2.11.4)
         self.client_max_packet: Optional[int] = None
@@ -215,10 +225,40 @@ class Channel:
                     else 2,
                 )
             ]
-        cfg = SessionConfig()
+        self.mountpoint = (
+            self.mountpoint_tpl.replace("${clientid}", client_id).replace(
+                "${username}", pkt.username or ""
+            )
+            if self.mountpoint_tpl
+            else ""
+        )
+        mc = self.mqtt_conf
+
+        def _secs(key, default_s):
+            v = mc.get(key)
+            return default_s if v is None else float(v) / 1000.0
+
+        # schema encodes the default priority as "lowest"/"highest"
+        dp = mc.get("mqueue_default_priority", 0)
+        if dp == "lowest":
+            dp = 0
+        elif dp == "highest":
+            dp = 255
+        cfg = SessionConfig(
+            max_mqueue_len=mc.get("max_mqueue_len", 1000),
+            receive_maximum=mc.get("max_inflight", 32),
+            max_awaiting_rel=mc.get("max_awaiting_rel", 100),
+            await_rel_timeout=_secs("await_rel_timeout", 300.0),
+            retry_interval=_secs("retry_interval", 30.0),
+            upgrade_qos=mc.get("upgrade_qos", False),
+            mqueue_priorities={
+                k: int(v) for k, v in (mc.get("mqueue_priorities") or {}).items()
+            },
+            mqueue_default_priority=int(dp),
+            mqueue_store_qos0=mc.get("mqueue_store_qos0", True),
+        )
         # the zone's session_expiry_interval caps what clients may ask
-        # (the zone config is not ported: no cap)
-        zone_expiry = float("inf")
+        zone_expiry = _secs("session_expiry_interval", float("inf"))
         expiry_adjusted = False
         if self.proto_ver == MQTT_V5:
             asked = pkt.props.get("session_expiry_interval", 0)
@@ -237,10 +277,16 @@ class Channel:
         session, present = self.broker.open_session(
             client_id, pkt.clean_start, cfg
         )
+        session.mountpoint = self.mountpoint  # hooks (auto-subscribe) read it
         self.session = session
         self.client_id = client_id
         self.username = pkt.username
         self.keepalive = pkt.keepalive
+        # v5 server keepalive OVERRIDES the client's ask (advertised in
+        # CONNACK, emqx zone mqtt.server_keepalive)
+        server_ka = mc.get("server_keepalive")
+        if server_ka is not None and self.proto_ver == MQTT_V5:
+            self.keepalive = int(server_ka)
         self.will = pkt.will
         self.connected = True
         self.broker.metrics.inc("client.connected")
@@ -254,6 +300,8 @@ class Channel:
             if self.proto_ver == MQTT_V5
             else {}
         )
+        if server_ka is not None and self.proto_ver == MQTT_V5:
+            props["server_keep_alive"] = int(server_ka)
         if expiry_adjusted:
             # MQTT-5 §3.2.2.3.2: a server using a DIFFERENT expiry than
             # the client asked must say so in CONNACK
@@ -289,6 +337,9 @@ class Channel:
             self.broker.caps.check_pub(pkt.qos, pkt.retain)
         except CapError as e:
             raise ProtocolError(e.code, topic)
+        # authorize on the UNMOUNTED topic — ACLs must see the same
+        # namespace on publish and subscribe (mount happens after, like
+        # the reference's packet_to_message)
         allowed = self.preauthz.get(("publish", topic))
         if allowed is None:
             allowed = self.broker.hooks.run_fold(
@@ -296,6 +347,8 @@ class Channel:
                 (self.client_id, "publish", topic),
                 True,
             )
+        if self.mountpoint:
+            topic = self.mountpoint + topic
         if allowed is not True:
             self.broker.metrics.inc("packets.publish.auth_error")
             if pkt.qos == 1:
@@ -435,7 +488,7 @@ class Channel:
                 continue
             try:
                 retained = self.broker.subscribe(
-                    self.session, flt, opts,
+                    self.session, self._mount_filter(flt), opts,
                     retained_reader=reader,
                 )
             except ExclusiveTaken:
@@ -481,7 +534,7 @@ class Channel:
                 EXCLUSIVE_PREFIX
             ) else flt
             try:
-                group, real = parse_share(f)
+                group, real = parse_share(self._mount_filter(f))
             except Exception:
                 continue
             if group is None:  # no retained delivery for shared subs
@@ -515,9 +568,12 @@ class Channel:
         filters = acc if acc is not None else pkt.filters
         codes = []
         for flt in filters:
-            ok = self.broker.unsubscribe(self.session, flt)
+            ok = self.broker.unsubscribe(self.session, self._mount_filter(flt))
             codes.append(0 if ok else RC.NO_SUBSCRIPTION_EXISTED)
         return [Unsuback(pkt.packet_id, codes)]
+
+    def _mount_filter(self, flt: str) -> str:
+        return mount_filter(self.mountpoint, flt)
 
     # --- lifecycle -----------------------------------------------------------
 
@@ -525,7 +581,7 @@ class Channel:
         if not self.keepalive:
             return False
         now = now if now is not None else time.time()
-        return now - self.last_rx > self.keepalive * KEEPALIVE_MULTIPLIER
+        return now - self.last_rx > self.keepalive * self.keepalive_multiplier
 
     def on_close(self) -> None:
         """Socket gone: publish the will unless cleanly disconnected,
@@ -537,7 +593,7 @@ class Channel:
         if self.will is not None and not self.clean_disconnect:
             self.broker.publish(
                 Message(
-                    topic=self.will.topic,
+                    topic=self.mountpoint + self.will.topic,
                     payload=self.will.payload,
                     qos=self.will.qos,
                     retain=self.will.retain,

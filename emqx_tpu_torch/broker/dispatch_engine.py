@@ -8,7 +8,7 @@ link:
   * **Micro-batching queue** — concurrent publishes coalesce into one
     kernel launch. The batch closes adaptively: flush when
     `queue_depth` publishes are waiting OR when the oldest enqueued
-    publish has waited `DEADLINE_S`, whichever comes first.
+    publish has waited `deadline_ms`, whichever comes first.
 
   * **Pipelining** — a flush only LAUNCHES the batch
     (Router.match_filters_begin: cache probe, encode, host-to-device
@@ -193,11 +193,17 @@ class DispatchEngine:
         self,
         broker,
         queue_depth: int = 64,
+        deadline_ms: float = DEADLINE_S * 1e3,
         pipeline_depth: int = 2,
+        match_cache_size: int = MATCH_CACHE_SIZE,
         queue_max_depth: int = 8192,
         queue_policy: str = "shed",
         queue_deadline_ms: float = 1000.0,
+        queue_low_watermark: int = 0,
         transfer_chunk_kb: float = 0.0,
+        aot_warm: bool = True,
+        gc_guard: bool = True,
+        breaker_enable: bool = True,
         breaker_threshold: int = 4,
         breaker_deadline_ms: float = 250.0,
         probe_backoff_ms: float = 100.0,
@@ -207,11 +213,15 @@ class DispatchEngine:
     ) -> None:
         self.broker = broker
         self.router = broker.router
-        self.router.enable_match_cache(MATCH_CACHE_SIZE)
+        if match_cache_size:
+            self.router.enable_match_cache(match_cache_size)
         self.telemetry = self.router.telemetry
         self.queue_depth = max(1, queue_depth)
+        self.deadline_s = max(0.0, deadline_ms) / 1e3
         self.pipeline_depth = max(1, pipeline_depth)
-        # --- device failure domain (breaker) knobs
+        # --- device failure domain (breaker) knobs; with the breaker
+        # off a device failure is counted and re-served, never tripped
+        self.breaker_enabled = bool(breaker_enable)
         self.breaker_threshold = max(1, breaker_threshold)
         self.breaker_deadline_s = max(0.0, breaker_deadline_ms) / 1e3
         self.probe_backoff_s = max(0.001, probe_backoff_ms) / 1e3
@@ -231,11 +241,21 @@ class DispatchEngine:
         self.queue_policy = queue_policy
         self.queue_deadline_s = max(0.001, queue_deadline_ms) / 1e3
         # blocked publishers resume once outstanding work falls here
-        self.queue_low_watermark = max(1, self.queue_max_depth // 2)
+        # (0: half the queue's depth)
+        self.queue_low_watermark = (
+            queue_low_watermark
+            if queue_low_watermark
+            else max(1, self.queue_max_depth // 2)
+        )
         # --- transfer pipeline knobs (ops/transfer.py)
         # chunk_kb: bound on a ring slot's compacted-result buffer;
-        # 0 = auto-size from the link probe at warmup (BDP).
+        # 0 = auto-size from the link probe at warmup (BDP). aot_warm:
+        # run every launch-shape bucket at warmup. gc_guard: keep
+        # collector pauses out of launch/collect critical sections
+        # (gc.freeze of steady state at warmup + per-flush pause).
         self.transfer_chunk_kb = float(transfer_chunk_kb)
+        self.aot_warm = bool(aot_warm)
+        self.gc_guard = bool(gc_guard)
         self.warmed = False
         self._queue: List[tuple] = []  # (msg, future, enqueue clock, span)
         # launched-but-uncollected batches:
@@ -340,7 +360,8 @@ class DispatchEngine:
         self.transfer_chunk_kb = chunk_kb
         info["transfer_chunk_kb"] = chunk_kb
         try:
-            info["aot_shapes"] = router.warmup_shapes(self.queue_depth)
+            if self.aot_warm:
+                info["aot_shapes"] = router.warmup_shapes(self.queue_depth)
         except Exception as e:
             if not is_device_fault(e):
                 raise
@@ -351,7 +372,7 @@ class DispatchEngine:
             # the mesh's serve state at readiness: its shard count
             info["mesh_shards"] = router.device_table.n_shards
         tel.mark_serving()
-        if not self.warmed:
+        if self.gc_guard and not self.warmed:
             gc.collect()
             gc.freeze()
         self.warmed = True
@@ -360,6 +381,8 @@ class DispatchEngine:
     def _gc_pause(self) -> bool:
         """Suspend the cyclic collector for a launch/collect critical
         section; returns whether it was running (restore token)."""
+        if not self.gc_guard:
+            return False
         was = gc.isenabled()
         if was:
             gc.disable()
@@ -399,7 +422,7 @@ class DispatchEngine:
                 self._flush()
             elif self._timer is None:
                 self._timer = loop.call_later(
-                    DEADLINE_S, self._on_deadline
+                    self.deadline_s, self._on_deadline
                 )
         return fut
 
@@ -426,7 +449,7 @@ class DispatchEngine:
                 if len(self._queue) >= self.queue_depth:
                     self._flush()
         if self._queue and self._timer is None:
-            self._timer = loop.call_later(DEADLINE_S, self._on_deadline)
+            self._timer = loop.call_later(self.deadline_s, self._on_deadline)
         return fut
 
     # --- admission control (the emqx_olp analog) --------------------------
@@ -689,9 +712,9 @@ class DispatchEngine:
         or None. A device fault at launch stops the overlap (the
         dispatch path rebuilds those plans) and counts toward the
         breaker; any other exception raises."""
-        if pending.full_out is None:
-            return None
         broker = self.broker
+        if pending.full_out is None or not broker._fanout_device:
+            return None
         router = self.router
         out = None
         seen = set()
@@ -982,6 +1005,8 @@ class DispatchEngine:
         tel.count("breaker_device_failures_total")
         if exc is not None:
             self.last_device_error = repr(exc)
+        if not self.breaker_enabled:
+            return
         self._consecutive_failures += 1
         tel.set_gauge("breaker_consecutive_failures", self._consecutive_failures)
         if (
@@ -1168,6 +1193,7 @@ class DispatchEngine:
             "batches_total": self.batches_total,
             "publishes_total": self.publishes_total,
             "breaker": {
+                "enabled": self.breaker_enabled,
                 "state": self.breaker_state,
                 "threshold": self.breaker_threshold,
                 "consecutive_failures": self._consecutive_failures,

@@ -131,6 +131,11 @@ class Broker:
         # _fanout_min_fan dedup on device via the CSR dest store; below
         # it (or for host-resident filters) the Python walk is cheaper.
         self._fanout_min_fan = 1024
+        # plans kept before the oldest-inserted one evicts, and the
+        # device-resolve gate (boot wires broker.perf.tpu_fanout_
+        # cache_size and tpu_fanout_enable here)
+        self._fanout_cap = FANOUT_CACHE_SIZE
+        self._fanout_device = True
         self.router.dest_store.mem_class = Session
         self.router.fanout_opts_lookup = self._fanout_opts_lookup
         # (filter, client) subopts — mirror of ?SUBOPTION
@@ -150,6 +155,12 @@ class Broker:
         # per-stage latency attribution + SLO burn alarms. None is the
         # probe-free default — the engine pays one attribute read
         self.sentinel = None
+
+    def connected_count(self) -> int:
+        """Sessions with a live transport (eviction, the chaos fleet)."""
+        return sum(
+            1 for s in self.sessions.values() if getattr(s, "connected", False)
+        )
 
     def enable_dispatch_engine(self, **kw):
         """Attach a DispatchEngine (pipelined async publish path):
@@ -719,7 +730,7 @@ class Broker:
         their derived broadcast split as a third element; shared-leg
         entries stay (clock, value)."""
         cache = self._fanout_cache
-        if entry is None and len(cache) >= FANOUT_CACHE_SIZE:
+        if entry is None and len(cache) >= self._fanout_cap:
             del cache[next(iter(cache))]
             tel = self.router.telemetry
             if tel.enabled:
@@ -858,6 +869,8 @@ class Broker:
         device fault on either half serves the host walk, counted, and
         the attached engine's breaker hears about the link; any other
         exception raises to the caller."""
+        if not self._fanout_device:
+            return self._build_fanout_plan(pairs)
         router = self.router
         tel = router.telemetry
         eng = self.engine

@@ -11,9 +11,11 @@ sessions arrive via the session's outgoing sink.
 serves on the CUDA card by default (raising without one), with
 wildcard retained reads through the device index (kernel K8). Frames
 parse and serialize through `framec`, the native codec seam over the
-pure-Python `frame` module. The listener options of the reference (TLS,
-mountpoint, zone config, rate limits, load shedding, eviction holds)
-and the WebSocket listener are not ported yet.
+pure-Python `frame` module. A `Server` takes the reference's
+listener options: TLS (`ssl_context`), WebSocket (`websocket`,
+`ws_path`), the mountpoint, the zone's `mqtt` config, connection and
+publish rate limits, OLP load shedding and eviction holds; the
+reference's PublishBatcher has no caller and is not ported.
 """
 
 from __future__ import annotations
@@ -24,17 +26,13 @@ from typing import Optional
 
 from .. import framec
 from . import frame
-from .channel import KEEPALIVE_MULTIPLIER, Channel, ProtocolError
-from .packet import Connect, Disconnect, MQTT_V5, Publish, Subscribe
+from .channel import Channel, ProtocolError
+from .limiter import ListenerLimits, LoadShedder
+from .packet import Disconnect, MQTT_V5, Publish, RC, Subscribe
 from .pubsub import Broker
-from .transport import TcpTransport
+from .transport import TcpTransport, WsTransport
 
 log = logging.getLogger("emqx_tpu_torch.server")
-
-# the parser's inbound limit, advertised in CONNACK
-MAX_PACKET_SIZE = frame.DEFAULT_MAX_PACKET_SIZE
-# seconds a socket may stay open before its CONNECT arrives
-CONNECT_TIMEOUT = 10.0
 
 
 class Connection:
@@ -46,21 +44,35 @@ class Connection:
         if isinstance(peer, (tuple, list)) and len(peer) >= 2:
             peer = f"{peer[0]}:{peer[1]}"
         self.channel = Channel(
-            server.broker, peer=str(peer), max_packet_size=MAX_PACKET_SIZE
+            server.broker,
+            peer=str(peer),
+            mountpoint=server.mountpoint,
+            max_packet_size=server.max_packet_size,
+            mqtt_conf=server.mqtt_conf,
         )
-        self.parser = framec.Parser(max_packet_size=MAX_PACKET_SIZE)
+        self.parser = framec.Parser(max_packet_size=server.max_packet_size)
+        # per-connection limiter chains (client tier -> listener tier ->
+        # node tier; the ?LIMITER_ROUTING check of emqx_channel.erl:751)
+        self.pub_limiter = server.limits.publish_limiter()
+        self.byte_limiter = server.limits.bytes_limiter()
 
     def _wire_sink(self) -> None:
         sess = self.channel.session
         if sess is not None:
             sess.outgoing_sink = self._send_packets
-            sess.outgoing_sink_bytes = self._send_bytes
-            sess.sink_proto_ver = self.channel.proto_ver
+            if not self.channel.mountpoint:
+                # bytes fast path: valid only when no mountpoint strip
+                # rewrites delivered topics (bytes differ per client)
+                sess.outgoing_sink_bytes = self._send_bytes
+                sess.sink_proto_ver = self.channel.proto_ver
+            else:
+                # a takeover from a mountpoint-free listener must not
+                # leave the PREVIOUS connection's bytes sink installed
+                sess.outgoing_sink_bytes = None
             # admin kick severs the socket through this
             sess.closer = self.transport.close
-            # background producers (the DS pump on the buffer's flush
-            # thread) must hop onto this loop before touching the
-            # session or the transport
+            # background producers (DS pump) must hop onto this loop
+            # before touching the session or transport
             sess.event_loop = asyncio.get_running_loop()
 
     def _send_bytes(self, data: bytes) -> None:
@@ -78,6 +90,25 @@ class Connection:
     def _send_packets(self, pkts) -> None:
         try:
             ver = self.channel.proto_ver
+            mp = self.channel.mountpoint
+            if mp:
+                # strip the listener mountpoint from delivered topics —
+                # copies, never mutation: a wide-fanout PUBLISH object
+                # is shared across subscribers (emqx_mountpoint:unmount)
+                pkts = [
+                    Publish(
+                        topic=p.topic[len(mp):],
+                        payload=p.payload,
+                        qos=p.qos,
+                        retain=p.retain,
+                        dup=p.dup,
+                        packet_id=p.packet_id,
+                        props=p.props,
+                    )
+                    if isinstance(p, Publish) and p.topic.startswith(mp)
+                    else p
+                    for p in pkts
+                ]
             chunks = []
             limit = self.channel.client_max_packet
             for p in pkts:
@@ -108,9 +139,12 @@ class Connection:
             while True:
                 timeout = None
                 if self.channel.keepalive:
-                    timeout = self.channel.keepalive * KEEPALIVE_MULTIPLIER
+                    timeout = (
+                        self.channel.keepalive
+                        * self.channel.keepalive_multiplier
+                    )
                 elif not self.channel.connected:
-                    timeout = CONNECT_TIMEOUT
+                    timeout = self.server.connect_timeout
                 try:
                     data = await asyncio.wait_for(
                         self.transport.read(), timeout=timeout
@@ -126,6 +160,8 @@ class Connection:
                         self._send_packets([Disconnect(e.code)])
                     break
                 for pkt in pkts:
+                    from .packet import Connect
+
                     if isinstance(pkt, Connect) and not self.channel.connected:
                         hooks = self.server.broker.hooks
                         # 'client.connect' gate (license quota, exhook
@@ -181,6 +217,24 @@ class Connection:
                                 )
                             )
                             self.channel.preauth = (pkt.client_id, verdict)
+                    if isinstance(pkt, Publish):
+                        # backpressure: pausing here stops reading the
+                        # socket, which pushes back on the publisher's
+                        # TCP window (the reference hibernates the
+                        # connection process the same way)
+                        ok = await self.pub_limiter.acquire(1.0)
+                        ok = ok and await self.byte_limiter.acquire(
+                            float(len(pkt.payload))
+                        )
+                        if not ok:
+                            self.server.broker.metrics.inc(
+                                "messages.dropped.quota_exceeded"
+                            )
+                            if self.channel.proto_ver == MQTT_V5:
+                                self._send_packets(
+                                    [Disconnect(RC.QUOTA_EXCEEDED)]
+                                )
+                            return
                     if self.channel.connected and isinstance(
                         pkt, (Publish, Subscribe)
                     ):
@@ -275,35 +329,113 @@ class Connection:
 
 
 class Server:
-    """One TCP listener. Without a `broker` it builds one on the CUDA
-    card (raising when none is present)."""
+    """One listener. `ssl_context` upgrades it to ssl:// (or wss://
+    when `websocket` is set); the reference's four listener types
+    tcp/ssl/ws/wss (emqx_listeners.erl:444-455,657) map onto these two
+    flags over the same connection runtime."""
 
     def __init__(
         self,
         broker: Optional[Broker] = None,
         host: str = "127.0.0.1",
         port: int = 1883,
+        max_packet_size: int = frame.DEFAULT_MAX_PACKET_SIZE,
+        connect_timeout: float = 10.0,
+        limits: Optional[ListenerLimits] = None,
+        shedder: Optional[LoadShedder] = None,
+        ssl_context=None,
+        websocket: bool = False,
+        ws_path: str = "/mqtt",
+        name: Optional[str] = None,
+        mountpoint: str = "",
+        mqtt_conf: Optional[dict] = None,
     ):
         self.broker = broker or Broker()
         self.host = host
         self.port = port
+        self.max_packet_size = max_packet_size
+        self.connect_timeout = connect_timeout
+        self.limits = limits or ListenerLimits()
+        self.shedder = shedder
+        self.ssl_context = ssl_context
+        self.websocket = websocket
+        self.ws_path = ws_path
+        proto = ("wss" if ssl_context else "ws") if websocket else (
+            "ssl" if ssl_context else "tcp"
+        )
+        self.proto = proto
+        self.name = name or f"{proto}:default"
+        self.mountpoint = mountpoint
+        self.mqtt_conf = mqtt_conf or {}
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
+        self._pending: set = set()  # transports still in ws handshake
         self.listen_addr = None
+        # eviction holds: multiple agents (evacuation + rebalance) may
+        # gate accepts concurrently; last-writer-wins booleans would
+        # let one agent's disable reopen another's drain
+        self._evict_holds = 0
+
+    @property
+    def evicting(self) -> bool:
+        return self._evict_holds > 0
+
+    def evict_hold(self) -> None:
+        self._evict_holds += 1
+
+    def evict_release(self) -> None:
+        self._evict_holds = max(0, self._evict_holds - 1)
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
-            self._on_client, self.host, self.port
+            self._on_client, self.host, self.port, ssl=self.ssl_context
         )
         addr = self._server.sockets[0].getsockname()
         self.listen_addr = addr[:2]
-        # live-listener registry (the reference's mgmt listeners view)
+        # live-listener registry: the mgmt listeners view walks this
         if self not in self.broker.servers:
             self.broker.servers.append(self)
+        if self.shedder is not None:
+            self.shedder.start()
         log.info("listening on %s", addr)
 
     async def _on_client(self, reader, writer) -> None:
-        conn = Connection(self, TcpTransport(reader, writer))
+        # accept gates: OLP shed (emqx_olp new-conn backoff) first,
+        # then the listener's connection-rate bucket (max_conn_rate)
+        if self.evicting:
+            self.broker.metrics.inc("eviction.conn_rejected")
+            writer.close()
+            return
+        if self.shedder is not None and self.shedder.overloaded:
+            self.shedder.shed_count += 1
+            self.broker.metrics.inc("olp.new_conn_shed")
+            writer.close()
+            return
+        if not self.limits.accept_allowed():
+            self.broker.metrics.inc("listener.conn_rate_limited")
+            writer.close()
+            return
+        if self.websocket:
+            # bound + track the handshake: a client that connects and
+            # sends nothing must not hold the fd forever, and stop()
+            # must be able to kick a socket still mid-handshake
+            raw = TcpTransport(reader, writer)
+            self._pending.add(raw)
+            try:
+                t = await asyncio.wait_for(
+                    WsTransport.handshake(reader, writer, path=self.ws_path),
+                    timeout=self.connect_timeout,
+                )
+            except (asyncio.TimeoutError, ConnectionError):
+                t = None
+            finally:
+                self._pending.discard(raw)
+            if t is None:
+                raw.close()
+                return
+        else:
+            t = TcpTransport(reader, writer)
+        conn = Connection(self, t)
         self._conns.add(conn)
         try:
             await conn.run()
@@ -313,6 +445,8 @@ class Server:
     async def stop(self) -> None:
         if self in self.broker.servers:
             self.broker.servers.remove(self)
+        if self.shedder is not None:
+            self.shedder.stop()
         if self._server is not None:
             self._server.close()
             # kick live connections so wait_closed() cannot hang on them
@@ -321,6 +455,8 @@ class Server:
                     conn.transport.close()
                 except Exception:
                     pass
+            for raw in list(self._pending):
+                raw.close()
             await self._server.wait_closed()
 
     async def serve_forever(self) -> None:

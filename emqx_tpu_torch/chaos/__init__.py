@@ -1,12 +1,31 @@
-"""Chaos seams of the port: the device fault injector (faults.py) that
-plugs into the `fault_injector` seam of the Router and its device
-table, driving the dispatch engine's failover and circuit breaker, and
-the disk fault injector that plugs into the durable tier's ds/diskio
-seam, driving a DS shard's fail-stop and recovery.
+"""Chaos layer of the port: the single-device scenario engine and its
+fault seams.
 
-The reference's scenario engine and its replica-drift injector are not
-ported (they need the cluster layer the port does not have)."""
+  * engine.py: the session fleet, the Zipf storm and `ChaosEngine`,
+    which runs the catalog under a live storm while the sentinel,
+    alarms and flight recorder judge the outcome; `run_soak` and
+    `python -m emqx_tpu_torch.chaos` drive it on the card;
+  * scenarios.py: the single-device catalog (storm baseline, row and
+    slot corruption, device loss and flap, torn WAL, disk full, fsync
+    failure, broker restart, disconnect/takeover), each with its
+    contract;
+  * faults.py: the device fault injector that plugs into the
+    `fault_injector` seam of the Router and its device table, driving
+    the dispatch engine's failover and circuit breaker, and the disk
+    fault injector that plugs into the durable tier's ds/diskio seam;
+  * boxcal.py: the box-throughput scale of the scenarios' deadlines.
 
+The mesh scenarios, the cluster catalog and the replica-drift injector
+need the shard breaker and the cluster layer (ROADMAP Queue 1 item 8)
+and are not ported."""
+
+from .engine import (  # noqa: F401
+    ChaosEngine,
+    ContractViolation,
+    SessionFleet,
+    ZipfTopics,
+    run_soak,
+)
 from .faults import (  # noqa: F401
     CRASH_POINTS,
     DISK_LEGS,
@@ -24,4 +43,11 @@ from .faults import (  # noqa: F401
     SimulatedCrash,
     TransientDeviceError,
     is_device_fault,
+)
+from .scenarios import (  # noqa: F401
+    CATALOG,
+    Check,
+    Scenario,
+    ScenarioResult,
+    scenario_catalog,
 )

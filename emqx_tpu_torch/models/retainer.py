@@ -28,7 +28,7 @@ from ..broker.message import Message
 from ..device import DeviceLike
 from ..ops import topic as topic_mod
 from ..ops.host_index import TopicTrie, node_children, node_ids
-from ..ops.retained import RetainedIndex
+from ..ops.retained import RetainedIndex, ShardedRetainedIndex
 
 
 class Retainer:
@@ -64,18 +64,26 @@ class Retainer:
         min_device: int = 0,
         class_budget: int = 64,
         max_levels: int = 16,
+        n_shards: int = 1,
     ):
         """Attach the cuckoo-backed retained index (backfilling the
         current store) on this retainer's device and serve wildcard
         reads through the retained_read_begin/finish halves. The mirror
         is uploaded and K8 launched once here, so the first SUBSCRIBE
-        does not pay the kernel's build."""
-        idx = RetainedIndex(
+        does not pay the kernel's build. n_shards > 1 partitions names
+        over independent sub-tables on the same device
+        (ShardedRetainedIndex: one K8 launch a shard per read)."""
+        kw = dict(
             telemetry=telemetry,
             min_device=min_device,
             class_budget=class_budget,
             max_levels=max_levels,
             device=self.device,
+        )
+        idx = (
+            ShardedRetainedIndex(n_shards=n_shards, **kw)
+            if n_shards > 1
+            else RetainedIndex(**kw)
         )
         for name in self._store:
             idx.add(name)

@@ -677,3 +677,58 @@ class RetainedIndex:
                 tel.count("retained_host_fallback_total", host)
         return out
 
+
+
+class ShardedRetainedIndex:
+    """S independent sub-tables on one device; a name lives on shard
+    fnv(name) % S, as in the reference (the route-table sharding model:
+    rows partition, queries fan out to every shard and union). Each
+    shard is a whole `RetainedIndex`, so a read launches K8 once per
+    shard on that shard's own table."""
+
+    def __init__(self, n_shards: int = 2, **kw) -> None:
+        self.n_shards = max(1, int(n_shards))
+        self.shards = [RetainedIndex(**kw) for _ in range(self.n_shards)]
+
+    def __len__(self) -> int:
+        return sum(len(s) for s in self.shards)
+
+    @staticmethod
+    def _fnv(name: str) -> int:
+        h = 0x811C9DC5
+        for ch in name.encode():
+            h = ((h ^ ch) * 16777619) & M32
+        return h
+
+    def shard_index(self, name: str) -> int:
+        return self._fnv(name) % self.n_shards
+
+    def _shard_of(self, name: str) -> RetainedIndex:
+        return self.shards[self.shard_index(name)]
+
+    def add(self, name: str) -> bool:
+        return self._shard_of(name).add(name)
+
+    def remove(self, name: str) -> None:
+        self._shard_of(name).remove(name)
+
+    def warmup(self) -> None:
+        for s in self.shards:
+            s.warmup()
+
+    def read_begin(self, filters: Sequence[str]):
+        return [s.read_begin(filters) for s in self.shards]
+
+    def read_finish(self, tickets) -> List[Optional[List[str]]]:
+        per_shard = [s.read_finish(t) for s, t in zip(self.shards, tickets)]
+        out: List[Optional[List[str]]] = []
+        for fi in range(len(per_shard[0])):
+            cols = [ps[fi] for ps in per_shard]
+            if any(c is None for c in cols):
+                out.append(None)  # any shard escalating -> host walk
+            else:
+                merged: List[str] = []
+                for c in cols:
+                    merged.extend(c)
+                out.append(merged)
+        return out

@@ -121,3 +121,20 @@ def parse_share(flt: str) -> Tuple[Optional[str], str]:
             raise ValueError(f"wildcard in share group: {flt!r}")
         return group, real
     return None, flt
+
+
+EXCLUSIVE_PREFIX_STR = "$exclusive/"
+
+
+def mount_filter(mountpoint: str, flt: str) -> str:
+    """Apply a listener mountpoint to a subscription filter, keeping
+    $share/$exclusive prefixes OUTSIDE the mount (the reference mounts
+    inside the share record, emqx_mountpoint.erl)."""
+    if not mountpoint:
+        return flt
+    if flt.startswith(EXCLUSIVE_PREFIX_STR):
+        return EXCLUSIVE_PREFIX_STR + mountpoint + flt[len(EXCLUSIVE_PREFIX_STR):]
+    group, real = parse_share(flt)
+    if group is not None:
+        return f"{SHARE_PREFIX}/{group}/{mountpoint}{real}"
+    return mountpoint + flt

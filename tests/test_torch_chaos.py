@@ -1,0 +1,221 @@
+"""The port's single-device chaos engine held against the reference's on
+the CPU: the fleet's filters and topics and the Zipf draws for one
+seed; the corruption, takeover and crash-consistency scenarios at the
+reference tests' small engine (tests/test_chaos.py), each under a live
+storm with every contract holding; the soak row's shape (the
+reference's keys, with torch/CUDA provenance in place of jax); and the
+cluster and mesh parts, which raise NotImplementedError naming ROADMAP
+Queue 1 item 8. Deadlines are the reference's, box-scaled; the tests
+hold the engine to its contracts, not to timings."""
+
+import json
+
+import pytest
+import torch
+
+from emqx_tpu.broker.pubsub import Broker as RBroker
+from emqx_tpu.chaos import SessionFleet as RFleet
+from emqx_tpu.chaos import ZipfTopics as RZipf
+from emqx_tpu.chaos import run_soak as r_run_soak
+from emqx_tpu_torch.broker.pubsub import Broker as TBroker
+from emqx_tpu_torch.chaos import ChaosEngine, SessionFleet, ZipfTopics, run_soak
+from emqx_tpu_torch.chaos import __main__ as chaos_main
+from emqx_tpu_torch.chaos.scenarios import (
+    CATALOG,
+    BrokerRestart,
+    DisconnectTakeover,
+    DiskFull,
+    FsyncFail,
+    RowCorruption,
+    SlotDecay,
+    TornWal,
+    scenario_catalog,
+    scenarios_by_name,
+)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def small_engine_kw():
+    """tests/test_chaos.py's small engine."""
+    return dict(
+        groups=50,
+        sample_n=1,
+        storm_chunk=48,
+        detect_rounds=6,
+        detect_burst=16,
+        chaos_filters=2,
+        chaos_fan=4,
+        settle_timeout=8.0,
+    )
+
+
+async def _engine(tmp_path, sessions):
+    return await ChaosEngine.standalone(
+        sessions=sessions, data_dir=str(tmp_path), device="cpu", **small_engine_kw())
+
+
+@pytest.mark.parametrize("s,seed,victim", [(1.2, 7, False), (1.3, 3, False), (1.1, 5, True)])
+def test_fleet_and_zipf_draws_equal_the_reference(s, seed, victim):
+    rf = RFleet(RBroker(), "z", sessions=400, groups=37)
+    tf = SessionFleet(TBroker(device="cpu"), "z", sessions=400, groups=37)
+    assert (tf.groups, tf.fan()) == (rf.groups, rf.fan())
+    assert [tf.filter_of(g) for g in range(37)] == [rf.filter_of(g) for g in range(37)]
+    assert [tf.topic_of(g, f"x{g}") for g in range(37)] == \
+        [rf.topic_of(g, f"x{g}") for g in range(37)]
+    rv = RFleet(RBroker(), "v", sessions=50) if victim else None
+    tv = SessionFleet(TBroker(device="cpu"), "v", sessions=50) if victim else None
+    rz = RZipf(rf, s=s, seed=seed, victim=rv)
+    tz = ZipfTopics(tf, s=s, seed=seed, victim=tv)
+    for n in (1, 48, 256, 1000):
+        assert tz.draw(n) == rz.draw(n)
+
+
+async def test_row_corruption_chain_under_load(tmp_path):
+    eng = await _engine(tmp_path, 250)
+    try:
+        await eng.setup()
+        eng.storm_start()
+        res = await RowCorruption(faults=1).run(eng)
+        assert res.ok, json.dumps(res.as_dict(), indent=1)
+        assert res.detect_ms is not None and res.recovery_ms is not None
+        assert eng.faults_detected == eng.faults_injected == 1
+        assert eng.published > 0 and eng.delivered > 0
+        await eng.storm_stop()
+        await eng.drain_clean_streak()
+        assert not eng.alarms.is_active("xla_audit_divergence")
+        sweep = await eng.audit_sweep()
+        assert sweep["silent_divergences"] == 0
+        assert eng.router.quarantined_filters() == []
+    finally:
+        await eng.close()
+
+
+async def test_slot_decay_whole_table_heals(tmp_path):
+    eng = await _engine(tmp_path, 200)
+    try:
+        await eng.setup()
+        eng.storm_start()
+        res = await SlotDecay().run(eng)
+        assert res.ok, json.dumps(res.as_dict(), indent=1)
+        await eng.storm_stop()
+        assert (await eng.audit_sweep())["silent_divergences"] == 0
+    finally:
+        await eng.close()
+
+
+async def test_disconnect_takeover_wave(tmp_path):
+    eng = await _engine(tmp_path, 300)
+    try:
+        await eng.setup()
+        eng.storm_start()
+        res = await DisconnectTakeover(wave=60).run(eng)
+        assert res.ok, json.dumps(res.as_dict(), indent=1)
+        await eng.storm_stop()
+    finally:
+        await eng.close()
+
+
+async def test_crash_consistency_chain_under_storm(tmp_path):
+    eng = await _engine(tmp_path, 250)
+    try:
+        await eng.setup()
+        assert eng.durable_db is not None
+        eng.storm_start()
+        for sc in (TornWal(), DiskFull(), FsyncFail(), BrokerRestart()):
+            res = await sc.run(eng)
+            assert res.ok, json.dumps(res.as_dict(), indent=1)
+            assert res.recovery_ms is not None
+        await eng.storm_stop()
+        assert eng.storm_errors == 0
+        assert eng.durable_db.failed_shards() == []
+        assert all(not s.client_id.startswith("s") or type(s).__name__ != "DurableSession"
+                   for s in eng.broker.sessions.values())
+        row = eng.soak_row([], await eng.audit_sweep(), 1.0)
+        assert row["ds"]["reboots"] >= 2
+        assert row["ds"]["failed_at_end"] == []
+        assert row["ds"]["wal_torn_records"] >= 2
+        assert row["ds"]["shard_fail_stops"] >= 2
+    finally:
+        await eng.close()
+
+
+SOAK_KW = dict(sessions=150, victim_sessions=0, groups=30, sample_n=2, baseline_s=0.3,
+               scenarios=["storm_baseline", "row_corruption"], strict=True, storm_chunk=32,
+               detect_rounds=6, detect_burst=16, chaos_filters=2, chaos_fan=4,
+               settle_timeout=8.0)
+# the sub-dicts of a soak row whose keys do not depend on the run's data
+FIXED_SHAPE = ("storm", "final_sweep", "audit", "rpc", "breaker", "knobs", "ds")
+
+
+async def test_soak_row_has_the_reference_keys(tmp_path):
+    rows = []
+    for fn, sub, kw in ((r_run_soak, "ref", {}), (run_soak, "port", {"device": "cpu"})):
+        out = tmp_path / f"{sub}.json"
+        row = await fn(report_path=str(out), data_dir=str(tmp_path / sub), **SOAK_KW, **kw)
+        assert row["contracts_ok"] and not row["violations"]
+        assert json.loads(out.read_text())["contracts_ok"]
+        rows.append(row)
+    ref, port = rows
+    assert set(port) == set(ref)
+    for k in FIXED_SHAPE:
+        assert set(port[k]) == set(ref[k]), k
+    assert set(port["scenarios"]) == set(ref["scenarios"]) == {"storm_baseline",
+                                                               "row_corruption"}
+    for name in ref["scenarios"]:
+        assert set(port["scenarios"][name]) == set(ref["scenarios"][name])
+        assert [c["name"] for c in port["scenarios"][name]["checks"]] == \
+            [c["name"] for c in ref["scenarios"][name]["checks"]]
+    assert port["divergences_detected"] == port["divergences_injected"] >= 1
+    assert port["silent_divergences"] == 0
+    prov, rprov = port["provenance"], ref["provenance"]
+    assert set(rprov) - set(prov) == {"jax"}
+    assert set(prov) - set(rprov) == {"torch", "cuda"}
+    assert prov["platform"] == "cpu" and prov["torch"] == torch.__version__
+    assert "jax" not in json.dumps(port, default=str).lower()
+
+
+def test_catalog_is_the_single_device_one_in_the_reference_order():
+    from emqx_tpu.chaos.scenarios import CATALOG as RCATALOG
+
+    mesh = {"chip_loss", "chip_flap", "reshard_churn"}
+    cluster = {"partition_nodedown", "replica_drift", "asymmetric_partition",
+               "split_brain", "heal_storm", "node_evacuation", "node_purge"}
+    assert CATALOG == [n for n in RCATALOG if n not in mesh | cluster]
+    assert [s.name for s in scenario_catalog()] == CATALOG
+    assert not any(s.needs_cluster or s.needs_mesh for s in scenario_catalog())
+
+
+@pytest.mark.parametrize("call", ["victim_sessions", "cluster_engine", "mesh_scenario",
+                                  "cluster_scenario", "cluster_catalog", "engine_victim"])
+async def test_cluster_and_mesh_parts_raise_naming_item_8(call, tmp_path):
+    with pytest.raises(NotImplementedError, match="item 8"):
+        if call == "victim_sessions":
+            await run_soak(sessions=10, victim_sessions=1, device="cpu",
+                           data_dir=str(tmp_path))
+        elif call == "cluster_engine":
+            await ChaosEngine.cluster(sessions=10)
+        elif call == "mesh_scenario":
+            scenarios_by_name(["storm_baseline", "chip_loss"])
+        elif call == "cluster_scenario":
+            await run_soak(sessions=10, device="cpu", scenarios=["split_brain"],
+                           data_dir=str(tmp_path))
+        elif call == "cluster_catalog":
+            scenario_catalog(cluster=True)
+        else:
+            ChaosEngine(TBroker(device="cpu"), None, sessions=10, victim_sessions=5)
+
+
+def test_cli_refuses_the_clustered_soak_and_writes_nothing_by_default(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert chaos_main.main(["--sessions", "10", "--victim-sessions", "5",
+                            "--device", "cpu"]) == 2
+    assert chaos_main.main(["--sessions", "10", "--scenario", "chip_flap",
+                            "--device", "cpu"]) == 2
+    assert list(tmp_path.iterdir()) == []

@@ -797,7 +797,13 @@ def test_port_imports_neither_jax_nor_reference():
                 "transform/validation.py", "transform/transformation.py",
                 "ds/metrics.py", "ds/diskio.py", "ds/kvstore.py", "ds/lts.py",
                 "ds/storage.py", "ds/buffer.py", "ds/api.py", "ds/session_ds.py",
-                "ds/shared_queue.py", "cluster/wire.py", "chaos/faults.py"):
+                "ds/shared_queue.py", "cluster/wire.py", "chaos/faults.py",
+                "boot.py", "config/hocon.py", "config/schema.py", "config/config.py",
+                "config/default_schema.py", "config/unported.py", "broker/limiter.py",
+                "broker/transport.py", "broker/listeners.py", "modules/delayed.py",
+                "modules/rewrite.py", "modules/auto_subscribe.py", "chaos/engine.py",
+                "chaos/scenarios.py", "chaos/boxcal.py", "chaos/__main__.py",
+                "cluster/rebalance.py"):
         assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
