@@ -391,11 +391,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    counter, no session stream on a learned '+', or past 90 s. The cuts
    (§4 of PERF.md) are P13_SIZES.
 14. The booted node (its own limit, 90 s): `emqx_tpu_torch.boot.Node`
-   from `p14_config` (as config_text, a temp data_dir): tcp:default,
-   tcp:mounted (mountpoint m/${clientid}/, max_conn_rate above the
-   phase's rate: the schema has no listener messages_rate) and
-   ws:default on 127.0.0.1:0; the management API off; etc/emqx.conf's
-   caps; the retainer with tpu_retained_enable and
+   from etc/emqx.conf (the management API on, as the file has it) with
+   `p14_config` over it (a second file, a temp data_dir): the API and
+   tcp:default, tcp:mounted (mountpoint m/${clientid}/, max_conn_rate
+   above the phase's rate: the schema has no listener messages_rate)
+   and ws:default on 127.0.0.1:0; etc/emqx.conf's caps; the retainer with tpu_retained_enable and
    tpu_retained_shards 2; the match and fanout legs; durable sessions
    on the schema's storage defaults; three rules on t/# with a WHERE
    and a republish, the batched WHERE on; delayed, a rewrite old/# ->
@@ -413,22 +413,41 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    publish at QoS 0/1/2 to the rules' t/..., old/... and
    $delayed/1/new/...; 4 windows of 1,024 in-process QoS-1 publishes
    through the dispatch engine with route churn between them, durable
-   publishes and flushes. Every client's deliveries settle; a
+   publishes and flushes. Then the API script (`p14_api_writes`): log
+   in as admin/public, create an API key and use it with Basic auth, a
+   POST /clients/tc0/subscribe onto r/+ (the retained r/{i}; K8 reads
+   them) and
+   one for live1040 onto fleet/0/0/alarm (the fanout sync), 32 POST
+   /publish and 8 POST /publish/bulk of 128 messages onto the rules'
+   t/... and the fan-1,040 fleet/0/0/alarm (K1, K2, the table sync and
+   K5 counted in this window), the banned CRUD with a v5 TCP CONNECT of
+   the banned client id (CONNACK 0x8C), and the rules CRUD with
+   rule_test. Every client's deliveries settle; the API's reads
+   (`p14_api_reads`: nodes, metrics, stats, clients, subscriptions,
+   topics, retained, monitor, alarms, one ctl run of every command,
+   the Prometheus scrape, GET /gateways answering 501) and a data
+   export follow; a
    DiskFaultInjector fsync fault on DS shard 2 must raise
    ds_shard_failed_2 and a flight bundle (boot step 6b), then heal and
    recover; `node.stop()` must release every port; a second boot over
    the directory (warm): ds_recovery, the retained reload, the durable
-   sessions resumed, one more window and one retained wave. The card's
+   sessions resumed, one more window and one retained wave, and the
+   export imported through POST /data/import (the ban, the API key,
+   the rules and the retained names). The card's
    run and the same script on Node(device="cpu") run as two child
    processes started together (PYTHONHASHSEED=0): every client's
    delivery multiset (topic, payload, QoS, retain), the acks, the
    retained answers, the rule metrics, both recovery reports,
-   DS_METRICS, the alarms and the broker counters must be equal; K1,
-   K2, the table sync, K5, the fanout sync, K8 (on each shard, in both
-   boots) and K12 must launch; no device-fault counter may move.
-   Prints boot seconds to the first bound listener cold and warm, stop
-   and reboot seconds, CONNACK and SUBACK p50/p99 per listener type and
-   publishes/s through the listeners. The cuts (§4 of PERF.md) are
+   DS_METRICS, the alarms, the broker counters, and every API status
+   code, normalised body (API_VOLATILE) and ctl text must be equal;
+   K1, K2, the table sync, K5, the fanout sync, K8 (on each shard, in
+   both boots) and K12 must launch, and K1, K2, the table sync, K5 and
+   K8 inside the API's window; no device-fault counter may move.
+   Prints boot seconds to the first bound listener and to the API's
+   first answer, cold and warm, stop and reboot seconds, CONNACK and
+   SUBACK p50/p99 per listener type, publishes/s through the listeners,
+   the API's p50/p99 for /publish, /publish/bulk and GET /stats and the
+   messages/s through /publish/bulk. The cuts (§4 of PERF.md) are
    P14_SIZES.
 15. The chaos soak on the card (its own limit, 150 s):
    `chaos.run_soak(victim_sessions=0, device="cuda")` over the whole
@@ -465,6 +484,7 @@ import gc
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -6550,12 +6570,14 @@ def durable_child() -> int:
     return 0
 
 
-def durable_children(root, seed, sz, timeout_s, entry="durable_child", phase=13):
+def durable_children(root, seed, sz, timeout_s, entry="durable_child", phase=13,
+                     profile=False):
     """The card's run and the oracle's, each in a process of its own
     started together (the host work of the two overlaps on the
     machine's cores); both get PYTHONHASHSEED=0, so the shared groups'
     hash_clientid elections agree. Every child is waited for, or killed
-    at the limit. Returns (card, oracle) results."""
+    at the limit. Returns (card, oracle) results. With `profile`, each
+    child runs under cProfile and leaves ROLE.prof in `root`."""
     import subprocess
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -6563,7 +6585,12 @@ def durable_children(root, seed, sz, timeout_s, entry="durable_child", phase=13)
     procs = {}
     for role in ("card", "oracle"):
         out = os.path.join(root, f"{role}.json")
-        cmd = [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}())",
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}())"
+        if profile:
+            prof = os.path.join(root, f"{role}.prof")
+            code = (f"import cProfile, sys, chip_smoke; p = cProfile.Profile(); "
+                    f"rc = p.runcall(chip_smoke.{entry}); p.dump_stats({prof!r}); sys.exit(rc)")
+        cmd = [sys.executable, "-c", code,
                role, os.path.join(root, role), out, str(seed), json.dumps(sz), DEVICE]
         log_f = open(os.path.join(root, f"{role}.log"), "w")
         procs[role] = (subprocess.Popen(cmd, cwd=here, env=env, stdout=log_f,
@@ -6700,14 +6727,24 @@ P14_CONN_RATE = 1000  # the mounted listener's max_conn_rate: above the phase's 
 P14_DELAY_S = 1  # $delayed/{s}/...
 P14_QUIET_S = 0.5  # no client packet for this long: the deliveries settled
 P14_LIMIT_S = 90.0
+P14_API_PUBS = 32  # POST /api/v5/publish requests
+P14_API_BULK = 8  # POST /api/v5/publish/bulk requests
+P14_API_BULK_N = 128  # messages a bulk request, every 16th onto the fan-1,040 filter
+P14_API_GETS = 32  # GET /api/v5/stats requests: the GET whose p50/p99 is printed
 P14_SIZES = {"routes": P14_ROUTES, "live": P14_LIVE, "wide": P14_WIDE,
              "filters": P14_FILTERS, "level_d": P13_LEVEL_D, "durable": P14_DURABLE,
              "ret": P14_RET, "tcp": P14_TCP, "mounted": P14_MOUNTED, "ws": P14_WS,
              "windows": P14_WINDOWS, "window": P14_WINDOW, "dur_pubs": P14_DUR_PUBS,
-             "ret_wave": P14_RET_WAVE}
+             "ret_wave": P14_RET_WAVE, "api_pubs": P14_API_PUBS, "api_bulk": P14_API_BULK,
+             "api_bulk_n": P14_API_BULK_N, "api_gets": P14_API_GETS}
 # the kernels the booted node must launch (K8 on each retained shard besides)
 P14_PATH = ("match_ids_hash", "match_ids", "table_sync", "resolve_fanout", "fanout_sync",
             "retained_probe", "probe_add_one")
+# the kernels the API's window must launch: K1, K2, the table sync, K5,
+# and K8 (an API subscribe's retained read goes through the device leg)
+P14_API_PATH = ("match_ids_hash", "match_ids", "table_sync", "resolve_fanout",
+                "retained_probe")
+ETC_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "etc", "emqx.conf")
 # the rules on t/#, each with a WHERE the batched leg compiles and a republish
 P14_RULES = {
     "hot": {"sql": 'SELECT payload.v AS v, topic FROM "t/#" WHERE payload.v > 60',
@@ -6730,8 +6767,9 @@ def p14_config(d, sz, wss=None):
     retainer with K8 over two shards; the match and fanout legs; the
     durable tier on the schema's storage defaults; P14_RULES with the
     batched WHERE; delayed, a rewrite old/# -> new/$1 and auto_subscribe
-    on inbox/${clientid}; the chaos engine armed; the management API off;
-    the $SYS heartbeat at 1 h."""
+    on inbox/${clientid}; the chaos engine armed; the management API's
+    bind on 127.0.0.1:0 (etc/emqx.conf, and the schema, turn it on); the
+    $SYS heartbeat at 1 h."""
     listeners = {
         "tcp": {"default": {"bind": "127.0.0.1:0"},
                 "mounted": {"bind": "127.0.0.1:0", "mountpoint": "m/${clientid}/",
@@ -6744,7 +6782,7 @@ def p14_config(d, sz, wss=None):
     return json.dumps({
         "node": {"name": "p14@127.0.0.1", "data_dir": d},
         "listeners": listeners,
-        "api": {"enable": False},
+        "api": {"bind": "127.0.0.1:0"},
         "mqtt": {"max_qos_allowed": 2, "retain_available": True},
         "retainer": {"enable": True, "max_retained_messages": sz["ret"] + 4096},
         "broker": {"perf": {"tpu_match_enable": True, "tpu_fanout_enable": True,
@@ -7121,6 +7159,285 @@ def ports_released(addrs):
     return open_
 
 
+# --- phase 14's management API script ------------------------------------------
+
+# fields normalised before two runs' API answers are compared (the
+# card's and the CPU's here; the reference's and the port's in
+# tests/test_torch_mgmt.py, which imports this table): field -> why it
+# differs between two runs of one script
+API_VOLATILE = {
+    "token": "secrets.token_urlsafe",
+    "api_key": "secrets.token_urlsafe",
+    "api_secret": "secrets.token_urlsafe",
+    "created_at": "wall clock",
+    "uptime": "wall clock",
+    "id": "message ids are uuid4",
+    "publish_at": "a message's wall-clock timestamp",
+    "until": "a timed ban's wall-clock expiry",
+    "at": "a ban's wall-clock start",
+    "exported_at": "the backup's wall clock",
+    "filename": "the backup's name carries its wall-clock second",
+    "path": "backup and bundle paths carry the wall clock",
+    "files": "backup names carry the wall clock",
+    "mtime": "a bundle's wall-clock mtime",
+    "start_at": "a trace's wall-clock start",
+    "activate_at": "an alarm's wall-clock time",
+    "deactivate_at": "an alarm's wall-clock time",
+    "time_stamp": "the monitor's sample clock",
+    "received_msg_rate": "the monitor's wall-clock rates",
+    "sent_msg_rate": "the monitor's wall-clock rates",
+    "dropped_msg_rate": "the monitor's wall-clock rates",
+    "xla_dispatch_p99_ms": "a latency",
+    "xla_publish_p99_ms": "a latency",
+    "xla_publish_stage_p99_ms": "latencies",
+    "xla_delivery_stage_p99_ms": "latencies",
+    "xla_hbm_bytes": "the device table's bytes (a JAX and a torch layout)",
+    "xla_slo_publish_burn": "a latency objective's burn rate",
+    "size": "a bundle's bytes carry the wall clock",
+    "last_update_time": "a slow subscription's wall-clock time",
+    "create_time": "a topic metric's wall-clock start",
+    "salt": "an API key's random salt",
+    "secret_hash": "the hash of an API key's random secret",
+}
+# string values: a flight bundle's name carries the wall clock
+# (flight-<ms>-<seq>-<rule>.json), an audit actor an API key
+API_VOLATILE_STR = (
+    (re.compile(r"^flight-\d+-\d+-(\w+)\.json$"), r"flight-<t>-\1.json"),
+    (re.compile(r"^api_key:.*$"), "api_key:<api_key>"),
+)
+# ctl text: the printed forms of the same fields
+CTL_VOLATILE = (
+    (re.compile(r"uptime \d+s"), "uptime Ns"),
+    (re.compile(r"uptime    : \d+s"), "uptime    : Ns"),
+    (re.compile(r"^\d{16,} ", re.M), "<ts_ns> "),
+    (re.compile(r"(ms|_ms)=[0-9.e-]+"), r"\1=<ms>"),
+    (re.compile(r"trace=[0-9a-f]{32}"), "trace=<trace id>"),
+    (re.compile(r"created_at=[0-9.]+"), "created_at=<t>"),
+    (re.compile(r"until [0-9.]+"), "until <t>"),
+    (re.compile(r"flight-\d+-\d+-(\w+)\.json(  \d+B)?"), r"flight-<t>-\1.json"),
+    (re.compile(r"/\S*/(flight|trace|bk)\b"), r"<dir>/\1"),
+)
+# phase 14's ctl also prints the listeners' bound ports
+P14_CTL_VOLATILE = CTL_VOLATILE + ((re.compile(r":\d{2,5}\b"), ":<port>"),)
+# one run of every ctl command; for flight, sentinel and profile, whose
+# status counts follow each run's timing, only the labels are compared
+P14_CTL = (["help"], ["status"], ["broker"], ["metrics"], ["stats"], ["cluster"],
+           ["clients", "show", "tc0"], ["subscriptions", "show", "tc0"],
+           ["topics", "show", "r/+"], ["publish", "ctl/none", "x"], ["retainer", "info"],
+           ["rules", "list"], ["banned", "list"], ["plugins"], ["gateways"], ["license"],
+           ["listeners"], ["flight", "status"], ["sentinel", "status"],
+           ["profile", "status"], ["mesh"])
+P14_CTL_LABELS = ("flight", "sentinel", "profile")
+
+
+def _volatile(k, v):
+    # None is never volatile; an "id" only when it is a uuid4 (a
+    # message's; a rule's id is the caller's)
+    if v is None or k not in API_VOLATILE:
+        return False
+    return k != "id" or (isinstance(v, str) and len(v) == 32)
+
+
+def norm_body(x):
+    """An API body with the API_VOLATILE fields and API_VOLATILE_STR
+    values replaced."""
+    if isinstance(x, dict):
+        return {k: "<volatile>" if _volatile(k, v) else norm_body(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [norm_body(v) for v in x]
+    if isinstance(x, str):
+        for rx, rep in API_VOLATILE_STR:
+            if rx.match(x):
+                return rx.sub(rep, x)
+    return x
+
+
+def norm_text(text, table=CTL_VOLATILE):
+    """A ctl command's text with the printed volatile fields replaced."""
+    for rx, rep in table:
+        text = rx.sub(rep, text)
+    return text
+
+
+def p14_ctl_text(argv, text):
+    """A ctl command's text, normalised (P14_CTL_VOLATILE), or only its
+    labels (P14_CTL_LABELS)."""
+    if argv[0] in P14_CTL_LABELS:
+        # profile's per-stage sample lines follow which stacks it sampled
+        return [line.split(":")[0].strip() for line in text.splitlines()
+                if not line.startswith("  stage ")]
+    return norm_text(text, P14_CTL_VOLATILE)
+
+
+async def api_call(port, method, path, body=None, token=None, basic=None):
+    """One HTTP/1.1 request to 127.0.0.1:port on its own connection:
+    (status, JSON body or text or None, seconds from connect to the
+    whole answer)."""
+    import asyncio
+    import base64
+
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    head = [f"{method} {path} HTTP/1.1", "host: localhost", f"content-length: {len(data)}",
+            "connection: close"]
+    if token:
+        head.append(f"authorization: Bearer {token}")
+    if basic:
+        head.append("authorization: Basic "
+                    + base64.b64encode(f"{basic[0]}:{basic[1]}".encode()).decode())
+    writer.write("\r\n".join(head).encode() + b"\r\n\r\n" + data)
+    await writer.drain()
+    raw = await reader.read(-1)
+    writer.close()
+    secs = time.perf_counter() - t0
+    top, _, payload = raw.partition(b"\r\n\r\n")
+    status = int(top.split(b" ", 2)[1])
+    if b"content-type: application/json" in top and payload.strip():
+        return status, json.loads(payload), secs
+    return status, payload.decode() or None, secs
+
+
+class P14Api:
+    """The API script's session on one booted node: every answer goes
+    into `rec` as (method, path, status, normalised body); `lat[kind]`
+    keeps request seconds."""
+
+    def __init__(self, node):
+        self.port = node.mgmt.http.listen_addr[1]
+        self.token = None
+        self.rec = []
+        self.lat = {}
+
+    async def first_answer(self):
+        st, body, _s = await api_call(self.port, "GET", "/status")
+        self.rec.append(("GET", "/status", st, body))
+
+    async def login(self):
+        _st, body = await self.call("POST", "/api/v5/login",
+                                    {"username": "admin", "password": "public"})
+        self.token = body["token"]
+
+    async def call(self, method, path, body=None, basic=None, kind=None, record=True):
+        st, out, secs = await api_call(self.port, method, path, body,
+                                       token=None if basic else self.token, basic=basic)
+        if kind is not None:
+            self.lat.setdefault(kind, []).append(secs)
+        if record:
+            self.rec.append((method, path, st, norm_body(out)))
+        return st, out
+
+
+def p14_api_payload(k):
+    return json.dumps({"v": (k * 37 + 11) % 100, "c": "api"})
+
+
+async def p14_api_writes(node, api, cl, clients, sz, stats):
+    """The API script's writes (steps 1, 3-6), before the deliveries
+    settle: login and an API key used with Basic auth, two API
+    subscribes, the /publish and /publish/bulk requests, the banned CRUD
+    with a CONNECT of the banned client id, the rules CRUD and
+    rule_test. Returns the key for the second boot. Launches of the
+    card's window (the subscribes and publishes) go into
+    stats["api_launches"]."""
+    from emqx_tpu_torch.ops import _build
+
+    broker = node.broker
+    await api.login()
+    _st, key = await api.call("POST", "/api/v5/api_key", {"name": "p14"})
+    basic = (key["api_key"], key["api_secret"])
+    await api.call("GET", "/api/v5/api_key", basic=basic)
+    # the API's publish window
+    n0 = {name: k.launches for name, k in _build.KERNELS.items()}
+    # a wildcard: an exact filter's retained read is a host dict hit
+    await api.call("POST", "/api/v5/clients/tc0/subscribe", {"topic": "r/+", "qos": 1})
+    await api.call("POST", f"/api/v5/clients/live{sz['wide']}/subscribe",
+                   {"topic": P13_WIDE_FILTER, "qos": 1})
+    await api.call("POST", "/api/v5/clients/ghost/subscribe", {"topic": "a/b"})
+    for k in range(sz["api_pubs"]):
+        topic = P13_WIDE_FILTER if k == 0 else f"t/{k % 16}/api{k}"
+        await api.call("POST", "/api/v5/publish",
+                       {"topic": topic, "payload": p14_api_payload(k), "qos": k % 3},
+                       kind="publish")
+        clients.ack_held(broker.sessions)
+    n_bulk = 0
+    for b in range(sz["api_bulk"]):
+        batch = [{"topic": P13_WIDE_FILTER, "payload": f"api-b{b}-{j}", "qos": 1}
+                 if j % 16 == 0 else
+                 {"topic": f"t/{j % 16}/bulk{b}_{j}", "payload": p14_api_payload(b + j),
+                  "qos": j % 2}
+                 for j in range(sz["api_bulk_n"])]
+        await api.call("POST", "/api/v5/publish/bulk", batch, kind="bulk")
+        n_bulk += len(batch)
+        clients.ack_held(broker.sessions)
+    stats["api_launches"] = {name: k.launches - n0[name]
+                             for name, k in _build.KERNELS.items()}
+    stats["api_bulk_msgs"] = n_bulk
+    await api.call("POST", "/api/v5/publish", {"topic": "bad/+", "payload": "x"})
+    # banned: a CONNECT of the banned client id over TCP is refused
+    await api.call("POST", "/api/v5/banned", {"as": "clientid", "who": "evil14", "reason": "p14"})
+    addr = node.listeners.get("tcp", "default").listen_addr[:2]
+    bad = ListenerClient("evil14", 5)
+    await bad.open(*addr)
+    ack, _s = await bad.connect()
+    await bad.close()
+    api.rec.append(("CONNECT", "evil14", ack.code))
+    await api.call("GET", "/api/v5/banned")
+    await api.call("DELETE", "/api/v5/banned/clientid/evil14")
+    await api.call("DELETE", "/api/v5/banned/clientid/evil14")
+    await api.call("POST", "/api/v5/banned", {"as": "username", "who": "kept14"})
+    # rules
+    await api.call("POST", "/api/v5/rules", {"id": "api14", "sql": 'SELECT * FROM "api/#"'})
+    await api.call("GET", "/api/v5/rules/api14")
+    await api.call("PUT", "/api/v5/rules/api14", {"enable": False})
+    await api.call("POST", "/api/v5/rule_test", {
+        "sql": 'SELECT payload.v AS v FROM "t/#" WHERE payload.v > 60',
+        "context": {"topic": "t/1/x", "payload": p14_api_payload(3)}})
+    await api.call("DELETE", "/api/v5/rules/api14")
+    await api.call("GET", "/api/v5/rules")
+    return basic
+
+
+async def p14_api_reads(node, api, sz):
+    """The API script's reads (steps 2, 8-10, 7), after the deliveries
+    settled: the views, one run of every ctl command, the scrape, a
+    route the port has not ported (501) and the data export. Returns
+    the export's file name."""
+    for k in range(sz["api_gets"]):
+        await api.call("GET", "/api/v5/stats", kind="get", record=k == 0)
+    for path in ("/api/v5/nodes", "/api/v5/metrics",
+                 "/api/v5/clients?like_clientid=live1&limit=10000", "/api/v5/clients/tc0",
+                 "/api/v5/clients/tc0/subscriptions", "/api/v5/subscriptions?clientid=tc0",
+                 f"/api/v5/subscriptions?topic={P13_WIDE_FILTER}&limit=10000",
+                 "/api/v5/topics?topic=r/%2B", "/api/v5/mqtt/retainer/message/r/0",
+                 "/api/v5/mqtt/retainer/messages?limit=5", "/api/v5/monitor_current",
+                 "/api/v5/alarms?activated=true", "/api/v5/cluster", "/api/v5/gateways"):
+        await api.call("GET", path)
+    for path in ("/api/v5/xla/telemetry", "/api/v5/xla/sentinel"):
+        st, body = await api.call("GET", path, record=False)
+        api.rec.append(("GET", path, st, sorted(body)))
+    st, text = await api.call("GET", "/api/v5/prometheus/stats", record=False)
+    api.rec.append(("GET", "/api/v5/prometheus/stats", st, sorted(
+        {ln.split("{")[0].split(" ")[0] for ln in text.splitlines()
+         if ln and not ln.startswith("#")})))
+    for argv in P14_CTL:
+        api.rec.append(("ctl", argv, p14_ctl_text(argv, node.ctl.run(argv))))
+    _st, out = await api.call("POST", "/api/v5/data/export")
+    return out["filename"]
+
+
+async def p14_api_import(node, fname, basic):
+    """The second boot: the first boot's export imported through the
+    API, the imported key used, the imported state read back."""
+    api = P14Api(node)
+    await api.login()
+    await api.call("POST", "/api/v5/data/import", {"filename": fname})
+    await api.call("GET", "/api/v5/stats", basic=basic)
+    for path in ("/api/v5/banned", "/api/v5/api_key", "/api/v5/rules"):
+        await api.call("GET", path)
+    return api.rec
+
+
 def boot_run(device, d, seed, sz=None, node_cls=None):
     """Phase 14's script on one node class (the port's Node by default)
     over data_dir `d`: (a) boot, (b) the in-process load (routes, live
@@ -7129,8 +7446,11 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
     DS shard 2 (the ds_shard_failed alarm and flight bundle of boot step
     6b), (g) stop, every port released, (h) a second boot over `d`: the
     recovery, the retained reload, the durable sessions resumed, one
-    window and one retained wave. Returns (state, stats): `state` is
-    what the card's run and the CPU run must agree on."""
+    window and one retained wave. The node boots from etc/emqx.conf with
+    the phase's config file over it, the management API on: the API
+    script's writes run after (d), its reads and the data export after
+    (e), the import in (h). Returns (state, stats): `state` is what the
+    card's run and the CPU run must agree on."""
     import asyncio
 
     import numpy as np
@@ -7146,13 +7466,20 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
     reset_ds_ledger()
     clients = DurableClients()
     rng = np.random.default_rng(seed)
-    conf = p14_config(d, sz)
+    conf = d + "_p14.conf"
+    os.makedirs(os.path.dirname(conf) or ".", exist_ok=True)
+    with open(conf, "w") as f:
+        f.write(p14_config(d, sz))
+    files = [ETC_CONF, conf]
 
     async def first():
         # (a) boot
         t0 = time.perf_counter()
-        node = node_cls(config_text=conf, device=device)
+        node = node_cls(config_files=files, device=device)
         await node.start()
+        api = P14Api(node)
+        await api.first_answer()
+        stats["api_first_s"] = time.perf_counter() - t0
         stats["boot_s"] = node.boot_steps["first_listener"]
         stats["boot_listeners_s"] = node.boot_steps["listeners"]
         stats["boot_total_s"] = time.perf_counter() - t0
@@ -7188,6 +7515,10 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
             win.append(await p14_window(node, clients, rng, w, sz, skel))
         stats["windows_s"] = time.perf_counter() - t0
         state["windows"] = win
+        # (d2) the API script's writes
+        t0 = time.perf_counter()
+        basic = await p14_api_writes(node, api, cl, clients, sz, stats)
+        stats["api_writes_s"] = time.perf_counter() - t0
         # (e) the settled deliveries of every listener client
         t0 = time.perf_counter()
         await settle([c for _k, c, _a, _kw in cl], due)
@@ -7205,6 +7536,12 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
         state["rules"] = {rid: jsonable(vars(r.metrics)) for rid, r in
                           sorted(node.rules.rules.items())}
         state["broker_metrics"] = dict(sorted(broker.metrics.all().items()))
+        # (e2) the API script's reads, ctl and the export
+        t0 = time.perf_counter()
+        fname = await p14_api_reads(node, api, sz)
+        stats["api_reads_s"] = time.perf_counter() - t0
+        state["api"] = api.rec
+        stats["api_lat"] = api.lat
         stats["telemetry"] = dict(broker.router.telemetry.counters)
         # (f) a disk fault on DS shard 2: the alarm and bundle of step 6b
         inj = DiskFaultInjector(seed).install()
@@ -7234,14 +7571,16 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
         stats["stop_s"] = time.perf_counter() - t0
         state["still_open"] = ports_released(addrs)
         stats["k8_shards_a"] = list(k8)
-        return skel
+        return skel, fname, basic
 
-    async def second(skel):
+    async def second(skel, fname, basic):
         # (h) the second boot over the same directory
         t0 = time.perf_counter()
-        node = node_cls(config_text=conf, device=device)
+        node = node_cls(config_files=files, device=device)
         await node.start()
         stats["reboot_s"] = time.perf_counter() - t0
+        await P14Api(node).first_answer()
+        stats["api_first_warm_s"] = time.perf_counter() - t0
         stats["reboot_steps"] = dict(node.boot_steps)
         broker = node.broker
         ret = broker.retainer
@@ -7263,6 +7602,9 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
         state["deliveries"] = clients.summary()
         state["ds"] = jsonable(durable_ledger())
         state["alarms"] = sorted(a["name"] for a in node.obs.alarms.get_alarms("activated"))
+        t0 = time.perf_counter()
+        state["api_import"] = await p14_api_import(node, fname, basic)
+        stats["api_import_s"] = time.perf_counter() - t0
         stats["telemetry_h"] = dict(broker.router.telemetry.counters)
         await node.stop()
         stats["k8_shards_h"] = list(k8)
@@ -7270,8 +7612,7 @@ def boot_run(device, d, seed, sz=None, node_cls=None):
     t_run = time.perf_counter()
     if device != "cpu":
         _build.reset_launches()
-    skel = asyncio.run(first())
-    asyncio.run(second(skel))
+    asyncio.run(second(*asyncio.run(first())))
     stats["run_s"] = time.perf_counter() - t_run
     return state, stats
 
@@ -7395,10 +7736,31 @@ def boot_verdict(dev_r, ora_r, sz, card):
         f"retained reloaded {dev['ret_len']:,}, window {dev['window_h']}; rules "
         f"{ {k: (v['matched'], v['passed']) for k, v in dev['rules'].items()} } [{card}]")
     log(f"boot launches {launches} [{card}]")
+    import numpy as np
+
+    al = st["api_lat"]
+
+    def pcts(kind):
+        v = np.asarray(al[kind]) * 1e3
+        return (f"p50/p99 {np.percentile(v, 50):.3f}/{np.percentile(v, 99):.3f} ms "
+                f"({len(v)} requests)")
+
+    log(f"boot (api) card: first API answer {st['api_first_s']:.3f} s after Node() cold "
+        f"(the native cores and kernels built in it), {st['api_first_warm_s']:.3f} s warm; "
+        f"POST /api/v5/publish {pcts('publish')}; POST /api/v5/publish/bulk of "
+        f"{sz['api_bulk_n']} messages {pcts('bulk')}; GET /api/v5/stats {pcts('get')}; "
+        f"each request on its own connection, timed by the client; "
+        f"{st['api_bulk_msgs'] / sum(al['bulk']):.1f} messages/s through /publish/bulk; "
+        f"writes {st['api_writes_s']:.3f} s, reads, ctl and export {st['api_reads_s']:.3f} s, "
+        f"import {st['api_import_s']:.3f} s [{card}]")
+    api_launches = {k: v for k, v in st["api_launches"].items() if v}
+    log(f"boot (api) launches in the API's publish window {api_launches}; "
+        f"{len(dev['api'])} API answers and ctl texts, {len(dev['api_import'])} after the "
+        f"import, compared (normalised: {', '.join(API_VOLATILE)}) [{card}]")
     log(f"boot gate: card {dev_r['s']:.3f} s against the CPU run {ora_r['s']:.3f} s; "
         f"{len(dev['listener_deliveries'])} clients' delivery multisets, acks, retained "
-        f"answers, rule metrics, recovery reports, DS_METRICS, alarms and broker "
-        f"counters; differences {diff} [{card}]")
+        f"answers, rule metrics, recovery reports, DS_METRICS, alarms, broker "
+        f"counters and the API's answers; differences {diff} [{card}]")
     if diff:
         detail = {k: ({kk: (dev[k].get(kk), ora[k].get(kk)) for kk in set(dev[k]) | set(ora[k])
                        if dev[k].get(kk) != ora[k].get(kk)}
@@ -7418,6 +7780,17 @@ def boot_verdict(dev_r, ora_r, sz, card):
         raise AssertionError(f"phase 14 (h): {dev['recovery'][0]}, {dev['window_h']}")
     if not all(v["matched"] for v in dev["rules"].values()):
         raise AssertionError(f"phase 14: a rule never matched {dev['rules']}")
+    api = {tuple(r[:2]) if r[0] != "ctl" else ("ctl", " ".join(r[1])): r[2:]
+           for r in dev["api"]}
+    report = dev["api_import"][1][3]
+    if (api[("CONNECT", "evil14")] != [0x8C] or api[("GET", "/api/v5/gateways")][0] != 501
+            or report.get("errors") != [] or
+            [report.get(k) for k in ("banned", "api_keys", "rules")] != [1, 1, 3]):
+        raise AssertionError(f"phase 14 (api): CONNECT {api[('CONNECT', 'evil14')]}, "
+                             f"gateways {api[('GET', '/api/v5/gateways')]}, import {report}")
+    missing = [n for n in P14_API_PATH if st["api_launches"][n] <= 0]
+    if missing:
+        raise AssertionError(f"phase 14: the API's window never launched {missing}")
     require_no_device_fault(st["telemetry"], "phase 14")
     require_no_device_fault(st["telemetry_h"], "phase 14 (h)")
     missing = [n for n in P14_PATH if launches[n] <= 0]

@@ -10,12 +10,18 @@ reference's order and stops them in reverse:
     1 broker: caps, persistent retainer, fanout and churn knobs, the
       dispatch engine with every tpu_* knob and its warm-up, the
       retained device leg over `tpu_retained_shards`, the native gates
+    2 the auth pipeline: the ban list checked at CONNECT (0x8C) and
+      flapping detection (off, as in the reference); the authn chains
+      and authz sources are not ported (their keys are refused)
     3 feature modules (delayed, rewrite, auto_subscribe)
     4 rule engine (batched WHERE, the config's rules)
     5 durable tier (WAL compaction and the recovery report)
     6 observability, 6b the DS shard fail-stop alarm and flight hook
     7b chaos engine, armed but not run
     8 listeners (tcp, ssl, ws, wss)
+    12 the management API at `api.bind`, when `api.enable` is on (its
+      routes over unported subsystems answer 501)
+    13 the ctl command surface, always, as `node.ctl`
 
 Every build runs in steps 0-1, before a listener binds, and a failed
 build fails `start()`. The node runs on the CUDA card unless the caller
@@ -23,9 +29,8 @@ passes device="cpu" (`--device cpu`); without a card `Node()` raises.
 The config tree is the reference's, so any config the reference accepts
 parses here to the same document; the keys whose subsystem is not
 ported yet (config/unported.py: authentication, gateways, the
-management API, the cluster, ...) make `start()` raise NotPortedError
-before anything binds. `api.enable` defaults to true in the schema, so
-`etc/emqx.conf` boots with an override that sets it false.
+cluster, ...) make `start()` raise NotPortedError before anything
+binds. `etc/emqx.conf` boots as it is, with the API on.
 """
 
 from __future__ import annotations
@@ -64,6 +69,9 @@ class Node:
         self.durable_db = None
         self.ds_recovery = None
         self.chaos = None
+        self.auth = None
+        self.mgmt = None
+        self.ctl = None
         self.modules: list = []
         self.build_seconds: dict = {}
         # seconds from start() to the end of each boot step
@@ -186,6 +194,12 @@ class Node:
         set_delivery_native(bool(cfg.get("broker.perf.tpu_delivery_native")))
         self.broker = broker
         step("broker")
+
+        # 2. auth pipeline: the ban list the API and ctl administer
+        from .auth.bridge import AuthPipeline
+
+        self.auth = AuthPipeline()
+        self.auth.install(broker.hooks)
 
         # 3. feature modules
         from .modules import AutoSubscribe, DelayedPublish, TopicRewrite
@@ -328,16 +342,52 @@ class Node:
                     await self.listeners.start(ltype, name, lc)
                     steps.setdefault("first_listener", time.perf_counter() - t0)
         step("listeners")
+
+        # 12. management API (its routes over the subsystems the port
+        # lacks answer 501)
+        if cfg.get("api.enable"):
+            from .broker.listeners import parse_bind
+            from .mgmt.api import ManagementApi
+
+            self.mgmt = ManagementApi(
+                broker,
+                config=cfg,
+                rules=self.rules,
+                banned=self.auth.banned,
+                node_name=node_name,
+                obs=self.obs,
+                backup_dir=os.path.join(data_dir, "backup"),
+                listeners=self.listeners,
+                n_cards=self._n_cards(),
+            )
+            host, port = parse_bind(cfg.get("api.bind"))
+            await self.mgmt.start(host, port)
+            step("api")
+
+        # 13. ctl command surface (emqx ctl analog)
+        from .mgmt.cli import Ctl
+
+        self.ctl = Ctl(
+            broker,
+            config=cfg,
+            rules=self.rules,
+            banned=self.auth.banned,
+            node_name=node_name,
+            listeners=self.listeners,
+            obs=self.obs,
+        )
         log.info("node %s started on %s", node_name, self.device)
 
     async def stop(self) -> None:
-        """Stop in reverse boot order: listeners (every port released),
-        modules, the dispatch engine (its in-flight batches land and
-        the card's streams go idle), observability, the durable tier
-        and the retained store."""
+        """Stop in reverse boot order: the management API, listeners
+        (every port released), modules, the dispatch engine (its
+        in-flight batches land and the card's streams go idle),
+        observability, the durable tier and the retained store."""
         if self._stopping:
             return
         self._stopping = True
+        if self.mgmt is not None:
+            await self.mgmt.stop()
         if self.listeners is not None:
             await self.listeners.stop_all()
         for m in reversed(self.modules):

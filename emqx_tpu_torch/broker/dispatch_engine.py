@@ -1184,14 +1184,19 @@ class DispatchEngine:
         await asyncio.sleep(0)
 
     def status(self) -> dict:
+        cache = self.router.match_cache
         counters = self.telemetry.counters
         return {
             "queue_depth": self.queue_depth,
+            "deadline_ms": self.deadline_s * 1e3,
             "pipeline_depth": self.pipeline_depth,
             "queued": len(self._queue),
             "inflight": len(self._inflight),
             "batches_total": self.batches_total,
             "publishes_total": self.publishes_total,
+            "coalesce_factor": round(
+                self.publishes_total / self.batches_total, 3
+            ) if self.batches_total else 0.0,
             "breaker": {
                 "enabled": self.breaker_enabled,
                 "state": self.breaker_state,
@@ -1207,6 +1212,28 @@ class DispatchEngine:
                 "probes": counters.get("breaker_probe_total", 0),
                 "probe_failures": counters.get("breaker_probe_failures_total", 0),
                 "last_device_error": self.last_device_error,
+            },
+            "admission": {
+                "max_depth": self.queue_max_depth,
+                "low_watermark": self.queue_low_watermark,
+                "policy": self.queue_policy,
+                "queue_deadline_ms": self.queue_deadline_s * 1e3,
+                "outstanding": self.outstanding(),
+                "waiters": len(self._waiters),
+                "overloaded": self._overloaded,
+                "shed": counters.get("queue_shed_total", 0),
+                "blocked": counters.get("queue_blocked_total", 0),
+                "deadline_expired": counters.get(
+                    "queue_deadline_expired_total", 0
+                ),
+            },
+            "match_cache": None if cache is None else {
+                "capacity": cache.capacity,
+                "entries": len(cache),
+                "hits": cache.hits,
+                "misses": cache.misses,
+                "evictions": cache.evictions,
+                "hit_ratio": round(cache.hit_ratio(), 6),
             },
             "ring": self.ring_status(),
         }

@@ -652,6 +652,18 @@ class ChaosEngine:
         await asyncio.sleep(0)
         return payloads
 
+    async def ds_failstop_settled(self) -> Optional[float]:
+        """Wait until every shard fail-stop's fan-out (`_on_shard_failed`:
+        the alarm, then the flight trigger) has returned, bounded by
+        `settle_timeout`. The fan-out runs on whichever thread hit the
+        fault, the DS buffer's flush thread too, so a scenario that sees
+        `failed_shards()` may otherwise read its checks between the
+        alarm and the trigger. Returns the seconds waited, or None."""
+        return await self.wait_for(
+            lambda: not self.durable_db.failstop_pending(),
+            timeout=self.settle_timeout,
+        )
+
     async def durable_drain(self, rounds: int = 64) -> List[bytes]:
         """Pump every durable session and puback everything delivered,
         committing stream positions (the consumed ledger). Returns the

@@ -835,6 +835,9 @@ class DiskFull(Scenario):
         if failed:
             eng.faults_detected += 1
             res.detect_ms = round((time.monotonic() - t_inj) * 1e3, 2)
+        # the fail-stop's fan-out may still be between its alarm and
+        # its flight trigger on the DS buffer's flush thread
+        await eng.ds_failstop_settled()
         alarm = f"ds_shard_failed_{failed[0]}" if failed else ""
         res.checks.append(
             Check(
@@ -972,6 +975,9 @@ class FsyncFail(Scenario):
                 "writes refused on healthy disk until recover()",
             )
         )
+        # the fail-stop's fan-out may still be between its alarm and
+        # its flight trigger on the DS buffer's flush thread
+        await eng.ds_failstop_settled()
         alarm = f"ds_shard_failed_{failed[0]}" if failed else ""
         res.checks.append(
             Check(

@@ -8,6 +8,9 @@ chain silently skipped) or differently (a cluster seed ignored), so
 value is not its default-off, before any listener binds. Each error
 names the key and the ROADMAP Queue 1 item that brings the subsystem:
 item 8 the mesh and cluster layer, item 9 the remaining subsystems.
+The management API serves the same check on its own writes
+(`new_refusal`): a config update or a backup import that would turn a
+refused key on answers 501 before anything is applied.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Iterator, Tuple
 class NotPortedError(RuntimeError):
     """A config key the port cannot serve yet."""
 
-    def __init__(self, key: str, item: int, what: str) -> None:
+    def __init__(self, key: str, item: "int | str", what: str) -> None:
         super().__init__(
             f"{key}: {what} is not ported yet (ROADMAP Queue 1 item {item})"
         )
@@ -104,11 +107,19 @@ def refusals(cfg, n_cards: int) -> Iterator[Tuple[str, int, str]]:
     )
     if _plugins_enabled(install_dir):
         yield ("plugins.install_dir", 9, "the plugin manager")
-    if cfg.get("api.enable"):
-        yield ("api.enable", 9, "the management API and ctl")
 
 
 def check(cfg, n_cards: int) -> None:
     """Raise NotPortedError for the first refused key of `cfg`."""
     for key, item, what in refusals(cfg, n_cards):
         raise NotPortedError(key, item, what)
+
+
+def new_refusal(cfg, candidate, n_cards: int):
+    """The first refusal of the `candidate` config that `cfg` does not
+    have already, as a NotPortedError, or None."""
+    have = {key for key, _item, _what in refusals(cfg, n_cards)}
+    for key, item, what in refusals(candidate, n_cards):
+        if key not in have:
+            return NotPortedError(key, item, what)
+    return None

@@ -140,6 +140,9 @@ class Db:
     def failed_shards(self) -> List[int]:
         return self.storage.failed_shards()
 
+    def failstop_pending(self) -> List[int]:
+        return self.storage.failstop_pending()
+
     def recover_shard(self, shard_id: int) -> bool:
         return self.storage.recover_shard(shard_id)
 

@@ -125,6 +125,11 @@ class Shard:
         self.failed: Optional[str] = None
         # StorageLayer installs this; called OUTSIDE the shard lock
         self.on_fail: Optional[Callable[[int, BaseException], None]] = None
+        # fail-stops begun (counted before `failed` is visible) and
+        # their fan-outs returned: a reader that sees `failed` waits for
+        # the two to meet before it reads the alarm and flight trigger
+        self.failstops = 0
+        self.failstops_notified = 0
         self._load_meta()
 
     def _load_meta(self) -> None:
@@ -150,6 +155,7 @@ class Shard:
 
     def _fail_stop_locked(self, exc: BaseException) -> None:
         # caller holds self._lock; returns with the shard read-only
+        self.failstops += 1
         self.failed = f"{type(exc).__name__}: {exc}"
         DS_METRICS.count("shard_failures_total")
 
@@ -157,11 +163,16 @@ class Shard:
         # OUTSIDE the lock: the callback fans out to alarms / the
         # flight recorder, which may publish $SYS and re-enter storage
         cb = self.on_fail
-        if cb is not None:
-            try:
+        try:
+            if cb is not None:
                 cb(self.shard_id, exc)
-            except Exception:
-                pass
+        except Exception:
+            pass
+        finally:
+            # under the lock, as `failstops` is: two fail-stops racing on
+            # two threads must not lose an increment
+            with self._lock:
+                self.failstops_notified += 1
 
     def recover(self) -> bool:
         """One recovery attempt: reopen from disk (WAL replay + CRC
@@ -382,6 +393,12 @@ class StorageLayer:
 
     def failed_shards(self) -> List[int]:
         return [s.shard_id for s in self.shards if s.failed is not None]
+
+    def failstop_pending(self) -> List[int]:
+        """The shards whose fail-stop fan-out (on_shard_failed) has not
+        returned yet; it may run on the DS buffer's flush thread."""
+        return [s.shard_id for s in self.shards
+                if s.failstops_notified < s.failstops]
 
     def recover_shard(self, shard_id: int) -> bool:
         """One probe/reopen/replay/verify attempt; updates the

@@ -452,7 +452,6 @@ REFUSED = [
     ("cluster_link.enable", {"cluster_link": {"enable": True}}, 9),
     ("license.key", {"license": {"key": "some-key"}}, 9),
     ("plugins.install_dir", {}, 9),
-    ("api.enable", {"api": {"enable": True}}, 9),
 ]
 
 
@@ -502,11 +501,12 @@ def test_node_without_a_card_raises():
 
 def test_boot_cli_parses_config_files(tmp_path, monkeypatch):
     """`python -m emqx_tpu_torch.boot -c etc/emqx.conf -c override` boots
-    etc/emqx.conf with the API off; run_forever is stubbed."""
+    etc/emqx.conf with the API on (the override moves only the data
+    directory); run_forever is stubbed."""
     from emqx_tpu_torch import boot
 
     over = tmp_path / "over.conf"
-    over.write_text(f'api.enable = false\nnode.data_dir = "{tmp_path}"')
+    over.write_text(f'node.data_dir = "{tmp_path}"')
     seen = []
 
     async def run_forever(self):
@@ -515,7 +515,7 @@ def test_boot_cli_parses_config_files(tmp_path, monkeypatch):
 
     monkeypatch.setattr(boot.Node, "run_forever", run_forever)
     boot.main(["-c", str(REPO / "etc" / "emqx.conf"), "-c", str(over), "--device", "cpu"])
-    assert seen == [("cpu", False, "/mqtt")]
+    assert seen == [("cpu", True, "/mqtt")]
 
 
 # --- limits, OLP shedding and eviction holds on both packages -----------------------

@@ -146,6 +146,61 @@ async def test_crash_consistency_chain_under_storm(tmp_path):
         await eng.close()
 
 
+def _fault_on_a_helper_thread(eng, main):
+    """Force the interleaving of a tier-1 run's disk_full failure: the
+    write that hits the fault runs on another thread than the scenario's
+    (a helper here, the DS buffer's flush thread in a run), and that
+    thread's fail-stop fan-out stops 0.3 s between its alarm and its
+    flight trigger. The scenario's own flush goes on as soon as the
+    shard reads failed."""
+    import threading
+    import time
+
+    buf = eng.durable_db.buffer
+    buf.flush_interval = 3600.0  # the helper stands in for the flush thread
+    real_flush, real_trigger = buf.flush_now, eng.flight.maybe_trigger
+
+    def helper_write(shard, item):
+        try:
+            buf.flush_cb(shard, [item])
+        except OSError:
+            pass
+
+    def flush_now():
+        if threading.current_thread() is main:
+            with buf._lock:
+                first = next(((sh, q.pop(0)) for sh, q in buf._pending.items() if q), None)
+            if first is not None:
+                t = threading.Thread(target=helper_write, args=first)
+                t.start()
+                while t.is_alive() and first[0] not in eng.durable_db.failed_shards():
+                    time.sleep(0.001)
+        real_flush()
+
+    def maybe_trigger(name, details):
+        if name == "ds_shard_failed" and threading.current_thread() is not main:
+            time.sleep(0.3)
+        return real_trigger(name, details)
+
+    buf.flush_now = flush_now
+    eng.flight.maybe_trigger = maybe_trigger
+
+
+@pytest.mark.parametrize("scenario", [DiskFull, FsyncFail])
+async def test_disk_scenarios_read_checks_after_the_failstop_fanout(scenario, tmp_path):
+    import threading
+
+    eng = await _engine(tmp_path, 120)
+    try:
+        await eng.setup()
+        _fault_on_a_helper_thread(eng, threading.current_thread())
+        res = await scenario().run(eng)
+        assert res.ok, json.dumps(res.as_dict(), indent=1)
+        assert eng.durable_db.failstop_pending() == []
+    finally:
+        await eng.close()
+
+
 SOAK_KW = dict(sessions=150, victim_sessions=0, groups=30, sample_n=2, baseline_s=0.3,
                scenarios=["storm_baseline", "row_corruption"], strict=True, storm_chunk=32,
                detect_rounds=6, detect_burst=16, chaos_filters=2, chaos_fan=4,

@@ -803,7 +803,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "broker/transport.py", "broker/listeners.py", "modules/delayed.py",
                 "modules/rewrite.py", "modules/auto_subscribe.py", "chaos/engine.py",
                 "chaos/scenarios.py", "chaos/boxcal.py", "chaos/__main__.py",
-                "cluster/rebalance.py"):
+                "cluster/rebalance.py", "auth/banned.py", "auth/flapping.py",
+                "auth/bridge.py", "mgmt/http.py", "mgmt/views.py", "mgmt/audit.py",
+                "mgmt/dashboard.py", "mgmt/sso.py", "mgmt/backup.py", "mgmt/api.py",
+                "mgmt/cli.py", "obs/monitor.py"):
         assert f"emqx_tpu_torch/{mod}" in names, mod
     bad = [
         f"{p.relative_to(REPO)}: {m}"
