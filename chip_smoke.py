@@ -264,10 +264,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    sticky loss tripping within 3 windows, 2 degraded windows launching
    no mesh kernel, heal and probe_once (timed), a 256-topic canary equal
    to the host, 2 windows on the card launching K14, K16, K17 and the
-   mesh sync; phase 5's churn between windows. Printed: each step's
-   line, heal() to closed and device_resync + first full sync (single
-   and mesh), degraded against on-card publishes/s (no claim), the
-   phase's seconds and launches.
+   mesh sync; phase 5's churn between windows. (f) The shard breaker
+   on (e)'s engine (a flight recorder attached): sticky loss of sub
+   shard 2 alone trips the SHARD breaker within breaker_threshold + 4
+   windows (the whole breaker closed, the table never suspended, the
+   alarm active, a device_breaker_trip bundle), the table evacuated
+   onto the survivor (2, 3) layout (lost_shards {2}, 3 shards; the
+   trip and the evacuation's full resync timed); P10_MESH_WINDOWS
+   windows on (2, 3) with churn and the fault still live, each held
+   against the host oracle, K13+K18, K14, K16 and K17 launched and no
+   fault injected (no dispatch touched shard 2); probe_shard_once(2)
+   fails while the fault is live; heal() and probe_shard_once(2): the
+   rebalance to (2, 4) and its resync timed, the breaker closed, a
+   256-topic canary equal to the host; 2 windows on (2, 4). Printed:
+   each step's line, heal() to closed and device_resync + first full
+   sync (single and mesh), the shard breaker's trip -> evacuated,
+   evacuation and rebalance resyncs and heal() to closed, degraded
+   against on-card publishes/s and (2, 3) against (2, 4) topics/s (no
+   claim), the phase's seconds and launches.
 11. The publish path's observability, on phase 7's broker and phase 9's
    mesh broker (both at full width, nothing cut), launch counters set
    to 0 at its start, with `obs.Observability` attached (its flight
@@ -450,16 +464,29 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    messages/s through /publish/bulk. The cuts (§4 of PERF.md) are
    P14_SIZES.
 15. The chaos soak on the card (its own limit, 150 s):
-   `chaos.run_soak(victim_sessions=0, device="cuda")` over the whole
-   single-device catalog at 100,000 sessions (run_soak's 1,000,000,
-   cut for time), groups n/5, sample_n 64, baseline 5 s, strict, a
-   temp data_dir and report. Fails on a violated contract, a skipped
+   `chaos.run_soak(victim_sessions=0, device="cuda")` over the
+   catalog at 100,000 sessions (run_soak's 1,000,000, cut for time),
+   groups n/5, sample_n 64, baseline 5 s, strict, a temp data_dir and
+   report; its broker has no mesh, so the mesh scenarios are skipped
+   (phase 16 runs them). Fails on a violated contract, another skipped
    scenario, a silent divergence, a provenance without the card's name
    or any `jax` in the row. Prints sustained pub/s, delivered/s, the
    storm chunk's p50/p99 and each scenario's detection and recovery
    milliseconds.
-16. Summary: one line per kernel (times, bound, launches, phase 10's,
-   phase 11's, phase 12's, 13's, 14's and 15's launches, equal), the
+16. The mesh chaos scenarios on the card (its own limit, 120 s;
+   `shard_phase`, alone through tools/shard_phase.py): ChipLoss,
+   ChipFlap(cycles=1) and ReshardChurn under a live storm through
+   `ChaosEngine.run` on `ChaosEngine.standalone(mesh=make_mesh(1, 8,
+   devices=["cuda"] * 8), device="cuda")` (the reference tests' (1, 8)
+   layout, every shard on the one card: "losing a chip" is an injected
+   fault of one shard of a repeated device) at 100,000 sessions
+   (phase 15's), groups n/5, sample_n 64, baseline 2 s, no durable
+   tier. Fails on a violated contract, a silent divergence, a storm
+   error, a mesh not whole at the end, a provenance without the card,
+   any `jax` in the row or a mesh kernel never launched. Prints the
+   storm's figures and each scenario's detection and recovery ms.
+17. Summary: one line per kernel (times, bound, launches, phase 10's,
+   phase 11's, phase 12's, 13's, 14's, 15's and 16's launches, equal), the
    run's seconds and each phase's, one `{"kernels": [...]}` JSON line
    (`ms`, `plain_ms`, `library_ms` the device times; `call_ms`,
    `device_ms`, `plain_call_ms`, `library_call_ms` beside them; launches of K1, K2
@@ -473,7 +500,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    record, count phase 9 (c)'s row-only and slot-only growth launches);
    K9-K11, K13's counts
    and packed and K15 are on no serve path and show 0; `launches_phase10`
-   to `launches_phase15` beside it), then, as the
+   to `launches_phase16` beside it, phase 10's with (f)'s), then, as the
    last line, `{"ok": true, "device": {...}}`.
 """
 
@@ -553,6 +580,7 @@ P10_MESH_WINDOWS = 2
 P10_PFAN_PUBS = 1
 P10_MFAN_PUBS = 4
 P10_CHURN_K = 1000  # broker_churn's index base, past phase 7's
+P10_SHARD = 2  # (f): the sub shard whose chip is lost
 # phase 11: the publish path's observability on phase 7's broker
 P11_SAMPLE_N = 15  # 4 windows of 1,024 publishes -> 273 sampled spans
 P11_WINDOWS = 4
@@ -4654,8 +4682,8 @@ def mask_matches_host(router, tag):
 
 def failure_domain_phase(b_ctx, m_ctx, rng, seed, card):
     """Phase 10: the device failure domain on phase 7's broker (a-d) and
-    on phase 9's mesh broker (e). Returns the launches of the phase,
-    counted from 0 at its start."""
+    on phase 9's mesh broker (e, f); with b_ctx None, (e) and (f) alone.
+    Returns the launches of the phase, counted from 0 at its start."""
     import asyncio
 
     import torch
@@ -4667,23 +4695,26 @@ def failure_domain_phase(b_ctx, m_ctx, rng, seed, card):
     from emqx_tpu_torch.obs.kernel_telemetry import KernelTelemetry
     from emqx_tpu_torch.ops import _build
 
-    broker, skel, exact, deliveries = b_ctx
     m_broker, m_skel, m_exact = m_ctx
-    router = broker.router
     t_phase = time.perf_counter()
     stages = {}
-    # counters from zero for this phase, as phase 7 does
-    router.telemetry = router.device_table.telemetry = KernelTelemetry()
-    router.device_table.fanout.telemetry = router.telemetry
-    c = router.telemetry.counters
-    alarms = Alarms(broker)
-    eng = broker.enable_dispatch_engine(
-        queue_depth=WINDOW, pipeline_depth=2, transfer_chunk_kb=0,
-        breaker_threshold=P10_THRESHOLD, probe_backoff_ms=PROBE_PARKED_MS,
-        probe_backoff_max_ms=PROBE_PARKED_MS, alarms=alarms)
-    inj = DeviceFaultInjector(seed=seed).install(router)
-    served, installed = [], []
-    wrapped = record_serving(broker, served, installed)
+    served, installed, wrapped = [], [], []
+    if b_ctx is not None:
+        broker, skel, exact, deliveries = b_ctx
+        router = broker.router
+        # counters from zero for this phase, as phase 7 does
+        router.telemetry = router.device_table.telemetry = KernelTelemetry()
+        router.device_table.fanout.telemetry = router.telemetry
+        c = router.telemetry.counters
+        alarms = Alarms(broker)
+        eng = broker.enable_dispatch_engine(
+            queue_depth=WINDOW, pipeline_depth=2, transfer_chunk_kb=0,
+            breaker_threshold=P10_THRESHOLD, probe_backoff_ms=PROBE_PARKED_MS,
+            probe_backoff_max_ms=PROBE_PARKED_MS, alarms=alarms)
+        inj = DeviceFaultInjector(seed=seed).install(router)
+        wrapped = record_serving(broker, served, installed)
+    else:
+        deliveries = None
     rec = {}
     _build.reset_launches()
 
@@ -4894,14 +4925,18 @@ def failure_domain_phase(b_ctx, m_ctx, rng, seed, card):
     m_deliveries = Deliveries()
     m_wrapped = record_serving(m_broker, m_served, m_installed)
 
+    def c_mesh():
+        return m_router.telemetry.counters
+
     async def mesh():
         t0 = time.perf_counter()
 
         async def m_window(tag):
             topics = publish_batch(rng, m_skel, m_exact)
-            await serve(m_broker, m_eng, [[msg(t) for t in topics]], tag,
-                        dl=m_deliveries, sv=m_served, ins=m_installed)
+            out = await serve(m_broker, m_eng, [[msg(t) for t in topics]], tag,
+                              dl=m_deliveries, sv=m_served, ins=m_installed)
             churn(m_router, m_skel, rng)
+            return out
 
         await m_window("mesh healthy")
         m_inj.fail_sticky()
@@ -4953,32 +4988,158 @@ def failure_domain_phase(b_ctx, m_ctx, rng, seed, card):
             f"host oracle; launches over them {({n: after[n] - before[n] for n in MESH_PATH})} "
             f"[{card}]")
         stages["(e) mesh"] = time.perf_counter() - t0
+        await shard_breaker(m_window)
         await m_eng.stop()
 
+    async def shard_breaker(m_window):
+        """(f) The shard breaker on (e)'s engine and mesh broker: one
+        shard's sticky loss trips only that shard, the table evacuates
+        onto the survivor (2, 3) layout and serves there with the fault
+        still live, then heal() and probe_shard_once() rebalance it back
+        to (2, 4)."""
+        import shutil
+        import tempfile
+
+        from emqx_tpu_torch.obs.flight_recorder import FlightControl
+
+        t0 = time.perf_counter()
+        dt = m_router.device_table
+        n0, lay0 = dt.n_shards, dict(dt.mesh.shape)
+        fl_dir = tempfile.mkdtemp(prefix="chip_smoke_p10f_")
+        m_eng.flight = FlightControl(snapshot_dir=fl_dir)
+        times = {}
+
+        def timed(obj, name, key):
+            real = getattr(obj, name)
+
+            def run(*a, **k):
+                t = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                times.setdefault(key, []).append(1e3 * (time.perf_counter() - t))
+                return out
+
+            setattr(obj, name, run)
+            return obj, name
+
+        timers = [timed(m_eng, "_trip_shard", "trip"),
+                  timed(m_router, "evacuate_shard", "evacuate"),
+                  timed(m_router, "rebalance_shard", "rebalance")]
+        try:
+            # 1-2: sticky loss of one shard trips the shard breaker only
+            m_inj.fail_sticky(shards=[P10_SHARD])
+            budget = m_eng.breaker_threshold + 4
+            trip = 0
+            for w in range(1, budget + 1):
+                await m_window(f"shard sticky {w}")
+                if P10_SHARD in m_eng.open_shards:
+                    trip = w
+                    break
+            if not trip:
+                raise AssertionError(f"shard breaker: no trip within {budget} windows "
+                                     f"({m_eng.status()['shard_breaker']})")
+            if m_eng.breaker_state != "closed" or m_router.device_suspended:
+                raise AssertionError(f"shard breaker: the whole breaker moved "
+                                     f"({m_eng.status()['breaker']}, suspended "
+                                     f"{m_router.device_suspended})")
+            if not m_alarms.is_active("xla_device_breaker") or \
+                    not m_eng.flight.triggers_total.get("device_breaker_trip"):
+                raise AssertionError("shard breaker: tripped without its alarm or flight bundle")
+            if dt.lost_shards != {P10_SHARD} or dt.n_shards != n0 - 1:
+                raise AssertionError(f"shard breaker: lost {dt.lost_shards}, {dt.n_shards} shards")
+            # 4: N-1 windows with churn, the fault still live
+            injected = dict(m_inj.injected)
+            before = launches()
+            n1 = w1 = 0
+            for k in range(P10_MESH_WINDOWS):
+                n, t = await m_window(f"shard N-1 {k}")
+                n1 += n
+                w1 += t
+            after = launches()
+            still = [n for n in MESH_PATH if after[n] == before[n]]
+            if still or dict(m_inj.injected) != injected or dt.n_shards != n0 - 1:
+                raise AssertionError(f"shard breaker on (2, {n0 - 1}): kernels not launched "
+                                     f"{still}, faults {m_inj.injected} (before {injected})")
+            n_minus = {n: after[n] - before[n] for n in MESH_PATH}
+            # 5: a probe fails while the fault is live
+            if m_eng.probe_shard_once(P10_SHARD) or dt.lost_shards != {P10_SHARD}:
+                raise AssertionError("shard breaker: a probe closed a lost shard")
+            # 6: heal, probe: rebalance to (2, 4), canary, close
+            t_heal = time.perf_counter()
+            m_inj.heal()
+            closed = m_eng.probe_shard_once(P10_SHARD)
+            heal_s = time.perf_counter() - t_heal
+            if not closed or m_eng.open_shards or dt.lost_shards or dt.mesh.shape != lay0 \
+                    or m_alarms.is_active("xla_device_breaker"):
+                raise AssertionError(f"shard breaker did not close: "
+                                     f"{m_eng.status()['shard_breaker']}")
+            canary = publish_batch(rng, m_skel, m_exact)[:256]
+            for t, g in zip(canary, m_router.canary_match(canary)):
+                if sorted(g) != sorted(m_router.match_filters(t)):
+                    raise AssertionError(f"shard canary: {t!r} -> {sorted(g)}")
+            # 7: two windows on (2, 4)
+            n2 = w2 = 0
+            for k in range(2):
+                n, t = await m_window(f"shard restored {k}")
+                n2 += n
+                w2 += t
+        finally:
+            for obj, name in timers:
+                if name in vars(obj):
+                    delattr(obj, name)
+            m_eng.flight = None
+            shutil.rmtree(fl_dir, ignore_errors=True)
+        st = m_eng.status()["shard_breaker"]
+        if (st["trips"], st["evacuations"], st["recoveries"]) != (1, 1, 1) \
+                or c_mesh().get("breaker_shard_evacuation_failures_total", 0):
+            raise AssertionError(f"shard breaker accounting: {st}")
+        rec["shard"] = dict(times, heal_s=heal_s, n_minus=(n1, w1), full=(n2, w2))
+        log(f"failure domain (f) shard breaker {MESH}: shard {P10_SHARD} tripped after "
+            f"{trip} windows (budget {budget}), the whole breaker closed and the table never "
+            f"suspended, alarm and device_breaker_trip bundle; trip -> evacuated "
+            f"{times['trip'][0]:.3f} ms (evacuation resync {times['evacuate'][0]:.3f} ms, then "
+            f"the survivor layout's warm-up); {P10_MESH_WINDOWS} windows on (2, {n0 - 1}) with "
+            f"churn and the fault live, every count, match and delivery equal to the host "
+            f"oracle, no fault injected (no dispatch touched shard {P10_SHARD}), launches "
+            f"{n_minus}; a probe failed while lost; heal() -> closed {heal_s:.3f} s "
+            f"(rebalance resync {times['rebalance'][-1]:.3f} ms), canary of {len(canary)} "
+            f"topics equal to the host, 2 windows on (2, {n0}); topics/s (no claim) "
+            f"(2, {n0 - 1}) {n1 / w1:.1f} against (2, {n0}) {n2 / w2:.1f}; status {st} [{card}]")
+        stages["(f) shard"] = time.perf_counter() - t0
+
     try:
-        asyncio.run(single())
+        if b_ctx is not None:
+            asyncio.run(single())
         asyncio.run(mesh())
     finally:
         for obj, name in wrapped + m_wrapped:
             if name in vars(obj):
                 delattr(obj, name)
-        inj.uninstall()
+        if b_ctx is not None:
+            inj.uninstall()
         m_inj.uninstall()
     torch.cuda.synchronize()
     phase = launches()
-    missing = [n for n in SINGLE_PATH + MESH_PATH if phase[n] <= 0]
+    missing = [n for n in (SINGLE_PATH if b_ctx is not None else ()) + MESH_PATH
+               if phase[n] <= 0]
     if missing:
         raise AssertionError(f"phase 10 never launched {missing}")
-    (d_pubs, d_wall), (c_pubs, c_wall) = rec["degraded"], rec["device"]
-    log(f"failure domain rates (information, no claim): degraded {d_pubs / d_wall:.1f} "
-        f"publishes/s against {c_pubs / c_wall:.1f} on the card over {P10_WINDOWS} windows "
-        f"each of the same mix, the reduced fan mix of {P10_PFAN_PUBS} pfan and "
-        f"{P10_MFAN_PUBS} mfan publishes a window (phase 7's: {N_PFAN_PUBS} and "
-        f"{N_MFAN_PUBS}); single-device heal() to closed {rec['recovery'][0]:.3f} s, "
-        f"device_resync + first full sync "
-        f"{rec['recovery'][1]['resync_ms'] + rec['recovery'][1]['full_sync_ms']:.3f} ms; "
-        f"mesh {rec['mesh'][0]:.3f} s, "
-        f"{rec['mesh'][1]['resync_ms'] + rec['mesh'][1]['full_sync_ms']:.3f} ms [{card}]")
+    if b_ctx is not None:
+        (d_pubs, d_wall), (c_pubs, c_wall) = rec["degraded"], rec["device"]
+        log(f"failure domain rates (information, no claim): degraded {d_pubs / d_wall:.1f} "
+            f"publishes/s against {c_pubs / c_wall:.1f} on the card over {P10_WINDOWS} "
+            f"windows each of the same mix, the reduced fan mix of {P10_PFAN_PUBS} pfan and "
+            f"{P10_MFAN_PUBS} mfan publishes a window (phase 7's: {N_PFAN_PUBS} and "
+            f"{N_MFAN_PUBS}); single-device heal() to closed {rec['recovery'][0]:.3f} s, "
+            f"device_resync + first full sync "
+            f"{rec['recovery'][1]['resync_ms'] + rec['recovery'][1]['full_sync_ms']:.3f} ms "
+            f"[{card}]")
+    log(f"failure domain recovery (information, no claim): mesh heal() to closed "
+        f"{rec['mesh'][0]:.3f} s, device_resync + first full sync "
+        f"{rec['mesh'][1]['resync_ms'] + rec['mesh'][1]['full_sync_ms']:.3f} ms; shard "
+        f"breaker heal() to closed {rec['shard']['heal_s']:.3f} s, evacuation resync "
+        f"{rec['shard']['evacuate'][0]:.3f} ms, rebalance resync "
+        f"{rec['shard']['rebalance'][-1]:.3f} ms [{card}]")
     log(f"phase 10: {time.perf_counter() - t_phase:.3f} s ("
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"), launches {phase} [{card}]")
@@ -7844,6 +8005,7 @@ def soak_phase(card, sessions=None, limit_s=None):
     import torch
 
     from emqx_tpu_torch.chaos import CATALOG, run_soak
+    from emqx_tpu_torch.chaos.scenarios import MESH_SCENARIOS
     from emqx_tpu_torch.ops import _build
 
     n = sessions or P15_SESSIONS
@@ -7881,7 +8043,8 @@ def soak_phase(card, sessions=None, limit_s=None):
             f"recovery_ms={sc['recovery_ms']} [{card}]")
     log(f"soak provenance {json.dumps(row['provenance'])}; launches {launches} [{card}]")
     blob = json.dumps(row, default=str)
-    skipped = [s for s in CATALOG if s not in row["scenarios"]]
+    # the mesh scenarios need a sharded table: phase 16 runs them
+    skipped = [s for s in CATALOG if s not in row["scenarios"] and s not in MESH_SCENARIOS]
     prov = row["provenance"]
     if not row["contracts_ok"] or skipped or row["silent_divergences"] \
             or row["final_sweep"]["silent_divergences"]:
@@ -7897,6 +8060,97 @@ def soak_phase(card, sessions=None, limit_s=None):
     log(f"phase 15: {took:.3f} s [{card}]")
     if took > limit_s:
         raise AssertionError(f"phase 15 took {took:.3f} s, over {limit_s} s")
+    return launches
+
+
+P16_SESSIONS = 100_000  # phase 15's
+P16_MESH = (1, 8)  # tests/test_device_breaker.py's layout, every shard on the card
+P16_BASELINE_S = 2.0
+P16_LIMIT_S = 120.0
+
+
+def shard_phase(card, sessions=None, limit_s=None):
+    """Phase 16: the mesh chaos scenarios (ChipLoss, ChipFlap(cycles=1),
+    ReshardChurn) under a live storm, through `ChaosEngine.run` on
+    `ChaosEngine.standalone(mesh=make_mesh(1, 8, devices=[card] * 8))`:
+    groups n/5, sample_n 64, no durable tier. Fails on a violated
+    contract, a scenario not run, a silent divergence, a storm error, a
+    provenance without the card, any `jax` in the row, or past its
+    limit. Returns the launches of the phase, counted from 0 at its
+    start."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import torch
+
+    from emqx_tpu_torch.chaos import ChaosEngine
+    from emqx_tpu_torch.chaos.scenarios import MESH_SCENARIOS, ChipFlap, ChipLoss, ReshardChurn
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.parallel.mesh import make_mesh
+
+    n = sessions or P16_SESSIONS
+    limit_s = limit_s or P16_LIMIT_S
+    root = tempfile.mkdtemp(prefix="chip_smoke_p16_")
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+
+    async def run():
+        n_dp, n_sub = P16_MESH
+        eng = await ChaosEngine.standalone(
+            sessions=n, groups=max(1, n // 5), sample_n=P15_SAMPLE_N, durable_sessions=0,
+            data_dir=root, device=DEVICE,
+            mesh=make_mesh(n_dp, n_sub, devices=[DEVICE] * (n_dp * n_sub)),
+            progress=lambda msg: log(f"shard soak: {msg}"))
+        try:
+            await eng.setup()
+            row = await eng.run([ChipLoss(), ChipFlap(cycles=1), ReshardChurn()],
+                                baseline_s=P16_BASELINE_S)
+            dt = eng.router.device_table
+            row["mesh_end"] = {"shards": dt.n_shards, "lost": sorted(dt.lost_shards),
+                               "shard_gen": dt.shard_gen}
+            return row
+        finally:
+            await eng.close()
+
+    try:
+        row = asyncio.run(run())
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    took = time.perf_counter() - t_phase
+    sto = row["storm"]
+    log(f"shard soak: {row['sessions']:,} sessions ({row['groups']:,} groups) on a "
+        f"{P16_MESH} mesh, setup {row['setup_seconds']} s, run {row['run_seconds']} s; "
+        f"sustained {sto['sustained_pub_per_sec']} pub/s, {sto['delivered_per_sec']} "
+        f"delivered/s, chunk p50/p99 {sto['e2e_chunk_p50_ms']}/{sto['e2e_chunk_p99_ms']} "
+        f"ms, storm errors {sto['errors']}; silent {row['silent_divergences']}; mesh at "
+        f"the end {row['mesh_end']} [{card}]")
+    for name, sc in row["scenarios"].items():
+        log(f"shard soak scenario {name}: ok={sc['ok']} detect_ms={sc['detect_ms']} "
+            f"recovery_ms={sc['recovery_ms']} [{card}]")
+    log(f"shard soak launches {launches} [{card}]")
+    prov = row["provenance"]
+    if not row["contracts_ok"] or set(row["scenarios"]) != set(MESH_SCENARIOS) \
+            or row["silent_divergences"] or row["final_sweep"]["silent_divergences"] \
+            or sto["errors"] or row["mesh_end"]["lost"] \
+            or row["mesh_end"]["shards"] != P16_MESH[1]:
+        raise AssertionError(f"phase 16: contracts {row['violations']}, scenarios "
+                             f"{sorted(row['scenarios'])}, silent {row['silent_divergences']}, "
+                             f"storm errors {sto['errors']}, mesh {row['mesh_end']}")
+    if DEVICE != "cpu" and (prov.get("platform") != "gpu"
+                            or not prov.get("device_name") or "card" not in prov):
+        raise AssertionError(f"phase 16: provenance without the card {prov}")
+    if "jax" in json.dumps(row, default=str).lower():
+        raise AssertionError("phase 16: the row names jax")
+    missing = [k for k in MESH_PATH if launches[k] <= 0]
+    if DEVICE != "cpu" and missing:
+        raise AssertionError(f"phase 16: mesh kernels never launched {missing}")
+    log(f"phase 16: {took:.3f} s [{card}]")
+    if took > limit_s:
+        raise AssertionError(f"phase 16 took {took:.3f} s, over {limit_s} s")
     return launches
 
 
@@ -8170,6 +8424,11 @@ def main(argv=None) -> int:
     p15_launches = soak_phase(card)
     lap(15)
 
+    # phase 16: the mesh chaos scenarios on a (1, 8) mesh on the card;
+    # launch counters from zero at its start
+    p16_launches = shard_phase(card)
+    lap(16)
+
     def phase_launches(name, by_kernel):
         # a fused kernel's total on each of its entries; the dense-only
         # record's launches are phase 6's, none of a later phase's
@@ -8193,9 +8452,10 @@ def main(argv=None) -> int:
             f"phase13_launches={phase_launches(name, p13_launches)} "
             f"phase14_launches={phase_launches(name, p14_launches)} "
             f"phase15_launches={phase_launches(name, p15_launches)} "
+            f"phase16_launches={phase_launches(name, p16_launches)} "
             f"equal=True [{r['shape']}] [{card}]")
 
-    # phase 16: summary
+    # phase 17: summary
     meta = {
         "match_ids_hash": ("emqx_tpu_torch/ops/csrc/hash_match.cu",
                            "emqx_tpu/ops/hash_index.py:899"),
@@ -8263,6 +8523,7 @@ def main(argv=None) -> int:
             "launches_phase13": phase_launches(name, p13_launches),
             "launches_phase14": phase_launches(name, p14_launches),
             "launches_phase15": phase_launches(name, p15_launches),
+            "launches_phase16": phase_launches(name, p16_launches),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],

@@ -66,6 +66,19 @@ same `Broker._pre_publish`/`Broker.dispatch_window`.
     the flight recorder records a `breaker.trip` event and freezes a
     `device_breaker_trip` bundle.
 
+  * **Shard breaker** — on a mesh, a failure whose exception carries
+    a `shard` (a fault of one chip of a ShardedDeviceTable) counts in
+    that shard's own ledger and never toward the whole-device breaker.
+    `breaker_threshold` of them trip the shard: `Router.suspend_shard`
+    answers its slice from host truth, the same alarm and flight
+    trigger fire, and `Router.evacuate_shard` re-shards the table over
+    the surviving chips and re-uploads it in full, so the mesh serves
+    the whole table at N-1. A per-shard probe (`probe_shard_once`)
+    probes the chip, rebalances it back, re-uploads and verifies a
+    canary against the host oracle; a divergent canary evacuates the
+    chip again. An evacuation that fails with a device fault leaves
+    the slice host-overlaid (counted); any other error raises.
+
   * **Recovery** — a background canary probe with bounded exponential
     backoff (`probe_once`, also callable directly) re-dispatches recent
     topics through the real kernels; on success it re-uploads FULL
@@ -87,11 +100,6 @@ tick); `_flush` splits its `queue` wait into `submit_wait` and
 queues the shadow-oracle audit of exactly what served, stamped with the
 batch's begin generation.
 
-One deliberate divergence from the reference: it has no shard breaker
-yet, so a failure that carries a `shard` (a ShardedDeviceTable chip
-fault) counts toward the whole-device breaker — a coarser failure
-domain, with answers still exact.
-
 **Rule batcher**: when a rule engine with `batch_where_enabled` is
 installed (`broker.rule_batcher`), `_flush` opens its batched-WHERE
 window around the coalesce loop; the window drains at its close, under
@@ -99,12 +107,14 @@ the `coalesce` stage mark, before the match launch.
 
 Telemetry: queue-wait histogram family `pipeline_queue_wait_seconds`,
 gauges `pipeline_depth` / `pipeline_coalesce` / `queue_depth` /
-`breaker_state` / `breaker_consecutive_failures`, counters
+`breaker_state` / `breaker_consecutive_failures` /
+`breaker_open_shards`, counters
 `fanout_resolves_overlapped_total`, `publish_failures_total`,
 `queue_shed_total`, `queue_blocked_total`,
 `queue_deadline_expired_total`, the breaker's `breaker_*` family
 (device failures, begin failures, fallbacks, deadline expiries, trips,
-probes, probe failures, recoveries), `fanout_host_fallback_total`, and
+probes, probe failures, recoveries, and the shard breaker's trips,
+evacuations, evacuation failures and recoveries), `fanout_host_fallback_total`, and
 the ring's launch->land spans (`ring_slot_span_seconds`,
 `ring_gap_seconds`, `ring_occupancy_ratio`).
 """
@@ -116,7 +126,7 @@ import contextlib
 import gc
 import logging
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Set
 
 from ..chaos.faults import DeviceLinkError, is_device_fault
 from ..obs.profiler import STAGE_MARK
@@ -275,6 +285,13 @@ class DispatchEngine:
         self.breaker_state = "closed"
         self._consecutive_failures = 0
         self._probe_task: Optional[asyncio.Task] = None
+        # --- shard breaker (ShardedDeviceTable chip loss): failures
+        # whose exception carries a `shard` count here PER SHARD and
+        # never feed _consecutive_failures, so one sick chip does not
+        # forfeit the whole mesh
+        self._shard_failures: Dict[int, int] = {}
+        self._shard_open: Set[int] = set()
+        self._shard_probe_tasks: Dict[int, asyncio.Task] = {}
         self.last_device_error: Optional[str] = None
         # canary topics: the most recent distinct batch heads, so the
         # recovery probe dispatches realistic traffic, not synthetics
@@ -998,14 +1015,22 @@ class DispatchEngine:
     def note_device_failure(self, exc: Optional[BaseException]) -> None:
         """One device failure (None: a batch past the deadline), from
         the engine's own batches or the broker's synchronous match and
-        plan legs. A failure that carries a `shard` counts here too:
-        the port has no shard breaker, so its failure domain is the
-        whole device."""
+        plan legs. A failure that carries a `shard` counts in that
+        shard's ledger and trips only the shard breaker."""
         tel = self.telemetry
         tel.count("breaker_device_failures_total")
         if exc is not None:
             self.last_device_error = repr(exc)
         if not self.breaker_enabled:
+            return
+        shard = getattr(exc, "shard", None)
+        if shard is not None:
+            # a fault of one chip: its own ledger, the whole-device
+            # breaker untouched (the other shards are fine)
+            n = self._shard_failures.get(shard, 0) + 1
+            self._shard_failures[shard] = n
+            if shard not in self._shard_open and n >= self.breaker_threshold:
+                self._trip_shard(int(shard))
             return
         self._consecutive_failures += 1
         tel.set_gauge("breaker_consecutive_failures", self._consecutive_failures)
@@ -1022,6 +1047,12 @@ class DispatchEngine:
         if self._consecutive_failures:
             self._consecutive_failures = 0
             self.telemetry.set_gauge("breaker_consecutive_failures", 0)
+        # a clean dispatch clears the ledgers of shards that have NOT
+        # tripped; an open shard stays open until its probe closes it
+        if self._shard_failures:
+            for s in list(self._shard_failures):
+                if s not in self._shard_open:
+                    del self._shard_failures[s]
 
     def _set_state(self, state: str) -> None:
         self.breaker_state = state
@@ -1142,6 +1173,147 @@ class DispatchEngine:
                 "breaker.close", "", {"canary_topics": len(canary_topics)}
             )
 
+    # --- shard breaker (chip-granular failure domain) ---------------------
+
+    @property
+    def open_shards(self) -> Set[int]:
+        return set(self._shard_open)
+
+    def _trip_shard(self, shard: int) -> None:
+        """One chip crossed the threshold: suspend ONLY its slice (host
+        overlay), evacuate its rows and buckets onto the survivor mesh,
+        so service returns to the device at N-1, and arm a per-shard
+        probe. The whole-device breaker stays closed."""
+        tel = self.telemetry
+        self._shard_open.add(shard)
+        tel.count("breaker_shard_trips_total")
+        tel.set_gauge("breaker_open_shards", len(self._shard_open))
+        self.router.suspend_shard(shard)
+        details = {
+            "shard": shard,
+            "failures": self._shard_failures.get(shard, 0),
+            "threshold": self.breaker_threshold,
+            "last_error": self.last_device_error,
+        }
+        log.error(
+            "shard breaker TRIPPED for shard %d (last: %s) — slice "
+            "host-overlaid, evacuating onto survivor mesh",
+            shard, self.last_device_error,
+        )
+        alarms = self._get_alarms()
+        if alarms is not None:
+            try:
+                alarms.ensure(
+                    ALARM_BREAKER,
+                    details=details,
+                    message=f"XLA shard breaker open: shard {shard} "
+                            "slice degraded, evacuating",
+                )
+            except Exception:
+                tel.count("breaker_alarm_failures_total")
+                log.exception("shard breaker alarm failed")
+        fl = self._get_flight()
+        if fl is not None:
+            fl.recorder.record("breaker.shard_trip", "", details)
+            fl.maybe_trigger("device_breaker_trip", details)
+        try:
+            # live evacuation: re-shard over the survivors + full
+            # re-upload from host truth, then build the survivor
+            # layout's launch shapes off the serving path
+            if self.router.evacuate_shard(shard):
+                tel.count("breaker_shard_evacuations_total")
+                self.router.warmup_shapes(max_batch=64)
+        except Exception as e:
+            if not is_device_fault(e):
+                raise
+            # the host overlay stays, degraded but correct, until the
+            # probe heals the shard
+            tel.count("breaker_shard_evacuation_failures_total")
+            log.exception("shard %d evacuation failed; slice stays host-overlaid", shard)
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return  # a synchronous caller drives probe_shard_once()
+        t = loop.create_task(self._shard_probe_loop(shard))
+        self._shard_probe_tasks[shard] = t
+        t.add_done_callback(lambda task, s=shard: self._shard_probe_done(s, task))
+
+    def _shard_probe_done(self, shard: int, task: "asyncio.Task") -> None:
+        if self._shard_probe_tasks.get(shard) is task:
+            del self._shard_probe_tasks[shard]
+        if not task.cancelled() and task.exception() is not None:
+            self.telemetry.count("breaker_probe_crashes_total")
+            log.error("shard %d probe loop died", shard, exc_info=task.exception())
+
+    async def _shard_probe_loop(self, shard: int) -> None:
+        backoff = self.probe_backoff_s
+        while not self.closed and shard in self._shard_open:
+            await asyncio.sleep(backoff)
+            backoff = min(backoff * 2.0, self.probe_backoff_max_s)
+            if self.closed or shard not in self._shard_open:
+                return
+            if self.probe_shard_once(shard):
+                return
+
+    def probe_shard_once(self, shard: int) -> bool:
+        """One recovery attempt for an evacuated chip: direct probe ->
+        rebalance back to the full mesh (full re-upload) -> canary
+        verified against the host oracle -> close. On a divergent
+        canary the chip is evacuated again: it re-earns trust. Returns
+        True when the shard closed; a fault that is not the card's
+        raises, the shard left open."""
+        tel = self.telemetry
+        router = self.router
+        tel.count("breaker_probe_total")
+        topics = list(self._recent_topics) or ["$breaker/canary"]
+        try:
+            # step 1: is the chip back? (raises while its fault is live)
+            router.probe_shard(shard)
+            # step 2: rebalance back and verify against the oracle
+            router.rebalance_shard(shard)
+            served = router.canary_match(topics)
+            oracle = [sorted(router.match_filters(t)) for t in topics]
+            if [sorted(x) for x in served] != oracle:
+                raise DeviceLinkError(f"post-rebalance canary diverged on shard {shard}")
+        except Exception as e:
+            tel.count("breaker_probe_failures_total")
+            self.last_device_error = repr(e)
+            if shard not in getattr(router.device_table, "lost_shards", ()):
+                # the rebalance half-landed or the canary diverged:
+                # evacuate again, so the verified survivor mesh serves
+                try:
+                    router.evacuate_shard(shard)
+                except Exception as e2:
+                    if not is_device_fault(e2):
+                        raise
+            if not is_device_fault(e):
+                raise
+            return False
+        self._close_shard(shard, topics)
+        return True
+
+    def _close_shard(self, shard: int, canary_topics) -> None:
+        tel = self.telemetry
+        self._shard_open.discard(shard)
+        self._shard_failures.pop(shard, None)
+        tel.set_gauge("breaker_open_shards", len(self._shard_open))
+        tel.count("breaker_shard_recoveries_total")
+        log.warning(
+            "shard breaker CLOSED for shard %d: rebalanced back to the "
+            "full mesh, canary verified on %d topics",
+            shard, len(canary_topics),
+        )
+        if not self._shard_open and self.breaker_state == "closed":
+            alarms = self._get_alarms()
+            if alarms is not None:
+                alarms.ensure_deactivated(ALARM_BREAKER)
+        fl = self._get_flight()
+        if fl is not None:
+            fl.recorder.record(
+                "breaker.shard_close", "",
+                {"shard": shard, "canary_topics": len(canary_topics)},
+            )
+
     # --- lifecycle --------------------------------------------------------
 
     async def drain(self) -> None:
@@ -1160,8 +1332,8 @@ class DispatchEngine:
 
     async def stop(self) -> None:
         """Stop the engine: complete everything queued and in flight,
-        cancel the breaker's probe, then refuse new publishes
-        (EngineStopped)."""
+        cancel the breaker's probe and every shard probe, then refuse
+        new publishes (EngineStopped)."""
         if self.closed:
             return
         await self.drain()
@@ -1177,6 +1349,11 @@ class DispatchEngine:
             with contextlib.suppress(Exception, asyncio.CancelledError):
                 await self._probe_task
             self._probe_task = None
+        for t in list(self._shard_probe_tasks.values()):
+            t.cancel()
+            with contextlib.suppress(Exception, asyncio.CancelledError):
+                await t
+        self._shard_probe_tasks.clear()
         if self.warmed:
             # hand the frozen steady state back to the collector — a
             # stopped engine's broker graph must stay reclaimable
@@ -1212,6 +1389,15 @@ class DispatchEngine:
                 "probes": counters.get("breaker_probe_total", 0),
                 "probe_failures": counters.get("breaker_probe_failures_total", 0),
                 "last_device_error": self.last_device_error,
+            },
+            "shard_breaker": {
+                "open_shards": sorted(self._shard_open),
+                "failures": dict(sorted(self._shard_failures.items())),
+                "lost_shards": sorted(getattr(self.router.device_table, "lost_shards", ())),
+                "shard_gen": getattr(self.router.device_table, "shard_gen", 0),
+                "trips": counters.get("breaker_shard_trips_total", 0),
+                "evacuations": counters.get("breaker_shard_evacuations_total", 0),
+                "recoveries": counters.get("breaker_shard_recoveries_total", 0),
             },
             "admission": {
                 "max_depth": self.queue_max_depth,

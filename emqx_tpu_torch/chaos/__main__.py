@@ -3,12 +3,16 @@
     python -m emqx_tpu_torch.chaos --sessions 1000000 --out /tmp/soak.json
 
 Builds one broker on the CUDA card (`--device cpu` for the plain
-versions), sustains the Zipf publish storm, runs the single-device
-scenario catalog, asserts every contract, and writes the soak row to
+versions), sustains the Zipf publish storm, runs the scenario catalog
+(its mesh scenarios are skipped: the broker has no mesh), asserts every
+contract, and writes the soak row to
 `--out` when one is given (there is no default, so no run writes over
 a file of the repository). Exit code 1 when any contract is violated,
-2 when a scenario or option needs what the port does not have yet (the
-clustered soak, a mesh or cluster scenario: ROADMAP Queue 1 item 8).
+2 when a scenario or option needs what this entry point does not build
+(a mesh scenario: its broker has no mesh; `ChaosEngine.standalone(mesh=)`
+runs them, as tools/shard_phase.py does on the card) or what the port
+does not have yet (the clustered soak, a cluster scenario: ROADMAP
+Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=float, default=20.0,
                     help="clean storm seconds before the first fault")
     ap.add_argument("--scenario", action="append",
-                    choices=CATALOG + list(MESH_SCENARIOS + CLUSTER_SCENARIOS),
+                    choices=CATALOG + list(CLUSTER_SCENARIOS),
                     help="run only these scenarios (repeatable)")
     ap.add_argument("--out", default=None,
                     help="write the soak row (JSON) to this path")
@@ -59,6 +63,13 @@ def main(argv=None) -> int:
 
     def progress(msg: str) -> None:
         print(f"[chaos] {msg}", file=sys.stderr, flush=True)
+
+    mesh_asked = [n for n in args.scenario or () if n in MESH_SCENARIOS]
+    if mesh_asked:
+        print(f"[chaos] NEEDS A MESH: {mesh_asked} run on "
+              "ChaosEngine.standalone(mesh=...); this entry point's broker has none",
+              file=sys.stderr)
+        return 2
 
     try:
         row = asyncio.run(

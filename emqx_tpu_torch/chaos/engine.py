@@ -21,10 +21,13 @@ Scale notes (why the fleet looks like this):
 
 The engine runs on the broker's device: `ChaosEngine.standalone()` and
 `run_soak()` build a `Broker(device=...)` on the CUDA card unless the
-caller passes device="cpu". The soak row's provenance names torch, its
-CUDA version, the platform, the card and its power limit. The cluster
-engine (a victim node, `victim_sessions > 0`) needs ROADMAP Queue 1
-item 8 and raises `NotImplementedError`.
+caller passes device="cpu"; `standalone(mesh=...)` sub-shards its table
+across a mesh, and only then does a catalog run drive the mesh
+scenarios (chip_loss, chip_flap, reshard_churn), which it skips
+otherwise. The soak row's provenance names torch, its CUDA version, the
+platform, the card and its power limit. The cluster engine (a victim
+node, `victim_sessions > 0`) needs ROADMAP Queue 1 item 8b and raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from ..obs.profiler import STAGE_MARK
 log = logging.getLogger("emqx_tpu_torch.chaos")
 
 NOT_PORTED = (
-    "needs the cluster layer of ROADMAP Queue 1 item 8, which the port "
+    "needs the cluster layer of ROADMAP Queue 1 item 8b, which the port "
     "does not have yet"
 )
 
@@ -457,6 +460,28 @@ class ChaosEngine:
         self.delivered += n
         return n
 
+    async def route_churn(self, n: int = 64) -> int:
+        """Live route churn: `n` add legs (fresh temp-session
+        subscriptions on never-seen filters) followed by `n` delete
+        legs (their unsubscribes), with a device sync and a served burst
+        in between: the subscribe/unsubscribe traffic a degraded mesh
+        must keep absorbing. Returns routes churned."""
+        b = self.broker
+        self._chaos_seq += 1
+        seq = self._chaos_seq
+        s, _ = b.open_session(f"churn{seq}", True)
+        s.outgoing_sink = _noop_sink
+        flts = [f"churn/{seq}/{i}/+" for i in range(n)]
+        for flt in flts:
+            b.subscribe(s, flt, SubOpts(qos=0))
+        self.router.device_table.sync()
+        await self.burst([flts[0][:-1] + "x", flts[-1][:-1] + "x"])
+        for flt in flts:
+            b.unsubscribe(s, flt)
+        b.close_session(s, discard=True)
+        self.router.device_table.sync()
+        return 2 * n  # add legs + delete legs
+
     def reset_flight_cooldown(self, rule: str) -> None:
         """Clear one trigger rule's cooldown latch. Scenario contracts
         demand a bundle PER scenario; the production cooldown would
@@ -664,6 +689,26 @@ class ChaosEngine:
             timeout=self.settle_timeout,
         )
 
+    async def ds_refused_since(self, before: Dict[int, int]):
+        """(failed shards, flushes the DS buffer refused on them since
+        `before`, a copy of `buffer.refused`), read once a shard reads
+        failed, a refusal on it is counted and no flush is in hand,
+        bounded by `settle_timeout`. The flush that hit the fault may
+        run on the buffer's flush thread, not the scenario's: the buffer
+        counts a refusal on every thread, so the scenario reads it
+        whoever flushed."""
+        db = self.durable_db
+        buf = db.buffer
+
+        def refused() -> int:
+            return sum(buf.refused[s] - before.get(s, 0) for s in db.failed_shards())
+
+        await self.wait_for(
+            lambda: buf.flushing == 0 and refused() >= 1,
+            timeout=self.settle_timeout,
+        )
+        return list(db.failed_shards()), refused()
+
     async def durable_drain(self, rounds: int = 64) -> List[bytes]:
         """Pump every durable session and puback everything delivered,
         committing stream positions (the consumed ledger). Returns the
@@ -757,10 +802,12 @@ class ChaosEngine:
             if baseline_s > 0:
                 await asyncio.sleep(baseline_s)
             for sc in cat:
-                if sc.needs_cluster or sc.needs_mesh:
+                if sc.needs_cluster:
                     raise NotImplementedError(
                         f"scenario {sc.name!r} {NOT_PORTED}"
                     )
+                if sc.needs_mesh and self.router.mesh is None:
+                    continue
                 if getattr(sc, "needs_durable", False) and (
                     self.durable_db is None
                 ):
@@ -960,18 +1007,21 @@ class ChaosEngine:
         sessions: int = 10_000,
         data_dir: Optional[str] = None,
         device=None,
+        mesh=None,
         **kw,
     ) -> "ChaosEngine":
         """An engine over a fresh Broker on `device` (None: the CUDA
         card, raising when none is present; "cpu": the plain versions)
-        with its own Observability under `data_dir`."""
+        with its own Observability under `data_dir`. With `mesh`
+        (parallel.mesh.make_mesh) the router's table is sub-sharded
+        across it, which the mesh scenarios need."""
         import tempfile
 
         from ..broker.pubsub import Broker
         from ..obs import Observability
 
         base = data_dir or tempfile.mkdtemp(prefix="chaos_")
-        broker = Broker(device=device)
+        broker = Broker(device=device, mesh=mesh)
         obs = Observability(
             broker,
             node_name="chaos@local",
@@ -1027,9 +1077,10 @@ async def run_soak(
     """Build the engine on `device`, run the single-device scenario
     catalog under the storm, write the soak row to `report_path` when
     one is given, and assert the contracts. The entry
-    `python -m emqx_tpu_torch.chaos` calls. `victim_sessions > 0` (the
-    clustered soak) raises NotImplementedError, as does a mesh or
-    cluster scenario asked for by name."""
+    `python -m emqx_tpu_torch.chaos` calls. The broker has no mesh, so
+    the catalog's mesh scenarios are skipped. `victim_sessions > 0`
+    (the clustered soak) raises NotImplementedError, as does a cluster
+    scenario asked for by name."""
     from .scenarios import scenarios_by_name
 
     if victim_sessions > 0:

@@ -32,9 +32,10 @@ shard-scoped fault fires on the mesh-wide legs only while at least one
 target shard is still in the mesh (a table's `lost_shards`, when it
 has them), and the raised error carries a `shard` attribute. The
 `shard_probe` leg is the direct probe of one chip: it keeps failing
-until `heal()` whatever the table holds. The port's dispatch engine
-has no shard breaker yet: it counts a failure that carries a `shard`
-toward the whole-device breaker.
+until `heal()` whatever the table holds. The dispatch engine's shard
+breaker reads the `shard` to count the failure in that shard's ledger
+instead of forfeiting the whole mesh, and evacuating the shard puts it
+in `lost_shards`, which silences its fault on the mesh-wide legs.
 
 A real device fault surfaces in PyTorch as a `torch.AcceleratorError`
 (a bare `RuntimeError` whose message starts "CUDA error" in older

@@ -1,6 +1,6 @@
-"""The single-device chaos scenario catalog of the port (the port's
-copy of emqx_tpu/chaos/scenarios.py, the scenarios that need no mesh
-and no cluster), each with its expected-response contract. A scenario
+"""The chaos scenario catalog of the port (the port's copy of
+emqx_tpu/chaos/scenarios.py, the scenarios that need no cluster), each
+with its expected-response contract. A scenario
 injects the fault, drives the system while the fault is live, and
 asserts the broker's *response* -- detection, alarming, quarantine,
 recovery -- not merely that it survived.
@@ -16,10 +16,11 @@ Contract vocabulary (every scenario emits `Check` rows):
   * accounting: `emqx_xla_audit_divergence_total` moved for every
     injected fault -- nothing detected-but-uncounted.
 
-The mesh scenarios (chip_loss, chip_flap, reshard_churn) need the
-shard breaker and the cluster scenarios need the cluster layer; both
-wait for ROADMAP Queue 1 item 8, and asking for one by name raises
-`NotImplementedError` naming it.
+The mesh scenarios (chip_loss, chip_flap, reshard_churn) drive the
+shard breaker and run only on an engine whose table is sharded across a
+mesh. The cluster scenarios need the cluster layer (ROADMAP Queue 1
+item 8b), and asking for one by name raises `NotImplementedError`
+naming it.
 """
 
 from __future__ import annotations
@@ -585,6 +586,404 @@ class DeviceFlap(Scenario):
 
 
 
+class ChipLoss(Scenario):
+    """One chip of the mesh dies under the live storm: the shard
+    breaker must keep the failure domain chip-granular. Contract:
+    (1) sticky loss scoped to ONE shard trips the SHARD breaker within
+    its failure budget while the whole-device breaker stays closed and
+    the table is never suspended; (2) the lost shard's slice is
+    evacuated onto the survivor mesh (N-1 chips serve the whole table
+    on device) with the alarm paged and a flight bundle frozen;
+    (3) route churn keeps landing while degraded; (4) healing the chip
+    lets the per-shard probe rebalance back to the full mesh with a
+    verified canary, the alarm clears, and a full-truth sweep finds
+    zero silent divergence."""
+
+    name = "chip_loss"
+    reference = (
+        "emqx_node_rebalance evacuation SUITE (SURVEY L2) applied to "
+        "the mesh sub-axis: lose a member, evacuate live state, keep "
+        "serving, rebalance back"
+    )
+    needs_mesh = True
+
+    def __init__(self, shard: Optional[int] = None):
+        self.shard = shard
+
+    async def run(self, eng) -> ScenarioResult:
+        res = ScenarioResult(self.name)
+        de = eng.broker.engine
+        inj = eng.injector
+        dt = eng.router.device_table
+        c = eng.counters
+        t0w = time.time()
+        err0 = eng.storm_errors
+        c0 = c()
+        n0 = dt.n_shards
+        victim = (
+            self.shard if self.shard is not None
+            else inj.pick_shard(n0)
+        )
+        res.extra["victim_shard"] = victim
+        fires0 = _fires(eng, "device_breaker_trip")
+        eng.reset_flight_cooldown("device_breaker_trip")
+        # --- sticky loss scoped to ONE chip
+        inj.fail_sticky(shards=[victim])
+        eng.record_fault(self.name, {"shard": victim})
+        t_inj = time.monotonic()
+        budget = de.breaker_threshold + 4
+        tripped = None
+        for _ in range(budget):
+            await eng.burst(
+                [eng.fresh_topic(eng.chaos_filters[0]) for _ in range(2)]
+            )
+            if victim in de.open_shards or not dt.lost_shards == set():
+                tripped = time.monotonic() - t_inj
+                break
+        res.checks.append(
+            Check(
+                "shard_tripped_within_budget",
+                tripped is not None,
+                f"{tripped * 1e3:.0f}ms, budget {budget} batches"
+                if tripped is not None
+                else f"not within {budget} batches",
+            )
+        )
+        if tripped is not None:
+            eng.faults_detected += 1
+            res.detect_ms = round(tripped * 1e3, 2)
+        # --- failure domain stayed chip-granular: whole breaker closed,
+        # table never suspended
+        res.checks.append(
+            Check(
+                "whole_table_never_suspended",
+                de.breaker_state == "closed"
+                and not eng.router.device_suspended,
+                f"breaker={de.breaker_state}, "
+                f"suspended={eng.router.device_suspended}",
+            )
+        )
+        # --- evacuated onto the survivor mesh: N-1 device service
+        res.checks.append(
+            Check(
+                "evacuated_to_survivors",
+                dt.lost_shards == {victim} and dt.n_shards == n0 - 1,
+                f"lost={sorted(dt.lost_shards)}, mesh {dt.n_shards}/{n0}",
+            )
+        )
+        fan = await eng.burst(
+            [eng.fresh_topic(eng.chaos_filters[0]) for _ in range(4)]
+        )
+        res.checks.append(
+            Check(
+                "degraded_serving_correct",
+                fan == 4 * eng.chaos_fan,
+                f"fan {fan}/{4 * eng.chaos_fan} on N-1 mesh",
+            )
+        )
+        res.checks.append(
+            Check(
+                "alarm_raised",
+                eng.alarms.is_active("xla_device_breaker")
+                or "xla_device_breaker" in eng.alarms.fired_since(t0w),
+                "xla_device_breaker",
+            )
+        )
+        res.checks.append(
+            Check(
+                "flight_bundle_captured",
+                _fires(eng, "device_breaker_trip") > fires0,
+                "device_breaker_trip trigger fired",
+            )
+        )
+        # --- route churn while degraded: subscribe/unsubscribe legs
+        # keep landing on the survivor mesh
+        churned = await eng.route_churn(32)
+        res.checks.append(
+            Check(
+                "churn_lands_while_degraded",
+                churned == 64 and eng.storm_errors == err0,
+                f"{churned} add+delete legs on N-1 mesh",
+            )
+        )
+        # --- heal -> probe -> rebalance back to N -> verified close
+        inj.heal()
+        rec = await eng.wait_for(
+            lambda: victim not in de.open_shards and not dt.lost_shards,
+            timeout=eng.settle_timeout + de.probe_backoff_max_s * 4,
+        )
+        res.checks.append(
+            Check(
+                "rebalanced_back_to_full_mesh",
+                rec is not None and dt.n_shards == n0,
+                f"{rec * 1e3:.0f}ms after heal, mesh {dt.n_shards}/{n0}"
+                if rec is not None
+                else "probe never rebalanced the shard back",
+            )
+        )
+        if rec is not None:
+            res.recovery_ms = round((time.monotonic() - t_inj) * 1e3, 2)
+        c2 = c()
+        res.checks.append(
+            Check(
+                "shard_cycle_accounted",
+                c2.get("breaker_shard_trips_total", 0)
+                > c0.get("breaker_shard_trips_total", 0)
+                and c2.get("breaker_shard_evacuations_total", 0)
+                > c0.get("breaker_shard_evacuations_total", 0)
+                and c2.get("breaker_shard_recoveries_total", 0)
+                > c0.get("breaker_shard_recoveries_total", 0),
+                "trip+evacuation+recovery counted",
+            )
+        )
+        res.checks.append(
+            Check(
+                "alarm_cleared",
+                not eng.alarms.is_active("xla_device_breaker"),
+                "xla_device_breaker deactivated",
+            )
+        )
+        post = await eng.burst(
+            [eng.fresh_topic(f) for f in eng.chaos_filters]
+        )
+        res.checks.append(
+            Check(
+                "post_recovery_full_fan",
+                post == len(eng.chaos_filters) * eng.chaos_fan,
+                f"{post} deliveries on restored mesh",
+            )
+        )
+        sweep = await eng.audit_sweep(per_groups=128)
+        res.checks.append(
+            Check(
+                "divergence_free_after_rebalance",
+                sweep["silent_divergences"] == 0,
+                f"{sweep['topics_swept']} topics swept",
+            )
+        )
+        res.checks.append(
+            Check(
+                "zero_publisher_errors",
+                eng.storm_errors == err0,
+                f"{eng.storm_errors - err0} storm chunks failed",
+            )
+        )
+        res.checks.append(_slo_check(eng, t0w))
+        res.extra["mesh_shards"] = n0
+        return res
+
+
+class ChipFlap(Scenario):
+    """Repeated chip loss/heal cycles: every cycle must evacuate to
+    N-1 and rebalance back to N — no wedged degraded mesh, no leaked
+    lost shards, exact trip/recovery accounting, zero publisher
+    errors."""
+
+    name = "chip_flap"
+    reference = (
+        "emqx_node_rebalance repeated evacuate/rejoin cycles on one "
+        "member; flapping-link discipline at shard granularity"
+    )
+    needs_mesh = True
+
+    def __init__(self, cycles: int = 2, shard: Optional[int] = None):
+        self.cycles = cycles
+        self.shard = shard
+
+    async def run(self, eng) -> ScenarioResult:
+        res = ScenarioResult(self.name)
+        de = eng.broker.engine
+        inj = eng.injector
+        dt = eng.router.device_table
+        t0w = time.time()
+        err0 = eng.storm_errors
+        c0 = eng.counters()
+        n0 = dt.n_shards
+        victim = (
+            self.shard if self.shard is not None
+            else inj.pick_shard(n0)
+        )
+        res.extra["victim_shard"] = victim
+        recovered = 0
+        t_first = None
+        for cycle in range(self.cycles):
+            inj.fail_sticky(shards=[victim])
+            eng.record_fault(self.name, {"cycle": cycle, "shard": victim})
+            if t_first is None:
+                t_first = time.monotonic()
+            tripped = False
+            for _ in range(de.breaker_threshold + 4):
+                await eng.burst(
+                    [eng.fresh_topic(eng.chaos_filters[0])
+                     for _ in range(2)]
+                )
+                if victim in de.open_shards or dt.lost_shards:
+                    tripped = True
+                    break
+            if tripped:
+                eng.faults_detected += 1
+            inj.heal()
+            rec = await eng.wait_for(
+                lambda: victim not in de.open_shards
+                and not dt.lost_shards,
+                timeout=eng.settle_timeout + de.probe_backoff_max_s * 4,
+            )
+            if tripped and rec is not None:
+                recovered += 1
+        res.checks.append(
+            Check(
+                "every_cycle_recovered",
+                recovered == self.cycles,
+                f"{recovered}/{self.cycles} evacuate+rebalance cycles",
+            )
+        )
+        c1 = eng.counters()
+        res.checks.append(
+            Check(
+                "flaps_accounted",
+                c1.get("breaker_shard_trips_total", 0)
+                - c0.get("breaker_shard_trips_total", 0) == self.cycles
+                and c1.get("breaker_shard_recoveries_total", 0)
+                - c0.get("breaker_shard_recoveries_total", 0)
+                == self.cycles,
+                f"shard trips +{c1.get('breaker_shard_trips_total', 0) - c0.get('breaker_shard_trips_total', 0)}, "
+                f"recoveries +{c1.get('breaker_shard_recoveries_total', 0) - c0.get('breaker_shard_recoveries_total', 0)}",
+            )
+        )
+        if t_first is not None:
+            res.detect_ms = round((time.monotonic() - t_first) * 1e3, 2)
+            res.recovery_ms = res.detect_ms
+        res.checks.append(
+            Check(
+                "full_mesh_at_end",
+                dt.n_shards == n0 and not dt.lost_shards
+                and not de.open_shards
+                and not eng.alarms.is_active("xla_device_breaker"),
+                f"mesh {dt.n_shards}/{n0}, lost={sorted(dt.lost_shards)}",
+            )
+        )
+        res.checks.append(
+            Check(
+                "zero_publisher_errors",
+                eng.storm_errors == err0,
+                f"{eng.storm_errors - err0} storm chunks failed",
+            )
+        )
+        sweep = await eng.audit_sweep(per_groups=64)
+        res.checks.append(
+            Check(
+                "audit_clean_after_flaps",
+                sweep["silent_divergences"] == 0,
+                f"{sweep['topics_swept']} topics swept",
+            )
+        )
+        res.checks.append(_slo_check(eng, t0w))
+        res.extra["cycles"] = self.cycles
+        return res
+
+
+class ReshardChurn(Scenario):
+    """Administrative re-shard cycles under the storm (no fault at
+    all): evacuate a shard and rebalance it back, repeatedly, while
+    publishes and route churn keep flowing — the emqx_node_rebalance
+    admin-rebalance analog. Every cycle must advance the shard-map
+    generation, and the storm must see zero errors and zero
+    divergence; this is the proof the re-shard machinery itself is
+    production-safe, independent of any breaker."""
+
+    name = "reshard_churn"
+    reference = (
+        "emqx_node_rebalance admin API: operator-driven rebalance "
+        "under load, no member failure involved"
+    )
+    needs_mesh = True
+
+    def __init__(self, cycles: int = 2):
+        self.cycles = cycles
+
+    async def run(self, eng) -> ScenarioResult:
+        res = ScenarioResult(self.name)
+        dt = eng.router.device_table
+        t0w = time.time()
+        err0 = eng.storm_errors
+        det0 = len(eng.detections)
+        n0 = dt.n_shards
+        gen0 = dt.shard_gen
+        t0 = time.monotonic()
+        cycles_ok = 0
+        for cycle in range(self.cycles):
+            victim = cycle % n0
+            eng.record_fault(self.name, {"cycle": cycle, "shard": victim})
+            if not eng.router.evacuate_shard(victim):
+                break
+            fan = await eng.burst(
+                [eng.fresh_topic(eng.chaos_filters[0]) for _ in range(2)]
+            )
+            await eng.route_churn(16)
+            ok_deg = (
+                dt.n_shards == n0 - 1 and fan == 2 * eng.chaos_fan
+            )
+            if not eng.router.rebalance_shard(victim):
+                break
+            fan = await eng.burst(
+                [eng.fresh_topic(eng.chaos_filters[0]) for _ in range(2)]
+            )
+            if ok_deg and dt.n_shards == n0 and fan == 2 * eng.chaos_fan:
+                cycles_ok += 1
+                # the reshard was observed end-to-end (N-1 service,
+                # generation bump, N restored): count the detection
+                # that matches this cycle's recorded fault
+                eng.faults_detected += 1
+        res.checks.append(
+            Check(
+                "every_cycle_reserved_correctly",
+                cycles_ok == self.cycles,
+                f"{cycles_ok}/{self.cycles} evacuate+rebalance cycles "
+                "served full fan at N-1 and N",
+            )
+        )
+        res.checks.append(
+            Check(
+                "shard_map_generation_advanced",
+                dt.shard_gen >= gen0 + 2 * self.cycles,
+                f"gen {gen0} -> {dt.shard_gen}",
+            )
+        )
+        res.checks.append(
+            Check(
+                "full_mesh_at_end",
+                dt.n_shards == n0 and not dt.lost_shards,
+                f"mesh {dt.n_shards}/{n0}",
+            )
+        )
+        res.checks.append(
+            Check(
+                "no_divergence",
+                len(eng.detections) == det0,
+                f"{len(eng.detections) - det0} unexpected",
+            )
+        )
+        res.checks.append(
+            Check(
+                "zero_publisher_errors",
+                eng.storm_errors == err0,
+                f"{eng.storm_errors - err0} storm chunks failed",
+            )
+        )
+        sweep = await eng.audit_sweep(per_groups=64)
+        res.checks.append(
+            Check(
+                "audit_clean_after_reshard",
+                sweep["silent_divergences"] == 0,
+                f"{sweep['topics_swept']} topics swept",
+            )
+        )
+        res.checks.append(_slo_check(eng, t0w))
+        res.recovery_ms = round((time.monotonic() - t0) * 1e3, 2)
+        res.extra["cycles"] = self.cycles
+        return res
+
+
 class DisconnectTakeover(Scenario):
     """Mass-disconnect + same-node session takeover: a wave of the
     fleet drops (eviction agent), the storm keeps running, the wave
@@ -811,20 +1210,22 @@ class DiskFull(Scenario):
         eng.reset_flight_cooldown("ds_shard_failed")
         pre = await eng.durable_publish(8)  # acked before the disk fills
         r0 = DS_METRICS.snapshot()["shard_recoveries_total"]
+        refused0 = dict(eng.durable_db.buffer.refused)
         dinj.fail_sticky(
             "enospc", legs=("append",), paths=("chaos-messages",)
         )
         eng.record_fault(self.name, {"kind": "enospc"})
         t_inj = time.monotonic()
-        blocked = 0
         for _ in range(8):
             try:
                 await eng.durable_publish(4)
             except OSError:
-                blocked += 1
+                pass
             if eng.durable_db.failed_shards():
                 break
-        failed = list(eng.durable_db.failed_shards())
+        # the refused flushes are counted at the DS buffer on whichever
+        # thread took them: the scenario's, or the buffer's flush thread
+        failed, blocked = await eng.ds_refused_since(refused0)
         res.checks.append(
             Check(
                 "fail_stop_engaged",
@@ -939,22 +1340,25 @@ class FsyncFail(Scenario):
         fires0 = _fires(eng, "ds_shard_failed")
         eng.reset_flight_cooldown("ds_shard_failed")
         pre = await eng.durable_publish(8)
+        buf = eng.durable_db.buffer
+        refused0 = dict(buf.refused)
         # exactly ONE fsync fails; the disk is healthy afterwards
         dinj.fail_transient(
             1, kind="fsync", legs=("fsync",), paths=("chaos-messages",)
         )
         eng.record_fault(self.name, {"kind": "fsync", "transient": 1})
         t_inj = time.monotonic()
-        raised = False
         try:
             await eng.durable_publish(4)
         except OSError:
-            raised = True
-        failed = list(eng.durable_db.failed_shards())
+            pass
+        # the refused flush is counted at the DS buffer on whichever
+        # thread took it: the scenario's, or the buffer's flush thread
+        failed, raised = await eng.ds_refused_since(refused0)
         res.checks.append(
             Check(
                 "fail_stop_on_first_fsync_failure",
-                raised and bool(failed),
+                raised >= 1 and bool(failed),
                 f"shards {failed} fail-stopped on one transient fsync",
             )
         )
@@ -963,15 +1367,18 @@ class FsyncFail(Scenario):
             res.detect_ms = round((time.monotonic() - t_inj) * 1e3, 2)
         # the forbidden continuation: disk is healthy NOW, but the
         # shard must still refuse writes until probe-verified recovery
-        blocked = False
+        # (no flush is in hand here, so a refusal counted from now on
+        # is of a write made after the fail-stop)
+        refused1 = dict(buf.refused)
         try:
             await eng.durable_publish(2)
         except OSError:
-            blocked = True
+            pass
+        _failed, blocked = await eng.ds_refused_since(refused1)
         res.checks.append(
             Check(
                 "no_retry_and_continue",
-                blocked and dinj.healthy,
+                blocked >= 1 and dinj.healthy,
                 "writes refused on healthy disk until recover()",
             )
         )
@@ -1152,9 +1559,10 @@ class BrokerRestart(Scenario):
         res.extra["acked_unconsumed"] = len(batch_b)
         return res
 
-# the reference's catalog entries that wait for the shard breaker or
-# the cluster layer (ROADMAP Queue 1 item 8)
-MESH_SCENARIOS = ("chip_loss", "chip_flap", "reshard_churn")
+# the reference's catalog entries that need a mesh (run only by an
+# engine whose table is sharded: ChaosEngine.standalone(mesh=...)) and
+# those that wait for the cluster layer (ROADMAP Queue 1 item 8b)
+MESH_SCENARIOS = (ChipLoss.name, ChipFlap.name, ReshardChurn.name)
 CLUSTER_SCENARIOS = (
     "partition_nodedown",
     "replica_drift",
@@ -1165,15 +1573,16 @@ CLUSTER_SCENARIOS = (
     "node_purge",
 )
 NOT_PORTED = (
-    "needs the shard breaker and the cluster layer of ROADMAP Queue 1 "
-    "item 8, which the port does not have yet"
+    "needs the cluster layer of ROADMAP Queue 1 item 8b, which the port "
+    "does not have yet"
 )
 
 
 def scenario_catalog(cluster: bool = False) -> List[Scenario]:
-    """The ordered single-device soak catalog, in the reference's
-    order with the mesh scenarios left out: corruption runs early while
-    the fleet is pristine so fan expectations are exact."""
+    """The ordered soak catalog: the reference's, without the cluster
+    scenarios, in its order. Corruption runs early while the fleet is
+    pristine so fan expectations are exact; an engine without a mesh
+    skips the mesh scenarios."""
     if cluster:
         raise NotImplementedError(f"the cluster catalog {NOT_PORTED}")
     return [
@@ -1181,6 +1590,9 @@ def scenario_catalog(cluster: bool = False) -> List[Scenario]:
         RowCorruption(faults=2),
         DeviceLoss(),
         DeviceFlap(),
+        ChipLoss(),
+        ChipFlap(),
+        ReshardChurn(),
         TornWal(),
         DiskFull(),
         FsyncFail(),
@@ -1191,13 +1603,13 @@ def scenario_catalog(cluster: bool = False) -> List[Scenario]:
 
 
 def scenarios_by_name(names) -> List[Scenario]:
-    """Catalog entries by name, in the order given. A mesh or cluster
-    scenario of the reference raises NotImplementedError naming item 8;
-    an unknown name raises KeyError."""
+    """Catalog entries by name, in the order given. A cluster scenario
+    of the reference raises NotImplementedError naming item 8b; an
+    unknown name raises KeyError."""
     by_name = {s.name: s for s in scenario_catalog()}
     out = []
     for n in names:
-        if n in MESH_SCENARIOS or n in CLUSTER_SCENARIOS:
+        if n in CLUSTER_SCENARIOS:
             raise NotImplementedError(f"scenario {n!r} {NOT_PORTED}")
         out.append(by_name[n])
     return out

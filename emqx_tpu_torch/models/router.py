@@ -36,8 +36,13 @@ refusal in `resolve_fanout_begin`) until the next table sync re-uploads
 the index and their rows, which ends it (`_maybe_unquarantine`). The
 chaos corrupters (`chaos_corrupt_rows`, `chaos_corrupt_slots`) decay
 the device slot table in place, on one device and on the mesh, so that
-chain can be driven. The shard failure domain of the reference is not
-part of this port.
+chain can be driven. The shard failure domain's router half is here
+too: `suspend_shard` answers one sub shard's slice from host truth (the
+overlay in `match_filters_finish`, scoped by ownership), `probe_shard`
+is the direct probe of one chip, and `evacuate_shard` /
+`rebalance_shard` re-shard the mesh table and re-upload it in full. A
+batch begun before a re-shard finishes on the tensors it was launched
+against, and the bumped generation has its pairs re-checked.
 
 Route writes run through the native churn core by default
 (ops/speedups.py over the port's speedups.cc): `add_route`,
@@ -709,6 +714,11 @@ class Router:
         # while the circuit breaker is open.
         self.fault_injector = None
         self.device_suspended = False
+        # shard failure domain (ShardedDeviceTable only): sub columns
+        # whose slice the host overlay in match_filters_finish answers
+        # while their chip is sick; the OTHER shards keep serving on the
+        # device (device_suspended forfeits the whole mesh)
+        self._suspended_shards: Set[int] = set()
         # shadow-audit quarantine (obs/sentinel.py): filters whose
         # device rows diverged from the host oracle. While quarantined
         # a filter is answered by the host walk (overlay in
@@ -1012,6 +1022,122 @@ class Router:
         for j, i in enumerate(p.sub_idx):
             full[i] = out[j]
         return full
+
+    # --- shard failure domain (ShardedDeviceTable chip loss) -------------
+
+    def suspend_shard(self, shard: int) -> bool:
+        """Open the breaker for ONE sub column: topics keep going
+        through the kernels, but answers owned by the sick shard's row
+        and bucket slice are corrected from host truth by the overlay in
+        match_filters_finish (the quarantine's discipline, scoped by
+        ownership). Falls back to whole-device suspension when the
+        table has no mesh. Returns True on the closed->open
+        transition."""
+        if self.mesh is None:
+            return self.suspend_device()
+        if shard in self._suspended_shards:
+            return False
+        self._suspended_shards.add(shard)
+        # match-cache entries may hold the sick shard's answers
+        self._aux_gen += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.count("shard_suspends_total")
+            tel.set_gauge("shards_suspended", len(self._suspended_shards))
+        return True
+
+    def resume_shard(self, shard: int) -> None:
+        if shard not in self._suspended_shards:
+            return
+        self._suspended_shards.discard(shard)
+        self._aux_gen += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.count("shard_resumes_total")
+            tel.set_gauge("shards_suspended", len(self._suspended_shards))
+
+    def _shard_owners(self, flt: str) -> Set[int]:
+        """The sub columns whose device state can answer (or wrongly
+        drop) `flt` under the CURRENT mesh: the shard holding its table
+        row (the dense and residual legs) and, for a classed filter, the
+        shard holding its bucket's cuckoo slot."""
+        dt = self.device_table
+        owners: Set[int] = set()
+        row = self._fanout_row(flt)
+        if row is None:
+            return owners  # deep / host-resident: the card never answers it
+        owners.add(dt.shard_of_row(row))
+        ix = self.index
+        if ix is not None and row < len(ix._row_bucket):
+            bid = int(ix._row_bucket[row])
+            if bid >= 0:
+                slot = int(ix._bkt_slot[bid])
+                if slot >= 0:
+                    owners.add(dt.shard_of_slot(slot))
+        return owners
+
+    def _shard_overlay(self, topics: Sequence[str], out: List[List[str]]) -> None:
+        """Rewrite kernel answers owned by suspended shards from host
+        truth: drop every surfaced filter a sick shard served, then add
+        from the host walk exactly the matches a sick shard owns.
+        O(answer + host match) a topic, never a walk of the slice."""
+        sus = self._suspended_shards
+        owners = self._shard_owners
+        served = 0
+        for i, t in enumerate(topics):
+            lst = out[i]
+            keep = [f for f in lst if not (owners(f) & sus)]
+            truth = [f for f in self.match_filters(t) if owners(f) & sus]
+            if truth or len(keep) != len(lst):
+                out[i] = keep + truth
+            served += 1
+        tel = self.telemetry
+        if tel.enabled and served:
+            tel.count("shard_overlay_total", served)
+
+    def probe_shard(self, shard: int) -> None:
+        """Direct probe of one (possibly evacuated) chip for the shard
+        breaker's recovery: raises while the chip's fault is live. The
+        injector's shard_probe leg ignores lost_shards: probing the
+        evacuated chip is the point."""
+        fi = self.fault_injector
+        if fi is not None:
+            # literal = chaos.faults.SHARD_PROBE_LEG (importing chaos
+            # here would cycle through broker -> models)
+            fi.check("shard_probe", shard=shard)
+
+    def evacuate_shard(self, shard: int) -> bool:
+        """Live evacuation: remap the lost shard's row and bucket slices
+        onto the surviving chips (a new shard-map generation), re-upload
+        from host truth in full and lift the host overlay: N-1 chips
+        serve the whole table on the device (the node evacuation of
+        emqx_eviction_agent, at shard granularity)."""
+        dt = self.device_table
+        if self.mesh is None or not dt.evacuate_shard(shard):
+            return False
+        self._aux_gen += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.count("shard_evacuations_total")
+            tel.set_gauge("shards_lost", len(dt.lost_shards))
+        dt.sync()  # full re-upload onto the survivor mesh
+        self.resume_shard(shard)
+        return True
+
+    def rebalance_shard(self, shard: int) -> bool:
+        """Rebalance back: re-admit a recovered chip (the full layout)
+        and re-upload from host truth. Callers verify the chip first
+        (probe + canary), as emqx_node_rebalance does."""
+        dt = self.device_table
+        if self.mesh is None or not dt.restore_shard(shard):
+            return False
+        self._aux_gen += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.count("shard_rebalances_total")
+            tel.set_gauge("shards_lost", len(dt.lost_shards))
+        dt.sync()
+        return True
 
     # --- CSR dest-store feed (the device ?SUBSCRIBER mirror) ------------
 
@@ -1847,6 +1973,8 @@ class Router:
                     out[i].extend(self._deep_trie.match(topic_mod.words(t)))
             if self._quarantined and out:
                 self._quarantine_overlay(topics, out)
+            if self._suspended_shards and out:
+                self._shard_overlay(topics, out)
             tel.end_span(p.root)
         if span is not None:
             # transfer = residual device->host wait the tickets

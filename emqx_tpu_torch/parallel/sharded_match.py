@@ -40,9 +40,14 @@ is a sum inside K14.
 
 `ShardedDeviceTable` is the mesh mirror of a FilterTable and its class
 index behind DeviceTable's sync/begin/finish surface, with the
-reference's escalation (a sticky per-block floor). The reference's
-admission knob (degrading small tables to one device) and its shard
-failure domain (evacuate/restore) are not part of this port yet.
+reference's escalation (a sticky per-block floor) and its shard failure
+domain: `evacuate_shard` drops one sub column of the full layout
+(`_mesh0`) into `lost_shards` and re-shards the table over the
+survivors, `restore_shard` takes it back; each swap drops every device
+tensor, so the next sync is a full re-upload from host truth (the delta
+syncs after it run K13+K18 on the new layout), and bumps `shard_gen`. On one card the mesh repeats the card, so a lost "chip" is
+a sub column that the layout leaves out. The reference's admission knob
+(degrading small tables to one device) is not part of this port yet.
 """
 
 from __future__ import annotations
@@ -854,6 +859,13 @@ class ShardedDeviceTable:
         self.index = index
         self.telemetry = telemetry if telemetry is not None else _NULL_TEL
         self.device = mesh_mod.primary_device(mesh)
+        # shard failure domain: `_mesh0` is the full layout; `lost_shards`
+        # holds ORIGINAL sub columns evacuated off the mesh; `shard_gen`
+        # bumps on every re-shard, so a handle begun on an older layout
+        # can tell
+        self._mesh0 = mesh
+        self.lost_shards: set = set()
+        self.shard_gen = 0
         self._dev: Optional[Tuple[EncodedFilters, ...]] = None
         self._synced_capacity = 0
         _mc, _mp, self._apply_delta = make_sharded_kernels(mesh)
@@ -894,6 +906,70 @@ class ShardedDeviceTable:
         """The sub shard serving a cuckoo slot (bucket-aligned slices)."""
         nb_loc = -(-self.index.n_buckets // self.n_shards)
         return slot // (nb_loc * BUCKET_W)
+
+    # --- shard failure domain (chip loss / evacuation / rebalance) --------------
+
+    def _survivor_mesh(self) -> Mesh:
+        arr = self._mesh0.devices  # [n_dp, n_sub0]
+        keep = [i for i in range(arr.shape[1]) if i not in self.lost_shards]
+        return mesh_mod.make_mesh(
+            n_dp=arr.shape[0], n_sub=len(keep), devices=arr[:, keep].reshape(-1).tolist())
+
+    def evacuate_shard(self, shard: int) -> bool:
+        """Drop one ORIGINAL sub column from the mesh and re-shard the
+        table over the survivors (N-1 serving). The caller owns the
+        follow-up `sync()`, a full re-upload from host truth. Returns True
+        when the mesh changed. The shard joins `lost_shards` BEFORE the
+        rebuild: the fault injector reads it, so the evacuation's resync
+        already runs without touching the lost chip while its fault is
+        live."""
+        n_sub0 = self._mesh0.shape[SUB_AXIS]
+        if shard < 0 or shard >= n_sub0 or shard in self.lost_shards:
+            return False
+        if len(self.lost_shards) + 1 >= n_sub0:
+            raise RuntimeError(f"cannot evacuate shard {shard}: no survivor would remain")
+        self.lost_shards.add(shard)
+        self._rebuild_mesh(self._survivor_mesh())
+        return True
+
+    def restore_shard(self, shard: int) -> bool:
+        """Rebalance a recovered chip back in: the full layout, or the
+        wider survivor layout while other chips are still lost. The
+        caller owns the follow-up full `sync()`."""
+        if shard not in self.lost_shards:
+            return False
+        self.lost_shards.discard(shard)
+        self._rebuild_mesh(self._mesh0 if not self.lost_shards else self._survivor_mesh())
+        return True
+
+    def _rebuild_mesh(self, mesh: Mesh) -> None:
+        """Swap the serving mesh: drop every device tensor and every
+        kernel closure of the old layout (a handle begun on it keeps
+        what it launched against alive until it is finished), so the
+        next sync() is a full re-upload from host truth, and re-mirror
+        the fanout store. The old tensors go before anything of the new
+        layout is allocated."""
+        self._dev = None
+        self._dev_meta = None
+        self._dev_slots = None
+        self._dev_residual = None
+        self._synced_capacity = 0
+        self._match_ids_cache.clear()
+        self._hash_cache.clear()
+        store = self.fanout.store if self.fanout is not None else None
+        self.fanout = None
+        self.mesh = mesh
+        self.device = mesh_mod.primary_device(mesh)
+        _mc, _mp, self._apply_delta = make_sharded_kernels(mesh)
+        self._apply_slot_delta = make_slot_delta_kernel(mesh) if self.index is not None else None
+        self._mesh_sync = make_mesh_sync_kernel(mesh) if self.index is not None else None
+        if store is not None:
+            self.attach_fanout(store)
+        self.shard_gen += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.set_gauge("mesh_shards", self.n_shards)
+            tel.set_gauge("shards_lost", len(self.lost_shards))
 
     # --- kernels by shape -------------------------------------------------------
 
@@ -1050,10 +1126,11 @@ class ShardedDeviceTable:
         b = int(enc.ids.shape[0])
         return b + (-b) % self.mesh.shape[DP_AXIS]
 
-    def _batch_of(self, t_dev) -> int:
-        """The padded batch size of placed topics."""
-        g = self.mesh.groups[0]
-        return t_dev[0].ids.shape[0] // len(g.dps) * self.mesh.shape[DP_AXIS]
+    @staticmethod
+    def _batch_of(t_dev, mesh: Mesh) -> int:
+        """The padded batch size of topics placed on `mesh`."""
+        g = mesh.groups[0]
+        return t_dev[0].ids.shape[0] // len(g.dps) * mesh.shape[DP_AXIS]
 
     def _filters(self, residual: bool) -> Tuple[EncodedFilters, ...]:
         """The filter tables, or views whose active mask covers only the
@@ -1077,24 +1154,26 @@ class ShardedDeviceTable:
         self.telemetry.record_shape("mesh_match_ids", (self._padded_batch(enc), mh))
         out = self._match_kernel(mh)(dev, t_dev)
         STAGE_MARK.stage = "ticket_start"
-        return (dev, t_dev, mh, transfer_ops.start_fetch(out, self.telemetry))
+        return (dev, t_dev, self.mesh, mh, transfer_ops.start_fetch(out, self.telemetry))
 
     def match_ids_finish(self, pending):
         """Wait for a begun dense match, escalating the per-block
         capacity while a dp block's total overflows it (sticky: the new
         capacity becomes the floor). Returns (ti, ri) host arrays of the
         valid pairs; ti may hold dp-padding topic indices."""
-        dev, t_dev, mh, ticket = pending
+        dev, t_dev, mesh, mh, ticket = pending
         tel = self.telemetry
         t0 = tel.clock()
         ti, ri, totals = ticket.wait()
         while int(totals.max(initial=0)) > mh:
             tel.count("escalations_total")
             mh = max(mh * 2, 1 << int(totals.max()).bit_length())
-            tel.record_shape("mesh_match_ids", (self._batch_of(t_dev), mh))
+            tel.record_shape("mesh_match_ids", (self._batch_of(t_dev, mesh), mh))
             self._mh_floor = max(self._mh_floor, mh)
-            ti, ri, totals = transfer_ops.start_fetch(
-                self._match_kernel(mh)(dev, t_dev), tel).wait()
+            # a handle begun before a re-shard escalates on its own layout
+            kernel = (self._match_kernel(mh) if mesh is self.mesh
+                      else make_match_ids_kernel(mesh, mh))
+            ti, ri, totals = transfer_ops.start_fetch(kernel(dev, t_dev), tel).wait()
         ti = ti.reshape(-1)
         ri = ri.reshape(-1)
         keep = ti >= 0
@@ -1115,26 +1194,33 @@ class ShardedDeviceTable:
         t_dev = mesh_mod.put_topics(enc, self.mesh)
         mh = self._block_mh()
         self.telemetry.record_shape("mesh_match_ids_hash", (self._padded_batch(enc), mh))
-        out = self._hash_kernel(mh)(self._dev_meta, self._dev_slots, t_dev)
+        meta, slots = self._dev_meta, self._dev_slots
+        out = self._hash_kernel(mh)(meta, slots, t_dev)
         STAGE_MARK.stage = "ticket_start"
-        return (t_dev, mh, transfer_ops.start_fetch(out, self.telemetry))
+        return (meta, slots, t_dev, self.mesh, self.index.n_buckets, mh,
+                transfer_ops.start_fetch(out, self.telemetry))
 
     def match_hash_finish(self, pending):
         """Wait for a begun hash match, escalating as match_ids_finish
         does. Returns (ti, bi, amb): the valid (topic, bucket id)
         candidates (ti may hold dp-padding topics) and the mesh-wide
         ambiguity count (amb > 0: the caller re-matches on the host)."""
-        t_dev, mh, ticket = pending
+        meta, slots, t_dev, mesh, nb, mh, ticket = pending
         tel = self.telemetry
         t0 = tel.clock()
         ti, bi, totals, amb = ticket.wait()
         while int(totals.max(initial=0)) > mh:
             tel.count("hash_overflow_retries_total")
             mh = max(mh * 2, 1 << int(totals.max()).bit_length())
-            tel.record_shape("mesh_match_ids_hash", (self._batch_of(t_dev), mh))
+            tel.record_shape("mesh_match_ids_hash", (self._batch_of(t_dev, mesh), mh))
             self._mh_floor = max(self._mh_floor, mh)
+            # a handle begun before a re-shard or a growth escalates on
+            # the layout and bucket count it was launched against
+            kernel = (self._hash_kernel(mh)
+                      if mesh is self.mesh and nb == self.index.n_buckets
+                      else make_sharded_hash_kernel(mesh, mh, nb))
             ti, bi, totals, amb = transfer_ops.start_fetch(
-                self._hash_kernel(mh)(self._dev_meta, self._dev_slots, t_dev), tel).wait()
+                kernel(meta, slots, t_dev), tel).wait()
         ti = ti.reshape(-1)
         bi = bi.reshape(-1)
         keep = ti >= 0

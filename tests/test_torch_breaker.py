@@ -79,6 +79,11 @@ def _one_torch_thread():
 def _meshes(kind):
     if kind == "single":
         return None, None
+    if kind == "mesh14":
+        import jax
+
+        return (JMesh.make_mesh(n_dp=1, n_sub=4, devices=jax.devices()[:4]),
+                TMesh.make_mesh(1, 4, devices=["cpu"] * 4))
     return (JMesh.make_mesh(n_dp=2, n_sub=4),
             TMesh.make_mesh(2, 4, devices=["cpu"] * 8))
 
@@ -152,9 +157,9 @@ class Rig:
         return [self.b.publish(self.Message(topic=t, payload=b"y")) for t in topics]
 
 
-def both(scenario, kind="single", **kw):
+def both(scenario, kind="single", limit_s=SIDE_LIMIT_S, **kw):
     """Run `scenario(rig)` on the reference and on the port (each on its
-    own (2, 4) mesh for kind "mesh"), each under its own time limit;
+    own (2, 4) mesh for kind "mesh", (1, 4) for "mesh14"), each under its own time limit;
     return the two rigs after their logs matched."""
     meshes = _meshes(kind)
     rigs = []
@@ -167,7 +172,7 @@ def both(scenario, kind="single", **kw):
             finally:
                 await r.eng.stop()
 
-        asyncio.run(asyncio.wait_for(go(), SIDE_LIMIT_S))
+        asyncio.run(asyncio.wait_for(go(), limit_s))
         rigs.append(r)
     ref, got = rigs
     assert got.log == ref.log
@@ -579,3 +584,221 @@ def test_kernel_build_error_reaches_the_publisher(monkeypatch, leg):
         assert c.get(k, 0) == 0, k
     assert r.eng.breaker_state == "closed" and not r.b.router.device_suspended
     assert sum(r.sink.values()) == 0
+
+
+# --- shard breaker: chip loss -> evacuate -> N-1 -> rebalance back ---------
+
+SHARD_COUNTERS = (
+    "breaker_shard_trips_total",
+    "breaker_shard_evacuations_total",
+    "breaker_shard_evacuation_failures_total",
+    "breaker_shard_recoveries_total",
+    "breaker_trips_total",
+    "breaker_probe_total",
+    "breaker_probe_failures_total",
+    "shard_suspends_total",
+    "shard_resumes_total",
+    "shard_evacuations_total",
+    "shard_rebalances_total",
+)
+
+
+def _shard_snap(r, tag):
+    """The shard domain's state both sides must agree on."""
+    dt = r.b.router.device_table
+    c = r.tel
+    r.log.append((
+        tag, sorted(r.eng.open_shards), sorted(dt.lost_shards), dt.n_shards,
+        tuple(c.get(k, 0) for k in SHARD_COUNTERS),
+        r.alarms.is_active("xla_device_breaker"), r.eng.status()["shard_breaker"],
+    ))
+
+
+def test_shard_trip_evacuates_and_recovers_equals_reference():
+    """tests/test_device_breaker.py's shard trip on a (1, 4) mesh, both
+    probe loops parked and `probe_shard_once()` driven: sticky loss of
+    one shard trips the shard breaker (the whole breaker closed, the
+    table never suspended), the slice evacuates onto 3 shards that
+    serve every publish as the oracle does, a probe fails while the
+    fault is live, and after heal() the probe rebalances back to 4 with
+    a verified canary. Both sides agree after every wave. The
+    reference's evacuation warms its survivor layout's launch shapes
+    (`warmup_shapes`, every pow2 batch to 64): on the CPU that is ~15 s
+    of XLA compiles, so its warm-up is left out here; the port warms
+    as it does on the card (results are not touched by a warm-up)."""
+    victim = 2
+
+    async def scenario(r):
+        if not r.port:
+            r.b.router.warmup_shapes = lambda max_batch=64: 0
+        dt = r.b.router.device_table
+        topics = [f"room/{i % 4}/s{i}" for i in range(8)]
+        sync = r.oracle(topics)
+        r.inj.fail_sticky(shards=[victim])
+        for wave in range(r.eng.breaker_threshold + 4):
+            counts = await r.wave([f"{t}w{wave}" for t in topics], f"sticky {wave}")
+            assert counts == [3] * 8
+            _shard_snap(r, f"sticky {wave}")
+            if victim in r.eng.open_shards:
+                break
+        assert victim in r.eng.open_shards
+        assert r.eng.breaker_state == "closed" and not r.b.router.device_suspended
+        assert dt.lost_shards == {victim} and dt.n_shards == 3
+        assert r.alarms.is_active("xla_device_breaker")
+        # N-1 service on the device, answers equal to the oracle
+        batches = r.tel.get("dispatch_batches_total", 0)
+        assert await r.wave(topics, "N-1") == sync
+        assert r.tel.get("dispatch_batches_total", 0) > batches
+        _shard_snap(r, "N-1")
+        # the probe fails while the chip's fault is live
+        assert not r.eng.probe_shard_once(victim)
+        _shard_snap(r, "probe while lost")
+        assert victim in r.eng.open_shards and dt.lost_shards == {victim}
+        r.inj.heal()
+        assert r.eng.probe_shard_once(victim)
+        _shard_snap(r, "probe after heal")
+        assert dt.lost_shards == set() and dt.n_shards == 4
+        assert not r.alarms.is_active("xla_device_breaker")
+        assert await r.wave(topics, "restored") == sync
+        _shard_snap(r, "restored")
+
+    # the reference side compiles its (1, 3) and (1, 4) kernels inside
+    # the scenario (~3 s alone here): a guard against a hang, not a time
+    _ref, got = both(scenario, "mesh14", limit_s=3 * SIDE_LIMIT_S)
+    c = got.tel
+    assert c["breaker_shard_trips_total"] == c["breaker_shard_evacuations_total"] == 1
+    assert c["breaker_shard_recoveries_total"] == 1
+    assert c.get("breaker_trips_total", 0) == 0
+    st = got.eng.status()["shard_breaker"]
+    assert st["open_shards"] == [] and st["lost_shards"] == [] and st["shard_gen"] == 2
+
+
+def _scrape_drive(port: bool):
+    """tests/test_prometheus_lint.py's shard-family drive on one side:
+    shard-scoped injected faults, a suspend/overlay/resume cycle and an
+    evacuate -> N-1 serve -> rebalance cycle on a (1, 4) mesh."""
+    from emqx_tpu.obs import prometheus_text as j_text
+    from emqx_tpu_torch.obs import prometheus_text as t_text
+
+    jmesh, tmesh = _meshes("mesh14")
+    b = TB.Broker(device="cpu", mesh=tmesh) if port else JB.Broker(mesh=jmesh)
+    SubOpts = TP.SubOpts if port else JP.SubOpts
+    for i in range(4):
+        s, _ = b.open_session(f"c{i}", clean_start=True)
+        s.outgoing_sink = lambda pkts: None
+        b.subscribe(s, f"q/{i}/+", SubOpts(qos=0))
+    r = b.router
+    F = TF if port else JF
+    topics = [f"q/{i}/v" for i in range(4)]
+    answers = [[sorted(x) for x in r.match_filters_batch(topics)]]
+    inj = F.DeviceFaultInjector(seed=11).install(r)
+    inj.fail_transient(2, legs=("match_begin",), shards=[1])
+    for _ in range(2):
+        try:
+            inj.check("match_begin")
+        except F.DeviceLinkError:
+            pass
+    inj.fail_sticky(shards=[2])
+    try:
+        inj.check("sync")
+    except F.DeviceLinkError:
+        pass
+    inj.heal()
+    assert r.suspend_shard(0)
+    answers.append([sorted(x) for x in r.match_filters_batch(topics)])
+    r.resume_shard(0)
+    assert r.evacuate_shard(1)
+    answers.append([sorted(x) for x in r.match_filters_batch(topics)])
+    assert r.rebalance_shard(1)
+    answers.append([sorted(x) for x in r.match_filters_batch(topics)])
+    return (t_text if port else j_text)(b, "n1@host"), answers
+
+
+SHARD_FAMILIES = {
+    "emqx_xla_fault_injected_total": "counter",
+    "emqx_xla_chaos_device_faults_total": "counter",
+    "emqx_xla_shard_suspends_total": "counter",
+    "emqx_xla_shard_resumes_total": "counter",
+    "emqx_xla_shard_overlay_total": "counter",
+    "emqx_xla_shard_evacuations_total": "counter",
+    "emqx_xla_shard_rebalances_total": "counter",
+    "emqx_xla_shards_suspended": "gauge",
+    "emqx_xla_shards_lost": "gauge",
+    "emqx_xla_mesh_shards": "gauge",
+}
+
+
+def test_shard_scrape_families_equal_reference():
+    """The scrape after the drive renders the reference's shard families
+    with the same types and the same samples (the labeled
+    fault_injected_total{leg,shard} ones included), and lints."""
+    from test_prometheus_lint import _lint
+
+    out = []
+    for port in (False, True):
+        text, answers = _scrape_drive(port)
+        types = _lint(text)
+        fams = {f: types.get(f) for f in SHARD_FAMILIES}
+        samples = sorted(ln for ln in text.splitlines()
+                         if ln.split("{", 1)[0] in SHARD_FAMILIES)
+        out.append((fams, samples, answers))
+    assert out[1] == out[0]
+    fams, samples, answers = out[1]
+    assert fams == SHARD_FAMILIES
+    assert 'emqx_xla_fault_injected_total{node="n1@host",leg="match_begin",shard="1"} 2' \
+        in samples
+    assert 'emqx_xla_mesh_shards{node="n1@host"} 4' in samples
+    assert 'emqx_xla_shards_lost{node="n1@host"} 0' in samples
+    assert answers == [[[f"q/{i}/+"] for i in range(4)]] * 4
+
+
+def test_kernel_build_error_in_the_evacuation_reaches_the_publisher(monkeypatch):
+    """A kernel that fails to build while the shard breaker evacuates
+    (the survivor layout's warm-up) or rebalances (the canary) is a
+    fault of the program: the publishers of the batch that tripped the
+    shard fail with it, no evacuation failure is counted as the card's,
+    and probe_shard_once raises it."""
+    from emqx_tpu_torch.parallel import sharded_match as TS
+
+    r = Rig(True, mesh=_meshes("mesh14")[1])
+    dt = r.b.router.device_table
+    real = TS._tiles_hash
+
+    def tiles_hash(mesh, *a, **k):
+        if dt.lost_shards or dt.shard_gen:
+            raise _build.KernelBuildError("emqx_mesh_match_ids_hash: no sm_90a image")
+        return real(mesh, *a, **k)
+
+    monkeypatch.setattr(TS, "_tiles_hash", tiles_hash)
+    topics = [f"room/{i % 4}/kb{i}" for i in range(8)]
+
+    async def go():
+        try:
+            r.inj.fail_sticky(shards=[2])
+            failed = 0
+            for wave in range(r.eng.breaker_threshold + 4):
+                futs = [r.eng.submit(r.Message(topic=f"{t}w{wave}", payload=b"x"))
+                        for t in topics]
+                await r.eng.drain()
+                for f in futs:
+                    try:
+                        await f
+                    except _build.KernelBuildError:
+                        failed += 1
+                if 2 in r.eng.open_shards:
+                    break
+            r.inj.heal()
+            with pytest.raises(_build.KernelBuildError):
+                r.eng.probe_shard_once(2)
+            return failed
+        finally:
+            await r.eng.stop()
+
+    failed = asyncio.run(asyncio.wait_for(go(), SIDE_LIMIT_S))
+    assert failed >= 1
+    c = r.tel
+    assert c["breaker_shard_trips_total"] == 1
+    assert c.get("breaker_shard_evacuation_failures_total", 0) == 0
+    assert r.eng.breaker_state == "closed" and not r.b.router.device_suspended
+    assert 2 in r.eng.open_shards and dt.lost_shards == {2}
+    assert not r.eng._shard_probe_tasks

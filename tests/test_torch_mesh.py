@@ -1157,3 +1157,158 @@ def test_new_kernels_raise_on_a_failed_build(monkeypatch, tmp_path, name):
     with pytest.raises(_build.KernelBuildError):
         k(0)
     assert k.launches == 0
+
+
+# --- the shard failure domain: suspend, evacuate, rebalance -------------------------
+
+
+def _shard_routers(shape, seed=41, n=300):
+    """A reference and a port Router on (dp, sub) meshes of `shape` with
+    the same seeded routes (classed, residual and exact), synced."""
+    jmesh, tmesh = _meshes(shape, "one_device")
+    jr, tr = JRouter(max_levels=6, mesh=jmesh), TRouter(max_levels=6, mesh=tmesh)
+    rng = random.Random(seed)
+    pairs = []
+    for i in range(n):
+        f = rng.choice([f"s/{i}/+", f"s/{i}/#", f"+/x/{i}", f"s/{i}/t/{i % 7}", "#",
+                        f"e/{i}/t"])
+        pairs.append((f, f"d{i}"))
+    for r in (jr, tr):
+        r.add_routes(pairs)
+        r.device_table.sync()
+    topics = [f"s/{rng.randrange(n)}/t/{rng.randrange(9)}" for _ in range(40)]
+    topics += [f"q/x/{rng.randrange(n)}" for _ in range(10)] + [f"e/{i}/t" for i in range(9)]
+    return jr, tr, topics
+
+
+def _owners(r):
+    """Every row's and every slot's serving shard under the current mesh."""
+    dt = r.device_table
+    return ([dt.shard_of_row(i) for i in range(r.table.capacity)],
+            [dt.shard_of_slot(i) for i in range(r.index.n_buckets * 4)])
+
+
+@pytest.mark.parametrize("n_dp", [1, 2])
+def test_shard_owners_equal_reference_across_evacuation(n_dp):
+    """shard_of_row / shard_of_slot equal the reference's for every row
+    and slot on (dp, 4), on the survivor (dp, 3) after evacuating a
+    shard, and on (dp, 4) again after the rebalance; the table's layout
+    on the survivor mesh is the reference's."""
+    jr, tr, _topics = _shard_routers((n_dp, 4))
+    seen = []
+    for step in ("full", "evacuated", "rebalanced"):
+        if step == "evacuated":
+            assert jr.evacuate_shard(2) and tr.evacuate_shard(2)
+        elif step == "rebalanced":
+            assert jr.rebalance_shard(2) and tr.rebalance_shard(2)
+        jdt, tdt = jr.device_table, tr.device_table
+        assert tdt.n_shards == jdt.n_shards == (3 if step == "evacuated" else 4)
+        assert tdt.mesh.shape == {"dp": n_dp, "sub": tdt.n_shards}
+        assert _owners(tr) == _owners(jr)
+        _assert_layout(jdt, tdt, jdt.mesh, tdt.mesh)
+        seen.append(_owners(tr))
+    assert seen[0] == seen[2] != seen[1]
+
+
+def _answers(r, topics):
+    return [sorted(x) for x in r.match_filters_batch(topics)]
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)])
+def test_shard_suspend_evacuate_rebalance_answers_equal_reference(shape):
+    """suspend -> overlay -> resume -> evacuate -> churn on N-1 ->
+    rebalance on seeded routes: the batched answers equal the
+    reference's and the host walk's at every step, the overlay counts,
+    and the shard-map generation and gauges move alike."""
+    jr, tr, topics = _shard_routers(shape)
+    oracle = [sorted(tr.match_filters(t)) for t in topics]
+    topics = list(topics)
+    steps = []
+
+    def step(tag):
+        got = _answers(tr, topics)
+        assert got == _answers(jr, topics) == [sorted(tr.match_filters(t)) for t in topics], tag
+        # (the port also sets mesh_shards when its table is built, the
+        # reference first at a re-shard)
+        got_st, want_st = (
+            (r.device_table.shard_gen, sorted(r.device_table.lost_shards),
+             r.telemetry.gauges.get("shards_suspended"), r.telemetry.gauges.get("shards_lost"),
+             r.telemetry.gauges.get("mesh_shards", 0) if jr.telemetry.gauges.get("mesh_shards")
+             else None)
+            for r in (tr, jr))
+        assert got_st == want_st, tag
+        steps.append((tag,) + got_st)
+
+    step("full")
+    for r in (jr, tr):
+        assert r.suspend_shard(1) and not r.suspend_shard(1)
+    step("suspended")
+    assert tr.telemetry.counters["shard_overlay_total"] > 0
+    for r in (jr, tr):
+        r.resume_shard(1)
+        assert r.evacuate_shard(1) and not r.evacuate_shard(1)
+    step("evacuated")
+    for r in (jr, tr):
+        r.add_routes([(f"n/{i}/+", f"nd{i}") for i in range(30)])
+        r.delete_routes([(f"e/{i}/t", f"d{i}") for i in range(300) if i % 3 == 0])
+    topics += [f"n/{i}/z" for i in range(0, 30, 4)]
+    step("churned on N-1")
+    for r in (jr, tr):
+        assert r.rebalance_shard(1) and not r.rebalance_shard(1)
+    step("rebalanced")
+    assert [s[1] for s in steps] == [0, 0, 1, 1, 2]
+    assert [s[-1] for s in steps] == [None, None, 3, 3, 4]
+    assert _answers(tr, topics[:len(oracle)]) != oracle  # the churn moved answers
+    c, jc = tr.telemetry.counters, jr.telemetry.counters
+    for k in ("shard_suspends_total", "shard_resumes_total", "shard_evacuations_total",
+              "shard_rebalances_total"):
+        assert c[k] == jc[k] >= 1, k
+
+
+@pytest.mark.parametrize("port", [False, True])
+def test_evacuation_keeps_a_survivor_and_bumps_the_generation(port):
+    """Evacuating down to one shard works, one more raises the reference's
+    "no survivor" RuntimeError, and two evacuate/rebalance cycles move
+    the shard-map generation by four."""
+    jr, tr, topics = _shard_routers((1, 4), n=60)
+    r = tr if port else jr
+    dt = r.device_table
+    for cycle in range(2):
+        assert r.evacuate_shard(3) and r.rebalance_shard(3)
+    assert dt.shard_gen == 4 and dt.n_shards == 4
+    for s in (0, 1, 2):
+        assert r.evacuate_shard(s)
+    assert dt.n_shards == 1 and dt.lost_shards == {0, 1, 2}
+    assert _answers(r, topics) == [sorted(r.match_filters(t)) for t in topics]
+    with pytest.raises(RuntimeError, match="no survivor"):
+        r.evacuate_shard(3)
+    assert not r.evacuate_shard(0) and not r.evacuate_shard(9)
+    for s in (2, 0, 1):
+        assert r.rebalance_shard(s)
+    assert dt.n_shards == 4 and dt.mesh is dt._mesh0 and dt.shard_gen == 10
+
+
+@pytest.mark.parametrize("use_hash_index,class_budget", [(False, 256), (True, 1), (True, 256)])
+def test_match_begun_before_evacuation_finishes_on_its_layout(use_hash_index, class_budget):
+    """A batch begun on (2, 4) and finished after evacuate_shard (and a
+    second begun on (2, 3) and finished after the rebalance) answers as
+    the host walk does; with the block capacity forced down, each
+    escalates on the layout it was launched against."""
+    _jmesh, tmesh = _meshes((2, 4), "one_device")
+    tr = TRouter(max_levels=6, use_hash_index=use_hash_index, mesh=tmesh)
+    if use_hash_index:
+        tr.index.class_budget = class_budget
+        tr.index._class_free = list(range(class_budget - 1, -1, -1))
+    tr.add_routes([(f"w/{i}/#", f"c{i}") for i in range(120)] + [("w/+/t", "all")])
+    tr.device_table.default_mh = 4  # force per-block overflow
+    topics = [f"w/{i}/t" for i in range(0, 120, 3)]
+    want = [sorted(tr.match_filters(t)) for t in topics]
+    p = tr.match_filters_begin(topics)
+    assert tr.evacuate_shard(1)
+    p2 = tr.match_filters_begin(topics)
+    assert [sorted(x) for x in tr.match_filters_finish(p)] == want
+    assert tr.rebalance_shard(1)
+    assert [sorted(x) for x in tr.match_filters_finish(p2)] == want
+    assert _answers(tr, topics) == want
+    c = tr.telemetry.counters
+    assert c.get("hash_overflow_retries_total", 0) + c.get("escalations_total", 0) >= 1
